@@ -1,0 +1,45 @@
+"""Double-buffered variant of the weight-stationary conv as a hand-written
+Hopper kernel.
+
+Replaces the Pallas TPU kernel ``repro.kernels.conv2d_ws_pipe.
+conv2d_ws_pipe``.  Same function, signature and geometry as
+``conv2d_ws.conv2d_ws``; the CUDA source ``csrc/conv2d_ws_pipe.cu`` streams
+the cin-bank slabs through a 2-stage ``cp.async`` ring (its note says what
+bounds it and how narrow slabs are handled).  It shares its compute and
+epilogue with ``csrc/conv2d_ws.cu``, so the two kernels are bit-equal.
+
+On a CUDA tensor ``conv2d_ws_pipe`` launches the kernel and counts the
+launch in ``conv2d_ws_pipe.launches``; on a CPU tensor it runs the plain
+version, which is ``conv2d_ws_plain`` — the function both kernels compute.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.conv2d_ws import conv2d_ws_plain, run_conv
+
+# the plain PyTorch version: one function, computed by both conv kernels
+conv2d_ws_pipe_plain = conv2d_ws_plain
+
+
+def conv2d_ws_pipe(x, w, bias=None, out_scale=None, *, stride: int = 1,
+                   padding="VALID", groups: int = 1, cin_banks: int = 4,
+                   kout_banks: int = 4, h_tile: int = 0, w_tile: int = 0,
+                   relu: bool = False, pool: bool = False,
+                   dilation: int = 1) -> torch.Tensor:
+    """Drop-in replacement for ``conv2d_ws`` with the slab loads streamed
+    through a shared-memory ring; same contracts, same results bit for
+    bit.  ``banking.plan_tiles`` decides per layer which one runs
+    (``TilePlan.pipelined``)."""
+    out, launched = run_conv(
+        "conv2d_ws_pipe", 2, conv2d_ws_pipe_plain, x, w, bias, out_scale,
+        relu=relu, pool=pool, stride=stride, padding=padding, groups=groups,
+        cin_banks=cin_banks, kout_banks=kout_banks, h_tile=h_tile,
+        w_tile=w_tile, dilation=dilation)
+    if launched:
+        conv2d_ws_pipe.launches += 1
+    return out
+
+
+conv2d_ws_pipe.launches = 0

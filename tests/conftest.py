@@ -11,6 +11,12 @@ import pytest
 from repro.core import convcore
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: launches a CUDA kernel of repro_torch; skips "
+        "where no NVIDIA GPU is present")
+
+
 @pytest.fixture(autouse=True)
 def _clean_backend_registry():
     snapshot = dict(convcore.BACKENDS)
