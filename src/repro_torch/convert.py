@@ -2,20 +2,21 @@
 
 Inputs are plain numpy (``np.asarray`` of the reference's arrays), so this
 module needs no JAX: ``params_to_torch`` takes a float ``params`` list (one
-``{"w", "b"}`` dict or None per node) and ``quantized_network`` the arrays
-of a reference ``QuantizedNetwork``, and both return the port's objects on
-a device.
+``{"w", "b"}`` dict or None per node), ``quantized_network`` the arrays
+of a reference ``QuantizedNetwork`` and ``lm_params_to_torch`` an LM
+parameter tree, and all return the port's objects on a device.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.network import NetworkPlan, QuantizedNetwork
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.layers.common import tree_map
 
 
 def _tensor(a, device: torch.device, dtype=None) -> Optional[torch.Tensor]:
@@ -59,3 +60,12 @@ def quantized_network(plan: NetworkPlan, *, weights, biases, requants,
             None if ms is None else
             tuple(_tensor(s, dev, torch.float32) for s in ms)
             for ms in merge_scales))
+
+
+def lm_params_to_torch(tree: Any, device: DeviceLike = None) -> Any:
+    """An LM parameter tree of numpy arrays (the reference's
+    ``materialize``d params through ``np.asarray``, nested dicts with the
+    stacked ``blocks``) → the same tree of tensors on ``device``, leaf for
+    leaf, dtypes kept."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), tree)

@@ -7,5 +7,7 @@
 * conv2d_ws_pipe  — the same function with its slabs streamed through a
                     cp.async ring (csrc/conv2d_ws_pipe.cu);
 * matmul_ws       — the bias-preloaded GEMM of the dense heads
-                    (csrc/matmul_ws.cu).
+                    (csrc/matmul_ws.cu);
+* flash_attention — causal online-softmax attention of the LM prefill
+                    (csrc/flash_attention.cu).
 """

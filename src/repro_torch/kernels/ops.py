@@ -6,7 +6,9 @@
   ``conv2d_ws_pipe`` over ``conv2d_ws``, and grouped layers re-legalize
   their banks through ``ref.grouped_banks``;
 * ``matmul_ws`` is the GEMM entry, the kernel wrapper itself (it takes
-  int8 or f32 operands only, so no dtype cast is left to do here).
+  int8 or f32 operands only, so no dtype cast is left to do here);
+* ``flash_attention`` is the attention entry of the LM prefill, the kernel
+  wrapper itself (bf16 or f32, ``[B,S,H,D]``).
 
 The custom VJPs of the reference are not ported yet: nothing here is
 differentiable.
@@ -19,9 +21,10 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv2d_ws import conv2d_ws
 from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul_ws import matmul_ws
 
-__all__ = ["conv2d", "matmul_ws"]
+__all__ = ["conv2d", "flash_attention", "matmul_ws"]
 
 
 def conv2d(x, w, bias=None, *, stride: int = 1, padding="VALID",

@@ -1,1 +1,2 @@
-"""Serving over compiled int8 programs."""
+"""Serving: the LM ``ServingEngine`` (with ``serve_step``) and the
+int8 conv-net ``ConvNetEngine``."""

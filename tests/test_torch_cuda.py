@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card, and the LM
+serving path on the card against the same path on the CPU.
 
 Every test here launches a kernel of ``repro_torch`` and skips where no
 NVIDIA GPU is present.  The file imports no JAX, so it also runs on a
@@ -9,7 +10,8 @@ machine without it::
 The case table is shared with ``test_torch_kernels.py``, which holds the
 plain versions against the JAX reference on the CPU.  Int paths are
 ``torch.equal``; f32 agrees within rtol = atol = 1e-4 (the kernels sum in
-another order than cuDNN)."""
+another order than cuDNN); bf16 attention outputs, each rounded once from
+f32 sums taken in another order, agree within one bf16 ulp."""
 
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv2d_ws import conv2d_ws, conv2d_ws_plain
 from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.matmul_ws import matmul_ws, matmul_ws_plain
 
 # (x shape, w shape, conv2d kwargs, scale: None | "scalar" | "per_k")
@@ -141,3 +145,67 @@ def test_cuda_matmul_kernel_equals_plain(cuda, m, k, n):
     err = (matmul_ws(xf, wf, bf).double()
            - matmul_ws_plain(xf, wf, bf).double()).abs()
     assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each |x|: 2^(floor(log2|x|) - 7), at most
+    2^-7·|x| (0 where x is 0)."""
+    x = x.float().abs()
+    return torch.where(x > 0, torch.exp2(torch.floor(torch.log2(x)) - 7),
+                       torch.zeros_like(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((2, 300, 4, 64), torch.float32, True),
+    ((2, 300, 4, 64), torch.float32, False),
+    ((1, 777, 3, 16), torch.float32, True),
+    ((2, 96, 2, 32), torch.float32, False),
+    ((1, 777, 24, 128), torch.bfloat16, True),
+    ((2, 130, 4, 128), torch.bfloat16, False),
+])
+def test_cuda_flash_attention_equals_plain(cuda, shape, dtype, causal):
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= bf16_ulp(want) + 1e-6).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_cuda_lm_engine_tokens_equal_the_cpu(cuda):
+    """The reduced llama3.2-3b served on the card through the flash
+    kernel gives the CPU run's greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.layers.common import materialize
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(reduce_config(get_config("llama3p2_3b")),
+                              num_layers=2, attn_impl="flash")
+    params = materialize(lm.param_specs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 70)]
+    outs = []
+    for dev in ("cpu", cuda):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        before = flash_attention.launches
+        ServingEngine(cfg, params, slots=2, max_seq=96, device=dev).run(reqs)
+        launched = flash_attention.launches - before
+        assert launched == (0 if dev == "cpu" else 2 * len(prompts))
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]

@@ -32,6 +32,7 @@ def _env():
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     assert "repro_torch.kernels.conv2d_ws_pipe" in mods
+    assert "repro_torch.launch.serve" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -41,6 +42,21 @@ def test_importing_every_module_loads_no_jax():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
                    timeout=120)
+
+
+def test_launcher_help_runs_with_jax_blocked():
+    """``python -m repro_torch.launch.serve --help`` with ``jax`` and
+    ``repro`` made unimportable."""
+    code = ("import runpy, sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['serve', '--help']\n"
+            "runpy.run_module('repro_torch.launch.serve', "
+            "run_name='__main__')\n")
+    run = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "--arch" in run.stdout and "--device" in run.stdout
 
 
 def test_no_source_imports_jax_or_the_reference():
