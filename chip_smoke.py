@@ -12,10 +12,12 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    shapes the main paths give it (``vgg_imagenet``'s six convs at
    224×224 under their Hopper tile plans, the ``lenet`` convs, the §5.2
    layer, depthwise / stride-2 / dilation-2 / per-channel-requant layers,
-   the dense heads; llama3.2-3b's attention at S = 512, 777, 2048, 3000):
+   the dense heads; llama3.2-3b's attention at S = 512, 777, 2048, 3000,
+   and the bf16 attention kernel's other head dims 16, 32, 64):
    int paths ``torch.equal``, f32 within 1e-4, bf16 within one bf16 ulp;
    time each kernel and its plain version with CUDA events beside its
-   bound (and, for attention, ``scaled_dot_product_attention``);
+   bound (and, for attention, ``scaled_dot_product_attention`` and the
+   kernel's achieved TFLOP/s);
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
@@ -37,6 +39,7 @@ It needs a CUDA device and the repository's ``src`` beside it.
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +60,7 @@ LM_NEW_TOKENS = 16
 LM_SLOTS, LM_MAX_SEQ = 4, 4096
 FLASH_SEQS = (512, 777, 2048, 3000)   # bf16 [1, S, 24, 128] checks
 FLASH_ROW_SEQ = 2048                  # the S of the JSON row's numbers
+FLASH_SMALL_DIMS = (16, 32, 64)       # bf16 head dims besides 128
 KERNELS = {
     "conv2d_ws": ("src/repro_torch/kernels/csrc/conv2d_ws.cu",
                   "src/repro/kernels/conv2d_ws.py:255"),
@@ -71,6 +75,18 @@ KERNELS = {
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def kernel_name(mangled):
+    """``flash_bf16_kernel<128>`` from its mangled name: the length-prefixed
+    identifier that ends in "kernel", and its int template argument."""
+    for num in re.finditer(r"(?=(\d+))", mangled):   # every digit suffix
+        end = num.start() + len(num.group(1))
+        name = mangled[end:end + int(num.group(1))]
+        if name.endswith("kernel") and name.isidentifier():
+            arg = re.match(r"ILi(\d+)E", mangled[end + len(name):])
+            return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
 
 
 def main():
@@ -121,10 +137,14 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for name in _build.SOURCES:
+        entry = ""
         for line in _build.build_log(name).splitlines():
-            if "Used" in line or ("spill" in line
-                                  and " 0 bytes spill" not in line):
-                log(f"  {name}: {line.strip()}")
+            found = re.search(r"entry function '([^']*)'", line)
+            if found:
+                entry = kernel_name(found.group(1))
+            elif "Used" in line or "Performance Loss" in line or (
+                    "spill" in line and " 0 bytes spill" not in line):
+                log(f"  {name} {entry}: {line.strip()}")
 
     def elapsed_ms(fn, reps, warmup=2):
         for _ in range(warmup):
@@ -334,7 +354,8 @@ def main():
             if s == FLASH_ROW_SEQ:
                 st.update(ms=ms, plain_ms=plain, library_ms=lib,
                           bytes=nbytes, ops=ops)
-            row = (f"; kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa "
+            row = (f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s at "
+                   f"4·D flops per pair), plain {plain:.3f} ms, sdpa "
                    f"{lib:.4f} ms, bound "
                    f"{bound_ms(nbytes, ops, BF16_OPS_PER_S):.4f} ms")
         log(f"  flash_attention [{b},{s},{h},{d}] {str(dtype)[6:]} "
@@ -344,6 +365,9 @@ def main():
     for s_len in FLASH_SEQS:
         check_flash(1, s_len, lm_full.num_heads, lm_full.head_dim,
                     torch.bfloat16, True, timed=True)
+    for d in FLASH_SMALL_DIMS:         # the tensor-core kernel's other dims
+        check_flash(2, 777, 4, d, torch.bfloat16, True)
+        check_flash(2, 300, 4, d, torch.bfloat16, False)
     for causal in (True, False):
         check_flash(2, 300, 4, 64, torch.float32, causal)
 

@@ -2,12 +2,26 @@
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention
 .flash_attention``: q, k, v ``[B,S,H,D]`` (k/v already broadcast to H heads)
-→ ``[B,S,H,D]`` in q's dtype, bf16 or f32, self-attention only.  The CUDA
-source is ``csrc/flash_attention.cu`` (64×64 tiles, any S, D ≤ 128 and a
-multiple of 4; its note says what bounds it on the H100).  ``block_q`` and
-``block_k`` keep the reference's signature and are ignored: the TPU's
-512-row blocks do not fit a Hopper block's shared memory, so the tiles are
-the kernel's own.
+→ ``[B,S,H,D]`` in q's dtype, bf16 or f32, self-attention only, any S.  The
+CUDA source, ``csrc/flash_attention.cu``, holds two variants (its note says
+more); ``kernel_variant`` picks one:
+
+* bf16, D in {16, 32, 64, 128}: the tensor-core kernel.  One block per
+  (b·h, 128 q rows): two consumer warpgroups run both products as
+  ``wgmma`` from a ring of K/V tiles that one producer warp loads with TMA.
+  It is bound by operations (4·D flops per unmasked pair, 0.026 ms per
+  llama3.2-3b layer at S = 2048 at the card's bf16 peak).  p enters the p·v
+  product as three bf16 terms, p1 = bf16(p), p2 = bf16(p - p1),
+  p3 = bf16(p - p1 - p2), which carry it to f32 precision: the reference's
+  p·v product is f32, and a single bf16 p would move outputs past one bf16
+  ulp of it.  That doubles the tensor work to 8·D flops per pair.  Another bf16
+  head dim raises; it is never routed to another kernel.
+* f32, D a multiple of 4 up to 128: the first port's scalar kernel (f32
+  FMAs from shared memory, no tensor cores), still scalar.
+
+``block_q`` and ``block_k`` keep the reference's signature and are ignored:
+the TPU's 512-row blocks do not fit a Hopper block's shared memory, so the
+tiles are the kernel's own.
 
 On a CUDA tensor ``flash_attention`` launches the kernel and counts the
 launch in ``flash_attention.launches``; on a CPU tensor it runs
@@ -25,6 +39,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _check(q, k, v) -> None:
@@ -51,11 +66,26 @@ def flash_attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def kernel_variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel that runs head dim ``d`` in ``dtype`` on the card:
+    "wgmma" (bf16, D in ``TENSOR_CORE_HEAD_DIMS``) or "scalar" (f32, D a
+    multiple of 4 up to 128).  Raises ``ValueError`` for any other D."""
+    if dtype == torch.bfloat16:
+        if d not in TENSOR_CORE_HEAD_DIMS:
+            raise ValueError(f"the bf16 flash_attention kernel takes a head "
+                             f"dim in {TENSOR_CORE_HEAD_DIMS}, got {d}")
+        return "wgmma"
+    if dtype == torch.float32:
+        if d % 4 or not 4 <= d <= 128:
+            raise ValueError(f"the f32 flash_attention kernel takes a head "
+                             f"dim that is a multiple of 4 up to 128, got {d}")
+        return "scalar"
+    raise TypeError(f"flash_attention has no kernel for {dtype}")
+
+
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     b, s, h, d = q.shape
-    if d % 4 or not 4 <= d <= 128:
-        raise ValueError(f"the flash_attention kernel takes a head dim that "
-                         f"is a multiple of 4 up to 128, got {d}")
+    kernel_variant(q.dtype, d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     fn = _build.load("flash_attention").flash_attention_launch

@@ -163,6 +163,10 @@ def bf16_ulp(x):
     ((2, 96, 2, 32), torch.float32, False),
     ((1, 777, 24, 128), torch.bfloat16, True),
     ((2, 130, 4, 128), torch.bfloat16, False),
+    ((2, 300, 4, 16), torch.bfloat16, True),
+    ((2, 300, 4, 32), torch.bfloat16, True),
+    ((2, 300, 4, 64), torch.bfloat16, False),
+    ((1, 3000, 24, 128), torch.bfloat16, True),
 ])
 def test_cuda_flash_attention_equals_plain(cuda, shape, dtype, causal):
     g = torch.Generator().manual_seed(sum(shape))

@@ -6,7 +6,13 @@ full) plus S = 777, which no power-of-two block divides: there the JAX
 kernel runs blocks that divide 777, and the port takes it whole.  f32
 agrees within rtol = atol = 1e-4; bf16 outputs are each rounded once from
 f32 sums taken in another order, so they agree within one bf16 ulp,
-2^(floor(log2|x|) - 7)."""
+2^(floor(log2|x|) - 7).
+
+The bf16 card kernel cannot run here, so its arithmetic is emulated in
+plain torch (``_emulate_bf16_kernel``) and held to the same Pallas kernel
+under the same rule."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +21,9 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
+                                                 flash_attention_plain,
+                                                 kernel_variant)
 
 SWEEP = [(64, (16, 16)), (128, (32, 64)), (128, (128, 128)), (96, (32, 32)),
          (777, (111, 111)), (777, (259, 37))]
@@ -50,15 +57,97 @@ def test_plain_and_wrapper_match_the_pallas_kernel(s, blocks, causal):
     assert flash_attention.launches == before
 
 
+def _within_one_bf16_ulp(got, want):
+    """|got - want| <= one bf16 ulp of want + 1e-6, elementwise."""
+    err = np.abs(got - want)
+    ulp = np.exp2(np.floor(np.log2(np.abs(want) + 1e-30)) - 7)
+    return err <= ulp + 1e-6, err
+
+
 def test_bf16_within_one_ulp_of_the_pallas_kernel():
     q, k, v = _qkv(1, 96, 2, 32, seed=5)
     want = _jax(q, k, v, True, (32, 32), jnp.bfloat16)
     tq, tk, tv = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
     got = flash_attention(tq, tk, tv, causal=True)
     assert got.dtype == torch.bfloat16
-    err = np.abs(got.float().numpy() - want)
-    ulp = np.exp2(np.floor(np.log2(np.abs(want) + 1e-30)) - 7)
-    assert (err <= ulp + 1e-6).all(), err.max()
+    ok, err = _within_one_bf16_ulp(got.float().numpy(), want)
+    assert ok.all(), err.max()
+
+
+def _emulate_bf16_kernel(q, k, v, causal, terms=3):
+    """The bf16 card kernel's arithmetic in plain torch: bf16 q, k, v; f32
+    scores scaled after the product; online softmax over 64-column tiles
+    against the running max; l summed from the f32 p; p enters p·v as
+    ``terms`` bf16 terms (p1 = bf16(p), p2 = bf16(p - p1), ...) with f32
+    accumulation; acc / max(l, 1e-30) rounded once to bf16."""
+    b, s, h, d = q.shape
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B,H,S,D]
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((b, h, s, 1), NEG_INF)
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, d)
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        sc = (qf @ kt.transpose(-1, -2)) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2])
+            sc = sc.masked_fill(kpos > qpos, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc
+        rest = p
+        for _ in range(terms):
+            term = rest.to(torch.bfloat16).float()
+            acc = acc + term @ vt
+            rest = rest - term
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.to(torch.bfloat16).transpose(1, 2)
+
+
+@pytest.mark.parametrize("s,d", [(300, 128), (130, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_emulation_within_one_ulp_of_the_pallas_kernel(s, d,
+                                                                  causal):
+    q, k, v = _qkv(1, s, 2, d, seed=s + d)
+    want = _jax(q, k, v, causal, (512, 512), jnp.bfloat16)
+    tq, tk, tv = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
+    got = _emulate_bf16_kernel(tq, tk, tv, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    ok, err = _within_one_bf16_ulp(got.float().numpy(), want)
+    assert ok.all(), err.max()
+
+
+def test_one_bf16_term_of_p_would_miss_the_rule():
+    """Why the kernel carries p in three terms: with p rounded once to
+    bf16 before p·v, outputs leave one bf16 ulp of the reference."""
+    q, k, v = _qkv(1, 300, 2, 128, seed=428)
+    want = _jax(q, k, v, True, (512, 512), jnp.bfloat16)
+    tq, tk, tv = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
+    got = _emulate_bf16_kernel(tq, tk, tv, True, terms=1)
+    ok, _ = _within_one_bf16_ulp(got.float().numpy(), want)
+    assert not ok.all()
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_head_dims_run_on_the_tensor_core_kernel(d):
+    assert kernel_variant(torch.bfloat16, d) == "wgmma"
+
+
+@pytest.mark.parametrize("d", [8, 96, 256])
+def test_other_bf16_head_dims_raise(d):
+    with pytest.raises(ValueError, match="bf16 flash_attention kernel"):
+        kernel_variant(torch.bfloat16, d)
+
+
+def test_f32_head_dims_stay_on_the_scalar_kernel():
+    assert kernel_variant(torch.float32, 96) == "scalar"
+    assert kernel_variant(torch.float32, 16) == "scalar"
+    with pytest.raises(ValueError, match="multiple of 4 up to 128"):
+        kernel_variant(torch.float32, 130)
 
 
 def test_rejects_what_the_kernel_does_not_take():
