@@ -7,24 +7,35 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` each, all started together;
+   ``nvcc`` each, all started together; print each instantiation's
+   registers and spills (``-Xptxas -v``) and the tensor-core instructions
+   in each conv tensor-core instantiation's SASS (``cuobjdump -sass``:
+   ``IMMA``); fail on a spill, a missing ``IMMA``, a missing compiler
+   report or a missing ``cuobjdump``;
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (``vgg_imagenet``'s six convs at
-   224×224 under their Hopper tile plans, the ``lenet`` convs, the §5.2
-   layer, depthwise / stride-2 / dilation-2 / per-channel-requant layers,
-   the dense heads; llama3.2-3b's attention at S = 512, 777, 2048, 3000,
-   and the bf16 attention kernel's other head dims 16, 32, 64):
-   int paths ``torch.equal``, f32 within 1e-4, bf16 within one bf16 ulp;
-   time each kernel and its plain version with CUDA events beside its
+   224×224, the ``lenet`` convs, the §5.2 layer, depthwise / stride-2 /
+   dilation-2 / per-channel-requant layers, the tensor-core path's edge
+   geometries (``TC_CASES`` of ``tests/test_torch_cuda.py``), the dense
+   heads; llama3.2-3b's attention at S = 512, 777,
+   2048, 3000, and the bf16 attention kernel's other head dims 16, 32,
+   64): int paths ``torch.equal``, f32 within 1e-4, bf16 within one bf16
+   ulp; each conv check also asserts which path (tensor-core or scalar)
+   launched.  Time each kernel's call and its plain version with CUDA
+   events around back-to-back calls (``ms``, ``plain_ms``: host work
+   included), and each kernel's call again as the sum of every device
+   event it issues under ``torch.profiler`` (``device_ms``: its kernel and
+   whatever else it runs on the card, such as the scale fill), beside its
    bound (and, for attention, ``scaled_dot_product_attention`` and the
-   kernel's achieved TFLOP/s);
+   kernel's achieved TFLOP/s); print the ``vgg_imagenet`` per-layer table;
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
    to 16 requests through ``ConvNetEngine(batch=8)``: logits bit-equal to
-   the plain backend, launch counts read around the run; again with
-   ``kernel="sequential"``; then ``lenet``, whose card logits must also
-   equal the CPU run of the same program;
+   the plain backend, launch counts read around the run, every conv launch
+   on the tensor-core path, the device-busy share of one submit; again
+   with ``kernel="sequential"``; then ``lenet``, whose card logits must
+   also equal the CPU run of the same program;
 6. the LM main path: llama3.2-3b as published (28 layers, bf16 compute,
    random weights from a seed) served to 8 requests of 64–3000 prompt
    tokens through ``ServingEngine(slots=4, max_seq=4096)`` with
@@ -32,14 +43,19 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    tokens per request, prefill logits against the plain attention; then
    two full-width layers in f32 (logits within 1e-4, tokens equal to the
    plain attention), and the reduced model (tokens equal to the CPU run);
-7. print the per-kernel JSON line and, last, the run's device line.
+7. print the per-kernel JSON line and, last, the run's device line.  A
+   kernel timed over several shapes reports the sum of their times (each
+   of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
+   bounds.
 
-It needs a CUDA device and the repository's ``src`` beside it.
+It needs a CUDA device and the repository's ``src`` and ``tests`` beside
+it.
 """
 
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -47,6 +63,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))     # the card tests' conv cases
 
 BATCH = 8
 REQUESTS = 16
@@ -77,16 +94,51 @@ def log(*parts):
     print(*parts, flush=True)
 
 
+_TEMPLATE_ARGS = {"a": "int8", "i": "int32", "f": "float"}
+
+
 def kernel_name(mangled):
-    """``flash_bf16_kernel<128>`` from its mangled name: the length-prefixed
-    identifier that ends in "kernel", and its int template argument."""
+    """``conv_ws_tc_kernel<4, true>`` from its mangled name: the
+    length-prefixed identifier that ends in "kernel", and its template
+    arguments (types, ints, bools)."""
     for num in re.finditer(r"(?=(\d+))", mangled):   # every digit suffix
         end = num.start() + len(num.group(1))
         name = mangled[end:end + int(num.group(1))]
         if name.endswith("kernel") and name.isidentifier():
-            arg = re.match(r"ILi(\d+)E", mangled[end + len(name):])
-            return name + (f"<{arg.group(1)}>" if arg else "")
+            rest = mangled[end + len(name):]
+            args = re.match(r"I((?:[aif]|L[ib]\d+E)+)E", rest)
+            if not args:
+                return name
+            out = []
+            for tok in re.findall(r"[aif]|L[ib]\d+E", args.group(1)):
+                if tok in _TEMPLATE_ARGS:
+                    out.append(_TEMPLATE_ARGS[tok])
+                elif tok.startswith("Lb"):
+                    out.append("true" if tok[2:-1] == "1" else "false")
+                else:
+                    out.append(tok[2:-1])
+            return f"{name}<{', '.join(out)}>"
     return mangled
+
+
+def sass_tensor_ops(lib_path):
+    """{kernel name: count of IMMA / HGMMA-family instructions} in a
+    library's SASS (``cuobjdump``, which comes with ``nvcc``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise FileNotFoundError("cuobjdump is not installed beside nvcc: "
+                                "the tensor-core SASS cannot be read")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = kernel_name(found.group(1))
+            counts[name] = 0
+        elif name and re.search(r"\b(IMMA|[HIQ]GMMA)\b", line):
+            counts[name] += 1
+    return counts
 
 
 def main():
@@ -101,7 +153,8 @@ def main():
     from repro_torch.core.convcore import (ConvCore, ConvCoreConfig,
                                            paper_workload)
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.conv2d_ws import conv2d_ws, conv2d_ws_plain
+    from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_plain,
+                                               conv_path, setup_conv)
     from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -110,6 +163,7 @@ def main():
     from repro_torch.models import lm
     from repro_torch.serving.engine import (ConvNetEngine, Request,
                                             ServingEngine)
+    from test_torch_cuda import TC_CASES, tc_case_inputs
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -117,9 +171,13 @@ def main():
     dev = torch.device("cuda")
     wrappers = {"conv2d_ws": conv2d_ws, "conv2d_ws_pipe": conv2d_ws_pipe,
                 "matmul_ws": matmul_ws, "flash_attention": flash_attention}
-    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0,
-                     ops=0, launches=0, library_ms=None,
-                     ops_per_s=INT8_OPS_PER_S) for k in KERNELS}
+    # "bound" sums the per-launch bounds of the shapes a row is timed
+    # over, each credited to the side (bytes or operations) that limits it
+    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0,
+                     launches=0,
+                     bound={"bytes": 0.0, "operations": 0.0},
+                     library_ms=None, ops_per_s=INT8_OPS_PER_S)
+             for k in KERNELS}
     stats["flash_attention"]["ops_per_s"] = BF16_OPS_PER_S
 
     # -- 1. the card -------------------------------------------------------
@@ -136,15 +194,31 @@ def main():
     secs = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    spilled = []
     for name in _build.SOURCES:
-        entry = ""
-        for line in _build.build_log(name).splitlines():
+        entry, report = "", _build.build_log(name)
+        if "Used" not in report:
+            raise AssertionError(f"{name}: no -Xptxas -v report beside its "
+                                 f"library")
+        for line in report.splitlines():
             found = re.search(r"entry function '([^']*)'", line)
             if found:
                 entry = kernel_name(found.group(1))
-            elif "Used" in line or "Performance Loss" in line or (
-                    "spill" in line and " 0 bytes spill" not in line):
+            elif "Used" in line or "Performance Loss" in line or re.search(
+                    r"[1-9]\d* bytes spill", line):
                 log(f"  {name} {entry}: {line.strip()}")
+                if "spill" in line and "tc_kernel" in entry:
+                    spilled.append(entry)
+    if spilled:
+        raise AssertionError(f"tensor-core conv kernels spill: {spilled}")
+    for name in ("conv2d_ws", "conv2d_ws_pipe"):
+        ops = sass_tensor_ops(_build.library_path(name))
+        tc = {k: v for k, v in sorted(ops.items()) if "tc_kernel" in k}
+        log(f"  {name} SASS, tensor-core instructions per instantiation: "
+            + ", ".join(f"{k} {v}" for k, v in tc.items()))
+        if len(tc) != 4 or not all(tc.values()):
+            raise AssertionError(f"{name}: an int8 tensor-core instantiation "
+                                 f"holds no IMMA: {tc}")
 
     def elapsed_ms(fn, reps, warmup=2):
         for _ in range(warmup):
@@ -161,6 +235,34 @@ def main():
 
     def bound_ms(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
         return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / ops_per_s)
+
+    def add_bound(name, nbytes, ops):
+        """Add one timed launch shape's bound to ``name``'s row → (bound
+        ms, the side that limits it)."""
+        ops_per_s = stats[name]["ops_per_s"]
+        side = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / ops_per_s
+                else "operations")
+        ms = bound_ms(nbytes, ops, ops_per_s)
+        stats[name]["bound"][side] += ms
+        return ms, side
+
+    def device_ms(fn, reps):
+        """Device time of one call of ``fn``: the durations of every device
+        event (kernels, copies, fills) that ``reps`` calls issue under
+        ``torch.profiler`` after a warm-up, over ``reps``."""
+        fn()
+        torch.cuda.synchronize()
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(evs) < reps:
+            raise AssertionError(f"torch.profiler saw {len(evs)} device "
+                                 f"events in {reps} calls")
+        return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -189,11 +291,14 @@ def main():
         return err
 
     # -- 3. kernels against their plain versions ---------------------------
+    conv_rows = []
+
     def check_conv(label, x, w, b, scale, kw, timed=False):
-        """Both conv kernels against ``conv2d_ws_plain``; ``scale`` is
-        "scalar" / "per_k" (derived from the plain accumulator so the int8
-        outputs span the grid) or None (int32 / f32 out)."""
-        if scale is not None:
+        """Both conv kernels against ``conv2d_ws_plain``, each launch on the
+        path ``conv_path`` rules; ``scale`` is "scalar" / "per_k" (derived
+        from the plain accumulator so the int8 outputs span the grid), a
+        given scale, or None (int32 / f32 out)."""
+        if isinstance(scale, str):
             acc = conv2d_ws_plain(x, w, b, None, **kw).double().abs()
             if scale == "per_k":
                 amax = acc.reshape(-1, acc.shape[-1]).amax(0).clamp(min=1)
@@ -201,17 +306,28 @@ def main():
             else:
                 scale = 100.0 / max(float(acc.max()), 1.0)
         want = conv2d_ws_plain(x, w, b, scale, **kw)
+        geo = {k: v for k, v in kw.items() if k not in ("relu", "pool")}
+        path = conv_path(setup_conv(
+            tuple(x.shape), tuple(w.shape), pool=kw.get("pool", False),
+            requant=scale is not None, int_path=x.dtype == torch.int8,
+            **geo))
         torch.cuda.synchronize()
-        row = []
+        row = {}
         for name in ("conv2d_ws", "conv2d_ws_pipe"):
             fn = wrappers[name]
+            before = (fn.launches, fn.tc_launches)
             got = fn(x, w, b, scale, **kw)
             torch.cuda.synchronize()
+            if (fn.launches, fn.tc_launches) != (
+                    before[0] + 1, before[1] + (path == "tc")):
+                raise AssertionError(f"{label}: {name} did not launch once "
+                                     f"on the {path} path")
             compare(name, got, want)
             if timed:
-                ms = elapsed_ms(lambda: fn(x, w, b, scale, **kw), reps=10)
-                row.append(f"{name} {ms:.3f} ms")
-                stats[name]["ms"] += ms
+                call = lambda: fn(x, w, b, scale, **kw)   # noqa: E731
+                row[name] = (elapsed_ms(call, reps=10), device_ms(call, 20))
+                stats[name]["ms"] += row[name][0]
+                stats[name]["device_ms"] += row[name][1]
         if timed:
             n, h, wd, c = x.shape
             kh, kwd, cg, k = w.shape
@@ -226,12 +342,24 @@ def main():
                                reps=3, warmup=1)
             for name in ("conv2d_ws", "conv2d_ws_pipe"):
                 stats[name]["plain_ms"] += plain
-                stats[name]["bytes"] += nbytes
-                stats[name]["ops"] += ops
-            row.append(f"plain {plain:.3f} ms, bound "
-                       f"{bound_ms(nbytes, ops):.4f} ms")
+                bound, side = add_bound(name, nbytes, ops)
+            # cuDNN's fp16 channels-last conv at the same shape: a different
+            # function (no int8, no fused epilogue), timed for scale only
+            xh = x.permute(0, 3, 1, 2).half().contiguous(
+                memory_format=torch.channels_last)
+            wh = w.permute(3, 2, 0, 1).half().contiguous(
+                memory_format=torch.channels_last)
+            pad = ref.normalize_padding(kw.get("padding", "VALID"), kh, kwd,
+                                        kw.get("stride", 1), h, wd,
+                                        kw.get("dilation", 1))
+            xh = F.pad(xh, (pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
+            cudnn = elapsed_ms(lambda: F.conv2d(
+                xh, wh, stride=kw.get("stride", 1),
+                dilation=kw.get("dilation", 1)), reps=20)
+            conv_rows.append((label, ops, nbytes, row, plain, bound, side,
+                              cudnn))
         log(f"  {label}: x{tuple(x.shape)} w{tuple(w.shape)} {kw} "
-            f"equal{'; ' + ', '.join(row) if row else ''}")
+            f"equal, {path} path")
 
     def check_matmul(label, m, k, n, timed=False):
         x, w, b = rand_i8(m, k), rand_i8(k, n), rand_bias(n)
@@ -242,15 +370,16 @@ def main():
         row = ""
         if timed:
             ms = elapsed_ms(lambda: matmul_ws(x, w, b), reps=20)
+            dev_ms = device_ms(lambda: matmul_ws(x, w, b), 20)
             plain = elapsed_ms(lambda: matmul_ws_plain(x, w, b), reps=20)
             nbytes, ops = m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n
             st = stats["matmul_ws"]
             st["ms"] += ms
+            st["device_ms"] += dev_ms
             st["plain_ms"] += plain
-            st["bytes"] += nbytes
-            st["ops"] += ops
-            row = (f"; matmul_ws {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                   f"{bound_ms(nbytes, ops):.5f} ms")
+            bound, _ = add_bound("matmul_ws", nbytes, ops)
+            row = (f"; matmul_ws {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
+                   f"device, plain {plain:.4f} ms, bound {bound:.5f} ms")
         log(f"  {label}: [{m},{k}]@[{k},{n}] int8 and f32 equal{row}")
 
     def net_layers(plan):
@@ -274,6 +403,26 @@ def main():
     for i, (xs, ws, kw) in enumerate(net_layers(network.vgg_imagenet())):
         check_conv(f"vgg_imagenet conv{i}", rand_i8(*xs), rand_i8(*ws),
                    rand_bias(ws[3]), "scalar", kw, timed=True)
+    log(f"  vgg_imagenet at batch {BATCH}, per layer (ms: CUDA events "
+        f"around back-to-back calls, host work included; device ms: every "
+        f"device event of a call under torch.profiler; TOP/s from device "
+        f"ms; cudnn fp16: F.conv2d on fp16 channels-last operands, a "
+        f"different function):")
+    log("    layer  GOP     MB      bound us (by)        conv2d_ws ms "
+        "(device)    conv2d_ws_pipe ms (device)  TOP/s seq/pipe  plain ms  "
+        "cudnn fp16 ms")
+    for label, ops, nbytes, row, plain, bound, side, cudnn in conv_rows:
+        (sc, sd), (pc, pd) = row["conv2d_ws"], row["conv2d_ws_pipe"]
+        log(f"    {label[-5:]}  {ops / 1e9:.3f}  {nbytes / 1e6:6.2f}  "
+            f"{1e3 * bound:7.2f} ({side:10s})  {sc:.4f} ({sd:.4f})      "
+            f"{pc:.4f} ({pd:.4f})            {ops / sd / 1e9:6.1f} / "
+            f"{ops / pd / 1e9:6.1f}  {plain:.3f}     {cudnn:.4f}")
+    seq, pipe = stats["conv2d_ws"], stats["conv2d_ws_pipe"]
+    log(f"    sum: conv2d_ws {seq['ms']:.4f} ms ({seq['device_ms']:.4f} ms "
+        f"on the device), conv2d_ws_pipe {pipe['ms']:.4f} ms "
+        f"({pipe['device_ms']:.4f} ms on the device), bound "
+        f"{sum(seq['bound'].values()):.4f} ms (the sum of the per-layer "
+        f"bounds), plain {seq['plain_ms']:.3f} ms")
     for i, (xs, ws, kw) in enumerate(net_layers(network.lenet())):
         check_conv(f"lenet conv{i}", rand_i8(*xs), rand_i8(*ws),
                    rand_bias(ws[3]), "scalar", kw)
@@ -297,6 +446,10 @@ def main():
     check_conv("per-channel requant", rand_i8(BATCH, 28, 28, 64),
                rand_i8(3, 3, 64, 64), rand_bias(64), "per_k",
                dict(padding="SAME", relu=True, pool=True))
+    for label in TC_CASES:              # the tensor-core path's edges
+        x, w, b, s, kw = tc_case_inputs(label)
+        check_conv(label, *(None if a is None else torch.as_tensor(
+            np.array(a), device=dev) for a in (x, w, b, s)), kw)
     xf = torch.randn(BATCH, 30, 30, 32, generator=gen, device=dev)
     wf = torch.randn(3, 3, 32, 64, generator=gen, device=dev) / 16
     check_conv("f32", xf, wf, torch.randn(64, generator=gen, device=dev),
@@ -343,6 +496,8 @@ def main():
         if timed:
             ms = elapsed_ms(lambda: flash_attention(q, k, v, causal=causal),
                             reps=10)
+            dev_ms = device_ms(lambda: flash_attention(q, k, v,
+                                                       causal=causal), 10)
             plain = elapsed_ms(lambda: flash_attention_plain(
                 q, k, v, causal=causal), reps=3, warmup=1)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -350,11 +505,13 @@ def main():
                 qt, kt, vt, is_causal=causal), reps=10)
             pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
             ops, nbytes = 4 * d * pairs, 4 * b * s * h * d * q.element_size()
-            flash_ms[s] = ms
+            flash_ms[s] = dev_ms
             if s == FLASH_ROW_SEQ:
-                st.update(ms=ms, plain_ms=plain, library_ms=lib,
-                          bytes=nbytes, ops=ops)
-            row = (f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s at "
+                st.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                          library_ms=lib)
+                add_bound("flash_attention", nbytes, ops)
+            row = (f"; kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
+                   f"device ({ops / dev_ms / 1e9:.1f} TFLOP/s at "
                    f"4·D flops per pair), plain {plain:.3f} ms, sdpa "
                    f"{lib:.4f} ms, bound "
                    f"{bound_ms(nbytes, ops, BF16_OPS_PER_S):.4f} ms")
@@ -389,12 +546,35 @@ def main():
         raise AssertionError(f"§5.2 psum count {anchors['psums']}")
 
     # -- 5. the main path --------------------------------------------------
+    convs = ("conv2d_ws", "conv2d_ws_pipe")
+
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
+        for k in convs:
+            wrappers[k].tc_launches = 0
 
     def counts():
         return {k: fn.launches for k, fn in wrappers.items()}
+
+    def device_busy(fn):
+        """(wall ms of ``fn`` unprofiled, device ms and kernel count of
+        ``fn`` under torch.profiler); device ms is None where the trace
+        holds no device events."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+        return wall, (busy if evs else None), len(evs)
+
 
     def serve(name, plan, seed):
         rng = np.random.default_rng(seed)
@@ -421,6 +601,7 @@ def main():
             reset_counts()
             logits = engine.submit(images)
             seen, served = counts(), engine.stats
+            tc = {k: wrappers[k].tc_launches for k in convs}
             batches = -(-REQUESTS // BATCH)
             n_conv = sum(sp.kind == "conv" for sp in plan.layers)
             n_dense = sum(sp.kind == "dense" for sp in plan.layers)
@@ -430,6 +611,10 @@ def main():
             if seen != want:
                 raise AssertionError(f"{name} kernel={kernel}: launches "
                                      f"{seen}, expected {want}")
+            if tc != {k: seen[k] for k in convs}:
+                raise AssertionError(f"{name} kernel={kernel}: conv "
+                                     f"launches {seen}, of them on the "
+                                     f"tensor-core path {tc}")
             if logits.shape != (REQUESTS, plan.activation_shapes()[-1][0]) \
                     or not np.isfinite(logits).all():
                 raise AssertionError(f"{name}: bad logits {logits.shape}")
@@ -437,14 +622,21 @@ def main():
                 raise AssertionError(f"{name} kernel={kernel}: logits differ "
                                      f"from the plain backend")
             t0 = time.perf_counter()
-            reps = 3
+            reps = 5
             for _ in range(reps):
                 engine.submit(images)
             wall = (time.perf_counter() - t0) / reps
-            log(f"  {name} kernel={kernel}: launches {seen}; logits "
+            _, busy, n_ev = device_busy(lambda: engine.submit(images))
+            share = ("not measured (no device events in the trace)"
+                     if busy is None else
+                     f"device busy {busy:.3f} ms = {100 * busy / 1e3 / wall:.0f}"
+                     f"% of it over {n_ev} device events (torch.profiler)")
+            log(f"  {name} kernel={kernel}: launches {seen}, all "
+                f"{tc[expect]} conv launches on the tensor-core path; logits "
                 f"{logits.shape} bit-equal to the plain backend; "
-                f"{REQUESTS} requests in {1e3 * wall:.1f} ms "
-                f"({REQUESTS / wall:.1f} images/s); stats {served}")
+                f"{REQUESTS} requests in {1e3 * wall:.2f} ms "
+                f"({REQUESTS / wall:.1f} images/s, mean of {reps}); {share}; "
+                f"stats {served}")
             results[kernel] = (seen, logits, wall)
         rel = np.linalg.norm(logits - float_logits) / np.linalg.norm(
             float_logits)
@@ -460,11 +652,11 @@ def main():
     for kernel, conv in (("auto", "conv2d_ws_pipe"),
                          ("sequential", "conv2d_ws")):
         wall_ms = 1e3 * results[kernel][2]
-        busy = (-(-REQUESTS // BATCH)
-                * (stats[conv]["ms"] + stats["matmul_ws"]["ms"]))
-        log(f"  vgg_imagenet kernel={kernel}: kernels {busy:.2f} ms of the "
-            f"{wall_ms:.2f} ms submit (phase-3 kernel times x batches); "
-            f"the rest, {wall_ms - busy:.2f} ms, is host work, plain glue "
+        busy = (-(-REQUESTS // BATCH) * (stats[conv]["device_ms"]
+                                          + stats["matmul_ws"]["device_ms"]))
+        log(f"  vgg_imagenet kernel={kernel}: kernels {busy:.3f} ms of the "
+            f"{wall_ms:.3f} ms submit (phase-3 device times x batches); "
+            f"the rest, {wall_ms - busy:.3f} ms, is host work, plain glue "
             f"ops and launch gaps")
     lq, limages, lres = serve("lenet", network.lenet(), seed=1)
     cpu = ConvNetEngine(lq, batch=BATCH, device="cpu").submit(limages)
@@ -558,7 +750,7 @@ def main():
             share = (f"; flash_attention {cfg.num_layers} × "
                      f"{flash_ms[n]:.3f} ms = "
                      f"{100 * cfg.num_layers * flash_ms[n] / ms:.1f}% of it "
-                     f"(phase-3 kernel time)")
+                     f"(phase-3 device time)")
         log(f"    prompt {n:5d}: admit (prefill + cache scatter) "
             f"{ms:.1f} ms{share}")
     busy_tokens = sum(b for b, _ in engine.step_ms)
@@ -573,24 +765,6 @@ def main():
         f"tokens/s over the decode steps; {generated} tokens in "
         f"{wall:.2f} s of run ({generated / wall:.1f} tokens/s, prefills "
         f"included)")
-
-    def device_busy(fn):
-        """(wall ms of ``fn`` unprofiled, device ms and kernel count of
-        ``fn`` under torch.profiler); device ms is None where the trace
-        holds no device events."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-        act = torch.profiler.ProfilerActivity
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
-        return wall, (busy if evs else None), len(evs)
 
     for r in reqs[:LM_SLOTS]:            # four busy slots again
         engine.admit(fresh([r])[0])
@@ -687,10 +861,9 @@ def main():
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=st["launches"], max_abs_err=st["max_abs_err"],
-            ms=st["ms"], plain_ms=st["plain_ms"],
-            bound_ms=bound_ms(st["bytes"], st["ops"], st["ops_per_s"]),
-            bound_by=("bytes" if st["bytes"] / HBM_BYTES_PER_S
-                      >= st["ops"] / st["ops_per_s"] else "operations"),
+            ms=st["ms"], device_ms=st["device_ms"], plain_ms=st["plain_ms"],
+            bound_ms=sum(st["bound"].values()),
+            bound_by=max(st["bound"], key=st["bound"].get),
             library_ms=st["library_ms"]))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

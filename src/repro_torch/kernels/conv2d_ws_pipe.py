@@ -1,23 +1,28 @@
-"""Double-buffered variant of the weight-stationary conv as a hand-written
+"""Pipelined variant of the weight-stationary conv as a hand-written
 Hopper kernel.
 
 Replaces the Pallas TPU kernel ``repro.kernels.conv2d_ws_pipe.
-conv2d_ws_pipe``.  Same function, signature and geometry as
-``conv2d_ws.conv2d_ws``; the CUDA source ``csrc/conv2d_ws_pipe.cu`` streams
-the cin-bank slabs through a 2-stage ``cp.async`` ring (its note says what
-bounds it and how narrow slabs are handled).  It shares its compute and
-epilogue with ``csrc/conv2d_ws.cu``, so the two kernels are bit-equal.
+conv2d_ws_pipe``.  Same function, signature, geometry and path rule
+(``conv2d_ws.conv_path``) as ``conv2d_ws.conv2d_ws``; the CUDA source
+``csrc/conv2d_ws_pipe.cu`` streams its K-chunks through a multi-stage
+``cp.async`` ring on the tensor-core path (up to 4 stages, as deep as the
+blocks per SM that ``conv2d_ws`` runs allow, one where two would cost a
+block: ``conv2d_ws.tc_plan``) and its cin-bank slabs through a 2-stage
+ring on the scalar path.  It shares its compute and epilogue
+with ``csrc/conv2d_ws.cu``, so the two kernels are bit-equal.
 
 On a CUDA tensor ``conv2d_ws_pipe`` launches the kernel and counts the
-launch in ``conv2d_ws_pipe.launches``; on a CPU tensor it runs the plain
-version, which is ``conv2d_ws_plain`` — the function both kernels compute.
+launch in ``conv2d_ws_pipe.launches`` (and in ``conv2d_ws_pipe.tc_launches``
+on the tensor-core path); on a CPU tensor it runs the plain version, which
+is ``conv2d_ws_plain`` — the function both kernels compute.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.conv2d_ws import conv2d_ws_plain, run_conv
+from repro_torch.kernels.conv2d_ws import (conv2d_ws_plain, count_launch,
+                                           run_conv)
 
 # the plain PyTorch version: one function, computed by both conv kernels
 conv2d_ws_pipe_plain = conv2d_ws_plain
@@ -32,14 +37,14 @@ def conv2d_ws_pipe(x, w, bias=None, out_scale=None, *, stride: int = 1,
     through a shared-memory ring; same contracts, same results bit for
     bit.  ``banking.plan_tiles`` decides per layer which one runs
     (``TilePlan.pipelined``)."""
-    out, launched = run_conv(
-        "conv2d_ws_pipe", 2, conv2d_ws_pipe_plain, x, w, bias, out_scale,
+    out, path = run_conv(
+        "conv2d_ws_pipe", True, conv2d_ws_pipe_plain, x, w, bias, out_scale,
         relu=relu, pool=pool, stride=stride, padding=padding, groups=groups,
         cin_banks=cin_banks, kout_banks=kout_banks, h_tile=h_tile,
         w_tile=w_tile, dilation=dilation)
-    if launched:
-        conv2d_ws_pipe.launches += 1
+    count_launch(conv2d_ws_pipe, path)
     return out
 
 
 conv2d_ws_pipe.launches = 0
+conv2d_ws_pipe.tc_launches = 0

@@ -1,27 +1,35 @@
-// Weight-stationary, channel-banked conv with the fused epilogue, for Hopper.
+// Weight-stationary conv with the fused epilogue, for Hopper: the
+// single-buffered kernel.
 //
 // Replaces the Pallas TPU kernel repro.kernels.conv2d_ws.conv2d_ws
 // (_conv_kernel): NHWC x [N,H,W,C] (int8 or f32) convolved with
 // w [KH,KW,C/groups,K], bias preloaded into the accumulator, stride / zero
 // padding / dilation / groups, then ReLU -> 2x2 max-pool -> requantize.
 //
-// Design.  One block per (image, output tile of the TilePlan, kout bank).
-// The TPU's sequential cin grid axis becomes a loop inside the block over the
-// cin banks of the bank's group (channel base (ko / bpg) * cgrp).  For every
-// cin bank the halo'd input window [in_th, in_tw, cb] and the weight block
-// [KH, KW, cb, kb] are staged in shared memory with ordinary loads (zero
-// padding is written in place, exact for zero-point 0), then every
-// accumulator entry adds its taps.  The accumulator [th, tw, kb] lives in
-// shared memory like the TPU's VMEM scratch and starts as the bias; the
-// epilogue reads it into registers on the last bank.
+// What bounds each layer on the H100 (conv_common.cuh's note has the table):
+// at batch 8, vgg_imagenet's conv 0 and 1 by bytes (4.31 and 4.80 us at
+// 3.35 TB/s), conv 2-5 by int8 operations (1.87, 1.87, 1.87 and 0.93 us at
+// 1,979 TOP/s).  That note also gives the design of both paths and the rule
+// that picks one.
 //
-// What bounds it on the H100.  An output costs 2*KH*KW*C/g operations and
-// every input byte is reused by up to KH*KW*K/g outputs, so the wide layers
-// of the main path sit above the card's operations-per-byte line and are
-// bound by the int8 tensor-core rate; thin layers (C=1..4, depthwise) are
-// bound by bytes.  This simple form issues scalar int32 multiply-adds from
-// shared memory, far below the tensor-core bound; it is the correct baseline
-// that faster kernels (dp4a or mma.sync on the same tiles) are held against.
+// Tensor-core path (int8, K/groups >= 8): conv_ws_tc_kernel, an implicit
+// GEMM on mma.sync m16n8k32 s8 with register accumulators, one block per
+// (128-pixel rectangle of an image, 32/64-channel N-tile of a group).  Its
+// blocks are sized for the card and do not follow the TilePlan.  This kernel
+// moves data the simple way: for each K-chunk it issues the window and
+// weight-slab copies, waits for them, then runs the chunk's mma steps, so a
+// block's loads and its tensor-core work take turns (other resident blocks
+// fill the gaps).  conv2d_ws_pipe.cu streams the same chunks through a ring.
+//
+// Scalar path (f32; depthwise and other groups narrower than 8 outputs):
+// conv_ws_kernel, PR 11's form.  One block per (image, output tile of the
+// TilePlan, kout bank); the TPU's sequential cin grid axis becomes a loop
+// over the cin banks of the bank's group (channel base (ko / bpg) * cgrp).
+// Each cin bank's halo'd input window [in_th, in_tw, cb] and weight block
+// [KH, KW, cb, kb] are staged in shared memory with ordinary loads (zero
+// padding written in place), then every accumulator entry adds its taps;
+// the accumulator [th, tw, kb] lives in shared memory like the TPU's VMEM
+// scratch and starts as the bias.
 #include "conv_common.cuh"
 
 namespace {
@@ -89,6 +97,53 @@ int launch(const void* x, const void* w, const void* bias, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// 32-wide N-tiles fit 64 registers a thread, so four blocks share an SM
+template <int NT, bool REQUANT>
+__global__ void __launch_bounds__(kConvThreads, NT == 2 ? 4 : 2)
+conv_ws_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wp,
+                  const int32_t* __restrict__ bias,
+                  const float* __restrict__ scale, void* __restrict__ out,
+                  TcParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* tbl = reinterpret_cast<int*>(smem);
+  int8_t* win = reinterpret_cast<int8_t*>(smem + p.slot0);
+  int8_t* wsl = win + p.win_bytes;
+  const TcBlock bc(p);
+
+  tc_build_table(tbl, p);
+  tc_zero_tail(wsl, p);
+  int acc[2][NT][4];
+  tc_init_acc<NT>(acc, bias, p, bc);
+  int rb[2][2];
+  tc_row_bases(rb, p);
+  for (int s = 0; s < p.n_slices; ++s) {
+    __syncthreads();  // the previous chunk's mma steps are done with the slot
+    tc_issue_chunk(win, wsl, x, wp, p, bc, s);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    tc_mma_chunk<NT>(acc, win, wsl, tbl, rb, p);
+  }
+  __syncthreads();
+  tc_epilogue<NT, REQUANT>(acc, reinterpret_cast<int*>(smem + p.slot0),
+                           scale, out, p, bc);
+}
+
+template <int NT, bool REQUANT>
+int launch_tc(const void* x, const void* w, const void* bias,
+              const float* scale, void* out, const TcParams& p,
+              cudaStream_t stream) {
+  auto kernel = conv_ws_tc_kernel<NT, REQUANT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.n * p.n_ry * p.n_rx, (p.k / p.kgrp) * p.n_nt);
+  kernel<<<grid, kConvThreads, p.smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const int32_t*>(bias), scale, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -101,6 +156,16 @@ int conv2d_ws_launch(const void* x, const void* w, const void* bias,
   ConvParams p = *reinterpret_cast<const ConvParams*>(geom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CONV_DISPATCH(mode, launch, x, w, bias, scale, out, p, s)
+}
+
+int conv2d_ws_tc_launch(const void* x, const void* w, const void* bias,
+                        const float* scale, void* out, const int* geom,
+                        int n_fields, int mode, void* stream) {
+  if (n_fields != kTcParamsFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcParams p = *reinterpret_cast<const TcParams*>(geom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TC_DISPATCH(mode, p.bn, launch_tc, x, w, bias, scale, out, p, s)
 }
 
 const char* error_string(int code) {

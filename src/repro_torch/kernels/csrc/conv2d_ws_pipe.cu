@@ -1,50 +1,42 @@
-// Double-buffered variant of the weight-stationary conv, for Hopper.
+// Pipelined variant of the weight-stationary conv, for Hopper.
 //
 // Replaces the Pallas TPU kernel repro.kernels.conv2d_ws_pipe.conv2d_ws_pipe
 // (_pipe_kernel), which writes the conv2d_ws data movement out by hand with a
 // 2-slot ping-pong of the input window and weight bank.  Same function as
-// conv2d_ws.cu and the same block decomposition (one block per image, output
-// tile and kout bank; a loop over the group's cin banks), with the slab
-// motion made explicit: cin-bank slabs stream into a 2-stage shared-memory
-// ring with cp.async, so slab g+1 is in flight while slab g computes
-// (commit_group / wait_group 1; an empty group is committed after the last
-// slab so the wait count stays uniform).  The compute and the epilogue are the
-// shared device functions of conv_common.cuh, so the result is bit-equal to
-// conv2d_ws.cu on the int and the f32 paths.
+// conv2d_ws.cu, the same two paths and the same path rule (conv_common.cuh's
+// note), and the same compute and epilogue device functions, so the result
+// is bit-equal to conv2d_ws.cu on every path; only the data motion differs.
+// What bounds each layer on the H100 is as there: at batch 8,
+// vgg_imagenet's conv 0 and 1 by bytes (4.31 and 4.80 us), conv 2-5 by int8
+// operations (1.87 us each for 2-4, 0.93 us for 5).
 //
-// Narrow slabs.  cp.async copies only 4, 8 or 16 aligned bytes.  The wrapper
-// picks the widest chunk that divides the slab rows and their offsets
-// (xvec / wvec); rows that no chunk fits (lenet's C=1 input, vgg_imagenet's
-// 1-byte slabs of a C=4 map, depthwise cgrp=1) use ordinary loads into the
-// same ring, and zero padding is stored in place.  The TPU kernel's prefetch
-// chain across grid steps and its overlapped output store have no
-// counterpart: blocks are independent here, and the epilogue stores from
-// registers.
+// Tensor-core path (int8, K/groups >= 8): conv_ws_pipe_tc_kernel.  Blocks
+// as in conv2d_ws.cu (128-pixel rectangles x 32/64-channel N-tiles, sized
+// for the card, not by the TilePlan).  Its K-chunks stream through a ring of
+// `stages` cp.async groups, 2 to 4 deep, chosen on the host as deep as the
+// SM still holds as many blocks as it holds of conv2d_ws.cu's (conv2d_ws.py:
+// tc_plan, blocks_per_sm).  The ring starts full; at chunk s the block waits
+// for that chunk's group, passes a barrier (after which nobody reads the
+// slot of chunk s-1), refills that slot with chunk s-1+stages and runs chunk
+// s's mma steps, so up to stages-1 chunks load while the tensor cores work.
+// A layer with one chunk (C/g <= 32) gets one slot and runs as conv2d_ws.cu
+// does; so does a layer whose second slot would cost the SM a block
+// (stages = 1: each chunk is loaded, waited for and computed in turn).
 //
-// What bounds it on the H100: as conv2d_ws.cu, the int8 tensor-core rate for
-// the wide layers and bytes for the thin ones; the ring hides the slab loads
-// behind the scalar compute, which is what limits both kernels today.
+// Scalar path (f32; depthwise and other groups narrower than 8 outputs):
+// conv_ws_pipe_kernel, PR 11's form.  The same block decomposition as
+// conv2d_ws.cu's scalar kernel (one block per image, TilePlan tile and kout
+// bank; a loop over the group's cin banks), with cin-bank slabs streamed
+// into a 2-stage shared-memory ring with cp.async, so slab g+1 is in flight
+// while slab g computes (commit_group / wait_group 1; an empty group is
+// committed after the last slab so the wait count stays uniform).  cp.async
+// copies only 4, 8 or 16 aligned bytes: the wrapper picks the widest chunk
+// that divides the slab rows and their offsets (xvec / wvec); rows no chunk
+// fits (depthwise cgrp = 1) use ordinary loads into the same ring, and zero
+// padding is stored in place.
 #include "conv_common.cuh"
 
 namespace {
-
-__device__ inline void cp_async(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  switch (bytes) {
-    case 16:
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-      break;
-    case 8:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
-      break;
-    default:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-      break;
-  }
-}
-
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ inline void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
 __device__ inline void zero_bytes(unsigned char* dst, int bytes) {
   for (int b = 0; b < bytes; b += 4) *reinterpret_cast<int*>(dst + b) = 0;
@@ -67,7 +59,8 @@ __device__ void issue_slab(Tin* xs, Tin* ws, const Tin* x, const Tin* w,
       if (iy >= 0 && iy < p.h && ix >= 0 && ix < p.w) {
         const Tin* src =
             x + ((static_cast<long long>(bc.n) * p.h + iy) * p.w + ix) * p.c + c0;
-        cp_async(dst, reinterpret_cast<const unsigned char*>(src) + ch * p.xvec, p.xvec);
+        cp_async_zfill(dst, reinterpret_cast<const unsigned char*>(src) + ch * p.xvec,
+                       p.xvec, p.xvec);
       } else {
         zero_bytes(dst, p.xvec);
       }
@@ -91,8 +84,9 @@ __device__ void issue_slab(Tin* xs, Tin* ws, const Tin* x, const Tin* w,
       const int c = r % p.cb, tap = r / p.cb;
       const Tin* src = w + (static_cast<long long>(tap) * p.cgrp + co * p.cb + c) * p.k +
                        bc.ko * p.kb;
-      cp_async(reinterpret_cast<unsigned char*>(ws) + r * row + ch * p.wvec,
-               reinterpret_cast<const unsigned char*>(src) + ch * p.wvec, p.wvec);
+      cp_async_zfill(reinterpret_cast<unsigned char*>(ws) + r * row + ch * p.wvec,
+                     reinterpret_cast<const unsigned char*>(src) + ch * p.wvec,
+                     p.wvec, p.wvec);
     }
   } else {
     for (int i = threadIdx.x; i < wrows * p.kb; i += blockDim.x) {
@@ -128,7 +122,7 @@ conv_ws_pipe_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
     if (co + 1 < p.cin_banks)
       issue_slab(xs[slot ^ 1], ws[slot ^ 1], x, w, p, bc, co + 1);
     cp_async_commit();
-    cp_async_wait_one();  // slab co has landed (only co+1 may be pending)
+    cp_async_wait<1>();  // slab co has landed (only co+1 may be pending)
     __syncthreads();
     accumulate_slab(acc, xs[slot], ws[slot], p);
     __syncthreads();
@@ -151,6 +145,71 @@ int launch(const void* x, const void* w, const void* bias, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// 32-wide N-tiles fit 64 registers a thread, so four blocks share an SM
+template <int NT, bool REQUANT>
+__global__ void __launch_bounds__(kConvThreads, NT == 2 ? 4 : 2)
+conv_ws_pipe_tc_kernel(const int8_t* __restrict__ x,
+                       const int8_t* __restrict__ wp,
+                       const int32_t* __restrict__ bias,
+                       const float* __restrict__ scale,
+                       void* __restrict__ out, TcParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* tbl = reinterpret_cast<int*>(smem);
+  auto win = [&](int slot) {
+    return reinterpret_cast<int8_t*>(smem + p.slot0 + slot * p.slot_bytes);
+  };
+  auto wsl = [&](int slot) { return win(slot) + p.win_bytes; };
+  const TcBlock bc(p);
+  const int ns = p.n_slices, S = p.stages;
+
+  tc_build_table(tbl, p);
+  for (int q = 0; q < p.slots; ++q) tc_zero_tail(wsl(q), p);
+  for (int q = 0; q < p.slots; ++q) {  // fill the ring: slots = min(S, ns)
+    tc_issue_chunk(win(q), wsl(q), x, wp, p, bc, q);
+    cp_async_commit();
+  }
+  int acc[2][NT][4];
+  tc_init_acc<NT>(acc, bias, p, bc);
+  int rb[2][2];
+  tc_row_bases(rb, p);
+  for (int s = 0; s < ns; ++s) {
+    if (S == 1 && s >= 1) {  // one slot: refill it once chunk s-1 is read
+      __syncthreads();
+      tc_issue_chunk(win(0), wsl(0), x, wp, p, bc, s);
+      cp_async_commit();
+    }
+    // groups committed so far end at chunk min(ns-1, S-1+max(s-1, 0)); chunk
+    // s has landed once no more than the ones after it are pending
+    cp_async_wait_pending(S == 1 ? 0
+                          : s == 0 ? min(ns - 1, S - 1) : min(ns - 1 - s, S - 2));
+    __syncthreads();  // chunk s visible to all; chunk s-1's slot is free
+    if (S >= 2 && s >= 1 && s - 1 + S < ns) {
+      const int slot = (s - 1) % S;
+      tc_issue_chunk(win(slot), wsl(slot), x, wp, p, bc, s - 1 + S);
+      cp_async_commit();
+    }
+    tc_mma_chunk<NT>(acc, win(s % S), wsl(s % S), tbl, rb, p);
+  }
+  __syncthreads();  // every copy has landed (the last wait was for all)
+  tc_epilogue<NT, REQUANT>(acc, reinterpret_cast<int*>(smem + p.slot0),
+                           scale, out, p, bc);
+}
+
+template <int NT, bool REQUANT>
+int launch_tc(const void* x, const void* w, const void* bias,
+              const float* scale, void* out, const TcParams& p,
+              cudaStream_t stream) {
+  auto kernel = conv_ws_pipe_tc_kernel<NT, REQUANT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.n * p.n_ry * p.n_rx, (p.k / p.kgrp) * p.n_nt);
+  kernel<<<grid, kConvThreads, p.smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const int32_t*>(bias), scale, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -163,6 +222,16 @@ int conv2d_ws_pipe_launch(const void* x, const void* w, const void* bias,
   ConvParams p = *reinterpret_cast<const ConvParams*>(geom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CONV_DISPATCH(mode, launch, x, w, bias, scale, out, p, s)
+}
+
+int conv2d_ws_pipe_tc_launch(const void* x, const void* w, const void* bias,
+                             const float* scale, void* out, const int* geom,
+                             int n_fields, int mode, void* stream) {
+  if (n_fields != kTcParamsFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcParams p = *reinterpret_cast<const TcParams*>(geom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TC_DISPATCH(mode, p.bn, launch_tc, x, w, bias, scale, out, p, s)
 }
 
 const char* error_string(int code) {

@@ -1,9 +1,54 @@
 // Shared pieces of the two weight-stationary conv kernels (conv2d_ws.cu,
-// conv2d_ws_pipe.cu): the geometry record, the per-slab compute and the
-// fused epilogue.  Both kernels run exactly these device functions on the
-// same shared-memory layout, so they agree bit for bit on the int32 AND the
-// f32 accumulator paths; they differ only in how a slab reaches shared
-// memory.
+// conv2d_ws_pipe.cu), which replace the Pallas TPU kernels
+// repro.kernels.conv2d_ws.conv2d_ws (_conv_kernel) and
+// repro.kernels.conv2d_ws_pipe.conv2d_ws_pipe (_pipe_kernel): NHWC x ⊛
+// w[KH,KW,C/g,K], bias preloaded, stride / padding / dilation / groups, then
+// ReLU -> 2x2 max-pool -> requantize.  Both kernels run exactly these device
+// functions on the same shared-memory layout, so they agree bit for bit;
+// they differ only in how a chunk reaches shared memory.
+//
+// What bounds each layer on the H100 (vgg_imagenet at batch 8, int8; bytes
+// counted once in and once out; 1,979 TOP/s int8, 3.35 TB/s):
+//
+//   conv  map, C->K            GOP    MB     bound us  by
+//   0     224^2, 4->32         0.925  14.45  4.31      bytes
+//   1     224^2, 32->32 +pool  7.399  16.07  4.80      bytes
+//   2     112^2, 32->64 +pool  3.699   4.84  1.87      operations
+//   3     56^2, 64->128 +pool  3.699   2.48  1.87      operations
+//   4     28^2, 128->256 +pool 3.699   1.50  1.87      operations
+//   5     14^2, 256->256       1.850   1.39  0.93      operations
+//
+// so conv 0 and 1 are bound by their bytes (every byte read and written
+// once) and conv 2-5 by the int8 tensor-core rate.
+//
+// Two paths, chosen on the host by geometry (conv2d_ws.py: conv_path):
+//
+// * Tensor cores ("tc": int8 operands, K/groups >= 8, one K-chunk fits a
+//   block).  An implicit GEMM: M = the conv-output pixels of a block, N =
+//   the output channels of one group, K = KH*KW*C/g in (tap, channel) order.
+//   mma.sync.m16n8k32.row.col.s32.s8.s8.s32 (signed) with int32 accumulators
+//   in registers that start at the bias (the M5 preload).  A block is 8 warps
+//   over a 128-pixel pool-aligned rectangle of one image (8x16, 16x8 or 32x4)
+//   times a 32- or 64-channel N-tile; each warp owns 32 rows x BN/2 columns.
+//   The blocks are sized for the card, not by the TilePlan: int32 sums are
+//   exact in any order, so the plan's cin banks and tiles are validated by
+//   setup_conv and then shape no grid here.  The K loop runs over chunks of
+//   `cs` input channels x all taps: a chunk's halo'd input window lands in
+//   shared memory with cp.async (`ps` bytes a pixel, 16 more than the
+//   channels where that keeps the 8 rows of a fragment load on distinct
+//   banks; padding and map edges zero-filled by the copy, exact for
+//   zero-point 0), and its weight slab [BN][ksp] from the K-major packed
+//   weights [K][kpad].  A fragments are built by address arithmetic: a row
+//   base per pixel plus a per-column table over (tap, channel); where the
+//   chunk's channels come in fours (cs % 4 == 0) one 32-bit load feeds four
+//   K columns, else (C = 1, lenet) four byte loads do.  Padded K columns
+//   read 0 in A and are 0 in B.  The epilogue stages the int32 tile through
+//   shared memory and runs ReLU -> 2x2 max-pool -> rint(v * scale[k])
+//   clipped to int8 (or the raw int32), masking the ragged edge.
+// * Scalar (f32 operands; int8 groups narrower than 8 outputs, i.e.
+//   depthwise).  PR 11's form, one block per (image, TilePlan tile, kout
+//   bank) with a loop over cin banks, int32 or f32 multiply-adds from
+//   shared memory into a shared accumulator.
 #pragma once
 
 #include <cstdint>
@@ -147,6 +192,411 @@ __device__ void epilogue(const Tacc* acc, const float* scale, void* out,
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// cp.async (both kernels on the tensor-core path, conv2d_ws_pipe on both)
+// ---------------------------------------------------------------------------
+
+// Copy `bytes` (16, 8 or 4) from global to shared memory asynchronously;
+// only `src_bytes` of them are read, the rest are zero-filled (0 = a zero
+// chunk, for padding and the map's edges).
+__device__ inline void cp_async_zfill(void* dst, const void* src, int bytes,
+                                      int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  switch (bytes) {
+    case 16:
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   ::"r"(d), "l"(src), "r"(src_bytes));
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                   ::"r"(d), "l"(src), "r"(src_bytes));
+      break;
+    default:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   ::"r"(d), "l"(src), "r"(src_bytes));
+      break;
+  }
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most `n` (0..3) committed groups are still in flight.
+__device__ inline void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The int8 tensor-core path
+// ---------------------------------------------------------------------------
+
+// Field order must match repro_torch/kernels/conv2d_ws.py:TC_FIELDS; the
+// host computes every field (conv2d_ws.py:tc_plan, tc_params).
+struct TcParams {
+  int n, h, w, c, k;              // input map [N,H,W,C], K output channels
+  int kh, kw, stride, dil;        // kernel extent, stride, tap dilation
+  int pt, pl;                     // top / left zero padding
+  int cgrp, kgrp;                 // input / output channels per group
+  int poh, pow_;                  // epilogue output extents
+  int relu, pool;                 // fused epilogue stages
+  int rh, rw, n_ry, n_rx;         // block rectangle, rectangles per image
+  int bn, n_nt;                   // N-tile width (32 or 64), N-tiles a group
+  int cs, n_slices;               // channels per K-chunk, K-chunks
+  int taps, ksp, kpad;            // kh*kw, chunk K (x32), packed row (x32)
+  int win_h, win_w, ps, ws;       // window extents, bytes a window pixel,
+                                  // bytes a weight-slab row
+  int wruns, wrun, wsrc_step;     // weight slab: runs a row, bytes a run,
+                                  // packed stride between runs
+  int wfill;                      // slab columns [wfill, ksp) stay zero
+  int word;                       // 1: an A word is one 32-bit load
+  int stages, slots;              // ring depth, slots in shared memory
+  int win_bytes, slot_bytes;      // one slot: window | weight slab
+  int slot0, smem;                // slot 0 (after the K table), total
+  int xvec, wvec;                 // copy widths (16/8/4; 1 = byte loads)
+};
+
+constexpr int kTcParamsFields = sizeof(TcParams) / sizeof(int);
+constexpr int kTcBM = 128;  // rows (pixels) of a block: 4 warps x 32
+
+// blockIdx.x = (image, rectangle row, rectangle column), blockIdx.y =
+// (group, N-tile).
+struct TcBlock {
+  int img, ry, rx, grp, nt;
+  __device__ explicit TcBlock(const TcParams& p) {
+    const int per = p.n_ry * p.n_rx;
+    img = blockIdx.x / per;
+    const int r = blockIdx.x - img * per;
+    ry = r / p.n_rx;
+    rx = r - ry * p.n_rx;
+    grp = blockIdx.y / p.n_nt;
+    nt = blockIdx.y - grp * p.n_nt;
+  }
+};
+
+// K table of a chunk: column j = (tap, channel) -> byte offset from a row's
+// window origin, -1 for a padded column.  The same for every chunk.
+__device__ inline void tc_build_table(int* tbl, const TcParams& p) {
+  for (int j = threadIdx.x; j < p.ksp; j += blockDim.x) {
+    const int tap = j / p.cs, c = j - tap * p.cs;
+    tbl[j] = tap < p.taps
+                 ? ((tap / p.kw) * p.dil * p.win_w + (tap % p.kw) * p.dil) *
+                           p.ps + c
+                 : -1;
+  }
+}
+
+// Window origin of block row m (pixel (m / rw, m % rw) of the rectangle).
+__device__ inline int tc_row_base(const TcParams& p, int m) {
+  return ((m / p.rw) * p.stride * p.win_w + (m % p.rw) * p.stride) * p.ps;
+}
+
+// This thread's four fragment rows: 32*warp_m + 16*mi + lane/4 (+ 8).
+__device__ inline void tc_row_bases(int (&rb)[2][2], const TcParams& p) {
+  const int m0 = 32 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    rb[mi][0] = tc_row_base(p, m0 + 16 * mi);
+    rb[mi][1] = tc_row_base(p, m0 + 16 * mi + 8);
+  }
+}
+
+// Zero the weight slab's padded columns [wfill, ksp), which no copy writes.
+__device__ inline void tc_zero_tail(int8_t* wsl, const TcParams& p) {
+  const int tail = p.ksp - p.wfill;
+  for (int i = threadIdx.x; i < p.bn * tail; i += blockDim.x)
+    wsl[(i / tail) * p.ws + p.wfill + i % tail] = 0;
+}
+
+// Issue the copies of K-chunk `s` (input channels grp*cgrp + s*cs ...) into
+// one slot: the rectangle's halo'd window and the N-tile's weight slab.  Not
+// committed or waited here; byte copies (xvec / wvec 1) are plain stores.
+__device__ inline void tc_issue_chunk(int8_t* win, int8_t* wsl,
+                                      const int8_t* x, const int8_t* wp,
+                                      const TcParams& p, const TcBlock& bc,
+                                      int s) {
+  const int c0 = bc.grp * p.cgrp + s * p.cs;
+  const int iy0 = bc.ry * p.rh * p.stride - p.pt;
+  const int ix0 = bc.rx * p.rw * p.stride - p.pl;
+  const long long img = static_cast<long long>(bc.img) * p.h;
+  const int npix = p.win_h * p.win_w;
+  const int xch = p.cs / p.xvec;
+  for (int i = threadIdx.x; i < npix * xch; i += blockDim.x) {
+    const int pix = i / xch, ch = i - pix * xch;
+    const int iy = iy0 + pix / p.win_w, ix = ix0 + pix % p.win_w;
+    const bool in = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w;
+    const long long src =
+        in ? ((img + iy) * p.w + ix) * p.c + c0 + ch * p.xvec : 0;
+    int8_t* dst = win + pix * p.ps + ch * p.xvec;
+    if (p.xvec > 1)
+      cp_async_zfill(dst, x + src, p.xvec, in ? p.xvec : 0);
+    else
+      *dst = in ? x[src] : int8_t(0);
+  }
+  const int n0 = bc.nt * p.bn;
+  const int wch = p.wrun / p.wvec;
+  const int per_row = p.wruns * wch;
+  for (int i = threadIdx.x; i < p.bn * per_row; i += blockDim.x) {
+    const int row = i / per_row, rem = i - row * per_row;
+    const int run = rem / wch, ch = rem - run * wch;
+    const bool ok = n0 + row < p.kgrp;
+    const long long src =
+        ok ? static_cast<long long>(bc.grp * p.kgrp + n0 + row) * p.kpad +
+                 run * p.wsrc_step + s * p.cs + ch * p.wvec
+           : 0;
+    int8_t* dst = wsl + row * p.ws + run * p.cs + ch * p.wvec;
+    if (p.wvec > 1)
+      cp_async_zfill(dst, wp + src, p.wvec, ok ? p.wvec : 0);
+    else
+      *dst = ok ? wp[src] : int8_t(0);
+  }
+}
+
+// M5 bias preload: every accumulator fragment starts at its kernel's bias
+// (0 for the masked columns past the group's width).
+template <int NT>
+__device__ inline void tc_init_acc(int (&acc)[2][NT][4], const int32_t* bias,
+                                   const TcParams& p, const TcBlock& bc) {
+  const int t = threadIdx.x & 3;
+  const int col0 = (threadIdx.x >> 7) * 8 * NT + 2 * t;
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = bc.nt * p.bn + col0 + 8 * ni + e;
+      const int v = n < p.kgrp ? bias[bc.grp * p.kgrp + n] : 0;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        acc[mi][ni][e] = v;
+        acc[mi][ni][2 + e] = v;
+      }
+    }
+  }
+}
+
+__device__ inline uint32_t lds_u32(const int8_t* ptr) {
+  return *reinterpret_cast<const uint32_t*>(ptr);
+}
+
+// Four K columns of one row, one byte each (a chunk whose channels do not
+// come in fours); a negative offset is a padded column.
+__device__ inline uint32_t gather_u32(const int8_t* row, const int (&o)[4]) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (o[q] >= 0)
+      v |= static_cast<uint32_t>(static_cast<uint8_t>(row[o[q]])) << (8 * q);
+  return v;
+}
+
+// acc += A (16x32, row) * B (32x8, col), signed int8 in, int32 accumulate.
+__device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One K-chunk from a slot: ksp/32 steps of 2 x NT mma per warp.  Fragment
+// layout of m16n8k32 (g = lane/4, t = lane%4): a0 row g, k 4t..4t+3; a1 row
+// g+8; a2 / a3 the same rows at k 16+4t; b0 column g, k 4t..4t+3; b1 k 16+4t.
+template <int NT>
+__device__ inline void tc_mma_chunk(int (&acc)[2][NT][4], const int8_t* win,
+                                    const int8_t* wsl, const int* tbl,
+                                    const int (&rb)[2][2], const TcParams& p) {
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int8_t* wrow =
+      wsl + ((threadIdx.x >> 7) * 8 * NT + (lane >> 2)) * p.ws + 4 * t;
+  for (int ks = 0; ks < p.ksp; ks += 32) {
+    uint32_t a[2][4];
+    if (p.word) {
+      const int o0 = tbl[ks + 4 * t], o1 = tbl[ks + 16 + 4 * t];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          a[mi][h] = o0 < 0 ? 0u : lds_u32(win + rb[mi][h] + o0);
+          a[mi][2 + h] = o1 < 0 ? 0u : lds_u32(win + rb[mi][h] + o1);
+        }
+      }
+    } else {
+      int o0[4], o1[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        o0[q] = tbl[ks + 4 * t + q];
+        o1[q] = tbl[ks + 16 + 4 * t + q];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          a[mi][h] = gather_u32(win + rb[mi][h], o0);
+          a[mi][2 + h] = gather_u32(win + rb[mi][h], o1);
+        }
+      }
+    }
+    uint32_t b[NT][2];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      const int8_t* bp = wrow + ni * 8 * p.ws + ks;
+      b[ni][0] = lds_u32(bp);
+      b[ni][1] = lds_u32(bp + 16);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+// Epilogue: the int32 tile goes through shared memory (a 2x2 pool window's
+// four accumulators sit in different threads' fragments), then ReLU -> 2x2
+// max-pool -> requantize as the scalar `epilogue` does.  Where K and K/g
+// come in fours a thread owns four consecutive channels of a pixel: 16-byte
+// reads of the tile, its four scales loaded once, and one 4-byte (int8) or
+// 16-byte (int32) store; rectangle extents are powers of two, so a pixel's
+// place is a shift and a mask.  Otherwise one channel a thread.  `tile` may
+// alias the ring: the caller has waited for every copy and synchronised.
+template <int NT, bool REQUANT>
+__device__ inline void tc_epilogue(const int (&acc)[2][NT][4], int* tile,
+                                   const float* scale, void* out,
+                                   const TcParams& p, const TcBlock& bc) {
+  constexpr int BN = 16 * NT;
+  constexpr int AS = BN + 8;  // row stride: 64-bit stores of a half warp
+                              // land on distinct banks
+  const int lane = threadIdx.x & 31;
+  const int row0 = 32 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int col0 = (threadIdx.x >> 7) * 8 * NT + 2 * (lane & 3);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      int* dst = tile + (row0 + 16 * mi) * AS + col0 + 8 * ni;
+      *reinterpret_cast<int2*>(dst) = make_int2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<int2*>(dst + 8 * AS) =
+          make_int2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  }
+  __syncthreads();
+  const int ph = p.pool ? p.rh / 2 : p.rh, pw = p.pool ? p.rw / 2 : p.rw;
+  const int sh = __ffs(pw) - 1;  // pw is a power of two
+  const long long img = static_cast<long long>(bc.img) * p.poh;
+  if (p.k % 4 == 0 && p.kgrp % 4 == 0) {
+    constexpr int QUADS = BN / 4, LANES = kConvThreads / QUADS;
+    const int kk = 4 * (threadIdx.x % QUADS);
+    const int n = bc.nt * BN + kk;
+    if (n >= p.kgrp) return;
+    const int k = bc.grp * p.kgrp + n;
+    float sc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[j] = REQUANT ? scale[k + j] : 0.0f;
+    for (int pp = threadIdx.x / QUADS; pp < ph * pw; pp += LANES) {
+      const int ly = pp >> sh, lx = pp & (pw - 1);
+      const int gy = bc.ry * ph + ly, gx = bc.rx * pw + lx;
+      if (gy >= p.poh || gx >= p.pow_) continue;
+      int v[4];
+      if (p.pool) {
+        const int r0 = (2 * ly) * p.rw + 2 * lx;
+        const int rows[4] = {r0, r0 + 1, r0 + p.rw, r0 + p.rw + 1};
+        int m[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int4 t = *reinterpret_cast<const int4*>(tile + rows[r] * AS + kk);
+          m[r][0] = relu_if(t.x, p.relu);
+          m[r][1] = relu_if(t.y, p.relu);
+          m[r][2] = relu_if(t.z, p.relu);
+          m[r][3] = relu_if(t.w, p.relu);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int a = m[0][j];
+          a = m[1][j] > a ? m[1][j] : a;
+          a = m[2][j] > a ? m[2][j] : a;
+          a = m[3][j] > a ? m[3][j] : a;
+          v[j] = a;
+        }
+      } else {
+        const int4 t =
+            *reinterpret_cast<const int4*>(tile + (ly * p.rw + lx) * AS + kk);
+        v[0] = relu_if(t.x, p.relu);
+        v[1] = relu_if(t.y, p.relu);
+        v[2] = relu_if(t.z, p.relu);
+        v[3] = relu_if(t.w, p.relu);
+      }
+      const long long oidx = ((img + gy) * p.pow_ + gx) * p.k + k;
+      if (REQUANT) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float y = rintf(__fmul_rn(static_cast<float>(v[j]), sc[j]));
+          y = fminf(fmaxf(y, -128.0f), 127.0f);
+          word |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      static_cast<int8_t>(y))) << (8 * j);
+        }
+        *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(out) + oidx) = word;
+      } else {
+        *reinterpret_cast<int4*>(static_cast<int32_t*>(out) + oidx) =
+            make_int4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < ph * pw * BN; e += blockDim.x) {
+    const int kk = e % BN, pp = e / BN;
+    const int ly = pp >> sh, lx = pp & (pw - 1);
+    const int gy = bc.ry * ph + ly, gx = bc.rx * pw + lx;
+    const int n = bc.nt * BN + kk;
+    if (gy >= p.poh || gx >= p.pow_ || n >= p.kgrp) continue;
+    int v;
+    if (p.pool) {
+      const int r0 = (2 * ly) * p.rw + 2 * lx, r1 = r0 + p.rw;
+      v = relu_if(tile[r0 * AS + kk], p.relu);
+      const int v1 = relu_if(tile[(r0 + 1) * AS + kk], p.relu);
+      const int v2 = relu_if(tile[r1 * AS + kk], p.relu);
+      const int v3 = relu_if(tile[(r1 + 1) * AS + kk], p.relu);
+      v = v1 > v ? v1 : v;
+      v = v2 > v ? v2 : v;
+      v = v3 > v ? v3 : v;
+    } else {
+      v = relu_if(tile[(ly * p.rw + lx) * AS + kk], p.relu);
+    }
+    const int k = bc.grp * p.kgrp + n;
+    const long long oidx = ((img + gy) * p.pow_ + gx) * p.k + k;
+    if (REQUANT) {
+      float y = rintf(__fmul_rn(static_cast<float>(v), scale[k]));
+      y = fminf(fmaxf(y, -128.0f), 127.0f);
+      static_cast<int8_t*>(out)[oidx] = static_cast<int8_t>(y);
+    } else {
+      static_cast<int32_t*>(out)[oidx] = v;
+    }
+  }
+}
+
+// Dispatch the tensor-core kernels on (N-tile width, requantize): mode 0
+// int8 -> int32, 1 int8 -> int8; bn 32 or 64 (NT = bn / 16 n8-tiles a warp).
+#define TC_DISPATCH(MODE, BN, LAUNCH, ...)                                   \
+  if ((MODE) != 0 && (MODE) != 1)                                            \
+    return static_cast<int>(cudaErrorInvalidValue);                          \
+  if ((BN) == 32)                                                            \
+    return (MODE) ? LAUNCH<2, true>(__VA_ARGS__)                             \
+                  : LAUNCH<2, false>(__VA_ARGS__);                           \
+  if ((BN) == 64)                                                            \
+    return (MODE) ? LAUNCH<4, true>(__VA_ARGS__)                             \
+                  : LAUNCH<4, false>(__VA_ARGS__);                           \
+  return static_cast<int>(cudaErrorInvalidValue);
 
 // Dispatch on (input type, requantize) — mode codes of conv2d_ws.py:
 // 0 int8 -> int32, 1 int8 -> int8 (requant), 2 f32 -> f32, 3 f32 -> int8.

@@ -1,6 +1,16 @@
 """The CUDA kernels against their plain versions, on the card, and the LM
 serving path on the card against the same path on the CPU.
 
+The conv kernels take the int8 tensor-core path or the scalar path by
+geometry (``conv2d_ws.conv_path``); every conv case asserts which one
+launched.  ``TC_CASES`` are the tensor-core path's edges: narrow channel
+counts (C = 1, 4, 8, 12; byte-gathered C = 6), eight outputs a group,
+output widths that are not a multiple of the N-tile or of four (the
+epilogue's one-channel form), partial rectangles at stride 2, several
+K-chunks, int32 outputs, per-channel requantization, an all −128 layer
+at 3×3×256 (signedness and int32 range) and a 5×5 layer whose
+``conv2d_ws_pipe`` ring has one slot (a second would cost a block per SM).
+
 Every test here launches a kernel of ``repro_torch`` and skips where no
 NVIDIA GPU is present.  The file imports no JAX, so it also runs on a
 machine without it::
@@ -18,7 +28,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.conv2d_ws import conv2d_ws, conv2d_ws_plain
+from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_plain,
+                                           conv_path, setup_conv)
 from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -52,6 +63,66 @@ CASES = {
                         dict(padding="SAME", groups=8, h_tile=5, w_tile=4,
                              relu=True), "scalar"),
 }
+
+
+# tensor-core path edges: (x shape, w shape, conv2d kwargs, scale)
+TC_CASES = {
+    "c1_pool": ((2, 20, 20, 1), (3, 3, 1, 8),
+                dict(padding="SAME", relu=True, pool=True, cin_banks=1),
+                "scalar"),
+    "c4_k32": ((2, 40, 36, 4), (3, 3, 4, 32),
+               dict(padding="SAME", relu=True), "scalar"),
+    "c8_kg8_int32": ((2, 18, 18, 8), (3, 3, 8, 8), dict(padding="SAME"),
+                     None),
+    "c6_bytes_1x1": ((2, 9, 11, 6), (1, 1, 6, 16), dict(cin_banks=1),
+                     "scalar"),
+    "groups2_kg8": ((2, 16, 16, 32), (3, 3, 16, 16),
+                    dict(padding="SAME", groups=2, relu=True), "scalar"),
+    "k40_stride2_57": ((2, 57, 57, 16), (3, 3, 16, 40),
+                       dict(stride=2, padding="SAME", relu=True), "per_k"),
+    "c96_chunks_pool": ((2, 20, 26, 96), (3, 3, 96, 64),
+                        dict(padding="SAME", relu=True, pool=True), "per_k"),
+    "c64_dilated_k72": ((1, 30, 30, 64), (3, 3, 64, 72),
+                        dict(padding=((2, 1), (0, 3)), dilation=2), None),
+    "c12_k10_pool": ((2, 15, 13, 12), (3, 3, 12, 10),
+                     dict(padding="SAME", relu=True, pool=True,
+                          kout_banks=2), "per_k"),
+    "extreme_c256": ((1, 14, 14, 256), (3, 3, 256, 256),
+                     dict(padding="SAME"), None),
+    "c64_5x5_one_slot": ((2, 20, 20, 64), (5, 5, 64, 32),
+                         dict(padding="SAME", relu=True), "scalar"),
+}
+
+
+def tc_case_inputs(name):
+    """The inputs of ``TC_CASES[name]``, from a seed; the extreme case is
+    all −128 (every product +16,384, 37.7M a full 3×3×256 window) with the
+    largest positive bias."""
+    xs, ws, kw, scale = TC_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("extreme"):
+        x = np.full(xs, -128, np.int8)
+        w = np.full(ws, -128, np.int8)
+        b = np.full((ws[3],), 2 ** 31 - 1 - 9 * 256 * 16384, np.int32)
+    else:
+        x = rng.integers(-128, 128, size=xs).astype(np.int8)
+        w = rng.integers(-128, 128, size=ws).astype(np.int8)
+        b = rng.integers(-4000, 4000, size=(ws[3],)).astype(np.int32)
+    s = None
+    if scale == "scalar":
+        s = np.float32(0.0031)
+    elif scale == "per_k":
+        s = (rng.random(ws[3]) * 0.006).astype(np.float32)
+    return legal_banks(x, w, b, s, dict(kw))
+
+
+def expected_path(x, w, s, kw):
+    """What ``conv_path`` rules for these operands and kwargs."""
+    geo = {k: v for k, v in kw.items() if k not in ("relu", "pool")}
+    return conv_path(setup_conv(tuple(x.shape), tuple(w.shape),
+                                pool=kw.get("pool", False),
+                                requant=s is not None,
+                                int_path=x.dtype == torch.int8, **geo))
 
 
 def is_tiled(kw):
@@ -98,25 +169,42 @@ def cuda():
     return torch.device("cuda")
 
 
+def launch_both(args, kw, want, path):
+    """Both conv kernels on ``args``: one launch each, on ``path``, and
+    equal to ``want``."""
+    for fn in (conv2d_ws, conv2d_ws_pipe):
+        before = (fn.launches, fn.tc_launches)
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.tc_launches) == (
+            before[0] + 1, before[1] + (path == "tc")), (fn.__name__, path)
+        if want.is_floating_point():
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            assert torch.equal(got, want), fn.__name__
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_cuda_conv_kernels_equal_plain(cuda, name):
     x, w, b, s, kw = legal_banks(*case_inputs(name))
     args = as_torch(x, w, b, s, device=cuda)
-    want = conv2d_ws_plain(*args, **kw)
-    for fn in (conv2d_ws, conv2d_ws_pipe):
-        before = fn.launches
-        got = fn(*args, **kw)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
-        assert torch.equal(got, want), (fn.__name__, name)
+    path = expected_path(args[0], args[1], s, kw)
+    assert path == ("tc" if w.shape[3] // kw.get("groups", 1) >= 8
+                    else "scalar")
+    launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
     fx, fw, fb, _, _ = case_inputs(name, f32=True)
     args = as_torch(fx, fw, fb, None, device=cuda)
-    want = conv2d_ws_plain(*args, **kw)
-    for fn in (conv2d_ws, conv2d_ws_pipe):
-        got = fn(*args, **kw)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    launch_both(args, kw, conv2d_ws_plain(*args, **kw), "scalar")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+def test_cuda_conv_tensor_core_edges_equal_plain(cuda, name):
+    x, w, b, s, kw = tc_case_inputs(name)
+    args = as_torch(x, w, b, s, device=cuda)
+    assert expected_path(args[0], args[1], s, kw) == "tc"
+    launch_both(args, kw, conv2d_ws_plain(*args, **kw), "tc")
 
 
 @pytest.mark.cuda
