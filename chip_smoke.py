@@ -9,25 +9,29 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
 2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` each, all started together; print each instantiation's
    registers and spills (``-Xptxas -v``) and the tensor-core instructions
-   in each conv tensor-core instantiation's SASS (``cuobjdump -sass``:
-   ``IMMA``); fail on a spill, a missing ``IMMA``, a missing compiler
-   report or a missing ``cuobjdump``;
+   in each tensor-core instantiation's SASS (``cuobjdump -sass``: ``IMMA``
+   in the conv kernels, ``HGMMA`` in ``matmul_ws``'s bf16 long-M form);
+   fail on a spill in either, a missing ``IMMA`` or ``HGMMA``, a missing
+   compiler report or a missing ``cuobjdump``;
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (``vgg_imagenet``'s six convs at
    224×224, the ``lenet`` convs, the §5.2 layer, depthwise / stride-2 /
    dilation-2 / per-channel-requant layers, the tensor-core path's edge
    geometries (``TC_CASES`` of ``tests/test_torch_cuda.py``), the dense
-   heads; llama3.2-3b's attention at S = 512, 777,
+   heads; every ``matmul_ws`` form at its edge shapes (M from 1 to 3000,
+   K and N off the tiles, the head's N = 1000) and at the LM's MLP
+   shapes; llama3.2-3b's attention at S = 512, 777,
    2048, 3000, and the bf16 attention kernel's other head dims 16, 32,
-   64): int paths ``torch.equal``, f32 within 1e-4, bf16 within one bf16
-   ulp; each conv check also asserts which path (tensor-core or scalar)
-   launched.  Time each kernel's call and its plain version with CUDA
+   64): int paths ``torch.equal``, f32 within 1e-4, bf16 attention within
+   one bf16 ulp, bf16 GEMMs within the bound ``bf16_gemm_bound`` derives;
+   each conv and GEMM check also asserts which path or form launched.  Time each kernel's call and its plain version with CUDA
    events around back-to-back calls (``ms``, ``plain_ms``: host work
    included), and each kernel's call again as the sum of every device
    event it issues under ``torch.profiler`` (``device_ms``: its kernel and
    whatever else it runs on the card, such as the scale fill), beside its
-   bound (and, for attention, ``scaled_dot_product_attention`` and the
-   kernel's achieved TFLOP/s); print the ``vgg_imagenet`` per-layer table;
+   bound (and, for attention, ``scaled_dot_product_attention``, for the
+   bf16 GEMMs ``torch.matmul``, and the achieved TFLOP/s); print the
+   ``vgg_imagenet`` per-layer table and ``matmul_ws``'s host cost a call;
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
@@ -40,19 +44,27 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    random weights from a seed) served to 8 requests of 64–3000 prompt
    tokens through ``ServingEngine(slots=4, max_seq=4096)`` with
    ``attn_impl="flash"``: one kernel launch per layer per prefill, 16
-   tokens per request, prefill logits against the plain attention; then
-   two full-width layers in f32 (logits within 1e-4, tokens equal to the
-   plain attention), and the reduced model (tokens equal to the CPU run);
+   tokens per request, prefill logits against the plain attention; the
+   same requests again with ``gemm_backend="pallas_ws"`` on the same
+   weights (three ``matmul_ws`` launches per layer per forward, admit
+   and decode times beside the ``xla`` run's, prefill logits against
+   it); then two full-width layers in f32 (logits within 1e-4, tokens
+   equal to the plain attention), and the reduced model (tokens equal to
+   the CPU run);
 7. print the per-kernel JSON line and, last, the run's device line.  A
    kernel timed over several shapes reports the sum of their times (each
    of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
-   bounds.
+   bounds; ``matmul_ws``'s ``library_ms`` sums ``torch.matmul`` over its
+   four bf16 shapes (the int8 head has no library call), and its
+   ``launches`` are those of both main paths.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
 """
 
+import ctypes
 import dataclasses
+import itertools
 import json
 import re
 import shutil
@@ -78,6 +90,15 @@ LM_SLOTS, LM_MAX_SEQ = 4, 4096
 FLASH_SEQS = (512, 777, 2048, 3000)   # bf16 [1, S, 24, 128] checks
 FLASH_ROW_SEQ = 2048                  # the S of the JSON row's numbers
 FLASH_SMALL_DIMS = (16, 32, 64)       # bf16 head dims besides 128
+# matmul_ws: the shapes timed (the vgg_imagenet head; llama3.2-3b's MLP
+# GEMMs in a 3000-token prefill and in a 4-slot decode step); its edge
+# shapes are the card tests' MM_CASES
+MM_TIMED = (("vgg_imagenet head", 8, 256, 1000, "int8"),
+            ("prefill wi", 3000, 3072, 8192, "bfloat16"),
+            ("prefill wo", 3000, 8192, 3072, "bfloat16"),
+            ("decode wi", 4, 3072, 8192, "bfloat16"),
+            ("decode wo", 4, 8192, 3072, "bfloat16"))
+MM_BEFORE = (3000, 3072, 8192)        # the scalar kernel's f32 time, once
 KERNELS = {
     "conv2d_ws": ("src/repro_torch/kernels/csrc/conv2d_ws.cu",
                   "src/repro/kernels/conv2d_ws.py:255"),
@@ -94,7 +115,11 @@ def log(*parts):
     print(*parts, flush=True)
 
 
-_TEMPLATE_ARGS = {"a": "int8", "i": "int32", "f": "float"}
+# mangled template arguments; in these sources the only argument that
+# mangles as a back-reference (S_, S2_, ...) is __nv_bfloat16
+_TEMPLATE_ARGS = {"a": "int8", "i": "int32", "f": "float",
+                  "13__nv_bfloat16": "bf16"}
+_ARG = r"[aif]|13__nv_bfloat16|S\d*_|L[ib]\d+E"
 
 
 def kernel_name(mangled):
@@ -106,13 +131,15 @@ def kernel_name(mangled):
         name = mangled[end:end + int(num.group(1))]
         if name.endswith("kernel") and name.isidentifier():
             rest = mangled[end + len(name):]
-            args = re.match(r"I((?:[aif]|L[ib]\d+E)+)E", rest)
+            args = re.match(rf"I((?:{_ARG})+)E", rest)
             if not args:
                 return name
             out = []
-            for tok in re.findall(r"[aif]|L[ib]\d+E", args.group(1)):
+            for tok in re.findall(_ARG, args.group(1)):
                 if tok in _TEMPLATE_ARGS:
                     out.append(_TEMPLATE_ARGS[tok])
+                elif tok.startswith("S"):
+                    out.append("bf16")
                 elif tok.startswith("Lb"):
                     out.append("true" if tok[2:-1] == "1" else "false")
                 else:
@@ -158,12 +185,14 @@ def main():
     from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.matmul_ws import matmul_ws, matmul_ws_plain
+    from repro_torch.kernels.matmul_ws import (PATHS, matmul_ws,
+                                               matmul_ws_plain, mm_path)
     from repro_torch.layers.common import materialize
     from repro_torch.models import lm
     from repro_torch.serving.engine import (ConvNetEngine, Request,
                                             ServingEngine)
-    from test_torch_cuda import TC_CASES, tc_case_inputs
+    from test_torch_cuda import (MM_CASES, TC_CASES, bf16_gemm_bound,
+                                 bf16_ulp, mm_case_inputs, tc_case_inputs)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -205,12 +234,14 @@ def main():
             if found:
                 entry = kernel_name(found.group(1))
             elif "Used" in line or "Performance Loss" in line or re.search(
-                    r"[1-9]\d* bytes spill", line):
+                    r"[1-9]\d* bytes spill", line) or (
+                    "spill" in line and "wgmma_kernel" in entry):
                 log(f"  {name} {entry}: {line.strip()}")
-                if "spill" in line and "tc_kernel" in entry:
+                if re.search(r"[1-9]\d* bytes spill", line) and (
+                        "tc_kernel" in entry or "wgmma_kernel" in entry):
                     spilled.append(entry)
     if spilled:
-        raise AssertionError(f"tensor-core conv kernels spill: {spilled}")
+        raise AssertionError(f"tensor-core kernels spill: {spilled}")
     for name in ("conv2d_ws", "conv2d_ws_pipe"):
         ops = sass_tensor_ops(_build.library_path(name))
         tc = {k: v for k, v in sorted(ops.items()) if "tc_kernel" in k}
@@ -219,6 +250,13 @@ def main():
         if len(tc) != 4 or not all(tc.values()):
             raise AssertionError(f"{name}: an int8 tensor-core instantiation "
                                  f"holds no IMMA: {tc}")
+    ops = sass_tensor_ops(_build.library_path("matmul_ws"))
+    hg = {k: v for k, v in sorted(ops.items()) if "wgmma_kernel" in k}
+    log("  matmul_ws SASS, HGMMA instructions per bf16 long-M "
+        "instantiation: " + ", ".join(f"{k} {v}" for k, v in hg.items()))
+    if len(hg) != 2 or not all(hg.values()):
+        raise AssertionError(f"matmul_ws: a bf16 long-M instantiation holds "
+                             f"no HGMMA: {hg}")
 
     def elapsed_ms(fn, reps, warmup=2):
         for _ in range(warmup):
@@ -236,29 +274,39 @@ def main():
     def bound_ms(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
         return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / ops_per_s)
 
-    def add_bound(name, nbytes, ops):
+    def add_bound(name, nbytes, ops, ops_per_s=None):
         """Add one timed launch shape's bound to ``name``'s row → (bound
         ms, the side that limits it)."""
-        ops_per_s = stats[name]["ops_per_s"]
+        ops_per_s = ops_per_s or stats[name]["ops_per_s"]
         side = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / ops_per_s
                 else "operations")
         ms = bound_ms(nbytes, ops, ops_per_s)
         stats[name]["bound"][side] += ms
         return ms, side
 
-    def device_ms(fn, reps):
+    def device_ms(fn, reps, windows=3):
         """Device time of one call of ``fn``: the durations of every device
         event (kernels, copies, fills) that ``reps`` calls issue under
-        ``torch.profiler`` after a warm-up, over ``reps``."""
+        ``torch.profiler`` after a warm-up, over ``reps``.  A window whose
+        trace holds no device event at all (the profiler lost it, as seen
+        once in 10 calls of a kernel that had just run and been checked) is
+        profiled again, up to ``windows`` times, and said so; a trace with
+        some but fewer than ``reps`` events raises at once."""
         fn()
         torch.cuda.synchronize()
         act = torch.profiler.ProfilerActivity
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        for window in range(windows):
+            with torch.profiler.profile(
+                    activities=[act.CPU, act.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            if evs:
+                break
+            log(f"  torch.profiler window {window + 1} of {windows} held no "
+                f"device event")
         if len(evs) < reps:
             raise AssertionError(f"torch.profiler saw {len(evs)} device "
                                  f"events in {reps} calls")
@@ -361,26 +409,146 @@ def main():
         log(f"  {label}: x{tuple(x.shape)} w{tuple(w.shape)} {kw} "
             f"equal, {path} path")
 
-    def check_matmul(label, m, k, n, timed=False):
-        x, w, b = rand_i8(m, k), rand_i8(k, n), rand_bias(n)
-        compare("matmul_ws", matmul_ws(x, w, b), matmul_ws_plain(x, w, b))
-        xf, wf, bf = x.float() / 64, w.float() / 64, b.float() / 100
-        compare("matmul_ws", matmul_ws(xf, wf, bf),
-                matmul_ws_plain(xf, wf, bf))
-        row = ""
-        if timed:
-            ms = elapsed_ms(lambda: matmul_ws(x, w, b), reps=20)
-            dev_ms = device_ms(lambda: matmul_ws(x, w, b), 20)
-            plain = elapsed_ms(lambda: matmul_ws_plain(x, w, b), reps=20)
-            nbytes, ops = m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n
-            st = stats["matmul_ws"]
+    def mm_operands(m, k, n, dtype, bias=True):
+        if dtype == torch.int8:
+            x, w, b = rand_i8(m, k), rand_i8(k, n), rand_bias(n)
+        else:
+            x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(k, n, generator=gen, device=dev)
+                 / k ** 0.5).to(dtype)
+            b = torch.randn(n, generator=gen, device=dev)
+        return x, w, b if bias else None
+
+    def check_mm(x, w, b):
+        """One ``matmul_ws`` launch on the form ``mm_path`` names, against
+        ``matmul_ws_plain`` → (form, max abs err)."""
+        (m, k), n = x.shape, w.shape[1]
+        path = mm_path(m, k, n, x.dtype)
+        before = (matmul_ws.launches, matmul_ws.path_launches[path])
+        got = matmul_ws(x, w, b)
+        torch.cuda.synchronize()
+        if (matmul_ws.launches, matmul_ws.path_launches[path]) != (
+                before[0] + 1, before[1] + 1):
+            raise AssertionError(f"matmul_ws [{m},{k}]@[{k},{n}] {x.dtype}: "
+                                 f"not one launch on the {path} form")
+        want = matmul_ws_plain(x, w, b)
+        if x.dtype != torch.bfloat16:
+            return path, compare("matmul_ws", got, want)
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"matmul_ws: {got.dtype}{tuple(got.shape)} "
+                                 f"vs plain {want.dtype}{tuple(want.shape)}")
+        err_t = (got.float() - want.float()).abs()
+        err = float(err_t.max())
+        if not bool((err_t <= bf16_gemm_bound(x, w, b, got, want)).all()):
+            raise AssertionError(f"matmul_ws [{m},{k}]@[{k},{n}] bf16 ({path}) "
+                                 f"disagrees with its plain version beyond "
+                                 f"the bound (max abs err {err})")
+        st = stats["matmul_ws"]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        return path, err
+
+    def check_matmuls():
+        """Every form at its edge shapes, then the timed main-path shapes,
+        the scalar kernel's f32 time before this form, and the wrapper's
+        host cost → {timed label: device ms}."""
+        forms = dict.fromkeys(PATHS, 0)
+        dev_times = {}
+        line = []
+        for m, k, n, dname, bias in MM_CASES:
+            path, err = check_mm(*(None if t is None else t.to(dev) for t in
+                                   mm_case_inputs(m, k, n, dname, bias)))
+            forms[path] += 1
+            line.append(f"[{m},{k}]@[{k},{n}] {dname} {path} {err:.3g}")
+        log(f"  matmul_ws edges (shape dtype form max-abs-err; int8 equal, "
+            f"f32 within {F32_TOL}, bf16 within bf16_gemm_bound): "
+            + "; ".join(line))
+        if not all(forms.values()):
+            raise AssertionError(f"matmul_ws: a form was never checked: "
+                                 f"{forms}")
+        st = stats["matmul_ws"]
+        st["library_ms"] = 0.0
+        for label, m, k, n, dname in MM_TIMED:
+            dt = getattr(torch, dname)
+            # short M reads the weights once a call, like a decode step
+            # over 28 layers: rotate four copies so that the 50 MB L2
+            # cannot hold them from one call to the next
+            copies = 4 if m <= 16 else 1
+            x, w, b = mm_operands(m, k, n, dt, bias=dt == torch.int8)
+            ws = [w] + [mm_operands(m, k, n, dt)[1] for _ in range(copies - 1)]
+            path, _ = check_mm(x, w, b)
+            turn = itertools.count()
+            call = lambda: matmul_ws(x, ws[next(turn) % copies], b)  # noqa
+            ms = elapsed_ms(call, reps=20)
+            dev_ms = device_ms(call, 20)
+            plain = elapsed_ms(lambda: matmul_ws_plain(x, w, b), reps=3,
+                               warmup=1)
+            lib = lib_dev = None
+            if dt == torch.bfloat16:
+                lib_call = lambda: torch.matmul(  # noqa: E731
+                    x, ws[next(turn) % copies])
+                lib = elapsed_ms(lib_call, reps=20)
+                lib_dev = device_ms(lib_call, 20)
+                st["library_ms"] += lib
+            out_es = 4 if dt == torch.int8 else 2
+            nbytes = ((m * k + k * n) * x.element_size() + 4 * n
+                      + out_es * m * n)
+            ops = 2 * m * k * n
+            bound, side = add_bound("matmul_ws", nbytes, ops,
+                                    INT8_OPS_PER_S if dt == torch.int8
+                                    else BF16_OPS_PER_S)
             st["ms"] += ms
             st["device_ms"] += dev_ms
             st["plain_ms"] += plain
-            bound, _ = add_bound("matmul_ws", nbytes, ops)
-            row = (f"; matmul_ws {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
-                   f"device, plain {plain:.4f} ms, bound {bound:.5f} ms")
-        log(f"  {label}: [{m},{k}]@[{k},{n}] int8 and f32 equal{row}")
+            dev_times[label] = dev_ms
+            lib_txt = ("none (no PyTorch call computes an int8 GEMM at "
+                       "M = 8)" if lib is None else
+                       f"{lib:.4f} ms ({lib_dev:.4f} ms on the device)")
+            log(f"  matmul_ws {label} [{m},{k}]@[{k},{n}] {dname}, {path} "
+                f"form: {ms:.4f} ms a call, {dev_ms:.4f} ms on the device "
+                f"({ops / dev_ms / 1e9:.1f} TFLOP/s, "
+                f"{nbytes / dev_ms / 1e6:.0f} GB/s), bound {bound:.5f} ms "
+                f"({side}), plain {plain:.3f} ms, torch.matmul {lib_txt}")
+        m, k, n = MM_BEFORE
+        xf, wf, _ = mm_operands(m, k, n, torch.float32, bias=False)
+        path, _ = check_mm(xf, wf, None)
+        before = elapsed_ms(lambda: matmul_ws(xf, wf), reps=2, warmup=1)
+        log(f"  matmul_ws [{m},{k}]@[{k},{n}] f32, {path} form (the first "
+            f"port's kernel, the only form before this one): {before:.3f} "
+            f"ms a call")
+
+        def host_us(fn, reps):
+            """Host time of one call of ``fn``, over ``reps`` calls
+            enqueued without a synchronize."""
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            return 1e6 * (t1 - t0) / reps
+
+        x, w, _ = mm_operands(4, 3072, 8192, torch.bfloat16, bias=False)
+        call_us = host_us(lambda: matmul_ws(x, w), 200)
+        entry = _build.load("matmul_ws").matmul_ws_stream
+
+        def sign():                 # the first port's wrapper, every call
+            entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
+            entry.restype = ctypes.c_int
+
+        sign_us = host_us(sign, 2000)
+        zeros_us = host_us(lambda: torch.zeros((8192,), dtype=torch.float32,
+                                               device=dev), 200)
+        log(f"  matmul_ws host cost: {call_us:.1f} us a call at "
+            f"[4,3072]@[3072,8192] bf16 without bias (host clock over 200 "
+            f"enqueued calls); the first port's wrapper also set the C "
+            f"signature ({sign_us:.2f} us) and made a zero bias "
+            f"({zeros_us:.1f} us and a fill kernel) on every call: "
+            f"{sign_us + zeros_us:.1f} us a call, "
+            f"{84 * (sign_us + zeros_us) / 1e3:.2f} ms of host time per "
+            f"84-launch decode step")
+        return dev_times
 
     def net_layers(plan):
         """(input shape, weight shape, conv kwargs) of every conv of
@@ -455,15 +623,7 @@ def main():
     check_conv("f32", xf, wf, torch.randn(64, generator=gen, device=dev),
                None, dict(padding="SAME", relu=True, pool=True, h_tile=8,
                           w_tile=10))
-    check_matmul("vgg_imagenet head", BATCH, 256, 1000, timed=True)
-    check_matmul("lenet dense0", BATCH, 512, 64)
-    check_matmul("lenet dense1", BATCH, 64, 10)
-
-    def bf16_ulp(x):
-        """One bf16 ulp at each |x|: 2^(floor(log2|x|) - 7) (0 at x = 0)."""
-        a = x.float().abs()
-        return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
-                           torch.zeros_like(a))
+    mm_device_ms = check_matmuls()
 
     # bf16 attention: the kernel and the plain version each round an f32
     # result once, from sums taken in another order, so they may differ by
@@ -553,6 +713,7 @@ def main():
             fn.launches = 0
         for k in convs:
             wrappers[k].tc_launches = 0
+        matmul_ws.path_launches = dict.fromkeys(PATHS, 0)
 
     def counts():
         return {k: fn.launches for k, fn in wrappers.items()}
@@ -615,6 +776,15 @@ def main():
                 raise AssertionError(f"{name} kernel={kernel}: conv "
                                      f"launches {seen}, of them on the "
                                      f"tensor-core path {tc}")
+            forms = dict.fromkeys(PATHS, 0)
+            for i, sp in enumerate(plan.layers):
+                if sp.kind == "dense":
+                    k_in, k_out = plan.param_shapes()[i]["w"]
+                    forms[mm_path(BATCH, k_in, k_out, torch.int8)] += batches
+            if matmul_ws.path_launches != forms:
+                raise AssertionError(f"{name} kernel={kernel}: matmul_ws "
+                                     f"forms {matmul_ws.path_launches}, "
+                                     f"expected {forms}")
             if logits.shape != (REQUESTS, plan.activation_shapes()[-1][0]) \
                     or not np.isfinite(logits).all():
                 raise AssertionError(f"{name}: bad logits {logits.shape}")
@@ -632,7 +802,8 @@ def main():
                      f"device busy {busy:.3f} ms = {100 * busy / 1e3 / wall:.0f}"
                      f"% of it over {n_ev} device events (torch.profiler)")
             log(f"  {name} kernel={kernel}: launches {seen}, all "
-                f"{tc[expect]} conv launches on the tensor-core path; logits "
+                f"{tc[expect]} conv launches on the tensor-core path, "
+                f"matmul_ws forms {forms}; logits "
                 f"{logits.shape} bit-equal to the plain backend; "
                 f"{REQUESTS} requests in {1e3 * wall:.2f} ms "
                 f"({REQUESTS / wall:.1f} images/s, mean of {reps}); {share}; "
@@ -652,8 +823,8 @@ def main():
     for kernel, conv in (("auto", "conv2d_ws_pipe"),
                          ("sequential", "conv2d_ws")):
         wall_ms = 1e3 * results[kernel][2]
-        busy = (-(-REQUESTS // BATCH) * (stats[conv]["device_ms"]
-                                          + stats["matmul_ws"]["device_ms"]))
+        busy = (-(-REQUESTS // BATCH) * (
+            stats[conv]["device_ms"] + mm_device_ms["vgg_imagenet head"]))
         log(f"  vgg_imagenet kernel={kernel}: kernels {busy:.3f} ms of the "
             f"{wall_ms:.3f} ms submit (phase-3 device times x batches); "
             f"the rest, {wall_ms - busy:.3f} ms, is host work, plain glue "
@@ -753,31 +924,41 @@ def main():
                      f"(phase-3 device time)")
         log(f"    prompt {n:5d}: admit (prefill + cache scatter) "
             f"{ms:.1f} ms{share}")
-    busy_tokens = sum(b for b, _ in engine.step_ms)
-    step_s = sum(ms for _, ms in engine.step_ms) / 1e3
-    full = [ms for b, ms in engine.step_ms if b == LM_SLOTS]
-    generated = sum(len(r.output) for r in reqs)
-    steps = len(engine.step_ms)
-    median_full = np.median(full) if full else float("nan")
-    log(f"  decode: {steps} steps, {1e3 * step_s / steps:.2f} ms per step "
-        f"on average, {median_full:.2f} ms median with all {LM_SLOTS} "
-        f"slots busy; {busy_tokens / step_s:.1f} "
-        f"tokens/s over the decode steps; {generated} tokens in "
-        f"{wall:.2f} s of run ({generated / wall:.1f} tokens/s, prefills "
-        f"included)")
+    def log_decode(eng, reqs, wall):
+        busy_tokens = sum(b for b, _ in eng.step_ms)
+        step_s = sum(ms for _, ms in eng.step_ms) / 1e3
+        full = [ms for b, ms in eng.step_ms if b == LM_SLOTS]
+        generated = sum(len(r.output) for r in reqs)
+        steps = len(eng.step_ms)
+        median_full = np.median(full) if full else float("nan")
+        log(f"  decode: {steps} steps, {1e3 * step_s / steps:.2f} ms per "
+            f"step on average, {median_full:.2f} ms median with all "
+            f"{LM_SLOTS} slots busy; {busy_tokens / step_s:.1f} "
+            f"tokens/s over the decode steps; {generated} tokens in "
+            f"{wall:.2f} s of run ({generated / wall:.1f} tokens/s, "
+            f"prefills included)")
+        return generated
 
-    for r in reqs[:LM_SLOTS]:            # four busy slots again
-        engine.admit(fresh([r])[0])
+    def log_busy(eng, c, reqs, longest):
+        """Device-busy share of a 4-slot decode step and of the longest
+        prompt's prefill."""
+        for r in reqs[:LM_SLOTS]:            # four busy slots again
+            eng.admit(fresh([r])[0])
+        for label, fn in (("decode step, 4 slots", eng.step),
+                          (f"prefill of {len(longest)} tokens",
+                           lambda: last_logits(eng.params, c, longest))):
+            wall, busy, n = device_busy(fn)
+            share = ("not measured (no device events in the trace)"
+                     if busy is None else
+                     f"device busy {busy:.1f} ms = {100 * busy / wall:.0f}% "
+                     f"of it")
+            log(f"  {label}: {wall:.1f} ms of host clock, {n} device events "
+                f"under torch.profiler; {share}")
+
+    generated = log_decode(engine, reqs, wall)
+    xla_admit_ms = dict(engine.admit_ms)    # before log_busy admits again
     longest = max((r.prompt for r in reqs), key=len)
-    for label, fn in (("decode step, 4 slots", engine.step),
-                      (f"prefill of {len(longest)} tokens",
-                       lambda: last_logits(engine.params, cfg, longest))):
-        wall, busy, n = device_busy(fn)
-        share = ("not measured (no device events in the trace)"
-                 if busy is None else
-                 f"device busy {busy:.1f} ms = {100 * busy / wall:.0f}% of it")
-        log(f"  {label}: {wall:.1f} ms of host clock, {n} device events "
-            f"under torch.profiler; {share}")
+    log_busy(engine, cfg, reqs, longest)
 
     # each layer's attention output may move by one bf16 ulp (at most
     # 2^-7 relative) between the kernel and the plain softmax; 28 such
@@ -807,7 +988,68 @@ def main():
         f"of {generated} (not required: a near tie among "
         f"{cfg.vocab_size:,} bf16-rounded logits can flip an argmax, and "
         f"the request's later tokens follow the flip)")
-    del engine, plain_engine
+    del plain_engine
+
+    # the same requests with the MLP's three GEMMs a layer on matmul_ws
+    cfg_ws = dataclasses.replace(cfg, gemm_backend="pallas_ws")
+    ws_engine = TimedEngine(cfg_ws, engine.params, slots=LM_SLOTS,
+                            max_seq=LM_MAX_SEQ)
+    last_logits(ws_engine.params, cfg_ws, reqs[0].prompt)    # warm-up
+    wreqs = fresh(reqs)
+    reset_counts()
+    t0 = time.perf_counter()
+    ws_engine.run(wreqs)
+    wall = time.perf_counter() - t0
+    seen, forms = counts(), dict(matmul_ws.path_launches)
+    steps = len(ws_engine.step_ms)
+    mlp = 3 * cfg.num_layers
+    want = {k: 0 for k in wrappers}
+    want["flash_attention"] = cfg.num_layers * len(wreqs)
+    want["matmul_ws"] = mlp * (len(wreqs) + steps)
+    # prefills run M = prompt length > 16 rows, decode steps M = 4 slots
+    want_forms = {"wgmma": mlp * len(wreqs), "stream": mlp * steps,
+                  "scalar": 0}
+    if seen != want or forms != want_forms:
+        raise AssertionError(f"{cfg_ws.name} pallas_ws: launches {seen}, "
+                             f"matmul_ws forms {forms}; expected {want}, "
+                             f"{want_forms}")
+    check_served(f"{cfg_ws.name} pallas_ws", cfg_ws, wreqs)
+    stats["matmul_ws"]["launches"] += seen["matmul_ws"]
+    log(f"  gemm_backend='pallas_ws': launches {seen} (3 × "
+        f"{cfg.num_layers} matmul_ws per forward over {len(wreqs)} "
+        f"prefills and {steps} decode steps; forms {forms}); "
+        f"{len(wreqs)} requests × {LM_NEW_TOKENS} tokens, all in range")
+    for r in wreqs:
+        n, ms = len(r.prompt), ws_engine.admit_ms[r.uid]
+        xla_ms = xla_admit_ms[r.uid]
+        log(f"    prompt {n:5d}: admit {ms:.1f} ms with pallas_ws, "
+            f"{xla_ms:.1f} ms with xla ({ms / xla_ms:.2f}×)")
+    log_decode(ws_engine, wreqs, wall)
+    log_busy(ws_engine, cfg_ws, wreqs, longest)
+
+    # each layer's MLP rounds three bf16 GEMM outputs, each of which may
+    # move by one bf16 ulp (at most 2^-7 relative) between matmul_ws and
+    # the xla backend's torch.einsum; 3 × 28 such moves add at most
+    # linearly unless the network amplifies them
+    ws_bound = 3 * cfg.num_layers * 2.0 ** -7
+    worst = 0.0
+    for r in wreqs:
+        a = last_logits(ws_engine.params, cfg_ws, r.prompt)
+        b = last_logits(engine.params, cfg, r.prompt)
+        rel = float((a - b).norm() / b.norm())
+        if not bool(torch.isfinite(a).all()) or rel > ws_bound:
+            raise AssertionError(f"{cfg_ws.name} pallas_ws prompt "
+                                 f"{len(r.prompt)}: prefill logits off the "
+                                 f"xla backend's by {rel:.4g} (bound "
+                                 f"{ws_bound:.4g})")
+        worst = max(worst, rel)
+    same = sum(a == b for r, w in zip(reqs, wreqs)
+               for a, b in zip(r.output, w.output))
+    log(f"  prefill last-token logits against gemm_backend='xla': relative "
+        f"L2 error at most {worst:.4g} over the {len(wreqs)} prompts "
+        f"(bound {ws_bound:.4g}); greedy tokens equal to the xla run: "
+        f"{same} of {generated} (counted, not required)")
+    del engine, ws_engine
     torch.cuda.empty_cache()
 
     f32 = dataclasses.replace(cfg, num_layers=2, compute_dtype="float32")

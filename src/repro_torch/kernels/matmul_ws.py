@@ -1,77 +1,181 @@
-"""Bias-preloaded blocked GEMM as a hand-written Hopper kernel.
+"""Bias-preloaded GEMM as a hand-written Hopper kernel.
 
 Replaces the Pallas TPU kernel ``repro.kernels.matmul_ws.matmul_ws``:
-``[M,K] @ [K,N] + bias`` with int8 × int8 → int32 or f32 → f32 (no TF32).
-The CUDA source is ``csrc/matmul_ws.cu`` (64×64 output tiles, the K loop
-inside the block, bias preloaded into the accumulators; its note says what
-bounds it on the H100).
+``[M,K] @ [K,N] + bias`` with int8 × int8 → int32, f32 → f32 (no TF32), or
+bf16 × bf16 → bf16 (f32 products and sums plus an f32 bias, rounded once:
+what the reference's ``ops.matmul_ws`` returns).  The CUDA source,
+``csrc/matmul_ws.cu``, holds three forms (its note says what bounds each on
+the H100); ``mm_path`` picks one by geometry alone, and none falls back to
+another:
+
+* ``"wgmma"`` — bf16 at M > ``SHORT_M``, K and N multiples of 8: the
+  prefill GEMMs.  128 × 128 or 128 × 256 output tiles (``wgmma_bn``) on the
+  bf16 tensor cores, fed by TMA through a 4-stage ring; bound by
+  operations.
+* ``"stream"`` — bf16 or int8 at M ≤ ``SHORT_M``, N a multiple of 8 (and K
+  too for bf16): decode and the dense heads.  w is read once in wide
+  vectors, with K split over blocks where the columns alone would not fill
+  the card (``stream_plan``); bound by the bytes of w.
+* ``"scalar"`` — the first port's 64×64-tile kernel: f32, int8 at long M,
+  and bf16 whose rows are not 16-byte multiples (K or N not a multiple of
+  8), which TMA cannot address.
 
 On a CUDA tensor ``matmul_ws`` launches the kernel and counts the launch in
-``matmul_ws.launches``; on a CPU tensor it runs ``matmul_ws_plain``.
+``matmul_ws.launches`` and, by form, in ``matmul_ws.path_launches``; on a CPU
+tensor it runs ``matmul_ws_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.conv2d_ws import SMS
 from repro_torch.kernels.ref import matmul_ref, matmul_ref_int8
 
+SHORT_M = 16              # the stream form's rows at most (csrc: MT <= 16)
+STREAM_COLS = 256         # columns a stream block covers (csrc: stream::BN)
+STREAM_BLOCKS = 4 * SMS   # stream blocks wanted in flight
+STREAM_MIN_KC = 256       # K rows a stream block takes at least ...
+STREAM_MAX_KC = 512       # ... and at most (its x slice in shared memory)
+PATHS = ("wgmma", "stream", "scalar")
+_DTYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 
-def _int_path(x: torch.Tensor, w: torch.Tensor) -> bool:
+
+def _dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul_ws needs [M,K] @ [K,N], got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.dtype == torch.int8 and w.dtype == torch.int8:
-        return True
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return False
-    raise TypeError(f"matmul_ws takes int8 or float32 operands of one type, "
-                    f"got x {x.dtype}, w {w.dtype}")
+    if x.dtype != w.dtype or x.dtype not in _DTYPES:
+        raise TypeError(f"matmul_ws takes int8, float32 or bfloat16 operands "
+                        f"of one type, got x {x.dtype}, w {w.dtype}")
+    return x.dtype
+
+
+@functools.lru_cache(maxsize=None)
+def mm_path(m: int, k: int, n: int, dtype: torch.dtype) -> str:
+    """The form that runs ``[m,k] @ [k,n]`` in ``dtype`` on the card:
+    "wgmma", "stream" or "scalar" (see the module note)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"matmul_ws has no kernel for {dtype}")
+    if dtype == torch.float32:
+        return "scalar"
+    if dtype == torch.bfloat16:
+        if k % 8 or n % 8:            # rows of x or w not 16-byte multiples
+            return "scalar"
+        return "stream" if m <= SHORT_M else "wgmma"
+    return "stream" if m <= SHORT_M and n % 8 == 0 else "scalar"
+
+
+def wgmma_bn(m: int, n: int) -> int:
+    """The wgmma form's output tile width: 256, unless 128 × 256 tiles
+    would fill fewer than half the SMs, where 128 doubles the blocks.  On
+    the H100, 256 measured faster at [512..3000, 3072] @ [3072, 8192] and
+    [3000, 8192] @ [8192, 3072], and 128 at M = 64 (``PERF.md``)."""
+    tiles = -(-m // 128) * -(-n // 256)
+    return 256 if tiles >= SMS // 2 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(m: int, k: int, n: int) -> Tuple[int, int]:
+    """(split, kc) of the stream form: K in ``split`` slices of ``kc`` rows
+    (a multiple of 32, the block's 8 warps times 4 rows in flight), as many
+    as bring ``STREAM_BLOCKS`` blocks without a slice under
+    ``STREAM_MIN_KC`` or over ``STREAM_MAX_KC`` rows."""
+    del m
+    col_blocks = -(-n // STREAM_COLS)
+    split = min(-(-STREAM_BLOCKS // col_blocks), -(-k // STREAM_MIN_KC))
+    split = max(split, -(-k // STREAM_MAX_KC), 1)
+    rows = -(-k // split)
+    kc = -(-rows // 32) * 32
+    return -(-k // kc), kc
 
 
 def matmul_ws_plain(x, w, bias=None) -> torch.Tensor:
-    """Plain PyTorch version: exact int32 for int8 operands, f32 else."""
-    if _int_path(x, w):
+    """Plain PyTorch version: exact int32 for int8 operands; f32 for f32;
+    for bf16 the f32 product of the upcast operands (exact products, f32
+    sums) plus the bias, rounded once to bf16.  TF32 stays as the caller
+    set it (off by default for matmuls on the card)."""
+    dt = _dtype(x, w)
+    if dt == torch.int8:
         return matmul_ref_int8(x, w, bias)
-    return matmul_ref(x, w, bias)
+    out = matmul_ref(x, w, bias)
+    return out if dt == torch.float32 else out.to(dt)
 
 
-def _launch(x, w, bias, int_path: bool) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernel library, built on first use, with its entries' C
+    signatures set once."""
+    lib = _build.load("matmul_ws")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn, args in ((lib.matmul_ws_scalar, [ptr] * 4 + [i32] * 4),
+                     (lib.matmul_ws_stream, [ptr] * 5 + [i32] * 6),
+                     (lib.matmul_ws_wgmma, [ptr] * 4 + [i32] * 4)):
+        fn.argtypes = args + [ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned start (TMA and the stream
+    form's vector loads); copies only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, w, bias, path: str) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
-    acc_dtype = torch.int32 if int_path else torch.float32
-    if bias is None:
-        bias = torch.zeros((n,), dtype=acc_dtype, device=x.device)
-    bias = bias.to(device=x.device, dtype=acc_dtype).contiguous()
-    x, w = x.contiguous(), w.contiguous()
-    out = torch.empty((m, n), dtype=acc_dtype, device=x.device)
-    fn = _build.load("matmul_ws").matmul_ws_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check("matmul_ws", fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                                 out.data_ptr(), m, n, k,
-                                 0 if int_path else 1, stream))
+    dt = x.dtype
+    x, w = _aligned(x), _aligned(w)
+    if bias is not None:          # none: a null pointer, no zeros made
+        acc = torch.int32 if dt == torch.int8 else torch.float32
+        bias = bias.to(device=x.device, dtype=acc).contiguous()
+    out = torch.empty((m, n), dtype=torch.int32 if dt == torch.int8 else dt,
+                      device=x.device)
+    lib = _library()
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # about 10 us of host time a call on the H100's host
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    args = (x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr())
+    if path == "wgmma":
+        code = lib.matmul_ws_wgmma(*args, m, n, k, wgmma_bn(m, n), stream)
+    elif path == "stream":
+        split, kc = stream_plan(m, k, n)
+        part = (torch.empty((split, m, n), dtype=out.dtype if dt == torch.int8
+                            else torch.float32, device=x.device)
+                if split > 1 else None)
+        code = lib.matmul_ws_stream(
+            *args, None if part is None else part.data_ptr(), m, n, k,
+            kc, split, _DTYPES[dt], stream)
+    else:
+        code = lib.matmul_ws_scalar(*args, m, n, k, _DTYPES[dt], stream)
+    _build.check("matmul_ws", code)
     return out
 
 
 def matmul_ws(x, w, bias=None) -> torch.Tensor:
-    """x: [M,K] @ w: [K,N] (+bias [N]) → [M,N] (int32 for int8 operands,
-    f32 for f32).  A CUDA tensor launches the kernel, a CPU tensor runs the
-    plain version."""
-    int_path = _int_path(x, w)
+    """x: [M,K] @ w: [K,N] (+bias [N]) → [M,N]: int32 for int8 operands,
+    else the operands' dtype (f32 or bf16).  A CUDA tensor launches the
+    form ``mm_path`` names, a CPU tensor runs the plain version."""
+    dt = _dtype(x, w)
     if x.device.type == "cpu":
         return matmul_ws_plain(x, w, bias)
     if not x.is_cuda:
         raise ValueError(f"matmul_ws runs on a CUDA or CPU tensor, "
                          f"got {x.device}")
-    out = _launch(x, w, bias, int_path)
+    path = mm_path(x.shape[0], x.shape[1], w.shape[1], dt)
+    out = _launch(x, w, bias, path)
     matmul_ws.launches += 1
+    matmul_ws.path_launches[path] += 1
     return out
 
 
 matmul_ws.launches = 0
+matmul_ws.path_launches = dict.fromkeys(PATHS, 0)

@@ -5,8 +5,9 @@
   waveform: the int32 result wrapped to 8 bits), ``pipelined=`` picks
   ``conv2d_ws_pipe`` over ``conv2d_ws``, and grouped layers re-legalize
   their banks through ``ref.grouped_banks``;
-* ``matmul_ws`` is the GEMM entry, the kernel wrapper itself (it takes
-  int8 or f32 operands only, so no dtype cast is left to do here);
+* ``matmul_ws`` is the GEMM entry, the kernel wrapper itself: int8
+  operands give int32, f32 and bf16 operands their own dtype (bf16 is
+  accumulated in f32 and rounded once), as the reference's entry returns;
 * ``flash_attention`` is the attention entry of the LM prefill, the kernel
   wrapper itself (bf16 or f32, ``[B,S,H,D]``).
 

@@ -136,16 +136,14 @@ def dense(w, x: torch.Tensor, subscripts: str, *, backend: str = "xla",
     Both operands are cast to ``compute_dtype`` and the product comes out
     in it (the reference's ``preferred_element_type``: f32 accumulation,
     one rounding of the output).  ``backend="pallas_ws"`` routes 2-D
-    weights through the ``matmul_ws`` kernel, which takes f32 only."""
+    weights through the ``matmul_ws`` kernel (bf16 or f32), as the
+    reference does."""
     if isinstance(w, dict):
         raise NotImplementedError("w8 weights wait on the w8 serving slice "
                                   "of the port (ROADMAP A14)")
     x = cast(x, compute_dtype)
     w = cast(w, compute_dtype)
     if backend == "pallas_ws" and w.dim() == 2:
-        if w.dtype != torch.float32:
-            raise TypeError(f"gemm_backend='pallas_ws' runs matmul_ws, which "
-                            f"takes int8 or float32 operands, not {w.dtype}")
         from repro_torch.kernels import ops as kops
         lead = x.shape[:-1]
         y = kops.matmul_ws(x.reshape(-1, x.shape[-1]), w, bias=bias)

@@ -21,7 +21,11 @@ The case table is shared with ``test_torch_kernels.py``, which holds the
 plain versions against the JAX reference on the CPU.  Int paths are
 ``torch.equal``; f32 agrees within rtol = atol = 1e-4 (the kernels sum in
 another order than cuDNN); bf16 attention outputs, each rounded once from
-f32 sums taken in another order, agree within one bf16 ulp."""
+f32 sums taken in another order, agree within one bf16 ulp; bf16 GEMMs
+within one bf16 ulp plus their f32 sums' rounding (``bf16_gemm_bound``).
+``MM_CASES`` hold each ``matmul_ws`` form (``mm_path``) at its edges: M
+from 1 to 3000 across the stream / wgmma boundary at 16, K and N off the
+tiles, the head's N = 1000, and rows that are not 16-byte multiples."""
 
 import numpy as np
 import pytest
@@ -33,7 +37,7 @@ from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_plain,
 from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.matmul_ws import matmul_ws, matmul_ws_plain
+from repro_torch.kernels.matmul_ws import matmul_ws, matmul_ws_plain, mm_path
 
 # (x shape, w shape, conv2d kwargs, scale: None | "scalar" | "per_k")
 CASES = {
@@ -241,6 +245,71 @@ def bf16_ulp(x):
     x = x.float().abs()
     return torch.where(x > 0, torch.exp2(torch.floor(torch.log2(x)) - 7),
                        torch.zeros_like(x))
+
+
+def bf16_gemm_bound(x, w, b, got, want):
+    """Two bf16 GEMMs that take exact bf16 products, sum them in f32 in
+    different orders (each within (K + 1)·2^-24·S of the exact sum,
+    S = |x|·|w| + |b|) and round once to bf16 (half an ulp each) differ by
+    at most one bf16 ulp of the larger magnitude plus (K + 1)·2^-23·S."""
+    s = x.float().abs() @ w.float().abs()
+    if b is not None:
+        s = s + b.float().abs()
+    mag = torch.maximum(got.float().abs(), want.float().abs())
+    return bf16_ulp(mag) + (x.shape[1] + 1) * 2.0 ** -23 * s
+
+
+# matmul_ws edges: (m, k, n, dtype, bias)
+MM_CASES = ([(m, 200, 264, "bfloat16", m != 64)
+             for m in (1, 4, 8, 16, 17, 63, 64, 65, 3000)]
+            + [(m, 200, 264, "int8", m != 4) for m in (1, 4, 16, 17, 65)]
+            + [(8, 256, 1000, "int8", True), (8, 256, 1000, "bfloat16", True),
+               (3000, 256, 1000, "bfloat16", True),
+               (4, 3072, 8192, "bfloat16", False),
+               (4, 8192, 3072, "bfloat16", False),
+               (3000, 3072, 8192, "bfloat16", False),
+               (3, 70, 33, "bfloat16", True), (65, 70, 264, "bfloat16", True),
+               (3, 70, 33, "float32", True), (8, 512, 64, "int8", True),
+               (8, 64, 10, "int8", True)])
+
+
+def mm_case_inputs(m, k, n, dtype, bias):
+    """Seeded CPU operands of one ``MM_CASES`` entry: x, w, bias or
+    None."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(m + k + n)
+    if dt == torch.int8:
+        x = torch.randint(-128, 128, (m, k), generator=g, dtype=dt)
+        w = torch.randint(-128, 128, (k, n), generator=g, dtype=dt)
+        b = torch.randint(-4000, 4000, (n,), generator=g, dtype=torch.int32)
+    else:
+        x = torch.randn((m, k), generator=g).to(dt)
+        w = (torch.randn((k, n), generator=g) / k ** 0.5).to(dt)
+        b = torch.randn((n,), generator=g)
+    return x, w, b if bias else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,dtype,bias", MM_CASES)
+def test_cuda_matmul_forms_equal_plain(cuda, m, k, n, dtype, bias):
+    x, w, b = (None if t is None else t.to(cuda)
+               for t in mm_case_inputs(m, k, n, dtype, bias))
+    dt = x.dtype
+    path = mm_path(m, k, n, dt)
+    before = dict(matmul_ws.path_launches)
+    got = matmul_ws(x, w, b)
+    torch.cuda.synchronize()
+    assert matmul_ws.path_launches == {**before, path: before[path] + 1}
+    want = matmul_ws_plain(x, w, b)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dt == torch.int8:
+        assert torch.equal(got, want)
+    elif dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= bf16_gemm_bound(x, w, b, got, want)).all()), \
+            float(err.max())
 
 
 @pytest.mark.cuda

@@ -28,6 +28,7 @@ from repro_torch.configs import base
 from repro_torch.layers import attention, common, embedding, mlp, norms, rope
 from repro_torch.models import blocks, lm
 from repro_torch.serving import serve_step
+from test_torch_cuda import bf16_gemm_bound
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -166,9 +167,21 @@ def test_dense_backends_and_dtypes():
     y = common.dense(torch.from_numpy(w), torch.from_numpy(x),
                      "bsd,df->bsf", compute_dtype="bfloat16")
     assert y.dtype == torch.bfloat16       # the output in the compute dtype
-    with pytest.raises(TypeError, match="matmul_ws"):
-        common.dense(torch.from_numpy(w), torch.from_numpy(x), "bsd,df->bsf",
-                     backend="pallas_ws", compute_dtype="bfloat16")
+    # bf16 through matmul_ws, as the reference routes it: both round f32
+    # sums once, so they agree within one bf16 ulp of the larger magnitude
+    # plus the f32 sums' rounding (bf16_gemm_bound)
+    want = jcommon.dense(jnp.asarray(w), jnp.asarray(x), "bsd,df->bsf",
+                         backend="pallas_ws", compute_dtype=jnp.bfloat16)
+    assert want.dtype == jnp.bfloat16
+    got = common.dense(torch.from_numpy(w), torch.from_numpy(x),
+                       "bsd,df->bsf", backend="pallas_ws",
+                       compute_dtype="bfloat16")
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 48)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    xb = torch.from_numpy(x).bfloat16().reshape(6, 64)
+    bound = bf16_gemm_bound(xb, torch.from_numpy(w).bfloat16(), None,
+                            got.reshape(6, 48), want.reshape(6, 48))
+    assert bool(((got.float() - want).abs().reshape(6, 48) <= bound).all())
     with pytest.raises(NotImplementedError, match="w8"):
         common.dense({"q": w, "s": 1.0}, torch.from_numpy(x), "bsd,df->bsf")
 
@@ -299,6 +312,35 @@ def test_prefill_and_decode_step_two_layers(impl):
         _close(tl, jl)
         tok, pos = np.array(jserve.greedy_sample(jl)), pos + 1
         assert np.array_equal(serve_step.greedy_sample(tl).numpy(), tok)
+
+
+# each layer's bf16 results may differ by one bf16 ulp (2^-7 relative at
+# most) between the two frameworks; over two layers that is 2^-6 of
+# relative L2 at most, unless the network amplifies it (chip_smoke.py's
+# phase 6 bounds the full model's logits the same way)
+BF16_REL_L2 = 2 * 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_pallas_ws_two_layers(dtype):
+    """The reduced llama3.2-3b with gemm_backend='pallas_ws': the MLP's
+    GEMMs run matmul_ws (its plain version on the CPU) and the prefill
+    logits match the JAX model's, whose GEMMs run the Pallas kernel."""
+    jcfg, cfg = _configs(num_layers=2, gemm_backend="pallas_ws",
+                         compute_dtype=dtype)
+    jp, tp = _weights(jlm.param_specs(jcfg))
+    tokens = np.random.default_rng(19).integers(0, 512, (2, 24)).astype(
+        np.int32)
+    jl, _ = jlm.prefill(jp, {"tokens": jnp.asarray(tokens)}, jcfg,
+                        cache_len=32)
+    tl, _ = lm.prefill(tp, {"tokens": torch.from_numpy(tokens).long()}, cfg,
+                       cache_len=32)
+    if dtype == "float32":
+        _close(tl, jl)
+        return
+    got, want = tl.double().numpy(), np.asarray(jl, np.float64)
+    assert np.isfinite(got).all()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < BF16_REL_L2
 
 
 def test_flash_through_the_model_llama3_8b():
