@@ -11,8 +11,9 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    registers and spills (``-Xptxas -v``) and the tensor-core instructions
    in each tensor-core instantiation's SASS (``cuobjdump -sass``: ``IMMA``
    in the conv kernels, ``HGMMA`` in ``matmul_ws``'s bf16 long-M form);
-   fail on a spill in either, a missing ``IMMA`` or ``HGMMA``, a missing
-   compiler report or a missing ``cuobjdump``;
+   fail on a spill in either or in a ``flash_attention`` ``wgmma``
+   instantiation (D = 256 included), a missing ``IMMA`` or ``HGMMA``, a
+   missing compiler report or a missing ``cuobjdump``;
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (``vgg_imagenet``'s six convs at
    224×224, the ``lenet`` convs, the §5.2 layer, depthwise / stride-2 /
@@ -21,8 +22,12 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    heads; every ``matmul_ws`` form at its edge shapes (M from 1 to 3000,
    K and N off the tiles, the head's N = 1000) and at the LM's MLP
    shapes; llama3.2-3b's attention at S = 512, 777,
-   2048, 3000, and the bf16 attention kernel's other head dims 16, 32,
-   64): int paths ``torch.equal``, f32 within 1e-4, bf16 attention within
+   2048, 3000, the bf16 attention kernel's other head dims 16, 32, 64,
+   and the head dims it runs padded, at D = 256 or on f32 copies — bf16
+   D = 8, 96 and 256 at [1, 2048, H, D] with H·D = 3072, bf16 D = 320, f32
+   D = 6 and 160, and f32 B·H = 65,600 — each asserting the variant
+   ``kernel_variant`` names): int paths ``torch.equal``, f32 within 1e-4,
+   bf16 attention within
    one bf16 ulp, bf16 GEMMs within the bound ``bf16_gemm_bound`` derives;
    each conv and GEMM check also asserts which path or form launched.  Time each kernel's call and its plain version with CUDA
    events around back-to-back calls (``ms``, ``plain_ms``: host work
@@ -35,7 +40,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
-   to 16 requests through ``ConvNetEngine(batch=8)``: logits bit-equal to
+   to 16 requests through ``ConvNetEngine(batch=8)`` (the facade of the
+   continuous-batching engine): logits bit-equal to
    the plain backend, launch counts read around the run, every conv launch
    on the tensor-core path, the device-busy share of one submit; again
    with ``kernel="sequential"``; then ``lenet``, whose card logits must
@@ -51,12 +57,25 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    it); then two full-width layers in f32 (logits within 1e-4, tokens
    equal to the plain attention), and the reduced model (tokens equal to
    the CPU run);
-7. print the per-kernel JSON line and, last, the run's device line.  A
+7. continuous batching: ``ContinuousBatchingEngine`` serves
+   ``vgg_imagenet`` 224 at batch 8 under 4 virtual cores in each of the
+   batch, kout and spatial modes, ``unet_small`` at 224×224×4 (transposed
+   convs up to 112 and 224 rows) and ``lenet``, each bit-equal to the
+   plain backend, with every kernel's launches, tensor-core launches and
+   ``matmul_ws`` forms held to what ``conv_path`` / ``mm_path`` give the
+   calls the program makes (recorded through the same scheduler); one
+   batch dispatched under ``torch.cuda.set_sync_debug_mode("error")``; one
+   engine with a 2-program cache serving all three models to 64 requests
+   from 4 threads at both priorities (an evict and rebuild asserted,
+   results bit-equal); images/s, latency percentiles, formation counts and
+   the device-busy share of an open-loop load beside phase 5's
+   synchronous submit;
+8. print the per-kernel JSON line and, last, the run's device line.  A
    kernel timed over several shapes reports the sum of their times (each
    of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
    bounds; ``matmul_ws``'s ``library_ms`` sums ``torch.matmul`` over its
-   four bf16 shapes (the int8 head has no library call), and its
-   ``launches`` are those of both main paths.
+   four bf16 shapes (the int8 head has no library call), and the convs'
+   and ``matmul_ws``'s ``launches`` add phase 7's to their main paths'.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
@@ -70,7 +89,9 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import Future
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -90,6 +111,16 @@ LM_SLOTS, LM_MAX_SEQ = 4, 4096
 FLASH_SEQS = (512, 777, 2048, 3000)   # bf16 [1, S, 24, 128] checks
 FLASH_ROW_SEQ = 2048                  # the S of the JSON row's numbers
 FLASH_SMALL_DIMS = (16, 32, 64)       # bf16 head dims besides 128
+# head dims the kernels take padded, at D = 256 or on f32 copies:
+# (B, S, H, D, dtype, variant); the bf16 ones at S = 2048 with H·D = 3072,
+# llama3.2-3b's attention width, so their work is comparable to its
+FLASH_REPAIRED = ((1, 2048, 384, 8, "bfloat16", "wgmma_padded"),
+                  (1, 2048, 32, 96, "bfloat16", "wgmma_padded"),
+                  (1, 2048, 12, 256, "bfloat16", "wgmma"),
+                  (1, 300, 2, 320, "bfloat16", "scalar_f32_copies"),
+                  (2, 300, 4, 6, "float32", "scalar_padded"),
+                  (2, 300, 4, 160, "float32", "scalar"),
+                  (1, 16, 65600, 4, "float32", "scalar"))   # B·H > 65535
 # matmul_ws: the shapes timed (the vgg_imagenet head; llama3.2-3b's MLP
 # GEMMs in a 3000-token prefill and in a 4-slot decode step); its edge
 # shapes are the card tests' MM_CASES
@@ -169,6 +200,7 @@ def sass_tensor_ops(lib_path):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -178,17 +210,24 @@ def main():
                                           reduce_config)
     from repro_torch.core import network, perfmodel
     from repro_torch.core.convcore import (ConvCore, ConvCoreConfig,
-                                           paper_workload)
+                                           get_backend, paper_workload,
+                                           register_backend,
+                                           unregister_backend)
+    from repro_torch.core.scheduler import MultiCoreScheduler, SchedulerConfig
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_plain,
                                                conv_path, setup_conv)
     from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
+    from repro_torch.kernels.conv2d_ws_trans import transpose_eq_conv_geometry
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     kernel_variant)
     from repro_torch.kernels.matmul_ws import (PATHS, matmul_ws,
                                                matmul_ws_plain, mm_path)
     from repro_torch.layers.common import materialize
     from repro_torch.models import lm
+    from repro_torch.serving.batching import (ContinuousBatchingEngine,
+                                              FormedBatch, ServeRequest)
     from repro_torch.serving.engine import (ConvNetEngine, Request,
                                             ServingEngine)
     from test_torch_cuda import (MM_CASES, TC_CASES, bf16_gemm_bound,
@@ -235,10 +274,12 @@ def main():
                 entry = kernel_name(found.group(1))
             elif "Used" in line or "Performance Loss" in line or re.search(
                     r"[1-9]\d* bytes spill", line) or (
-                    "spill" in line and "wgmma_kernel" in entry):
+                    "spill" in line and ("wgmma_kernel" in entry
+                                         or "flash_bf16_kernel" in entry)):
                 log(f"  {name} {entry}: {line.strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line) and (
-                        "tc_kernel" in entry or "wgmma_kernel" in entry):
+                        "tc_kernel" in entry or "wgmma_kernel" in entry
+                        or "flash_bf16_kernel" in entry):
                     spilled.append(entry)
     if spilled:
         raise AssertionError(f"tensor-core kernels spill: {spilled}")
@@ -632,7 +673,16 @@ def main():
     BF16_ATOL = 1e-5
     flash_ms = {}
 
-    def check_flash(b, s, h, d, dtype, causal, timed=False):
+    def check_flash(b, s, h, d, dtype, causal, timed=False, variant=None):
+        """One ``flash_attention`` call against its plain version, on the
+        kernel ``variant`` names (asserted); ``timed`` adds its times, and
+        llama3.2-3b's [1, 2048, 24, 128] ones make the JSON row."""
+        want_variant = variant or (
+            "wgmma" if dtype == torch.bfloat16 else "scalar")
+        if kernel_variant(dtype, d) != want_variant:
+            raise AssertionError(f"flash_attention D = {d} {dtype}: variant "
+                                 f"{kernel_variant(dtype, d)}, expected "
+                                 f"{want_variant}")
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
         got = flash_attention(q, k, v, causal=causal)
@@ -665,8 +715,10 @@ def main():
                 qt, kt, vt, is_causal=causal), reps=10)
             pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
             ops, nbytes = 4 * d * pairs, 4 * b * s * h * d * q.element_size()
-            flash_ms[s] = dev_ms
-            if s == FLASH_ROW_SEQ:
+            if (h, d) == (lm_full.num_heads, lm_full.head_dim):
+                flash_ms[s] = dev_ms
+            if (s, h, d) == (FLASH_ROW_SEQ, lm_full.num_heads,
+                             lm_full.head_dim):
                 st.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                           library_ms=lib)
                 add_bound("flash_attention", nbytes, ops)
@@ -676,7 +728,8 @@ def main():
                    f"{lib:.4f} ms, bound "
                    f"{bound_ms(nbytes, ops, BF16_OPS_PER_S):.4f} ms")
         log(f"  flash_attention [{b},{s},{h},{d}] {str(dtype)[6:]} "
-            f"causal={causal}: max abs err {err:.3g} ({tol}){row}")
+            f"causal={causal}, {want_variant}: max abs err {err:.3g} "
+            f"({tol}){row}")
 
     lm_full = get_config(LM_ARCH)
     for s_len in FLASH_SEQS:
@@ -687,6 +740,9 @@ def main():
         check_flash(2, 300, 4, d, torch.bfloat16, False)
     for causal in (True, False):
         check_flash(2, 300, 4, 64, torch.float32, causal)
+    for b, s_len, h, d, dname, variant in FLASH_REPAIRED:
+        check_flash(b, s_len, h, d, getattr(torch, dname), True,
+                    timed=s_len == FLASH_ROW_SEQ, variant=variant)
 
     # -- 4. the §5.2 layer through ConvCore --------------------------------
     log("phase 4: the §5.2 layer through ConvCore(int8=True)")
@@ -752,8 +808,10 @@ def main():
         with torch.no_grad():
             float_logits = plan.apply_ref(
                 params, torch.from_numpy(images).to(dev)).cpu().numpy()
-        ref_logits = ConvNetEngine(qnet, batch=BATCH, core_config=ConvCoreConfig(
-            int8=True, backend="ref")).submit(images)
+        ref_engine = ConvNetEngine(qnet, batch=BATCH, core_config=ConvCoreConfig(
+            int8=True, backend="ref"))
+        ref_logits = ref_engine.submit(images)
+        ref_engine.close()
         results = {}
         for kernel, expect in (("auto", "conv2d_ws_pipe"),
                                ("sequential", "conv2d_ws")):
@@ -809,14 +867,16 @@ def main():
                 f"({REQUESTS / wall:.1f} images/s, mean of {reps}); {share}; "
                 f"stats {served}")
             results[kernel] = (seen, logits, wall)
+            engine.close()
         rel = np.linalg.norm(logits - float_logits) / np.linalg.norm(
             float_logits)
         log(f"  {name}: int8 logits vs the float oracle: relative error "
             f"{rel:.4f}")
-        return qnet, images, results
+        return qnet, images, results, ref_logits
 
     log("phase 5: the conv main path")
-    _, _, results = serve("vgg_imagenet", network.vgg_imagenet(), seed=0)
+    vq, vimages, results, vref = serve("vgg_imagenet",
+                                       network.vgg_imagenet(), seed=0)
     for k in ("conv2d_ws_pipe", "matmul_ws"):
         stats[k]["launches"] = results["auto"][0][k]
     stats["conv2d_ws"]["launches"] = results["sequential"][0]["conv2d_ws"]
@@ -829,8 +889,10 @@ def main():
             f"{wall_ms:.3f} ms submit (phase-3 device times x batches); "
             f"the rest, {wall_ms - busy:.3f} ms, is host work, plain glue "
             f"ops and launch gaps")
-    lq, limages, lres = serve("lenet", network.lenet(), seed=1)
-    cpu = ConvNetEngine(lq, batch=BATCH, device="cpu").submit(limages)
+    lq, limages, lres, lref = serve("lenet", network.lenet(), seed=1)
+    cpu_engine = ConvNetEngine(lq, batch=BATCH, device="cpu")
+    cpu = cpu_engine.submit(limages)
+    cpu_engine.close()
     if not np.array_equal(cpu, lres["auto"][1]):
         raise AssertionError("lenet: card logits differ from the CPU run")
     log("  lenet: card logits bit-equal to the CPU run of the same program")
@@ -1096,7 +1158,281 @@ def main():
     log("  reduced llama3.2-3b: card tokens equal to the CPU run of the same "
         "engine")
 
-    # -- 7. results --------------------------------------------------------
+    # -- 7. continuous batching --------------------------------------------
+    log("phase 7: continuous batching and the multi-core scheduler")
+
+    class Recorder:
+        """A backend that records every conv, transposed conv and GEMM it
+        is handed (shapes, arguments, tile plan) and computes it on the
+        kernels: the launches a program's run must make, read back as
+        paths by ``conv_path`` and forms by ``mm_path``."""
+
+        name = "record"
+
+        def __init__(self):
+            self.calls = []
+            self.inner = get_backend("cuda")
+
+        def conv(self, x, w, bias=None, **kw):
+            self.calls.append(("conv", tuple(x.shape), tuple(w.shape), kw))
+            return self.inner.conv(x, w, bias, **kw)
+
+        def conv_transpose(self, x, w, bias=None, **kw):
+            self.calls.append(("conv_transpose", tuple(x.shape),
+                               tuple(w.shape), kw))
+            return self.inner.conv_transpose(x, w, bias, **kw)
+
+        def matmul(self, x, w, bias=None):
+            self.calls.append(("matmul", tuple(x.shape), tuple(w.shape),
+                               x.dtype))
+            return self.inner.matmul(x, w, bias)
+
+    def expected_launches(qnet, mode, cores, batches):
+        """(launches, tensor-core launches, matmul forms) that ``batches``
+        batches of ``qnet`` make under (mode, cores): one batch runs
+        through the same scheduler around ``Recorder`` and each recorded
+        call becomes one kernel launch, on the conv kernel its tile plan
+        names and the path ``conv_path`` gives its geometry (a transposed
+        conv's: its stride-1 lowering), or on the ``mm_path`` form."""
+        rec = Recorder()
+        register_backend(rec)
+        sched = MultiCoreScheduler(SchedulerConfig(cores, mode))
+        name = rec.name
+        if mode != "batch":
+            sb = sched.shard_backend(rec.name)
+            register_backend(sb)
+            name = sb.name
+        program = network.make_int8_program(qnet, ConvCoreConfig(
+            int8=True, backend=name))
+        sched.run(program, torch.zeros((BATCH, *qnet.plan.input_shape),
+                                       device=dev))
+        torch.cuda.synchronize()
+        unregister_backend(name)
+        unregister_backend(rec.name)
+        want = {k: 0 for k in wrappers}
+        tc = {k: 0 for k in convs}
+        forms = dict.fromkeys(PATHS, 0)
+        for kind, xs, ws, kw in rec.calls:
+            if kind == "matmul":
+                forms[mm_path(xs[0], xs[1], ws[1], kw)] += batches
+                want["matmul_ws"] += batches
+                continue
+            stride, pad = kw["stride"], kw["padding"]
+            if kind == "conv_transpose":
+                hd, wd, pad = transpose_eq_conv_geometry(
+                    xs[1], xs[2], ws[0], ws[1], stride, pad, kw["dilation"])
+                xs, stride = (xs[0], hd, wd, xs[3]), 1
+            groups = kw.get("groups", 1)     # a dense kout shard omits it
+            g = setup_conv(xs, ws, stride=stride, padding=pad,
+                           groups=groups, cin_banks=1, kout_banks=groups,
+                           pool=kw["pool"],
+                           requant=kw["out_scale"] is not None,
+                           dilation=kw["dilation"])
+            plan = kw["plan"]
+            k = "conv2d_ws_pipe" if plan and plan.pipelined else "conv2d_ws"
+            want[k] += batches
+            tc[k] += batches * (conv_path(g) == "tc")
+        return want, tc, forms
+
+    def cbe_serve(label, qnet, images, want_logits, mode="batch", cores=1,
+                  reps=3):
+        """Serve ``images`` through a ContinuousBatchingEngine under (mode,
+        cores): logits bit-equal to the plain backend's, launch counts per
+        kernel, path and form as ``expected_launches`` works them out;
+        then the mean of ``reps`` more submits → (launches, submit s)."""
+        backend, n_cores = "cuda", cores
+        if mode != "batch":
+            sb = MultiCoreScheduler(SchedulerConfig(cores, mode)) \
+                .shard_backend("cuda")
+            register_backend(sb)
+            backend, n_cores = sb.name, 1
+        eng = ContinuousBatchingEngine(batch=BATCH, n_cores=n_cores,
+                                       backend=backend, device=dev)
+        eng.add_model(qnet)
+        batches = -(-len(images) // BATCH)
+        want, want_tc, want_forms = expected_launches(qnet, mode, cores,
+                                                      batches)
+        reset_counts()
+        logits = eng.submit(images)
+        seen = counts()
+        tc = {k: wrappers[k].tc_launches for k in convs}
+        forms = dict(matmul_ws.path_launches)
+        if (seen, tc, forms) != (want, want_tc, want_forms):
+            raise AssertionError(
+                f"{label} {mode}×{cores}: launches {seen}, tensor-core "
+                f"{tc}, matmul forms {forms}; expected {want}, {want_tc}, "
+                f"{want_forms}")
+        if logits.shape != want_logits.shape or not np.isfinite(
+                logits).all() or not np.array_equal(logits, want_logits):
+            raise AssertionError(f"{label} {mode}×{cores}: logits differ "
+                                 f"from the plain backend")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng.submit(images)
+        wall = (time.perf_counter() - t0) / reps
+        log(f"  {label} {mode} × {cores} cores: launches {seen} "
+            f"(tensor-core {tc}, matmul_ws forms {forms}, as conv_path / "
+            f"mm_path give them); logits {logits.shape} bit-equal to the "
+            f"plain backend; submit of {len(images)} in {1e3 * wall:.2f} ms "
+            f"({len(images) / wall:.1f} images/s, mean of {reps}); "
+            f"formation {eng.formation_counts()}")
+        eng.close()
+        if mode != "batch":
+            unregister_backend(backend)
+        return seen, wall
+
+    cbe_launches = {k: 0 for k in wrappers}
+    for mode in ("batch", "kout", "spatial"):
+        seen, _ = cbe_serve("vgg_imagenet 224", vq, vimages, vref, mode, 4)
+        for k in wrappers:
+            cbe_launches[k] += seen[k]
+
+    rng = np.random.default_rng(2)
+    uplan = network.unet_small(input_shape=(224, 224, 4), classes=3)
+    uparams = uplan.init_params(rng, device=dev)
+    ucal = torch.from_numpy(rng.normal(size=(REQUESTS, *uplan.input_shape))
+                            .astype(np.float32)).to(dev)
+    uq = network.quantize_network(uplan, uparams, ucal)
+    uimages = rng.normal(size=(REQUESTS, *uplan.input_shape)).astype(
+        np.float32)
+    uref_engine = ContinuousBatchingEngine(batch=BATCH, backend="ref",
+                                           device=dev)
+    uref_engine.add_model(uq)
+    uref = uref_engine.submit(uimages)
+    uref_engine.close()
+    log(f"  unet_small 224×224×4, 3 classes: transposed convs up1 "
+        f"{uplan.activation_shapes()[4][:2]} → "
+        f"{uplan.activation_shapes()[5][:2]} and up2 → "
+        f"{uplan.activation_shapes()[8][:2]}")
+    seen, _ = cbe_serve("unet_small 224", uq, uimages, uref)
+    for k in wrappers:
+        cbe_launches[k] += seen[k]
+    seen, _ = cbe_serve("lenet", lq, limages, lref)
+    for k in wrappers:
+        cbe_launches[k] += seen[k]
+
+    # no hidden host sync in a dispatch: one formed batch through
+    # _dispatch with torch's sync debug mode raising on any synchronizing
+    # call (a fresh engine whose worker is idle after one warm batch)
+    eng = ContinuousBatchingEngine(batch=BATCH, n_cores=4, device=dev)
+    eng.add_model(vq)
+    eng.submit(vimages[:BATCH])
+    now = time.perf_counter_ns()
+    fb = FormedBatch(model=vq.plan.name, reason="drain", requests=[
+        ServeRequest(uid=10_000 + i, model=vq.plan.name, image=vimages[i],
+                     priority="interactive", enqueue_ns=now,
+                     deadline_ns=now, future=Future())
+        for i in range(BATCH)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._dispatch(fb)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eng._retire_one()
+    got = np.stack([r.future.result(timeout=60) for r in fb.requests])
+    if not np.array_equal(got, vref[:BATCH]):
+        raise AssertionError("sync-debug dispatch: logits differ")
+    eng.close()
+    log("  one vgg_imagenet batch dispatched under "
+        "torch.cuda.set_sync_debug_mode('error'): no synchronizing call, "
+        "logits bit-equal")
+
+    # one engine, three models, a 2-program cache, four submitters
+    models = {"vgg_imagenet": (vq, vimages, vref),
+              "unet_small": (uq, uimages, uref),
+              "lenet": (lq, limages, lref)}
+    eng = ContinuousBatchingEngine(batch=BATCH, n_cores=4, device=dev,
+                                   cache_capacity=2, deadline_ms=2.0)
+    for name, (q, _, _) in models.items():
+        eng.add_model(q, name=name)
+    names = list(models)
+    # thread t, chunk j: 4 images of one model, the models in turn
+    per_thread = [[(names[(t + j) % 3], 4 * ((t + j) % 4)) for j in range(4)]
+                  for t in range(4)]
+    errors, outs = [], {}
+
+    def submitter(t):
+        try:
+            mine = []
+            for j, (name, start) in enumerate(per_thread[t]):
+                mine.append((name, start, eng.submit_async(
+                    models[name][1][start:start + 4], model=name,
+                    priority=("interactive", "bulk")[(t + j) % 2])))
+            outs[t] = [(name, start, [f.result(timeout=300) for f in futs])
+                       for name, start, futs in mine]
+        except BaseException as e:      # reported below
+            errors.append((t, e))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submitter, args=(t,))
+               for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"multi-model submitters failed: {errors}")
+    n_req = 0
+    for name, start, logits in (c for chunks in outs.values()
+                                for c in chunks):
+        want = models[name][2][start:start + 4]
+        if not np.array_equal(np.stack(logits), want):
+            raise AssertionError(f"multi-model {name}[{start}:]: logits "
+                                 f"differ from the plain backend")
+        n_req += len(logits)
+    cache = eng.cache_stats()
+    if n_req < 64 or cache["evictions"] < 1 or cache["misses"] <= 3:
+        raise AssertionError(f"multi-model: {n_req} requests, cache {cache}: "
+                             f"no evict and rebuild")
+    for k, v in counts().items():
+        cbe_launches[k] += v
+    log(f"  one engine, 3 models, cache capacity 2, 4 submitter threads "
+        f"(interactive and bulk): {n_req} requests in {wall:.3f} s "
+        f"({n_req / wall:.1f} images/s), all bit-equal to the plain "
+        f"backend; cache {cache}; formation {eng.formation_counts()}; "
+        f"latency {eng.latency_percentiles()}")
+    eng.close()
+
+    # throughput: the synchronous submit beside an open-loop async load
+    eng = ContinuousBatchingEngine(batch=BATCH, n_cores=4, device=dev,
+                                   max_inflight=2)
+    eng.add_model(vq)
+    eng.submit(vimages)
+    n_async = 8 * REQUESTS
+
+    def async_load():
+        futs = []
+        for i in range(n_async // REQUESTS):
+            futs += eng.submit_async(vimages, priority="bulk")
+        for f in futs:
+            f.result(timeout=300)
+
+    async_ms, busy, n_ev = device_busy(async_load)
+    lat = eng.latency_percentiles()
+    forms_async = eng.formation_counts()
+    async_wall = async_ms / 1e3
+    share = ("not measured (no device events in the trace)" if busy is None
+             else f"{busy:.3f} ms = {100 * busy / async_ms:.0f}%")
+    sync_wall = results["auto"][2]
+    log(f"  vgg_imagenet 224 throughput (batch 8, 4 virtual cores, "
+        f"max_inflight 2): open-loop {n_async} bulk requests in "
+        f"{1e3 * async_wall:.1f} ms = {n_async / async_wall:.1f} images/s; "
+        f"latency enqueue → result p50 {lat['p50']:.0f} us, p90 "
+        f"{lat['p90']:.0f} us, p99 {lat['p99']:.0f} us over "
+        f"{lat['count']} requests; formation {forms_async}; device busy "
+        f"{share} of the async load (torch.profiler, {n_ev} device events); "
+        f"phase 5's synchronous submit of {REQUESTS} (kernel=auto, same "
+        f"run): {1e3 * sync_wall:.2f} ms = {REQUESTS / sync_wall:.1f} "
+        f"images/s")
+    eng.close()
+
+    for k in wrappers:
+        stats[k]["launches"] += cbe_launches[k]
+
+    # -- 8. results --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         st = stats[name]
@@ -1107,6 +1443,7 @@ def main():
             bound_ms=sum(st["bound"].values()),
             bound_by=max(st["bound"], key=st["bound"].get),
             library_ms=st["library_ms"]))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

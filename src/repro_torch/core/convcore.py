@@ -7,11 +7,14 @@ the accumulator and the fused ReLU → 2×2 max-pool → requantize epilogue.
 ``ConvCore.plan`` returns the joint ``banking.TilePlan`` the layer runs
 under, sized for Hopper shared memory.
 
-Backends implement ``Backend`` and live in a registry:
+Backends implement ``Backend`` and live in a registry
+(``register_backend`` adds the scheduler's sharded backends under their
+names):
 
 * ``"cuda"`` — the hand-written kernels through ``kernels.ops``; it
-  dispatches each conv on ``TilePlan.pipelined`` (``conv2d_ws_pipe`` or
-  ``conv2d_ws``).  On CPU tensors the kernels' plain versions run;
+  dispatches each conv and transposed conv on ``TilePlan.pipelined``
+  (``conv2d_ws_pipe`` or ``conv2d_ws``).  On CPU tensors the kernels'
+  plain versions run;
 * ``"ref"``  — the plain PyTorch oracles.
 """
 
@@ -28,9 +31,10 @@ from repro_torch.kernels import ops, ref
 
 
 class Backend(Protocol):
-    """One implementation of the IP-core ops (conv + the dense GEMM).
-    ``plan`` is a ``banking.TilePlan`` (None → whole map under the paper's
-    4×4 banking, degraded to legal divisors)."""
+    """One implementation of the IP-core ops (conv, transposed conv and
+    the dense GEMM).  ``plan`` is a ``banking.TilePlan`` (None → whole map
+    under the paper's 4×4 banking, degraded to legal divisors); a
+    transposed conv's plan is sized on its equivalent stride-1 conv."""
 
     name: str
 
@@ -39,6 +43,15 @@ class Backend(Protocol):
              padding="VALID", groups: int = 1, dilation: int = 1,
              relu: bool = False, pool: bool = False, out_scale=None,
              plan: Optional[banking.TilePlan] = None) -> torch.Tensor:
+        ...
+
+    def conv_transpose(self, x: torch.Tensor, w: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, *,
+                       stride: int = 1, padding="VALID", groups: int = 1,
+                       dilation: int = 1, relu: bool = False,
+                       pool: bool = False, out_scale=None,
+                       plan: Optional[banking.TilePlan] = None
+                       ) -> torch.Tensor:
         ...
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor,
@@ -59,6 +72,14 @@ class RefBackend:
                                        pool=pool, out_scale=out_scale,
                                        groups=groups, dilation=dilation)
 
+    def conv_transpose(self, x, w, bias=None, *, stride=1, padding="VALID",
+                       groups=1, dilation=1, relu=False, pool=False,
+                       out_scale=None, plan=None):
+        return ref.conv2d_transpose_epilogue_ref(
+            x, w, bias, stride=stride, padding=padding, relu=relu,
+            pool=pool, out_scale=out_scale, groups=groups,
+            dilation=dilation)
+
     def matmul(self, x, w, bias=None):
         if x.dtype == torch.int8:
             return ref.matmul_ref_int8(x, w, bias)
@@ -70,22 +91,33 @@ class CudaBackend:
 
     name = "cuda"
 
-    def conv(self, x, w, bias=None, *, stride=1, padding="VALID",
-             groups=1, dilation=1, relu=False, pool=False, out_scale=None,
-             plan=None):
+    @staticmethod
+    def _plan_args(x, w, groups, plan) -> dict:
         if plan is not None:
             cin_banks, kout_banks = plan.cin_banks, plan.kout_banks
         else:
             cin_banks, kout_banks = ref.grouped_banks(
                 x.shape[-1], w.shape[-1], groups)
+        return dict(cin_banks=cin_banks, kout_banks=kout_banks,
+                    h_tile=plan.h_tile if plan else 0,
+                    w_tile=plan.w_tile if plan else 0,
+                    pipelined=plan.pipelined if plan else False)
+
+    def conv(self, x, w, bias=None, *, stride=1, padding="VALID",
+             groups=1, dilation=1, relu=False, pool=False, out_scale=None,
+             plan=None):
         return ops.conv2d(x, w, bias, stride=stride, padding=padding,
-                          groups=groups, cin_banks=cin_banks,
-                          kout_banks=kout_banks,
-                          h_tile=plan.h_tile if plan else 0,
-                          w_tile=plan.w_tile if plan else 0, relu=relu,
-                          pool=pool, out_scale=out_scale,
-                          dilation=dilation,
-                          pipelined=plan.pipelined if plan else False)
+                          groups=groups, relu=relu, pool=pool,
+                          out_scale=out_scale, dilation=dilation,
+                          **self._plan_args(x, w, groups, plan))
+
+    def conv_transpose(self, x, w, bias=None, *, stride=1, padding="VALID",
+                       groups=1, dilation=1, relu=False, pool=False,
+                       out_scale=None, plan=None):
+        return ops.conv2d_transpose(
+            x, w, bias, stride=stride, padding=padding, groups=groups,
+            relu=relu, pool=pool, out_scale=out_scale, dilation=dilation,
+            **self._plan_args(x, w, groups, plan))
 
     def matmul(self, x, w, bias=None):
         return ops.matmul_ws(x, w, bias)
@@ -100,6 +132,18 @@ def get_backend(name: str) -> Backend:
     except KeyError:
         raise ValueError(
             f"unknown backend {name!r}; have {sorted(BACKENDS)}") from None
+
+
+def register_backend(backend: Backend) -> None:
+    """Add ``backend`` to the registry under ``backend.name`` (the
+    scheduler's sharded backends, e.g. ``"cuda@kout4"``)."""
+    BACKENDS[backend.name] = backend
+
+
+def unregister_backend(name: str) -> None:
+    """Remove a registered backend (no-op if absent); tests that register
+    sharded backends remove them again."""
+    BACKENDS.pop(name, None)
 
 
 @dataclass(frozen=True)

@@ -1,19 +1,17 @@
 """Network-level executor: whole CNNs through the layer-at-a-time IP core
 (counterpart of ``repro.core.network``).
 
-A ``NetworkPlan`` is a topologically ordered DAG of conv / pool / flatten
-/ dense ``LayerSpec`` nodes plus ``add``/``concat`` merges.
+A ``NetworkPlan`` is a topologically ordered DAG of conv /
+conv_transpose / pool / flatten / dense ``LayerSpec`` nodes plus
+``add``/``concat`` merges.
 ``quantize_network`` calibrates per-layer activation scales with a float
 forward pass and lowers every parametric layer to int8;
 ``make_int8_program`` turns the result into a callable x_f32 [N,H,W,C] →
 logits [N,classes] that keeps every inter-layer map in int8: each conv
 runs the fused ReLU → pool → requantize epilogue on the backend under its
-per-layer ``TilePlan``, dense heads run ``matmul_ws``.  PyTorch runs
+per-layer ``TilePlan`` (a transposed conv through its stride-1 lowering,
+planned on that geometry), dense heads run ``matmul_ws``.  PyTorch runs
 eagerly, so the program is a plain function (no compile step).
-
-``conv_transpose`` nodes are part of the graph language and the zoo
-(``unet_small``) but have no lowering in the port yet: every shape walk
-raises ``NotImplementedError`` for them (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -33,6 +31,7 @@ from repro_torch.core.quantize import (act_scale_from_calibration,
                                        quantize_symmetric, requant_scale)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ref
+from repro_torch.kernels.conv2d_ws_trans import transpose_eq_conv_geometry
 
 # ---------------------------------------------------------------------------
 # Layer graph
@@ -103,8 +102,8 @@ def conv_transpose(features: int, kernel: int = 2, stride: int = 2,
                    pool: bool = False, groups: int = 1, dilation: int = 1,
                    name: Optional[str] = None,
                    input: Optional[str] = None) -> LayerSpec:
-    """Transposed-conv (learned upsampling) node; no lowering in the port
-    yet (ROADMAP A8)."""
+    """Transposed-conv (learned upsampling) node: ``stride`` is the output
+    growth factor and ``padding`` names the forward conv it inverts."""
     return LayerSpec("conv_transpose", features=features,
                      kernel=(kernel, kernel), stride=stride, padding=padding,
                      relu=relu, pool=pool, groups=groups, dilation=dilation,
@@ -157,12 +156,6 @@ def add(a: str, b: str, relu: bool = False,
 def concat(*inputs: str, name: Optional[str] = None) -> LayerSpec:
     """Channel concat of ≥2 branches."""
     return LayerSpec("concat", name=name, inputs=tuple(inputs))
-
-
-def _no_transpose(name: str):
-    return NotImplementedError(
-        f"node {name!r}: conv_transpose has no lowering in the PyTorch port "
-        f"yet (ROADMAP A8: transposed conv)")
 
 
 @dataclass(frozen=True)
@@ -244,15 +237,16 @@ class NetworkPlan:
 
         for i, sp in enumerate(self.layers):
             s0 = src(ins[i][0])
-            if sp.kind == "conv_transpose":
-                raise _no_transpose(names[i])
-            if sp.kind == "conv":
+            if sp.kind in ("conv", "conv_transpose"):
                 if len(s0) != 3:
                     raise ValueError(f"node {names[i]!r}: conv after flatten")
                 kh, kw = sp.kernel
                 k_, _ = conv_geometry(sp, s0[2], names[i])
-                h, w = ref.conv_out_shape(s0[0], s0[1], kh, kw, sp.stride,
-                                          sp.padding, sp.dilation)
+                shape_of = (ref.conv_transpose_out_shape
+                            if sp.kind == "conv_transpose"
+                            else ref.conv_out_shape)
+                h, w = shape_of(s0[0], s0[1], kh, kw, sp.stride, sp.padding,
+                                sp.dilation)
                 if sp.pool:
                     if h < 2 or w < 2:
                         raise ValueError(
@@ -306,7 +300,7 @@ class NetworkPlan:
         shapes: List[Optional[dict]] = []
         for i, sp in enumerate(self.layers):
             s0 = self._input_shape_of(i, acts)
-            if sp.kind == "conv":
+            if sp.kind in ("conv", "conv_transpose"):
                 kh, kw = sp.kernel
                 k_, g_ = conv_geometry(sp, s0[2])
                 shapes.append({"w": (kh, kw, s0[2] // g_, k_),
@@ -338,7 +332,9 @@ class NetworkPlan:
 
     def psum_table(self) -> List[Tuple[str, int]]:
         """Per-node psum counts in the paper's accounting (conv: output
-        pixels × kernels × group channels; dense: in × out; others 0)."""
+        pixels × kernels × group channels; transposed conv: the
+        zero-skipping count, input pixels × kernels × group channels;
+        dense: in × out; others 0)."""
         names = self.node_names()
         acts = self.activation_shapes()
         rows: List[Tuple[str, int]] = []
@@ -348,6 +344,12 @@ class NetworkPlan:
                 kh, kw = sp.kernel
                 k_, g_ = conv_geometry(sp, s0[2], names[i])
                 rows.append((names[i], perfmodel.psum_count(
+                    s0[0], s0[1], s0[2], k_, kh, kw, sp.stride,
+                    sp.padding, groups=g_, dilation=sp.dilation)))
+            elif sp.kind == "conv_transpose":
+                kh, kw = sp.kernel
+                k_, g_ = conv_geometry(sp, s0[2], names[i])
+                rows.append((names[i], perfmodel.conv_transpose_psum_count(
                     s0[0], s0[1], s0[2], k_, kh, kw, sp.stride,
                     sp.padding, groups=g_, dilation=sp.dilation)))
             elif sp.kind == "dense":
@@ -361,15 +363,17 @@ class NetworkPlan:
                    smem_budget: Optional[int] = banking.SMEM_BYTES,
                    kernel: str = "auto"
                    ) -> List[Optional[banking.TilePlan]]:
-        """Per-node tile × bank plans (None for non-conv nodes); the final
-        parametric layer keeps a 4-byte epilogue output, every other conv
-        writes int8 (at ``in_bytes``)."""
+        """Per-node tile × bank plans (None for nodes without a conv); the
+        final parametric layer keeps a 4-byte epilogue output, every other
+        conv writes int8 (at ``in_bytes``).  A transposed conv is planned
+        on its equivalent stride-1 conv (``transpose_eq_conv_geometry``),
+        the geometry its lowering launches."""
         last_param = max((i for i, sp in enumerate(self.layers)
                           if sp.kind in PARAM_KINDS), default=-1)
         acts = self.activation_shapes()
         plans: List[Optional[banking.TilePlan]] = []
         for i, sp in enumerate(self.layers):
-            if sp.kind != "conv":
+            if sp.kind not in ("conv", "conv_transpose"):
                 plans.append(None)
                 continue
             h, w, c = self._input_shape_of(i, acts)
@@ -377,9 +381,14 @@ class NetworkPlan:
             k_, g_ = conv_geometry(sp, c)
             cb_n, kb_n = banking.grouped_banks(
                 c, k_, g_, want_cin=cin_banks, want_kout=kout_banks)
+            stride, pad = sp.stride, sp.padding
+            if sp.kind == "conv_transpose":
+                h, w, pad = transpose_eq_conv_geometry(
+                    h, w, kh, kw, sp.stride, sp.padding, sp.dilation)
+                stride = 1
             plans.append(banking.plan_tiles(
-                h, w, c, k_, kh, kw, stride=sp.stride,
-                padding=sp.padding, pool=sp.pool, groups=g_,
+                h, w, c, k_, kh, kw, stride=stride,
+                padding=pad, pool=sp.pool, groups=g_,
                 dilation=sp.dilation, in_bytes=in_bytes,
                 out_bytes=4 if i == last_param else in_bytes,
                 cin_banks=cb_n, kout_banks=kb_n,
@@ -387,12 +396,13 @@ class NetworkPlan:
         return plans
 
     def conv_geometries(self) -> List[Optional[Tuple[int, int]]]:
-        """Per-node resolved (features, groups) for conv nodes."""
+        """Per-node resolved (features, groups) for conv and transposed
+        conv nodes."""
         names = self.node_names()
         acts = self.activation_shapes()
         out: List[Optional[Tuple[int, int]]] = []
         for i, sp in enumerate(self.layers):
-            if sp.kind != "conv":
+            if sp.kind not in ("conv", "conv_transpose"):
                 out.append(None)
                 continue
             s0 = self._input_shape_of(i, acts)
@@ -420,6 +430,12 @@ class NetworkPlan:
             if sp.kind == "conv":
                 _, g_ = conv_geometry(sp, h.shape[-1])
                 h = ref.conv2d_epilogue_ref(
+                    h, p["w"], p["b"], stride=sp.stride, padding=sp.padding,
+                    relu=sp.relu, pool=sp.pool, groups=g_,
+                    dilation=sp.dilation)
+            elif sp.kind == "conv_transpose":
+                _, g_ = conv_geometry(sp, h.shape[-1])
+                h = ref.conv2d_transpose_epilogue_ref(
                     h, p["w"], p["b"], stride=sp.stride, padding=sp.padding,
                     relu=sp.relu, pool=sp.pool, groups=g_,
                     dilation=sp.dilation)
@@ -567,14 +583,17 @@ def quantize_network(plan: NetworkPlan, params: Sequence[Optional[dict]],
 
 
 def int8_forward(qnet: QuantizedNetwork, x: torch.Tensor, *, backend,
-                 tile_plans: Sequence) -> torch.Tensor:
+                 tile_plans: Sequence, node_hook=None) -> torch.Tensor:
     """The int8 forward walk: quantize the input onto the calibrated grid
     (f32 division, round half to even), run every node in topological
-    order through ``backend``, return the final activation."""
+    order through ``backend``, return the final activation.
+    ``node_hook(i, name, spec, activation)`` is called after each node
+    (the per-layer profiler synchronizes and clocks there)."""
     plan = qnet.plan
     ins = plan.resolved_inputs()
     geoms = plan.conv_geometries()
     merges = qnet.merge_scales or (None,) * len(plan.layers)
+    names = plan.node_names() if node_hook is not None else None
     qin = torch.round(x.to(torch.float32) / qnet.in_scale).clamp(
         -128, 127).to(torch.int8)
     acts: List[torch.Tensor] = []
@@ -583,11 +602,12 @@ def int8_forward(qnet: QuantizedNetwork, x: torch.Tensor, *, backend,
             merges, tile_plans)):
         src = [qin if j < 0 else acts[j] for j in ins[i]]
         h = src[0]
-        if sp.kind == "conv":
-            h = backend.conv(h, w, b, stride=sp.stride, padding=sp.padding,
-                             groups=geoms[i][1], dilation=sp.dilation,
-                             relu=sp.relu, pool=sp.pool, out_scale=rq,
-                             plan=tp)
+        if sp.kind in ("conv", "conv_transpose"):
+            op = (backend.conv_transpose if sp.kind == "conv_transpose"
+                  else backend.conv)
+            h = op(h, w, b, stride=sp.stride, padding=sp.padding,
+                   groups=geoms[i][1], dilation=sp.dilation, relu=sp.relu,
+                   pool=sp.pool, out_scale=rq, plan=tp)
             if rq is None:                       # final conv: dequantize
                 h = h.to(torch.float32) * qnet.out_dequant
         elif sp.kind == "pool":
@@ -612,9 +632,9 @@ def int8_forward(qnet: QuantizedNetwork, x: torch.Tensor, *, backend,
         elif sp.kind == "concat":
             h = torch.cat([ref.requantize_ref(s, m) for s, m in zip(src, ms)],
                           dim=-1)
-        else:
-            raise _no_transpose(plan.node_names()[i])
         acts.append(h)
+        if node_hook is not None:
+            node_hook(i, names[i], sp, h)
     return acts[-1]
 
 
@@ -817,8 +837,8 @@ def resnet_bottleneck(input_shape: Tuple[int, int, int] = (32, 32, 8),
 
 def unet_small(input_shape: Tuple[int, int, int] = (16, 16, 4),
                classes: int = 3) -> NetworkPlan:
-    """U-Net-style encoder–decoder segmenter with conv_transpose
-    upsampling (no lowering in the port yet: ROADMAP A8)."""
+    """U-Net-style encoder–decoder segmenter: conv_transpose upsampling
+    and skip concats, per-pixel logits."""
     return NetworkPlan(
         name="unet_small", input_shape=input_shape,
         layers=(

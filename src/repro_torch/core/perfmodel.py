@@ -19,7 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-from repro_torch.kernels.ref import conv_out_shape
+from repro_torch.kernels.ref import conv_out_shape, conv_transpose_out_shape
 
 
 @dataclass(frozen=True)
@@ -37,6 +37,23 @@ def psum_count(h: int, w: int, c: int, k: int, kh: int = 3, kw: int = 3,
                dilation: int = 1) -> int:
     """One psum per (output pixel × kernel × input channel of its group)."""
     oh, ow = conv_out_shape(h, w, kh, kw, stride, padding, dilation)
+    return oh * ow * k * (c // groups)
+
+
+def conv_transpose_psum_count(h: int, w: int, c: int, k: int, kh: int = 3,
+                              kw: int = 3, stride: int = 1,
+                              padding="VALID", groups: int = 1,
+                              dilation: int = 1, skip_zeros: bool = True
+                              ) -> int:
+    """Psums of a transposed conv layer.  ``skip_zeros=True`` (the
+    network tables' price): one psum per INPUT pixel × kernel × group
+    channel, what a MAC controller that skips the inserted zeros pays;
+    ``skip_zeros=False``: one per OUTPUT pixel, what the unmodified core
+    pays sweeping the zero-inserted map (about stride² more)."""
+    if skip_zeros:
+        return h * w * k * (c // groups)
+    oh, ow = conv_transpose_out_shape(h, w, kh, kw, stride, padding,
+                                      dilation)
     return oh * ow * k * (c // groups)
 
 

@@ -10,6 +10,8 @@
                     LM's MLP under gemm_backend="pallas_ws"
                     (csrc/matmul_ws.cu; the Hopper helpers it shares with
                     flash_attention are in csrc/hopper_common.cuh);
+* conv2d_ws_trans — the transposed conv as host lowering onto the two
+                    conv kernels (no device code of its own);
 * flash_attention — causal online-softmax attention of the LM prefill
                     (csrc/flash_attention.cu).
 """

@@ -411,27 +411,44 @@ def conv_path(g: ConvGeom) -> str:
     return "tc" if tc_plan(g) is not None else "scalar"
 
 
-# id(weights) → (weak reference to them, their version, packed copy)
-_packed: Dict[int, tuple] = {}
+# (id(weights), what was derived) → (weak reference to the weights, their
+# version, the derived tensor)
+_derived: Dict[tuple, tuple] = {}
+
+
+def derived_weights(w: torch.Tensor, what, make):
+    """``make(w)``, cached per weight tensor, its version and ``what``
+    (a hashable label), so that a served network derives each layer's
+    packed, flipped or sliced weights once and keeps them while the
+    weights live.  ``make`` returns tensors (one, or a tuple) that hold no
+    reference to ``w`` (copies, not views), or the entry would keep ``w``
+    alive."""
+    key = (id(w), what)
+    hit = _derived.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    out = make(w)
+    _derived[key] = (weakref.ref(w, lambda _: _derived.pop(key, None)),
+                     w._version, out)
+    return out
+
+
+def _pack(w: torch.Tensor) -> torch.Tensor:
+    kh, kw, cgrp, k = w.shape
+    cols = kh * kw * cgrp
+    packed = torch.zeros((k, _round_up(cols, 32)), dtype=torch.int8,
+                         device=w.device)
+    packed[:, :cols] = w.permute(3, 0, 1, 2).reshape(k, cols)
+    return packed
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
     """[KH,KW,C/g,K] int8 → [K, kpad] int8, K-major: row k holds kernel
     k's taps in (tap, channel) order, zero-padded to a multiple of 32 —
     the B operand of ``mma.sync … .row.col``.  Cached per weight tensor
-    and its version, so a served network packs each layer once."""
-    hit = _packed.get(id(w))
-    if hit is not None and hit[0]() is w and hit[1] == w._version:
-        return hit[2]
-    kh, kw, cgrp, k = w.shape
-    cols = kh * kw * cgrp
-    packed = torch.zeros((k, _round_up(cols, 32)), dtype=torch.int8,
-                         device=w.device)
-    packed[:, :cols] = w.permute(3, 0, 1, 2).reshape(k, cols)
-    key = id(w)
-    _packed[key] = (weakref.ref(w, lambda _: _packed.pop(key, None)),
-                    w._version, packed)
-    return packed
+    and its version (``derived_weights``), so a served network packs each
+    layer once."""
+    return derived_weights(w, "pack", _pack)
 
 
 def tc_params(plan: TcPlan, x: torch.Tensor,

@@ -20,9 +20,17 @@
 // (26 GFLOP per llama3.2-3b layer at S = 2048) against about 50 MB read and
 // written, so it is bound by operations: 0.026 ms at 989 TFLOP/s bf16.
 //
-// bf16, D in {16, 32, 64, 128}: tensor cores (wgmma) fed by TMA.
+// bf16, D in {16, 32, 64, 128, 256}: tensor cores (wgmma) fed by TMA.  The
+// wrapper zero-pads any other bf16 D ≤ 256 up to the next of these widths
+// and passes the scale of the true D: the zero columns add exact zeros to
+// q·kᵀ and give zero output columns, which it slices off.
 //   * Work split: one block of 288 threads per (b·h, 128-row q tile): two
-//     consumer warpgroups of 64 q rows each and one producer warp.  q tiles
+//     consumer warpgroups of 64 q rows each and one producer warp.  At
+//     D = 256 the producer is a whole warpgroup (384 threads) that gives its
+//     registers to the consumers with setmaxnreg (40 / 232), since a
+//     consumer holds a 64 × 256 f32 accumulator (128 registers a thread);
+//     it takes p·v one k-step's three terms at a time, and its ring is 2
+//     stages deep (q 64 KB and two K/V stages of 64 KB).  q tiles
 //     run in reverse order (blockIdx.y), the longest causal sweeps first, so
 //     the tail of the grid is short.
 //   * TMA: one rank-4 tensor map per operand over the [B,S,H,D] tensor, box
@@ -53,12 +61,18 @@
 //     count above.
 //   * The output is written from registers as bf16 pairs.
 //
-// f32, D a multiple of 4 up to 128: the first port's scalar kernel, kept as
-// it was and still scalar.  The served model computes in bf16 and never
-// reaches it; f32 models (the checks, the reduced model) do.  Its tiles are 64 q rows by 64 KV rows in shared memory, q scaled
-// in f32 before the product, and both products are scalar f32 FMAs from
-// shared memory (67 TFLOP/s peak, no tensor cores), with float4 shared loads
-// and padded rows so that a quarter-warp's loads hit distinct banks.
+// f32, any D a multiple of 4 (the wrapper zero-pads other D up to one, and
+// runs bf16 D > 256 on f32 copies of q, k and v): the first port's scalar
+// kernel, still scalar.  The served model computes in bf16 and never
+// reaches it; f32 models (the checks, the reduced model) do.  Its tiles are
+// 64 q rows by 64 KV rows in shared memory, q scaled in f32 before the
+// product, and both products are scalar f32 FMAs from shared memory
+// (67 TFLOP/s peak, no tensor cores), with float4 shared loads and padded
+// rows so that a quarter-warp's loads hit distinct banks.  A block writes
+// at most 128 output columns (grid.z slices a wider head) and takes q·kᵀ
+// in 128-column passes, so shared memory stays at the D = 128 size for any
+// D; a head wider than 128 recomputes q·kᵀ once for each output slice.
+// B·H is on grid.x, which takes up to 2^31 − 1 blocks.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,21 +89,29 @@ constexpr float kNegInf = -2.0e38f;
 
 namespace scalar {
 
-constexpr int BQ = 64, BK = 64, kThreads = 256, DMAX = 128;
+constexpr int BQ = 64, BK = 64, kThreads = 256;
+constexpr int DC = 128;      // head-dim columns of q·kᵀ per pass and of the
+                             // output per block
 constexpr int PS = BK + 16;  // p tile row stride: the two half-warps' rows
                              // land 16 banks apart
 
-// rows [row0, row0 + 64) of one (b, h) slice into dst (row stride dst_stride),
-// each element times `scale`; rows at or past S are zero.
+// rows [row0, row0 + 64) and columns [c0, c0 + w) of one (b, h) slice into
+// dst (row stride dst_stride), each element times `scale`; rows at or past S
+// are zero.
 __device__ void load_tile(float* dst, int dst_stride, const float* src,
-                          long long row_stride, int row0, int S, int D,
-                          float scale) {
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
+                          long long row_stride, int row0, int S, int c0,
+                          int w, float scale) {
+  for (int i = threadIdx.x; i < BQ * w; i += kThreads) {
+    const int r = i / w, c = i % w;
     float x = 0.f;
-    if (row0 + r < S) x = src[(row0 + r) * row_stride + c] * scale;
+    if (row0 + r < S) x = src[(row0 + r) * row_stride + c0 + c] * scale;
     dst[r * dst_stride + c] = x;
   }
+}
+
+// shared floats of one block at head dim D
+__host__ __device__ constexpr int smem_floats(int D) {
+  return BQ * ((D < DC ? D : DC) + 4) * 2 + BK * (D < DC ? D : DC) + BQ * PS;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -98,14 +120,17 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int H, int D, int causal, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int QS = D + 4;            // q/k row stride, 16-byte aligned
+  const int KW = min(D, DC);       // q/k columns per pass
+  const int QS = KW + 4;           // q/k row stride, 16-byte aligned
+  const int c0 = blockIdx.z * DC;  // this block's output columns
+  const int VW = min(D - c0, DC);
   float* qs = smem;                // [BQ][QS]
   float* ks = qs + BQ * QS;        // [BK][QS]
-  float* vs = ks + BK * QS;        // [BK][D]
-  float* ps = vs + BK * D;         // [BQ][PS]
+  float* vs = ks + BK * QS;        // [BK][VW]
+  float* ps = vs + BK * KW;        // [BQ][PS]
 
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.y * BQ;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const long long row_stride = static_cast<long long>(H) * D;
   const long long base = static_cast<long long>(b) * S * row_stride +
                          static_cast<long long>(h) * D;
@@ -113,7 +138,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // a thread owns rows ty + 16i (i < 4) in both products; in q·kᵀ the
   // columns tx + 16j (j < 4), in p·v the float4 columns 4tx + 64jj (jj < 2)
 
-  load_tile(qs, QS, q + base, row_stride, q0, S, D, scale);
+  // one pass holds all of q for D ≤ 128; a wider head is reloaded in DC
+  // column slices for each KV tile
+  const bool one_pass = D <= DC;
+  if (one_pass) load_tile(qs, QS, q + base, row_stride, q0, S, 0, D, scale);
 
   float m[4], l[4];
   float4 acc[4][2];
@@ -126,33 +154,37 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int k_end = causal ? min(S, q0 + BQ) : S;  // skip tiles above the
   for (int k0 = 0; k0 < k_end; k0 += BK) {          // diagonal
-    __syncthreads();  // the previous tile's p·v is done with ks, vs, ps
-    load_tile(ks, QS, k + base, row_stride, k0, S, D, 1.f);
-    load_tile(vs, D, v + base, row_stride, k0, S, D, 1.f);
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], c[4];
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      const int w = min(D - d0, DC);
+      __syncthreads();  // the previous pass and p·v are done with the tiles
+      if (!one_pass)
+        load_tile(qs, QS, q + base, row_stride, q0, S, d0, w, scale);
+      load_tile(ks, QS, k + base, row_stride, k0, S, d0, w, 1.f);
+      if (d0 == 0) load_tile(vs, VW, v + base, row_stride, k0, S, c0, VW, 1.f);
+      __syncthreads();
+      for (int d = 0; d < w; d += 4) {
+        float4 a[4], c[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * QS + d);
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * QS + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        c[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * QS + d);
+        for (int j = 0; j < 4; ++j)
+          c[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * QS + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
-        }
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
+          }
+      }
     }
 
     // online softmax; a row's 64 columns sit in the 16 lanes of one
@@ -208,8 +240,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
           const int c = 4 * tx + 64 * jj;
-          w[jj] = c < D ? *reinterpret_cast<const float4*>(vs + (kk + t) * D + c)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+          w[jj] = c < VW
+                      ? *reinterpret_cast<const float4*>(vs + (kk + t) * VW + c)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -232,11 +265,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* o = out + base + row * row_stride;
+    float* o = out + base + row * row_stride + c0;
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       const int c = 4 * tx + 64 * jj;
-      if (c >= D) continue;
+      if (c >= VW) continue;
       o[c] = acc[i][jj].x / den;
       o[c + 1] = acc[i][jj].y / den;
       o[c + 2] = acc[i][jj].z / den;
@@ -245,16 +278,21 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// B·H on grid.x (up to 2^31 − 1), q tiles on grid.y, output column slices
+// on grid.z
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int S, int H, int D, int causal, float scale,
                cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float)) *
-                   (BQ * (D + 4) + BK * (D + 4) + BK * D + BQ * PS);
+  const long long bh = static_cast<long long>(B) * H;
+  const int q_tiles = (S + BQ - 1) / BQ;
+  if (bh > 0x7fffffffLL || q_tiles > 65535 || D % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(float)) * smem_floats(D);
   auto kernel = flash_f32_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + BQ - 1) / BQ, B * H);
+  dim3 grid(static_cast<unsigned>(bh), q_tiles, (D + DC - 1) / DC);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, H, D, causal,
@@ -273,11 +311,15 @@ using namespace hopper;
 
 constexpr int kRows = 64;       // q rows per consumer warpgroup; KV tile rows
 constexpr int kConsumers = 2;   // consumer warpgroups
-constexpr int kThreads = 128 * kConsumers + 32;  // and one producer warp
-constexpr int kStages = 4;      // K/V ring depth
 
 template <int D>
 struct Tile {
+  // D = 256: the producer is a whole warpgroup, so that setmaxnreg can move
+  // its registers to the consumers' 128 accumulator registers, and the ring
+  // is 2 deep (two q tiles and two K/V stages are 192 KB)
+  static constexpr bool kWide = D == 256;
+  static constexpr int kThreads = 128 * kConsumers + (kWide ? 128 : 32);
+  static constexpr int kStages = kWide ? 2 : 4;        // K/V ring depth
   static constexpr int kBoxCols = D < 64 ? D : 64;     // one swizzle span
   static constexpr int kBoxes = D / kBoxCols;          // boxes per tile
   static constexpr int kRowBytes = 2 * kBoxCols;       // 32, 64 or 128
@@ -311,13 +353,14 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& t0,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
                   __nv_bfloat16* __restrict__ out, int S, int H, int causal,
                   float scale) {
   using T = Tile<D>;
+  constexpr int kStages = T::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment of the shared address itself
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -353,6 +396,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // producer: one thread issues every load
+    if constexpr (T::kWide) regs_dealloc<40>();
     if (threadIdx.x % 128 != 0) return;
     mbar_expect_tx(q_full, kConsumers * T::kBytes);
     for (int w = 0; w < kConsumers; ++w)
@@ -374,6 +418,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
+  if constexpr (T::kWide) regs_alloc<232>();
   // consumer warpgroup wg: q rows [qlo, qlo + 64).  This thread holds rows
   // r0 and r0 + 8 of them; in every n8 column chunk j of an accumulator,
   // element 4j + e is (row r0 + 8·(e / 2), column 8j + cq + e % 2).
@@ -449,28 +494,46 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
     // P's A fragment for keys [16kk, 16kk + 16) is sc[8kk .. 8kk + 8), in
-    // three bf16 terms
-    uint32_t p[3][4][4];
+    // three bf16 terms.  V is [keys][D], MN-major for the product: 8-key
+    // groups 8 box rows apart, each further 64 columns one box further on
+    auto v_desc = [&](int kk) {
+      return make_desc(v_tile(s) + kk * 16 * T::kRowBytes, T::kBoxBytes, kSbo,
+                       T::kSwizzle);
+    };
+    if constexpr (T::kWide) {
+      // beside 128 accumulator registers, one k-step's terms at a time
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t p[3][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        split3(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], p[0][kk][j],
-               p[1][kk][j], p[2][kk][j]);
-
-    // V is [keys][D], MN-major for the product: 8-key groups 8 box rows
-    // apart, the D = 128 tile's second 64 columns one box further on
-    wgmma_fence();
+        for (int j = 0; j < 4; ++j)
+          split3(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], p[0][j], p[1][j],
+                 p[2][j]);
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = make_desc(v_tile(s) + kk * 16 * T::kRowBytes,
-                                    T::kBoxBytes, kSbo, T::kSwizzle);
+        for (int term = 0; term < 3; ++term) wgmma_rs<D>(o, p[term], v_desc(kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+    } else {
+      uint32_t p[3][4][4];
 #pragma unroll
-      for (int term = 0; term < 3; ++term) wgmma_rs<D>(o, p[term][kk], dv);
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split3(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], p[0][kk][j],
+                 p[1][kk][j], p[2][kk][j]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+          wgmma_rs<D>(o, p[term][kk], v_desc(kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
     if (t == 0) mbar_arrive(empty(s));
     __syncwarp();
   }
@@ -531,7 +594,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kConsumers * kRows - 1) / (kConsumers * kRows));
-  kernel<<<grid, kThreads, Tile<D>::kSmem, stream>>>(
+  kernel<<<grid, Tile<D>::kThreads, Tile<D>::kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -542,9 +605,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// dtype 0: f32, the scalar kernel, D a multiple of 4 up to 128.
-// dtype 1: bf16, the tensor-core kernel, D in {16, 32, 64, 128}; q, k, v
-// and out 16-byte aligned.
+// dtype 0: f32, the scalar kernel, D a multiple of 4.
+// dtype 1: bf16, the tensor-core kernel, D in {16, 32, 64, 128, 256}; q, k,
+// v and out 16-byte aligned.  The wrapper pads other head dims up to these.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int S, int H, int D, int causal,
                            float scale, int dtype, void* stream) {
@@ -552,8 +615,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (D < 4 || D > scalar::DMAX || D % 4 || B * H > 65535)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (D < 4) return static_cast<int>(cudaErrorInvalidValue);
     return scalar::launch_f32(q, k, v, out, B, S, H, D, causal, scale, s);
   }
   if (dtype == 1) {
@@ -567,6 +629,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       case 64: return tc::launch<64>(q, k, v, out, B, S, H, causal, scale, s);
       case 128:
         return tc::launch<128>(q, k, v, out, B, S, H, causal, scale, s);
+      case 256:
+        return tc::launch<256>(q, k, v, out, B, S, H, causal, scale, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -6,18 +6,28 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention
 CUDA source, ``csrc/flash_attention.cu``, holds two variants (its note says
 more); ``kernel_variant`` picks one:
 
-* bf16, D in {16, 32, 64, 128}: the tensor-core kernel.  One block per
-  (b·h, 128 q rows): two consumer warpgroups run both products as
-  ``wgmma`` from a ring of K/V tiles that one producer warp loads with TMA.
+* bf16, D in {16, 32, 64, 128, 256}: the tensor-core kernel ("wgmma").
+  One block per (b·h, 128 q rows): two consumer warpgroups run both
+  products as ``wgmma`` from a ring of K/V tiles that one producer warp
+  (a producer warpgroup at D = 256) loads with TMA.
   It is bound by operations (4·D flops per unmasked pair, 0.026 ms per
   llama3.2-3b layer at S = 2048 at the card's bf16 peak).  p enters the p·v
   product as three bf16 terms, p1 = bf16(p), p2 = bf16(p - p1),
   p3 = bf16(p - p1 - p2), which carry it to f32 precision: the reference's
   p·v product is f32, and a single bf16 p would move outputs past one bf16
-  ulp of it.  That doubles the tensor work to 8·D flops per pair.  Another bf16
-  head dim raises; it is never routed to another kernel.
-* f32, D a multiple of 4 up to 128: the first port's scalar kernel (f32
-  FMAs from shared memory, no tensor cores), still scalar.
+  ulp of it.  That doubles the tensor work to 8·D flops per pair.
+* bf16, any other D up to 256 ("wgmma_padded"): q, k and v are zero-padded
+  along D to the next of those widths, the kernel runs with the scale of
+  the true D, and the output is sliced back.  The zero columns add exact
+  zeros to q·kᵀ and give zero output columns, so the result is the
+  unpadded function's.
+* f32, D a multiple of 4 ("scalar"), or zero-padded up to one
+  ("scalar_padded"): the first port's scalar kernel (f32 FMAs from shared
+  memory, no tensor cores), still scalar, 128 head-dim columns a block.
+* bf16, D above 256 ("scalar_f32_copies"): the scalar kernel on f32
+  copies of q, k and v made on the card, its output rounded once to bf16.
+
+No head dim is refused.
 
 ``block_q`` and ``block_k`` keep the reference's signature and are ignored:
 the TPU's 512-row blocks do not fit a Hopper block's shared memory, so the
@@ -39,7 +49,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128)
+TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _check(q, k, v) -> None:
@@ -67,36 +77,57 @@ def flash_attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel that runs head dim ``d`` in ``dtype`` on the card:
-    "wgmma" (bf16, D in ``TENSOR_CORE_HEAD_DIMS``) or "scalar" (f32, D a
-    multiple of 4 up to 128).  Raises ``ValueError`` for any other D."""
+    """The kernel that runs head dim ``d`` in ``dtype`` on the card (see
+    the module note): "wgmma", "wgmma_padded", "scalar", "scalar_padded"
+    or "scalar_f32_copies".  Every head dim ≥ 1 has one."""
+    if d < 1:
+        raise ValueError(f"flash_attention needs a head dim >= 1, got {d}")
     if dtype == torch.bfloat16:
-        if d not in TENSOR_CORE_HEAD_DIMS:
-            raise ValueError(f"the bf16 flash_attention kernel takes a head "
-                             f"dim in {TENSOR_CORE_HEAD_DIMS}, got {d}")
-        return "wgmma"
+        if d in TENSOR_CORE_HEAD_DIMS:
+            return "wgmma"
+        return "wgmma_padded" if d < TENSOR_CORE_HEAD_DIMS[-1] \
+            else "scalar_f32_copies"
     if dtype == torch.float32:
-        if d % 4 or not 4 <= d <= 128:
-            raise ValueError(f"the f32 flash_attention kernel takes a head "
-                             f"dim that is a multiple of 4 up to 128, got {d}")
-        return "scalar"
+        return "scalar_padded" if d % 4 else "scalar"
     raise TypeError(f"flash_attention has no kernel for {dtype}")
+
+
+def kernel_head_dim(dtype: torch.dtype, d: int) -> int:
+    """The head dim the kernel of ``kernel_variant(dtype, d)`` runs: the
+    next tensor-core width for "wgmma_padded", ``d`` rounded up to a
+    multiple of 4 on the scalar kernel, ``d`` itself otherwise."""
+    if kernel_variant(dtype, d) == "wgmma_padded":
+        return min(w for w in TENSOR_CORE_HEAD_DIMS if w >= d)
+    return -(-d // 4) * 4
+
+
+def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t`` [B,S,H,D] zero-padded along D to ``dp``, contiguous."""
+    d = t.shape[-1]
+    if dp == d:
+        return t.contiguous()
+    return torch.nn.functional.pad(t, (0, dp - d)).contiguous()
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     b, s, h, d = q.shape
-    kernel_variant(q.dtype, d)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    dp = kernel_head_dim(q.dtype, d)
+    run = (torch.float32 if kernel_variant(q.dtype, d) == "scalar_f32_copies"
+           else q.dtype)
+    qp, kp, vp = (pad_head_dim(t.to(run), dp) for t in (q, k, v))
+    out = torch.empty_like(qp)
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the scale of the true head dim: padded columns add exact zeros
     _build.check("flash_attention", fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        int(causal), 1.0 / math.sqrt(d), _DTYPES[q.dtype], stream))
-    return out
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), b, s, h,
+        dp, int(causal), 1.0 / math.sqrt(d), _DTYPES[run], stream))
+    if dp != d:
+        out = out[..., :d].contiguous()
+    return out.to(q.dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,

@@ -5,6 +5,9 @@
   waveform: the int32 result wrapped to 8 bits), ``pipelined=`` picks
   ``conv2d_ws_pipe`` over ``conv2d_ws``, and grouped layers re-legalize
   their banks through ``ref.grouped_banks``;
+* ``conv2d_transpose`` is the transposed conv (the dense-prediction
+  upsampling layer): the host lowering of ``conv2d_ws_trans`` onto the two
+  conv kernels, int8 (with or without ``out_scale``) and f32;
 * ``matmul_ws`` is the GEMM entry, the kernel wrapper itself: int8
   operands give int32, f32 and bf16 operands their own dtype (bf16 is
   accumulated in f32 and rounded once), as the reference's entry returns;
@@ -22,10 +25,11 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv2d_ws import conv2d_ws
 from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
+from repro_torch.kernels.conv2d_ws_trans import conv2d_ws_transpose
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul_ws import matmul_ws
 
-__all__ = ["conv2d", "flash_attention", "matmul_ws"]
+__all__ = ["conv2d", "conv2d_transpose", "flash_attention", "matmul_ws"]
 
 
 def conv2d(x, w, bias=None, *, stride: int = 1, padding="VALID",
@@ -58,3 +62,34 @@ def conv2d(x, w, bias=None, *, stride: int = 1, padding="VALID",
     if wrap8 and x.dtype == torch.int8:
         return out.to(torch.int8)
     return out
+
+
+def conv2d_transpose(x, w, bias=None, *, stride: int = 1, padding="VALID",
+                     groups: int = 1, cin_banks: int = 4,
+                     kout_banks: int = 4, h_tile: int = 0, w_tile: int = 0,
+                     relu: bool = False, pool: bool = False, out_scale=None,
+                     dilation: int = 1, out_spatial=None,
+                     pipelined: bool = False) -> torch.Tensor:
+    """Transposed convolution through the weight-stationary kernels:
+    zero-insertion by ``stride``, kernel flip, and the stride-1 conv under
+    the "full"-padding equivalence (``conv2d_ws_trans``).  x: [N,H,W,C];
+    w: [KH,KW,C/groups,K] (forward layout) → [N,OH,OW,K], SAME growing to
+    ``H·stride``, VALID to ``(H−1)·stride + dilation·(k−1) + 1``,
+    ``out_spatial`` pinning the output.  The epilogue (``relu`` / 2×2
+    ``pool`` / ``out_scale``), grouped banking, tiling and ``pipelined=``
+    match ``conv2d``.  Inference only: the reference's float VJP is not
+    ported (ROADMAP A12)."""
+    if groups > 1:
+        cin_banks, kout_banks = ref.grouped_banks(
+            x.shape[3], w.shape[3], groups, want_cin=cin_banks,
+            want_kout=kout_banks)
+    kh, kw = w.shape[0], w.shape[1]
+    (oh, ow), _ = ref.conv_transpose_eq_params(
+        x.shape[1], x.shape[2], kh, kw, stride, padding, dilation,
+        out_spatial)
+    pad = ref.normalize_padding(padding, kh, kw, stride, oh, ow, dilation)
+    return conv2d_ws_transpose(
+        x, w, bias, out_scale, stride=stride, padding=pad, groups=groups,
+        cin_banks=cin_banks, kout_banks=kout_banks, h_tile=h_tile,
+        w_tile=w_tile, relu=relu, pool=pool, dilation=dilation,
+        out_spatial=(oh, ow), pipelined=pipelined)

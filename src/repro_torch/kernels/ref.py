@@ -235,6 +235,156 @@ def conv2d_epilogue_ref(x, w, bias=None, *, stride: int = 1,
     return acc
 
 
+# ---------------------------------------------------------------------------
+# Transposed-convolution oracles (the dense-prediction contract)
+# ---------------------------------------------------------------------------
+
+
+def grouped_swap_weights(w, groups: int = 1):
+    """Per-group channel-axis swap [KH,KW,C/groups,K] → [KH,KW,K/groups,C]
+    with the groups reassembled along the new output axis, no spatial
+    flip (an involution)."""
+    kh, kw, cg, k = w.shape
+    kg = k // groups
+    if groups == 1:
+        return w.transpose(2, 3)
+    return (w.reshape(kh, kw, cg, groups, kg).permute(0, 1, 4, 3, 2)
+            .reshape(kh, kw, kg, groups * cg))
+
+
+def grouped_transpose_weights(w, groups: int = 1):
+    """Forward weights [KH,KW,C/groups,K] → transposed-conv weights
+    [KH,KW,K/groups,C]: spatial flip + per-group channel-axis swap."""
+    return grouped_swap_weights(torch.flip(w, (0, 1)), groups)
+
+
+def conv_transpose_out_shape(h: int, w: int, kh: int, kw: int,
+                             stride: int = 1, padding: Padding = "VALID",
+                             dilation: int = 1) -> Tuple[int, int]:
+    """Spatial output shape of ``conv2d_transpose_ref``: the padding names
+    the forward conv being inverted, so VALID grows to ``(h−1)·s + ek``
+    (ek the dilated kernel extent), SAME to exactly ``h·s``, explicit
+    ((pt,pb),(pl,pr)) to ``(h−1)·s + ek − pt − pb``."""
+    (oh, ow), _ = conv_transpose_eq_params(h, w, kh, kw, stride, padding,
+                                           dilation)
+    return oh, ow
+
+
+def conv_transpose_eq_params(h: int, w: int, kh: int, kw: int,
+                             stride: int = 1, padding: Padding = "VALID",
+                             dilation: int = 1, out_spatial=None):
+    """A transposed conv as its equivalent stride-1 conv → ((OH, OW),
+    eq_pads): the output extent and the "full" padding of the
+    zero-inserted input, ``ek−1−pt`` on top and ``OH+pt−(h−1)·s−1`` on the
+    bottom (negative where the forward padding exceeded the kernel
+    extent: those rows are cropped).  ``out_spatial`` pins (OH, OW), the
+    stride remainder rows included."""
+    ekh, ekw = dilated_extent(kh, dilation), dilated_extent(kw, dilation)
+    if out_spatial is not None:
+        oh, ow = out_spatial
+        (pt, pb), (pl_, pr) = normalize_padding(padding, kh, kw, stride,
+                                                oh, ow, dilation)
+    elif isinstance(padding, (int, tuple, list)):
+        (pt, pb), (pl_, pr) = normalize_padding(padding, kh, kw, stride)
+        oh = (h - 1) * stride + ekh - pt - pb
+        ow = (w - 1) * stride + ekw - pl_ - pr
+    elif padding == "VALID":
+        (pt, pb), (pl_, pr) = (0, 0), (0, 0)
+        oh, ow = (h - 1) * stride + ekh, (w - 1) * stride + ekw
+    elif padding == "SAME":
+        oh, ow = h * stride, w * stride
+        (pt, pb), (pl_, pr) = normalize_padding(padding, kh, kw, stride,
+                                                oh, ow, dilation)
+    else:
+        raise ValueError(f"unknown padding {padding!r}")
+    for dim, o, p0, p1, ek in ((h, oh, pt, pb, ekh), (w, ow, pl_, pr, ekw)):
+        r = o + p0 + p1 - ek - (dim - 1) * stride
+        if o < 1 or not 0 <= r < max(stride, 1):
+            raise ValueError(
+                f"conv_transpose geometry is not invertible: input {dim} "
+                f"with stride={stride}, kernel extent {ek}, padding "
+                f"({p0},{p1}) cannot produce output extent {o}")
+    eq_pads = ((ekh - 1 - pt, oh + pt - (h - 1) * stride - 1),
+               (ekw - 1 - pl_, ow + pl_ - (w - 1) * stride - 1))
+    return (oh, ow), eq_pads
+
+
+def zero_insert(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """[N,H,W,C] → [N,(H−1)·s+1,(W−1)·s+1,C] with the input at every
+    ``stride``-th pixel and zeros between (the lhs dilation)."""
+    if stride == 1:
+        return x
+    n, h, w, c = x.shape
+    xd = x.new_zeros((n, (h - 1) * stride + 1, (w - 1) * stride + 1, c))
+    xd[:, ::stride, ::stride] = x
+    return xd
+
+
+def conv2d_transpose_ref(x, w, bias=None, *, stride: int = 1,
+                         padding: Padding = "VALID", groups: int = 1,
+                         dilation: int = 1, out_spatial=None):
+    """Transposed (upsampling) convolution oracle, f32 accumulate.
+    x: [N,H,W,C]; w: [KH,KW,C/groups,K] (the forward layout) →
+    [N,OH,OW,K]: the input zero-inserted by ``stride``, the kernel flipped
+    spatially and a stride-1 grouped conv under the "full" padding of
+    ``conv_transpose_eq_params`` (negative pads crop)."""
+    check_groups(x.shape[3], w.shape[3], groups)
+    _, eq_pads = conv_transpose_eq_params(
+        x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride, padding,
+        dilation, out_spatial)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = _nchw_conv(zero_insert(x.to(torch.float32), stride),
+                         torch.flip(w, (0, 1)).to(torch.float32), 1,
+                         eq_pads, groups, dilation)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out
+
+
+def conv2d_transpose_ref_int8(x, w, bias=None, *, stride: int = 1,
+                              padding: Padding = "VALID", groups: int = 1,
+                              dilation: int = 1, out_spatial=None):
+    """int8 × int8 → int32 transposed conv, exact (see the module note);
+    the inserted zeros are the symmetric scheme's quantized zero."""
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"int8 operands required, got {x.dtype}, {w.dtype}")
+    check_groups(x.shape[3], w.shape[3], groups)
+    _, eq_pads = conv_transpose_eq_params(
+        x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride, padding,
+        dilation, out_spatial)
+    dt = _exact_dtype(x.device)
+    out = _to_int32(_nchw_conv(zero_insert(x.to(dt), stride),
+                               torch.flip(w, (0, 1)).to(dt), 1, eq_pads,
+                               groups, dilation))
+    if bias is not None:
+        out = out + bias.to(torch.int32)
+    return out
+
+
+def conv2d_transpose_epilogue_ref(x, w, bias=None, *, stride: int = 1,
+                                  padding: Padding = "VALID",
+                                  relu: bool = False, pool: bool = False,
+                                  out_scale=None, groups: int = 1,
+                                  dilation: int = 1):
+    """Transposed conv + the fused ReLU → 2×2 max-pool → requantize chain,
+    in accumulator precision."""
+    if x.dtype == torch.int8:
+        acc = conv2d_transpose_ref_int8(x, w, bias, stride=stride,
+                                        padding=padding, groups=groups,
+                                        dilation=dilation)
+    else:
+        acc = conv2d_transpose_ref(x, w, bias, stride=stride,
+                                   padding=padding, groups=groups,
+                                   dilation=dilation)
+    if relu:
+        acc = torch.clamp(acc, min=0)
+    if pool:
+        acc = maxpool2d_ref(acc)
+    if out_scale is not None:
+        return requantize_ref(acc, out_scale)
+    return acc
+
+
 def conv2d_ref_wrap8(x, w, bias=None):
     """Paper-waveform mode: every accumulation wraps in 8 bits, which
     equals the int32 result mod 256."""

@@ -1,2 +1,3 @@
-"""Serving: the LM ``ServingEngine`` (with ``serve_step``) and the
-int8 conv-net ``ConvNetEngine``."""
+"""Serving: the LM ``ServingEngine`` (with ``serve_step``), the int8
+conv-net ``ContinuousBatchingEngine`` (``batching``) and its single-model
+facade ``ConvNetEngine``."""

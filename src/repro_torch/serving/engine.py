@@ -6,13 +6,14 @@ prefill whose KV cache is scattered into the pool at the slot index, and a
 slot frees as soon as its request ends (EOS, ``max_new_tokens`` or the end
 of the cache).  The pool cache is updated in place.
 
-Conv-net path (``ConvNetEngine``): synchronous image serving over a
-compiled int8 program.  ``submit(images)`` splits the R requests into
-batches of ``batch``, zero-pads the last partial batch onto the program's
-fixed [batch, H, W, C] shape, runs each batch on the engine's device and
-returns the logits [R, classes] in request order; ``stats`` counts
-requests, batches and padded lanes.  The reference's async queue, continuous
-batching and program cache are not ported yet (ROADMAP A9/A10).
+Conv-net path (``ConvNetEngine``): a single-model facade over
+``serving/batching.py``'s :class:`ContinuousBatchingEngine`.  Requests land
+in an async priority queue; batches form when full, at the deadline or
+when a synchronous caller drains; up to ``max_inflight`` batches are in
+flight on the engine's CUDA stream; partial batches zero-pad onto the one
+fixed [batch, H, W, C] program, batch-sharded over ``n_cores`` virtual IP
+cores (``core/scheduler.py``).  ``submit`` keeps the synchronous contract
+(logits in request order); ``submit_async`` returns the futures.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.convcore import ConvCoreConfig
-from repro_torch.core.network import QuantizedNetwork, make_int8_program
+from repro_torch.core.network import QuantizedNetwork
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.layers.common import torch_dtype, tree_map
 from repro_torch.models import lm
@@ -158,51 +159,82 @@ def _scatter_slot(pool: torch.Tensor, one: torch.Tensor, slot: int):
 
 
 class ConvNetEngine:
-    """Image classification server for one quantized network.
+    """Image serving for one quantized network: the single-model facade
+    of :class:`ContinuousBatchingEngine` (use that directly to serve
+    several).
 
-    ``device`` defaults to the GPU (raising when there is none); the qnet
-    is copied there once, and the program runs under ``core_config``
-    (default: the int8 datapath on the hand-written kernels, each layer
-    on the kernel its tile plan picks)."""
+    ``device`` defaults to the GPU (raising when there is none); the
+    qnet is copied there once.  ``core_config`` (default: the int8
+    datapath on the hand-written kernels, each layer on the kernel its
+    tile plan picks) sets the program's kernel choice and banks, and its
+    backend unless ``backend`` names one.  ``tune``, ``calib``,
+    ``drift_band`` and ``route=True`` raise ``NotImplementedError``
+    (ROADMAP A13b, A7/A11)."""
 
     def __init__(self, qnet: QuantizedNetwork, *, batch: int = 8,
+                 n_cores: int = 1, backend: Optional[str] = None,
+                 tune=None, calib=None, drift_band=None,
+                 deadline_ms: float = 5.0, bulk_aging_ms: float = 50.0,
+                 max_inflight: int = 2, route: bool = False,
                  core_config: Optional[ConvCoreConfig] = None,
                  device: DeviceLike = None):
-        if batch < 1:
-            raise ValueError(f"batch must be ≥ 1, got {batch}")
-        self.device = resolve_device(device)
-        self.qnet = qnet.to(self.device)
+        from repro_torch.serving.batching import ContinuousBatchingEngine
+        core_config = core_config or ConvCoreConfig(int8=True)
         self.batch = batch
         self.input_shape = qnet.plan.input_shape
-        self.program = make_int8_program(
-            self.qnet, core_config or ConvCoreConfig(int8=True))
-        self._stats = {"requests": 0, "batches": 0, "padded": 0}
+        self.engine = ContinuousBatchingEngine(
+            batch=batch, n_cores=n_cores,
+            backend=backend or core_config.backend, deadline_ms=deadline_ms,
+            bulk_aging_ms=bulk_aging_ms, cache_capacity=4,
+            max_inflight=max_inflight, calib=calib, drift_band=drift_band,
+            route=route, device=device, core_config=core_config)
+        self.device = self.engine.device
+        self.model = self.engine.add_model(qnet, tune=tune)
+        self.qnet = self.engine._models[self.model].qnet
+
+    @property
+    def metrics(self):
+        return self.engine.metrics
 
     @property
     def stats(self) -> Dict[str, int]:
         """Counters: requests served, batches run, zero-padded lanes."""
-        return dict(self._stats)
+        return self.engine.stats
 
-    def submit(self, images) -> np.ndarray:
-        """images: [R, H, W, C] array (or a list of [H, W, C]) → logits
-        [R, classes] as float32 numpy, in request order."""
-        x = torch.as_tensor(np.asarray(images, dtype=np.float32))
-        if x.dim() != 4 or tuple(x.shape[1:]) != tuple(self.input_shape):
+    @property
+    def layer_profile(self):
+        return self.engine.layer_profile
+
+    @property
+    def drift_events(self):
+        return self.engine.drift_events
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        """p50/p90/p99 (+count/mean) of per-request enqueue → result
+        latency in µs (queue wait included)."""
+        return self.engine.latency_percentiles()
+
+    def _images(self, images) -> np.ndarray:
+        """[R, H, W, C] (or one [H, W, C]) as float32, shape-checked."""
+        x = np.asarray(images, dtype=np.float32)
+        shape = x.shape[1:] if x.ndim == 4 else x.shape
+        if x.ndim not in (3, 4) or tuple(shape) != tuple(self.input_shape):
             raise ValueError(f"expected images of shape [R, "
                              f"{', '.join(map(str, self.input_shape))}], "
                              f"got {tuple(x.shape)}")
-        outs = []
-        for start in range(0, x.shape[0], self.batch):
-            chunk = x[start:start + self.batch]
-            pad = self.batch - chunk.shape[0]
-            if pad:
-                chunk = torch.cat([chunk, chunk.new_zeros(
-                    (pad, *chunk.shape[1:]))])
-            logits = self.program(chunk.to(self.device))
-            outs.append(logits[:self.batch - pad])
-            self._stats["batches"] += 1
-            self._stats["padded"] += pad
-        self._stats["requests"] += x.shape[0]
-        if not outs:
-            return np.zeros((0, 0), np.float32)
-        return torch.cat(outs).cpu().numpy()
+        return x
+
+    def submit(self, images, *, priority: str = "interactive") -> np.ndarray:
+        """images: [R, H, W, C] array (or a list of [H, W, C]) → logits
+        [R, classes] as float32 numpy, in request order."""
+        return self.engine.submit(self._images(images), model=self.model,
+                                  priority=priority)
+
+    def submit_async(self, images, *, priority: str = "interactive"):
+        """Async admission: one Future per image (see
+        ``ContinuousBatchingEngine.submit_async``)."""
+        return self.engine.submit_async(self._images(images),
+                                        model=self.model, priority=priority)
+
+    def close(self) -> None:
+        self.engine.close()

@@ -324,6 +324,16 @@ def test_cuda_matmul_forms_equal_plain(cuda, m, k, n, dtype, bias):
     ((2, 300, 4, 32), torch.bfloat16, True),
     ((2, 300, 4, 64), torch.bfloat16, False),
     ((1, 3000, 24, 128), torch.bfloat16, True),
+    # head dims run padded (8, 96, 6), at D = 256, wider than one scalar
+    # block's 128 columns (160), on f32 copies (bf16 320), and B·H above
+    # the 65,535 blocks a grid's y axis holds
+    ((1, 300, 2, 8), torch.bfloat16, True),
+    ((1, 300, 2, 96), torch.bfloat16, False),
+    ((1, 300, 2, 256), torch.bfloat16, True),
+    ((1, 130, 2, 320), torch.bfloat16, True),
+    ((1, 300, 2, 6), torch.float32, True),
+    ((1, 300, 2, 160), torch.float32, False),
+    ((1, 16, 65600, 4), torch.float32, True),
 ])
 def test_cuda_flash_attention_equals_plain(cuda, shape, dtype, causal):
     g = torch.Generator().manual_seed(sum(shape))

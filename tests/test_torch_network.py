@@ -25,7 +25,7 @@ from repro_torch.core import perfmodel as tperf
 
 ZOO = ("lenet", "vgg_small", "vgg_imagenet", "large_map", "resnet_small",
        "mobilenet_small", "mobilenet_v2ish", "resnet_bottleneck",
-       "dilated_context")
+       "dilated_context", "unet_small")
 
 
 def _fields(plan):
@@ -75,9 +75,16 @@ def test_default_plans_pick_the_pipelined_kernel():
 
 
 def test_unet_transposed_conv_is_not_ported_yet():
-    plan = tnet.unet_small()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        plan.activation_shapes()
+    """Transposed convs are ported: ``unet_small``'s walks give the
+    reference's shapes (16×16 → 4×4 → back up to 16×16 per-pixel logits),
+    and each transposed layer is planned on its stride-1 lowering."""
+    jp, tp = jnet.unet_small(), tnet.unet_small()
+    assert tp.activation_shapes() == jp.activation_shapes()
+    assert tp.activation_shapes()[-1] == (16, 16, 3)
+    names = tp.node_names()
+    plans = dict(zip(names, tp.tile_plans()))
+    assert plans["up1"] is not None and plans["up2"] is not None
+    assert [sp.kind for sp in tp.layers].count("conv_transpose") == 2
 
 
 def test_paper_anchors_exact():
@@ -116,7 +123,7 @@ def test_init_params_draw_like_reference():
                 np.testing.assert_array_equal(np.asarray(a[k]), b[k].numpy())
 
 
-@pytest.mark.parametrize("net", ["lenet", "resnet_small"])
+@pytest.mark.parametrize("net", ["lenet", "resnet_small", "unet_small"])
 def test_float_oracle_matches_reference(net):
     rng = np.random.default_rng(8)
     jp, tp = getattr(jnet, net)(), getattr(tnet, net)()
@@ -128,7 +135,8 @@ def test_float_oracle_matches_reference(net):
 
 
 @pytest.mark.parametrize("net,per_channel", [
-    ("lenet", False), ("resnet_small", False), ("mobilenet_small", True)])
+    ("lenet", False), ("resnet_small", False), ("mobilenet_small", True),
+    ("unet_small", True)])
 def test_quantize_network_field_by_field(net, per_channel):
     rng = np.random.default_rng(9)
     jp, tp = getattr(jnet, net)(), getattr(tnet, net)()
