@@ -70,12 +70,39 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    results bit-equal); images/s, latency percentiles, formation counts and
    the device-busy share of an open-loop load beside phase 5's
    synchronous submit;
-8. print the per-kernel JSON line and, last, the run's device line.  A
+8. training through the kernels' backward, f32 with TF32 off: at each of
+   ``vgg_imagenet``'s six layer shapes (batch 8) a whole-map f32 conv on
+   both kernels (the scalar path picks its own tiles) ``torch.equal`` to
+   the same call with 8×16 tiles and within 1e-4 of its plain version,
+   and its VJP through autograd (``check_conv_vjp`` of
+   ``tests/test_torch_cuda.py``: the saved ReLU / pool masks equal the
+   float64 accumulator's except within rounding of 0 or of a tie, dx, dw
+   and db against the plain gradient oracles in float64, each element
+   within ``f32_sum_bound`` of its contraction and each gradient within
+   ``GRAD_REL_L2`` relative L2, which its TF32-operand control must
+   fail), conv 5 also with ``pipelined=True``, timed beside ``F.conv2d``
+   and, for the weight gradient, ``torch.matmul``; the head's
+   ``matmul_ws`` VJP and ``unet_small``'s two transposed-conv VJPs at 224
+   likewise; then the main paths: 3 ``fit``
+   steps of ``vgg_imagenet`` as the repo defines it (QAT per channel,
+   batch 8, 1000 classes) with the launches a step held to what the plan
+   gives (11 ``conv2d_ws``, 57 ``matmul_ws``, all scalar), ms a step, one
+   more step under ``torch.profiler`` split by part, and the trained net
+   quantized on 8 training images and served bit-equal to the plain
+   backend; the ``lenet`` QAT round trip at the reference test's settings
+   (float accuracy ≥ 0.9, int8 within 0.02); 3 steps of ``unet_small`` at
+   224×224×4;
+9. print the per-kernel JSON line and, last, the run's device line.  A
    kernel timed over several shapes reports the sum of their times (each
    of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
    bounds; ``matmul_ws``'s ``library_ms`` sums ``torch.matmul`` over its
    four bf16 shapes (the int8 head has no library call), and the convs'
-   and ``matmul_ws``'s ``launches`` add phase 7's to their main paths'.
+   and ``matmul_ws``'s ``launches`` add phases 7 and 8 to their main
+   paths'.  ``conv2d_ws`` and ``matmul_ws`` also carry phase 8's f32
+   sums (``f32_ms``, ``f32_bound_ms``, ``f32_library_ms``: the six
+   forward convs beside ``F.conv2d``, the 54 weight-gradient taps beside
+   ``torch.matmul``, each bound that of the whole function: x, the
+   cotangent and dw moved once for the weight gradient).
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
@@ -103,6 +130,8 @@ REQUESTS = 16
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12      # H100 SXM data sheet, dense int8
 BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
+F32_OPS_PER_S = 67e12         # H100 SXM data sheet, f32 outside the
+                              # tensor cores
 F32_TOL = 1e-4
 LM_ARCH = "llama3p2_3b"
 LM_PROMPTS = (64, 512, 777, 1024, 1536, 2048, 2500, 3000)
@@ -230,8 +259,17 @@ def main():
                                               FormedBatch, ServeRequest)
     from repro_torch.serving.engine import (ConvNetEngine, Request,
                                             ServingEngine)
+    from repro_torch import obs
+    from repro_torch.core import training
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.conv2d_ws import scalar_tiles
+    from repro_torch.kernels.conv2d_ws_bwd import (conv2d_ws_input_grad,
+                                                   conv2d_ws_weight_grad)
     from test_torch_cuda import (MM_CASES, TC_CASES, bf16_gemm_bound,
-                                 bf16_ulp, mm_case_inputs, tc_case_inputs)
+                                 GRAD_REL_L2, bf16_ulp, check_conv_vjp,
+                                 check_matmul_vjp,
+                                 mm_case_inputs, tc_case_inputs,
+                                 vgg_f32_layer)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -793,16 +831,24 @@ def main():
         return wall, (busy if evs else None), len(evs)
 
 
-    def serve(name, plan, seed):
+    def serve(name, plan, seed, params=None, calib=None,
+              per_channel=False):
+        """Quantize ``plan`` (random weights from ``seed``, or the given
+        ``params`` and calibration images) and serve it through
+        ``ConvNetEngine`` on both kernels, bit-equal to the plain
+        backend."""
         rng = np.random.default_rng(seed)
-        params = plan.init_params(rng, device=dev)
-        calib = torch.from_numpy(rng.normal(
-            size=(REQUESTS, *plan.input_shape)).astype(np.float32)).to(dev)
+        if params is None:
+            params = plan.init_params(rng, device=dev)
+            calib = torch.from_numpy(rng.normal(
+                size=(REQUESTS, *plan.input_shape)).astype(
+                    np.float32)).to(dev)
         t0 = time.perf_counter()
-        qnet = network.quantize_network(plan, params, calib)
+        qnet = network.quantize_network(plan, params, calib,
+                                        per_channel=per_channel)
         torch.cuda.synchronize()
-        log(f"  {name}: quantized on {REQUESTS} calibration images in "
-            f"{time.perf_counter() - t0:.2f} s")
+        log(f"  {name}: quantized on {calib.shape[0]} calibration images "
+            f"in {time.perf_counter() - t0:.2f} s")
         images = rng.normal(size=(REQUESTS, *plan.input_shape)).astype(
             np.float32)
         with torch.no_grad():
@@ -1432,7 +1478,314 @@ def main():
     for k in wrappers:
         stats[k]["launches"] += cbe_launches[k]
 
-    # -- 8. results --------------------------------------------------------
+    # -- 8. training -------------------------------------------------------
+    log("phase 8: training through the kernels' backward (f32, TF32 off)")
+    f32 = {k: 0.0 for k in ("conv_ms", "conv_lib_ms", "conv_bound",
+                            "mm_ms", "mm_lib_ms", "mm_bound")}
+    log("  vgg_imagenet f32 at batch 8, whole map, per layer (ms: CUDA "
+        "events around back-to-back calls; F.conv2d and torch.matmul on "
+        "the same operands, TF32 off; bounds at 3.35 TB/s and 67 TFLOP/s "
+        "f32; grad errors against the plain oracles in float64, each "
+        "element within f32_sum_bound, each gradient within GRAD_REL_L2 = "
+        f"{GRAD_REL_L2:g} relative L2 and its TF32 control outside it):")
+    log("    layer  GFLOP    fwd ms   F.conv2d ms  bound ms  tiles   "
+        "dx ms   dx bound  dw ms    taps on matmul_ws ms  torch.matmul ms"
+        "  dw bound  max err y / dx / dw / db")
+    for i in range(6):
+        x, w, b, kw = vgg_f32_layer(i)
+        geo = {k: v for k, v in kw.items() if k not in ("relu", "pool")}
+        want = conv2d_ws_plain(x, w, b, **kw)
+        for name in convs:              # the scalar path picks its tiles
+            fn = wrappers[name]
+            whole = fn(x, w, b, **kw)
+            tiled = fn(x, w, b, **{**kw, "h_tile": 8, "w_tile": 16})
+            torch.cuda.synchronize()
+            if not torch.equal(whole, tiled):
+                raise AssertionError(f"vgg_imagenet conv{i} f32: {name} "
+                                     f"whole map differs from 8x16 tiles")
+            compare(name, whole, want)
+        tiles = scalar_tiles(setup_conv(
+            tuple(x.shape), tuple(w.shape), pool=kw["pool"], int_path=False,
+            **geo), 1)
+        n, h, wd, c = x.shape
+        kh, kwd, _, k = w.shape
+        oh, ow = ref.conv_out_shape(h, wd, kh, kwd, kw["stride"],
+                                    kw["padding"])
+        flop = 2 * n * oh * ow * k * kh * kwd * c
+        fwd_ms = elapsed_ms(lambda: conv2d_ws(x, w, b, **kw), reps=3)
+        pad = ref.normalize_padding(kw["padding"], kh, kwd, kw["stride"], h,
+                                    wd)
+        assert pad[0][0] == pad[0][1] and pad[1][0] == pad[1][1], pad
+        xc = x.permute(0, 3, 1, 2)                  # NHWC: channels_last
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib_ms = elapsed_ms(lambda: F.conv2d(
+            xc, wc, b, stride=kw["stride"], padding=(pad[0][0], pad[1][0])),
+            reps=3)
+        fwd_bound = bound_ms(4 * (x.numel() + w.numel() + k + want.numel()),
+                             flop, F32_OPS_PER_S)
+        # the VJP through autograd, then its two pieces timed alone
+        xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+        xr.requires_grad_(i > 0)        # the network's input needs none
+        gy = torch.randn(want.shape, generator=gen, device=dev)
+        errs = check_conv_vjp(xr, wr, br, gy, kw)
+        if i == 5:
+            perrs = check_conv_vjp(xr, wr, br, gy, dict(kw, pipelined=True))
+        acc = conv2d_ws(x, w, b, **geo)
+        _, relu_mask, pool_idx = kops.epilogue_masks(acc, kw["relu"],
+                                                    kw["pool"])
+        dacc = kops.epilogue_backward(gy, relu_mask, pool_idx, acc.shape)
+        dx_ms = elapsed_ms(lambda: conv2d_ws_input_grad(
+            dacc, w, tuple(x.shape), **geo), reps=2, warmup=1)
+        dw_ms = elapsed_ms(lambda: conv2d_ws_weight_grad(
+            x, dacc, kh, kwd, stride=kw["stride"], padding=kw["padding"]),
+            reps=1, warmup=1)
+        xp = F.pad(x, (0, 0, pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
+        m = n * oh * ow
+        st = kw["stride"]
+        xts = [xp[:, dy:dy + (oh - 1) * st + 1:st,
+                  dx:dx + (ow - 1) * st + 1:st].permute(3, 0, 1, 2).reshape(
+            c, m) for dy in range(kh) for dx in range(kwd)]
+        gm = dacc.reshape(m, k)
+        mm_ms = elapsed_ms(lambda: [matmul_ws(t, gm) for t in xts], reps=1,
+                           warmup=1)
+        mm_lib = elapsed_ms(lambda: [torch.matmul(t, gm) for t in xts],
+                            reps=3)
+        dx_bound = bound_ms(4 * (dacc.numel() + w.numel() + x.numel()),
+                            flop, F32_OPS_PER_S)
+        dw_bound = bound_ms(4 * (x.numel() + dacc.numel() + w.numel()),
+                            2 * kh * kwd * c * m * k, F32_OPS_PER_S)
+        f32["conv_ms"] += fwd_ms
+        f32["conv_lib_ms"] += lib_ms
+        f32["conv_bound"] += fwd_bound
+        f32["mm_ms"] += mm_ms
+        f32["mm_lib_ms"] += mm_lib
+        f32["mm_bound"] += dw_bound
+        log(f"    conv{i}  {flop / 1e9:7.3f}  {fwd_ms:8.3f}  {lib_ms:9.3f}"
+            f"    {fwd_bound:7.4f}  {tiles.th}x{tiles.tw}/{tiles.kb}  "
+            f"{dx_ms:7.3f}  "
+            f"{dx_bound:7.4f}   {dw_ms:8.3f} {mm_ms:8.3f}              "
+            f"{mm_lib:7.3f}          {dw_bound:7.4f}   {errs['y']:.2e} / "
+            f"{errs.get('dx', 0.0):.2e} / {errs['dw']:.2e} / "
+            f"{errs['db']:.2e}")
+        log("           rel L2 (TF32 control) " + ", ".join(
+            f"{g_} {r_:.2e} ({c_:.2e})" for g_, (r_, c_) in
+            errs["rel"].items()) + f"; positions within rounding of a "
+            f"mask's decision {errs['near']}")
+        if i == 5:
+            log("           pipelined=True: conv2d_ws_pipe forward, rel L2 "
+                + ", ".join(f"{g_} {r_:.2e}" for g_, (r_, _) in
+                            perrs["rel"].items()))
+        del xts, xr, wr, br, dacc, acc
+    log(f"    sum: forward conv2d_ws {f32['conv_ms']:.3f} ms, F.conv2d "
+        f"{f32['conv_lib_ms']:.3f} ms, bound {f32['conv_bound']:.4f} ms; "
+        f"weight-grad taps on matmul_ws {f32['mm_ms']:.3f} ms, torch.matmul "
+        f"{f32['mm_lib_ms']:.3f} ms, bound {f32['mm_bound']:.4f} ms")
+    hx, hw, hb = mm_operands(BATCH, 256, 1000, torch.float32)
+    herr = check_matmul_vjp(hx.requires_grad_(), hw.requires_grad_(),
+                            hb.requires_grad_(),
+                            torch.randn(BATCH, 1000, generator=gen,
+                                        device=dev))
+    log(f"  head matmul_ws VJP [8,256]@[256,1000] f32 (max abs err, rel "
+        f"L2, TF32 control's rel L2): {herr}")
+    for label, xs_, ws_ in (("up1", (BATCH, 56, 56, 32), (2, 2, 32, 16)),
+                            ("up2", (BATCH, 112, 112, 16), (2, 2, 16, 8))):
+        ux = torch.randn(xs_, generator=gen, device=dev).requires_grad_()
+        uw = (torch.randn(ws_, generator=gen, device=dev)
+              / (4 * ws_[2]) ** 0.5).requires_grad_()
+        ub = torch.randn(ws_[3], generator=gen, device=dev).requires_grad_()
+        ug = torch.randn((xs_[0], 2 * xs_[1], 2 * xs_[2], ws_[3]),
+                         generator=gen, device=dev)
+        uerr = check_conv_vjp(ux, uw, ub, ug, dict(stride=2, relu=True),
+                              transpose=True)
+        log(f"  unet_small {label} transposed-conv VJP x{xs_} w{ws_} "
+            f"stride 2 at 224: {uerr}")
+
+    def train_launches(plan, batch):
+        """(conv2d_ws launches, matmul_ws launches by form) of one training
+        step of ``plan``: each conv or transposed conv runs one forward
+        launch, one input-gradient launch where its input needs a gradient
+        (not the network's input) and KH·KW·groups weight-gradient GEMMs;
+        each dense layer a forward GEMM, its weight-gradient GEMM and an
+        input-gradient GEMM where its input needs one."""
+        ins, acts = plan.resolved_inputs(), plan.activation_shapes()
+        shapes, geoms = plan.param_shapes(), plan.conv_geometries()
+        needs, n_conv = [], 0
+        forms = dict.fromkeys(PATHS, 0)
+        for i, sp in enumerate(plan.layers):
+            src_need = any(j >= 0 and needs[j] for j in ins[i])
+            needs.append(sp.kind in network.PARAM_KINDS or src_need)
+            if sp.kind not in network.PARAM_KINDS:
+                continue
+            s0 = plan.input_shape if ins[i][0] < 0 else acts[ins[i][0]]
+            if sp.kind == "dense":
+                k_in, k_out = shapes[i]["w"]
+                gemms = [(batch, k_in, k_out), (k_in, batch, k_out)] + (
+                    [(batch, k_out, k_in)] if src_need else [])
+            else:
+                kh, kwd, cg, k = shapes[i]["w"]
+                groups = geoms[i][1]
+                n_conv += 1 + src_need
+                if sp.kind == "conv":
+                    oh, ow = ref.conv_out_shape(s0[0], s0[1], kh, kwd,
+                                                sp.stride, sp.padding,
+                                                sp.dilation)
+                    gemm = (cg, batch * oh * ow, k // groups)
+                else:       # the taps contract over the transpose's input
+                    gemm = (k // groups, batch * s0[0] * s0[1], cg)
+                gemms = [gemm] * (kh * kwd * groups)
+            for mm, kk, nn in gemms:
+                forms[mm_path(mm, kk, nn, torch.float32)] += 1
+        return n_conv, forms
+
+    def train_main_path(label, plan, x, y, steps, batch, cfg, seed):
+        """``fit`` ``steps`` steps on the card with the counts reset just
+        before and read just after: launches equal to ``train_launches``,
+        every conv on the scalar path, finite metrics, every parametric
+        weight moved → (final state, history, histogram summary)."""
+        state0 = training.init_train_state(plan, np.random.default_rng(0),
+                                           device=dev)
+        hist_us = obs.metrics.histogram(f"train.step_us.{plan.name}")
+        hist_us.reset()
+        n_conv, forms = train_launches(plan, batch)
+        reset_counts()
+        state, hist = training.fit(plan, x, y, steps=steps, batch=batch,
+                                   cfg=cfg, seed=seed, state=state0)
+        torch.cuda.synchronize()
+        seen, pf = counts(), dict(matmul_ws.path_launches)
+        want = {k: 0 for k in wrappers}
+        want["conv2d_ws"] = steps * n_conv
+        want["matmul_ws"] = steps * sum(forms.values())
+        if seen != want or conv2d_ws.tc_launches or pf != {
+                k: steps * v for k, v in forms.items()}:
+            raise AssertionError(
+                f"{label}: launches {seen} (tensor-core "
+                f"{conv2d_ws.tc_launches}), matmul_ws forms {pf}; expected "
+                f"{want} on the scalar path, forms x{steps} {forms}")
+        for k in wrappers:
+            stats[k]["launches"] += seen[k]
+        if not all(np.isfinite(hh["loss"]) and np.isfinite(hh["grad_norm"])
+                   for hh in hist):
+            raise AssertionError(f"{label}: non-finite metrics {hist}")
+        for i, (p0, p1) in enumerate(zip(state0.params, state.params)):
+            if p0 is not None and torch.equal(p0["w"], p1["w"]):
+                raise AssertionError(f"{label}: node {i}'s weights did not "
+                                     f"move")
+        summ = hist_us.summary()
+        log(f"  {label}: {steps} fit steps of batch {batch}, launches "
+            f"{seen} a run = {n_conv} conv2d_ws and "
+            f"{sum(forms.values())} matmul_ws a step ({forms}), no "
+            f"tensor-core launch; loss {[round(hh['loss'], 4) for hh in hist]}"
+            f", grad norm {[round(hh['grad_norm'], 3) for hh in hist]}; "
+            f"ms a step (host clock, train.step_us) min "
+            f"{summ['min'] / 1e3:.2f}, mean {summ['mean'] / 1e3:.2f}, max "
+            f"{summ['max'] / 1e3:.2f}")
+        return state, hist, summ
+
+    vplan = network.vgg_imagenet()
+    vx, vy = training.synthetic_digits(
+        np.random.default_rng(1), 32, input_shape=vplan.input_shape,
+        classes=1000, device=dev)
+    vcfg = training.TrainConfig(qat=True, per_channel=True)
+    vstate, _, vsumm = train_main_path(
+        "vgg_imagenet 224 QAT per channel", vplan, vx, vy, 3, BATCH, vcfg, 2)
+
+    # one more step under torch.profiler: the device time by part
+    step_fn = training.make_train_step(vplan, vcfg)
+    xb, yb = vx[:BATCH], vy[:BATCH]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(vstate, xb, yb)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        step_fn(vstate, xb, yb)
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    conv_evs = [e for e in evs if "conv_ws_kernel" in e.name]
+    mm_evs = [e for e in evs if "matmul_ws_kernel" in e.name]
+    conv_ids, mm_ids = {id(e) for e in conv_evs}, {id(e) for e in mm_evs}
+    n_fwd = sum(sp.kind == "conv" for sp in vplan.layers)
+    n_conv, forms = train_launches(vplan, BATCH)
+    if len(conv_evs) != n_conv or len(mm_evs) != sum(forms.values()):
+        raise AssertionError(
+            f"profiled step: {len(conv_evs)} conv and {len(mm_evs)} GEMM "
+            f"kernels, expected {n_conv} and {sum(forms.values())}; kernel "
+            f"names {sorted({e.name[:60] for e in evs})}")
+    bwd0 = conv_evs[n_fwd].time_range.start
+    last = max(e.time_range.end for e in conv_evs + mm_evs)
+    split = dict.fromkeys(("forward convs", "input grads",
+                           "weight-grad GEMMs", "head", "optimizer",
+                           "the rest"), 0.0)
+    for e in evs:
+        us = e.time_range.elapsed_us() / 1e3
+        if id(e) in conv_ids:
+            split["forward convs" if e.time_range.start < bwd0
+                  else "input grads"] += us
+        elif id(e) in mm_ids:
+            split["head" if e.time_range.start < bwd0
+                  else "weight-grad GEMMs"] += us
+        elif e.time_range.start >= last:
+            split["optimizer"] += us
+        else:
+            split["the rest"] += us
+    busy = sum(split.values())
+    log(f"  vgg_imagenet 224 step under torch.profiler: device busy "
+        f"{busy:.3f} ms of a {wall:.3f} ms step (host clock, unprofiled) = "
+        f"{100 * busy / wall:.1f}%, {len(evs)} device events; device ms by "
+        f"part: " + ", ".join(f"{k} {v:.3f} ({100 * v / busy:.1f}%)"
+                              for k, v in split.items()))
+
+    reset_counts()
+    _, _, vres, _ = serve("vgg_imagenet trained", vplan, seed=3,
+                          params=vstate.params, calib=vx[:8],
+                          per_channel=True)
+    for k in wrappers:
+        stats[k]["launches"] += vres["auto"][0][k] + vres["sequential"][0][k]
+
+    # the QAT round trip at the reference test's settings, on the card
+    lplan = network.lenet(input_shape=(12, 12, 1))
+    for per_channel in (False, True):
+        rng = np.random.default_rng(7)
+        lx, ly = training.synthetic_digits(rng, 384, device=dev)
+        lxe, lye = training.synthetic_digits(rng, 192, device=dev)
+        lcfg = training.TrainConfig(qat=True, per_channel=per_channel)
+        reset_counts()
+        lstate, _ = training.fit(lplan, lx, ly, steps=50, batch=32,
+                                 cfg=lcfg, seed=8, device=dev)
+        with torch.no_grad():
+            float_acc = float(training.accuracy(
+                training.float_forward(lplan, lstate.params, lxe), lye))
+        qnet = network.quantize_network(lplan, lstate.params, lx[:128],
+                                        per_channel=per_channel)
+        program = network.make_int8_program(qnet, ConvCoreConfig(int8=True))
+        int8_acc = float(training.accuracy(program(lxe), lye))
+        seen = counts()
+        for k in wrappers:
+            stats[k]["launches"] += seen[k]
+        if float_acc < 0.9 or abs(float_acc - int8_acc) > 0.02:
+            raise AssertionError(f"lenet QAT per_channel={per_channel}: "
+                                 f"float {float_acc}, int8 {int8_acc}")
+        log(f"  lenet QAT round trip per_channel={per_channel} (50 steps of "
+            f"32, seeds 7/8): float accuracy {float_acc:.4f}, int8 "
+            f"{int8_acc:.4f} on 192 held-out images; launches {seen}")
+
+    uplan = network.unet_small(input_shape=(224, 224, 4), classes=3)
+    ux, uy = training.synthetic_segmentation(
+        np.random.default_rng(5), 16, input_shape=uplan.input_shape,
+        classes=3, device=dev)
+    train_main_path("unet_small 224 QAT per channel", uplan, ux, uy, 3,
+                    BATCH, training.TrainConfig(qat=True, per_channel=True),
+                    6)
+    stats["conv2d_ws"]["f32"] = (f32["conv_ms"], f32["conv_bound"],
+                                 f32["conv_lib_ms"])
+    stats["matmul_ws"]["f32"] = (f32["mm_ms"], f32["mm_bound"],
+                                 f32["mm_lib_ms"])
+
+    # -- 9. results --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         st = stats[name]
@@ -1443,6 +1796,9 @@ def main():
             bound_ms=sum(st["bound"].values()),
             bound_by=max(st["bound"], key=st["bound"].get),
             library_ms=st["library_ms"]))
+        if "f32" in st:     # the training path's f32 shapes, apart
+            rows[-1].update(zip(("f32_ms", "f32_bound_ms", "f32_library_ms"),
+                                st["f32"]))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 Inputs are plain numpy (``np.asarray`` of the reference's arrays), so this
 module needs no JAX: ``params_to_torch`` takes a float ``params`` list (one
-``{"w", "b"}`` dict or None per node), ``quantized_network`` the arrays
-of a reference ``QuantizedNetwork`` and ``lm_params_to_torch`` an LM
-parameter tree, and all return the port's objects on a device.
+``{"w", "b"}`` dict or None per node), ``train_state_to_torch`` a trainer's
+state (params, AdamW moments, step), ``quantized_network`` the arrays of a
+reference ``QuantizedNetwork`` and ``lm_params_to_torch`` an LM parameter
+tree, and all return the port's objects on a device.
 """
 
 from __future__ import annotations
@@ -35,6 +36,20 @@ def params_to_torch(params: Sequence[Optional[dict]],
     return [None if p is None else
             {k: _tensor(v, dev, torch.float32) for k, v in p.items()}
             for p in params]
+
+
+def train_state_to_torch(state, device: DeviceLike = None):
+    """A reference ``TrainState`` as numpy (``params``, ``opt_state`` with
+    its ``m`` and ``v`` lists mirroring the params, the int32 ``step``) →
+    the port's ``training.TrainState`` on ``device``, so one step runs from
+    the same state in both packages."""
+    from repro_torch.core.training import TrainState
+    dev = resolve_device(device)
+    return TrainState(
+        params=params_to_torch(state.params, dev),
+        opt_state={k: params_to_torch(state.opt_state[k], dev)
+                   for k in ("m", "v")},
+        step=_tensor(np.asarray(state.step), dev, torch.int32))
 
 
 def quantized_network(plan: NetworkPlan, *, weights, biases, requants,

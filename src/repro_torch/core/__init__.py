@@ -1,2 +1,8 @@
-"""Core of the port: quantization, the §5.2 cycle model, the tile planner,
-ConvCore, the int8 network compiler and the multi-core scheduler."""
+"""Core of the port: quantization (with the QAT estimators), the §5.2
+cycle model, the tile planner, ConvCore, the int8 network compiler, the
+multi-core scheduler and the trainer (``training``: the float shadow of a
+``NetworkPlan`` trained through the kernels' autograd Functions)."""
+
+from repro_torch.core import training
+
+__all__ = ["training"]

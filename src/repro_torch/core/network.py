@@ -395,6 +395,30 @@ class NetworkPlan:
                 smem_budget=smem_budget, kernel=kernel))
         return plans
 
+    def perf_report(self, cfg: perfmodel.IPCoreConfig =
+                    perfmodel.IPCoreConfig(),
+                    tile_plans: Optional[Sequence] = None,
+                    calib=None) -> dict:
+        """The §5.2 cycle model summed over the network, with the 20-core
+        full board (``perfmodel.network_report``); ``tile_plans`` adds the
+        tiled DMA traffic."""
+        return perfmodel.network_report(self.psum_table(), cfg,
+                                        tile_plans=tile_plans, calib=calib)
+
+    def train_report(self, cfg: perfmodel.IPCoreConfig =
+                     perfmodel.IPCoreConfig(),
+                     tile_plans: Optional[Sequence] = None,
+                     calib=None) -> dict:
+        """The §5.2 cycle model of one training step over this plan
+        (``perfmodel.train_report``), with the f32 weight-gradient
+        writeback of every parametric node on the shared DMA interface."""
+        wbytes = [None if shp is None else
+                  4 * (int(np.prod(shp["w"])) + int(np.prod(shp["b"])))
+                  for shp in self.param_shapes()]
+        return perfmodel.train_report(self.psum_table(), cfg,
+                                      weight_bytes=wbytes,
+                                      tile_plans=tile_plans, calib=calib)
+
     def conv_geometries(self) -> List[Optional[Tuple[int, int]]]:
         """Per-node resolved (features, groups) for conv and transposed
         conv nodes."""

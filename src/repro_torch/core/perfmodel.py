@@ -10,14 +10,17 @@ numbers exactly:
 * paper-GOPS (= psums/second): 0.224; 20 replicated IP cores: 4.48.
 
 These are FPGA analytics, not H100 figures.  ``pipeline_estimate`` is the
-crossover the tile planner consults for ``kernel="auto"``; only the
-analytic model (no calibration table) is ported.
+crossover the tile planner consults for ``kernel="auto"``;
+``network_report`` and ``train_report`` price a whole network's inference
+and training step.  Only the analytic model is ported: a calibration table
+(``calib``) raises ``NotImplementedError`` (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.kernels.ref import conv_out_shape, conv_transpose_out_shape
 
@@ -116,6 +119,28 @@ def dma_cycles(total_bytes: int, cfg: IPCoreConfig = IPCoreConfig()) -> int:
 PIPELINE_OVERHEAD_CYCLES = 16
 
 
+def _no_calib(calib) -> None:
+    if calib is not None:
+        raise NotImplementedError(
+            "calibration tables are not ported to the PyTorch cost model "
+            "yet (ROADMAP A7); pass calib=None for the analytic model")
+
+
+def pipeline_overhead_cycles(calib=None) -> float:
+    """The per-slab protocol cost the crossover charges: the 16-cycle
+    analytic constant."""
+    _no_calib(calib)
+    return PIPELINE_OVERHEAD_CYCLES
+
+
+def calibrated_cycles(n_psums: int, cfg: IPCoreConfig = IPCoreConfig(),
+                      calib=None) -> int:
+    """Compute cycles under a calibration table; with none (the only case
+    ported) exactly ``cycles``."""
+    _no_calib(calib)
+    return cycles(n_psums, cfg)
+
+
 def pipeline_slabs(plan) -> int:
     """(spatial tile × kout bank × cin bank) slabs of one layer pass."""
     return plan.n_tiles * plan.kout_banks * plan.cin_banks
@@ -141,4 +166,127 @@ def pipeline_estimate(plan, psums: int,
         "pipelined_cycles": pipelined,
         "speedup": sequential / pipelined if pipelined else 1.0,
         "profitable": pipelined < sequential,
+    }
+
+
+def network_report(layers: Sequence[Tuple[str, int]],
+                   cfg: IPCoreConfig = IPCoreConfig(),
+                   full_board_cores: int = 20,
+                   tile_plans: Optional[Sequence] = None,
+                   calib=None) -> dict:
+    """Per-layer and total cycles / seconds / paper-GOPS of a layer list
+    [(name, psums per image), ...] on ``cfg`` and on the paper's full board
+    (``full_board_cores`` replicated IP cores).  ``tile_plans`` (one
+    ``banking.TilePlan`` or None per layer) adds the tiled DMA traffic:
+    each layer is priced by ``pipeline_estimate`` for the variant its plan
+    carries, and the shared DMA interface floors the full board's cycles."""
+    _no_calib(calib)
+    board = replace(cfg, ip_cores=full_board_cores)
+    if tile_plans is None:
+        tile_plans = [None] * len(layers)
+    per_layer: List[dict] = []
+    total = total_board = 0
+    for (name, p), tp in zip(layers, tile_plans):
+        compute = cycles(p, cfg) if p else 0
+        compute_board = cycles(p, board) if p else 0
+        row = {"name": name, "psums": p, "cycles": compute}
+        if tp is not None:
+            traffic = tile_traffic(tp)
+            dma = dma_cycles(traffic["total_bytes"], cfg)
+            pipelined = bool(getattr(tp, "pipelined", False))
+            est = pipeline_estimate(tp, p, cfg)
+            est_board = pipeline_estimate(tp, p, board)
+            key = "pipelined_cycles" if pipelined else "sequential_cycles"
+            row.update(dma_bytes=traffic["total_bytes"], dma_cycles=dma,
+                       halo_read_factor=traffic["halo_read_factor"],
+                       n_tiles=tp.n_tiles,
+                       cycles=est[key] if p else dma,
+                       pipelined=pipelined,
+                       cycles_sequential=est["sequential_cycles"],
+                       cycles_pipelined=est["pipelined_cycles"],
+                       pipeline_speedup=est["speedup"],
+                       dma_bound=dma >= compute,
+                       dma_bound_board=dma >= compute_board)
+            total += row["cycles"]
+            total_board += est_board[key] if p else dma
+        else:
+            total += compute
+            total_board += compute_board
+        per_layer.append(row)
+    total_psums = sum(p for _, p in layers)
+    return {
+        "layers": per_layer,
+        "dma_bound_board_layers": sum(
+            1 for r in per_layer if r.get("dma_bound_board")),
+        "pipelined_layers": sum(1 for r in per_layer if r.get("pipelined")),
+        "psums": total_psums,
+        "cycles": total,
+        "seconds": total / cfg.clock_hz,
+        "gops_paper": total_psums / (total / cfg.clock_hz) / 1e9 if total
+        else 0.0,
+        "full_board": {
+            "ip_cores": full_board_cores,
+            "cycles": total_board,
+            "seconds": total_board / board.clock_hz,
+            "gops_paper": total_psums / (total_board / board.clock_hz) / 1e9
+            if total_board else 0.0,
+        },
+    }
+
+
+def train_report(layers: Sequence[Tuple[str, int]],
+                 cfg: IPCoreConfig = IPCoreConfig(),
+                 weight_bytes: Optional[Sequence[int]] = None,
+                 full_board_cores: int = 20,
+                 tile_plans: Optional[Sequence] = None,
+                 calib=None) -> dict:
+    """The §5.2 cycle model of one training step over [(name, forward
+    psums per image), ...]: the input gradient (a transposed conv) and the
+    weight gradient (a correlation over the same index set) each cost the
+    forward's psums, so the backward is 2× and the step 3×.
+    ``weight_bytes`` (per layer, None for parameter-free nodes) prices the
+    weight gradients' writeback on the shared DMA interface: a layer's
+    backward takes max(compute, dW DMA) cycles."""
+    _no_calib(calib)
+    fwd = network_report(layers, cfg, full_board_cores=full_board_cores,
+                         tile_plans=tile_plans)
+    board = replace(cfg, ip_cores=full_board_cores)
+    if weight_bytes is None:
+        weight_bytes = [None] * len(layers)
+    bwd_rows: List[dict] = []
+    bwd_total = bwd_board = 0
+    for (name, p), wb in zip(layers, weight_bytes):
+        compute = cycles(2 * p, cfg) if p else 0
+        compute_board = cycles(2 * p, board) if p else 0
+        row = {"name": name, "psums_bwd": 2 * p, "cycles": compute}
+        if wb:
+            dma = dma_cycles(wb, cfg)
+            row.update(dw_bytes=wb, dw_dma_cycles=dma,
+                       cycles=max(compute, dma))
+            bwd_total += row["cycles"]
+            bwd_board += max(compute_board, dma)   # shared DMA interface
+        else:
+            bwd_total += compute
+            bwd_board += compute_board
+        bwd_rows.append(row)
+    total = fwd["cycles"] + bwd_total
+    total_board = fwd["full_board"]["cycles"] + bwd_board
+    step_psums = 3 * fwd["psums"]
+    return {
+        "forward": fwd,
+        "backward": {"layers": bwd_rows, "psums": 2 * fwd["psums"],
+                     "cycles": bwd_total,
+                     "seconds": bwd_total / cfg.clock_hz},
+        "psums": step_psums,
+        "cycles": total,
+        "seconds": total / cfg.clock_hz,
+        "gops_paper": step_psums / (total / cfg.clock_hz) / 1e9 if total
+        else 0.0,
+        "full_board": {
+            "ip_cores": full_board_cores,
+            "cycles": total_board,
+            "seconds": total_board / board.clock_hz,
+            "gops_paper": step_psums / (total_board / board.clock_hz) / 1e9
+            if total_board else 0.0,
+        },
     }

@@ -1,5 +1,6 @@
-"""Symmetric int8 quantization for the conv datapath (counterpart of the
-conv-path half of ``repro.core.quantize``).
+"""Symmetric int8 quantization for the conv datapath and the QAT
+straight-through estimators (counterpart of the conv-path half of
+``repro.core.quantize``).
 
 Every scale is a float32 tensor computed with the same f32 operations in
 the same order as the reference, so scales, int8 values and biases are
@@ -53,3 +54,42 @@ def branch_requant_scale(s_branch, s_out) -> torch.Tensor:
 def act_scale_from_calibration(x_f32: torch.Tensor) -> torch.Tensor:
     """Activation scale from a calibration batch: max|x|/127 (symmetric)."""
     return _amax_scale(x_f32.to(torch.float32).abs().amax())
+
+
+# ---------------------------------------------------------------------------
+# Quantization-aware training (straight-through fake quantization)
+# ---------------------------------------------------------------------------
+
+
+def fake_quantize(x: torch.Tensor, scale) -> torch.Tensor:
+    """Quantize-dequantize onto the symmetric int8 grid with a
+    straight-through estimator: the forward value is the int8 round trip
+    (round half to even, saturate to ±127, rescale), written as
+    ``x + (q − x)`` with ``q − x`` detached, so the backward is the
+    identity.  ``scale`` is detached: QAT learns values on a grid, not the
+    grid."""
+    s = torch.as_tensor(scale, dtype=torch.float32,
+                        device=x.device).detach()
+    q = torch.clamp(torch.round(x / s), -127, 127) * s
+    return x + (q - x).detach()
+
+
+def fake_quant_weight(w: torch.Tensor,
+                      per_channel: bool = False) -> torch.Tensor:
+    """Fake-quantize a weight tensor on the grid ``quantize_network`` will
+    lower it to: max|w|/127, per tensor or per output channel (the last
+    axis, conv [KH,KW,C,K] and dense [C,K] alike)."""
+    wf = w.to(torch.float32)
+    if per_channel:
+        amax = wf.abs().amax(dim=tuple(range(w.dim() - 1)), keepdim=True)
+    else:
+        amax = wf.abs().amax()
+    return fake_quantize(wf, _amax_scale(amax.detach())).to(w.dtype)
+
+
+def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
+    """Fake-quantize an activation on the current batch's symmetric scale
+    (``act_scale_from_calibration``, detached): the QAT stand-in for the
+    calibrated grids the int8 program chains through its requantizing
+    epilogues."""
+    return fake_quantize(x, act_scale_from_calibration(x.detach()))

@@ -167,6 +167,73 @@ def smem_bytes(g: ConvGeom, slots: int) -> int:
     return acc + slots * (xw + ww)
 
 
+# what a scalar block aims for when it picks its own tiles: two blocks a SM
+SCALAR_HALF_SM = SM_SMEM // 2 - 1024
+
+
+def _retile(g: ConvGeom, th: int, tw: int, kb: int) -> ConvGeom:
+    """``g`` with conv-output tiles ``th`` × ``tw`` and ``kb`` kernels a
+    kout bank; every other field (the cin banks among them) kept."""
+    pool = _pooled(g)
+    oh, ow = (2 * g.poh, 2 * g.pow_) if pool else (g.poh, g.pow_)
+    kout_banks = g.k // kb
+    return g._replace(
+        th=th, tw=tw, n_th=-(-oh // th), n_tw=-(-ow // tw),
+        in_th=halo_window(th, g.stride, g.kh, g.dilation),
+        in_tw=halo_window(tw, g.stride, g.kw, g.dilation),
+        pth=th // 2 if pool else th, ptw=tw // 2 if pool else tw,
+        kout_banks=kout_banks, kb=kb,
+        bpg=kout_banks // (g.c // g.cgrp))
+
+
+def scalar_tiles(g: ConvGeom, slots: int) -> ConvGeom:
+    """The geometry a scalar-path launch runs: ``g`` itself where its tile
+    plan fits a block's shared memory (``slots`` = 1 for ``conv2d_ws``, 2
+    for ``conv2d_ws_pipe``), else tiles the launcher picks (a whole-map
+    f32 layer, as training runs, needs megabytes).
+
+    It keeps the caller's cin banks and changes only the spatial tiles
+    (halved, larger side first, pool-aligned) and the kout sub-banks (more
+    of them, ``kb`` down its divisors).  Each output pixel's f32 sum runs
+    bias, then cin bank by cin bank, tap by tap, in the same order on any
+    tiling, so the choice changes no value.  The first fit wins: under
+    half an SM's shared memory (two blocks a SM), else under
+    ``SMEM_BYTES``.  A geometry whose smallest tile (one pixel, or a 2×2
+    pool window, of one kernel) still overflows raises."""
+    if smem_bytes(g, slots) <= SMEM_BYTES:
+        return g
+    pool = _pooled(g)
+    tmin = 2 if pool else 1
+
+    def halve(t):
+        h = -(-t // 2)
+        return h + h % 2 if pool else h
+
+    kbs = [d for d in range(g.kb, 0, -1) if g.kb % d == 0]
+    for budget in (SCALAR_HALF_SM, SMEM_BYTES):
+        for kb in kbs:
+            th, tw = g.th, g.tw
+            while True:
+                cand = _retile(g, th, tw, kb)
+                if smem_bytes(cand, slots) <= budget:
+                    return cand
+                if th <= tmin and tw <= tmin:
+                    break
+                if th >= tw and th > tmin:
+                    th = halve(th)
+                else:
+                    tw = halve(tw)
+    least = smem_bytes(_retile(g, tmin, tmin, 1), slots)
+    raise ValueError(
+        f"no tile of this layer fits a block's shared memory: "
+        f"[{g.n},{g.h},{g.w},{g.c}] ⊛ [{g.kh},{g.kw},{g.cgrp},{g.k}] "
+        f"(stride {g.stride}, dilation {g.dilation}, cin banks "
+        f"{g.cin_banks} of {g.cb} channels, {'int8' if g.int_path else 'f32'}"
+        f", {slots} slot{'s' if slots > 1 else ''}) needs {least} bytes "
+        f"at {tmin}×{tmin} pixels of one kernel, over the {SMEM_BYTES} a "
+        f"Hopper block may use")
+
+
 # Field order of ``ConvParams`` in csrc/conv_common.cuh.
 _GEOM_FIELDS = ("n", "h", "w", "c", "k", "kh", "kw", "stride", "dilation",
                 "pt", "pl", "cin_banks", "cb", "kout_banks", "kb", "cgrp",
@@ -588,10 +655,15 @@ def _launch_setup(x_shape, w_shape, int_path: bool, requant: bool,
                   relu: bool, pool: bool, pipelined: bool, geo: tuple):
     """(ConvGeom, TcPlan or None) of one launch, cached per call signature:
     the served network asks for the same few every batch.  The validation
-    is ``setup_conv``'s; a geometry it refuses raises on every call."""
+    is ``setup_conv``'s; a geometry it refuses raises on every call.  On
+    the scalar path the geometry carries the tiles ``scalar_tiles`` fits
+    into a block's shared memory."""
     g = setup_conv(x_shape, w_shape, pool=pool, requant=requant,
                    int_path=int_path, **dict(geo))
-    return g, tc_plan(g, relu, pipelined)
+    plan = tc_plan(g, relu, pipelined)
+    if plan is None:
+        g = scalar_tiles(g, 2 if pipelined else 1)
+    return g, plan
 
 
 def launch_conv(lib_name: str, pipelined: bool, x, w, bias, out_scale,
@@ -599,15 +671,8 @@ def launch_conv(lib_name: str, pipelined: bool, x, w, bias, out_scale,
                 ) -> Tuple[torch.Tensor, str]:
     """Launch one of the two conv kernels on PyTorch's current stream, on
     the tensor-core path where ``plan`` is given (``tc_plan``), else on the
-    scalar path → (result, "tc" or "scalar")."""
-    if plan is None:
-        slots = 2 if pipelined else 1
-        need = smem_bytes(g, slots)
-        if need > SMEM_BYTES:
-            raise ValueError(
-                f"{lib_name}: the tile plan needs {need} bytes of shared "
-                f"memory per block, over the {SMEM_BYTES} a Hopper block may "
-                f"use; plan the layer with banking.plan_tiles(smem_budget=...)")
+    scalar path, whose ``g`` fits a block's shared memory (``scalar_tiles``)
+    → (result, "tc" or "scalar")."""
     x = x.contiguous()
     bias, scale, out_dtype = _operands(x, w, bias, out_scale, g)
     out = torch.empty((g.n, g.poh, g.pow_, g.k), dtype=out_dtype,
@@ -682,8 +747,9 @@ def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
     whenever ``out_scale`` (scalar or [K]) requantizes.  Epilogue order:
     ``relu`` → ``pool`` (2×2/2, floor) → requantize.  ``h_tile``/``w_tile``
     are conv-output tile extents (0 = whole map; pool-aligned when pooling):
-    validated, and followed by the scalar kernel; the tensor-core path
-    sizes its blocks for the card.
+    validated, and followed by the scalar kernel where they fit a block's
+    shared memory (else it picks its own, ``scalar_tiles``, with the same
+    values); the tensor-core path sizes its blocks for the card.
 
     On a CUDA tensor this launches ``csrc/conv2d_ws.cu``; on a CPU tensor it
     runs ``conv2d_ws_plain``."""

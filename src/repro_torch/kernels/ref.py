@@ -119,18 +119,19 @@ def _to_int32(acc: torch.Tensor) -> torch.Tensor:
 
 def conv2d_ref(x, w, bias=None, *, stride: int = 1,
                padding: Padding = "VALID", groups: int = 1,
-               dilation: int = 1):
-    """Float convolution oracle (f32 accumulate).  x: [N,H,W,C];
+               dilation: int = 1, dtype: torch.dtype = torch.float32):
+    """Float convolution oracle, accumulated in ``dtype`` (f32; float64
+    where a check needs the exact sums).  x: [N,H,W,C];
     w: [KH,KW,C/groups,K] → [N,OH,OW,K].  On the card TF32 is off for the
     call, so the f32 result is a full-precision reference."""
     check_groups(x.shape[3], w.shape[3], groups)
     pad = normalize_padding(padding, w.shape[0], w.shape[1], stride,
                             x.shape[1], x.shape[2], dilation)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        out = _nchw_conv(x.to(torch.float32), w.to(torch.float32), stride,
-                         pad, groups, dilation)
+        out = _nchw_conv(x.to(dtype), w.to(dtype), stride, pad, groups,
+                         dilation)
     if bias is not None:
-        out = out + bias.to(torch.float32)
+        out = out + bias.to(dtype)
     return out
 
 
@@ -322,22 +323,24 @@ def zero_insert(x: torch.Tensor, stride: int) -> torch.Tensor:
 
 def conv2d_transpose_ref(x, w, bias=None, *, stride: int = 1,
                          padding: Padding = "VALID", groups: int = 1,
-                         dilation: int = 1, out_spatial=None):
-    """Transposed (upsampling) convolution oracle, f32 accumulate.
-    x: [N,H,W,C]; w: [KH,KW,C/groups,K] (the forward layout) →
-    [N,OH,OW,K]: the input zero-inserted by ``stride``, the kernel flipped
-    spatially and a stride-1 grouped conv under the "full" padding of
+                         dilation: int = 1, out_spatial=None,
+                         dtype: torch.dtype = torch.float32):
+    """Transposed (upsampling) convolution oracle, accumulated in ``dtype``
+    (f32; float64 where a check needs the exact sums).  x: [N,H,W,C];
+    w: [KH,KW,C/groups,K] (the forward layout) → [N,OH,OW,K]: the input
+    zero-inserted by ``stride``, the kernel flipped spatially and a
+    stride-1 grouped conv under the "full" padding of
     ``conv_transpose_eq_params`` (negative pads crop)."""
     check_groups(x.shape[3], w.shape[3], groups)
     _, eq_pads = conv_transpose_eq_params(
         x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride, padding,
         dilation, out_spatial)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        out = _nchw_conv(zero_insert(x.to(torch.float32), stride),
-                         torch.flip(w, (0, 1)).to(torch.float32), 1,
+        out = _nchw_conv(zero_insert(x.to(dtype), stride),
+                         torch.flip(w, (0, 1)).to(dtype), 1,
                          eq_pads, groups, dilation)
     if bias is not None:
-        out = out + bias.to(torch.float32)
+        out = out + bias.to(dtype)
     return out
 
 
@@ -383,6 +386,114 @@ def conv2d_transpose_epilogue_ref(x, w, bias=None, *, stride: int = 1,
     if out_scale is not None:
         return requantize_ref(acc, out_scale)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Backward-pass oracles (the training contract)
+# ---------------------------------------------------------------------------
+
+
+def conv2d_input_grad_ref(g, w, x_shape, *, stride: int = 1,
+                          padding: Padding = "VALID", groups: int = 1,
+                          dilation: int = 1,
+                          dtype: torch.dtype = torch.float32):
+    """dL/dx of ``conv2d_ref``: the transposed conv of the cotangent with
+    per-group channel-swapped weights ([KH,KW,C/g,K] → [KH,KW,K/g,C]),
+    pinned to the forward input's extent (``out_spatial``) so the rows a
+    strided forward never reached come back as zeros.  Accumulated in
+    ``dtype``, like the oracles below."""
+    n, h, w_dim, c = x_shape
+    kh, kw, cg, k = w.shape
+    assert c == cg * groups, (c, cg, groups)
+    return conv2d_transpose_ref(
+        g, grouped_swap_weights(w, groups), stride=stride, padding=padding,
+        groups=groups, dilation=dilation, out_spatial=(h, w_dim),
+        dtype=dtype)
+
+
+def conv2d_weight_grad_ref(x, g, kh: int, kw: int, *, stride: int = 1,
+                           padding: Padding = "VALID", groups: int = 1,
+                           dilation: int = 1,
+                           dtype: torch.dtype = torch.float32):
+    """dL/dw of ``conv2d_ref``, tap by tap:
+
+        dW[dy,dx,c,k] = Σ_{n,i,j} x_pad[n, i·s+dy·d, j·s+dx·d, c] · g[n,i,j,k]
+
+    with the contraction inside each group for ``groups > 1``, so dW keeps
+    the forward's [KH,KW,C/g,K] layout.  TF32 stays as the caller set it
+    (off by default for matmuls on the card)."""
+    n, h, w_dim, c = x.shape
+    oh, ow, k = g.shape[1], g.shape[2], g.shape[3]
+    check_groups(c, k, groups)
+    cg, kg = c // groups, k // groups
+    (pt, pb), (pl_, pr) = normalize_padding(padding, kh, kw, stride, h,
+                                            w_dim, dilation)
+    xp = F.pad(x.to(dtype), (0, 0, pl_, pr, pt, pb))
+    gf = g.to(dtype).reshape(n, oh, ow, groups, kg)
+    taps = []
+    for dy in range(kh):
+        for dx in range(kw):
+            xs = xp[:, dy * dilation:dy * dilation + (oh - 1) * stride + 1:
+                    stride,
+                    dx * dilation:dx * dilation + (ow - 1) * stride + 1:
+                    stride]
+            tap = torch.einsum("nijgc,nijgk->gck",
+                               xs.reshape(n, oh, ow, groups, cg), gf)
+            taps.append(tap.permute(1, 0, 2).reshape(cg, k))
+    return torch.stack(taps).reshape(kh, kw, cg, k)
+
+
+def conv2d_bias_grad_ref(g, dtype: torch.dtype = torch.float32):
+    """dL/db of ``conv2d_ref``: the cotangent summed over (N,OH,OW)."""
+    return g.to(dtype).sum(dim=(0, 1, 2))
+
+
+def relu_mask_ref(acc):
+    """The fused epilogue's ReLU backward mask: True where the accumulator
+    was strictly positive (no gradient at exactly 0)."""
+    return acc > 0
+
+
+def maxpool_argmax_ref(y, size: int = 2):
+    """Per-window argmax of the size×size/size max-pool, row-major within
+    the window and the first maximum winning (a tie of zeros after a ReLU
+    routes to the window's top-left), trailing rows and columns that fill
+    no window dropped → int8 [N, H//size, W//size, C] in 0..size²−1."""
+    win = _windows(y, size, size).flatten(-2)
+    # the first maximum explicitly: the lowest index holding the max
+    first = (win == win.amax(dim=-1, keepdim=True)).to(torch.int8)
+    return first.argmax(dim=-1).to(torch.int8)
+
+
+def maxpool2x2_argmax_ref(y):
+    """``maxpool_argmax_ref`` of the fused epilogue's 2×2 pool: the pool
+    mask the training residuals carry."""
+    return maxpool_argmax_ref(y, 2)
+
+
+def maxpool_first_ref(y, size: int):
+    """``maxpool2d_ref`` whose gradient goes to each window's first maximum
+    (``maxpool_argmax_ref``), as the reference's ``reduce_window`` max
+    routes it; ``amax`` would split a tie."""
+    idx = maxpool_argmax_ref(y.detach(), size).to(torch.int64)
+    return _windows(y, size, size).flatten(-2).gather(
+        -1, idx[..., None]).squeeze(-1)
+
+
+def maxpool2x2_bwd_ref(idx, g, out_shape):
+    """Backward of the 2×2/2 max-pool from its argmax mask: each window's
+    cotangent goes to the position ``idx`` chose; the dropped trailing odd
+    rows and columns get zero.  ``out_shape`` is the pre-pool
+    [N,H,W,C]."""
+    n, h, w, c = out_shape
+    h2, w2 = h // 2, w // 2
+    gf = g.to(torch.float32)[..., None]
+    dwin = torch.zeros((*gf.shape[:-1], 4), dtype=torch.float32,
+                       device=g.device).scatter_(
+        -1, idx.to(torch.int64)[..., None], gf)           # [N,H2,W2,C,4]
+    dy = dwin.reshape(n, h2, w2, c, 2, 2).permute(0, 1, 4, 2, 5, 3)
+    dy = dy.reshape(n, h2 * 2, w2 * 2, c)
+    return F.pad(dy, (0, 0, 0, w - w2 * 2, 0, h - h2 * 2))
 
 
 def conv2d_ref_wrap8(x, w, bias=None):

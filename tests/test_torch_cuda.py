@@ -380,3 +380,296 @@ def test_cuda_lm_engine_tokens_equal_the_cpu(cuda):
         assert launched == (0 if dev == "cpu" else 2 * len(prompts))
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# training: the scalar path's own tiles and the backward on the kernels
+# ---------------------------------------------------------------------------
+
+
+def f32_sum_bound(terms, s):
+    """Two sums of the same ``terms`` products, each taken in f32 in any
+    order (each within terms·2^-24·S of the exact sum, S = Σ|products|,
+    the rounding-error bound of a dot product), differ by at most
+    (terms + 1)·2^-23·S.  The plain side is summed in float64, so this
+    also bounds the kernel's error alone twice over."""
+    return (terms + 1) * 2.0 ** -23 * s
+
+
+# The norm-wise limit on an f32 gradient, ‖got − want‖₂ / ‖want‖₂ against
+# the float64 oracle.  The elementwise ``f32_sum_bound`` is a worst case
+# that grows with the contraction, so at 4·10⁵ terms it would pass a zero
+# or wrong-tap gradient; a sum of random-signed products in f32 is off by
+# about 2^-24·√terms of its size (about 1e-5 sequentially at 4·10⁵ terms),
+# while TF32 operands (10 mantissa bits) are off by about 2e-4 at any
+# length, and a zero gradient by 1.  Each check also computes that TF32
+# control and asserts it fails this limit.
+GRAD_REL_L2 = 5e-5
+
+
+def tf32_round(t):
+    """``t`` in f32 rounded to TF32 (10 mantissa bits, to nearest even), as
+    a tensor-core GEMM with TF32 on rounds its operands."""
+    i = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((i + 0xFFF + ((i >> 13) & 1)) & -0x2000).view(torch.float32)
+
+
+def rel_l2(got, want):
+    """‖got − want‖₂ / ‖want‖₂ in float64."""
+    return float((got.double() - want).norm() / want.norm())
+
+
+def check_grad(name, got, want, s, terms, control):
+    """One f32 gradient against its float64 oracle ``want``: every element
+    within ``f32_sum_bound(terms, s)``, the whole within ``GRAD_REL_L2``,
+    and the ``control`` (the oracle of TF32-rounded operands) outside it →
+    (max abs err, rel L2, control's rel L2)."""
+    assert got.dtype == torch.float32 and got.shape == want.shape, name
+    err = (got.double() - want).abs()
+    bad = err > f32_sum_bound(terms, s)
+    assert not bool(bad.any()), (name, float(err.max()),
+                                 float(f32_sum_bound(terms, s)[bad][0]))
+    rel, ctl = rel_l2(got, want), rel_l2(control, want)
+    assert rel <= GRAD_REL_L2 < ctl, (name, rel, ctl)
+    return float(err.max()), rel, ctl
+
+
+def _windows2x2(t):
+    return t.unfold(1, 2, 2).unfold(2, 2, 2).flatten(-2)
+
+
+def check_masks(acc64, r, relu_mask, pool_idx, relu):
+    """The Function's saved masks against masks of the float64 accumulator
+    ``acc64``, whose f32 value lies within ``r`` of it: a ReLU mask may
+    differ only where |acc| ≤ r, a pool index only where another position
+    of its window could hold the maximum within ``r`` (a tie of values
+    that are 0 for certain resolves by order on both sides) → the number
+    of such positions by mask."""
+    near = {}
+    if relu_mask is not None:
+        amb = acc64.abs() <= r
+        assert not bool(((relu_mask != (acc64 > 0)) & ~amb).any()), "relu"
+        near["relu"] = int(amb.sum())
+    if pool_idx is not None:
+        v, lo, hi = acc64, acc64 - r, acc64 + r
+        if relu:
+            v, lo, hi = (t.clamp(min=0) for t in (v, lo, hi))
+        want = ref.maxpool2x2_argmax_ref(v)
+        k = want.to(torch.int64)[..., None]
+        lo_w, hi_w = _windows2x2(lo), _windows2x2(hi)
+        lo_k, hi_k = lo_w.gather(-1, k), hi_w.gather(-1, k)
+        other = torch.ones_like(hi_w, dtype=torch.bool).scatter_(-1, k, False)
+        rival = other & (hi_w >= lo_k) & ~((hi_w == 0) & (hi_k == 0))
+        amb = rival.any(-1)
+        assert not bool(((pool_idx != want) & ~amb).any()), "pool"
+        near["pool"] = int(amb.sum())
+    return near
+
+
+def check_conv_vjp(x, w, b, g, kw, transpose=False):
+    """``ops.conv2d`` (or ``ops.conv2d_transpose``) differentiated by
+    autograd on the card against the plain gradient oracles in float64.
+    The forward runs the kernel ``pipelined=`` picks, within 1e-4 of the
+    plain version; its saved ReLU mask and pool indices equal those of
+    the float64 accumulator except within rounding of 0 or of a tie
+    (``check_masks``).  The oracles take the accumulator's cotangent the
+    Function routed through those masks (near a tie another subgradient
+    is as right), and each gradient passes ``check_grad``.  Asserts the
+    backward's launches: one ``conv2d_ws`` for dx where x needs a
+    gradient, KH·KW·groups scalar ``matmul_ws`` GEMMs for dw → {"y", "dx",
+    "dw", "db": max abs err, "rel": {name: (rel L2, TF32 control's)},
+    "near": positions within rounding of a mask's decision}."""
+    from repro_torch.kernels import ops
+    groups = kw.get("groups", 1)
+    f64 = torch.float64
+    fwd = (conv2d_ws_pipe if kw.get("pipelined") else conv2d_ws)
+    idle = conv2d_ws if kw.get("pipelined") else conv2d_ws_pipe
+    before = fwd.launches, idle.launches
+    y = (ops.conv2d_transpose if transpose else ops.conv2d)(x, w, b, **kw)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+        assert fwd.launches > before[0] and idle.launches == before[1]
+    node = y.grad_fn
+    cfg = node.cfg
+    *_, relu_mask, pool_idx = node.saved_tensors
+    dacc = ops.epilogue_backward(g, relu_mask, pool_idx, node.acc_shape)
+    before = (conv2d_ws.launches, conv2d_ws.tc_launches,
+              matmul_ws.launches, matmul_ws.path_launches["scalar"])
+    wants = [t for t in (x, w, b) if t is not None and t.requires_grad]
+    grads = dict(zip([id(t) for t in wants],
+                     torch.autograd.grad(y, wants, g)))
+    kh, kwd = w.shape[0], w.shape[1]
+    taps = kh * kwd * groups
+    if x.is_cuda:           # a CPU tensor runs the plain versions
+        torch.cuda.synchronize()
+        assert (conv2d_ws.launches, conv2d_ws.tc_launches,
+                matmul_ws.launches, matmul_ws.path_launches["scalar"]) == (
+            before[0] + x.requires_grad, before[1], before[2] + taps,
+            before[3] + taps)
+    geo = dict(stride=cfg.stride, padding=cfg.padding, groups=groups,
+               dilation=cfg.dilation)
+    errs = {"rel": {}}
+    xd, wd = x.detach(), w.detach()
+    bd = None if b is None else b.detach()
+    if transpose:
+        want_y = ref.conv2d_transpose_epilogue_ref(
+            xd, wd, bd, relu=cfg.relu, pool=cfg.pool, stride=cfg.stride,
+            padding=kw.get("padding", "VALID"), groups=groups,
+            dilation=cfg.dilation)
+        tgeo = dict(stride=cfg.stride, padding=kw.get("padding", "VALID"),
+                    groups=groups, dilation=cfg.dilation,
+                    out_spatial=kw.get("out_spatial"), dtype=f64)
+        acc64 = ref.conv2d_transpose_ref(xd, wd, bd, **tgeo)
+        acc_s = ref.conv2d_transpose_ref(
+            xd.abs(), wd.abs(), None if bd is None else bd.abs(), **tgeo)
+    else:
+        want_y = conv2d_ws_plain(xd, wd, bd, relu=cfg.relu, pool=cfg.pool,
+                                 cin_banks=cfg.cin_banks,
+                                 kout_banks=cfg.kout_banks, **geo)
+        acc64 = ref.conv2d_ref(xd, wd, bd, **geo, dtype=f64)
+        acc_s = ref.conv2d_ref(xd.abs(), wd.abs(),
+                               None if bd is None else bd.abs(), **geo,
+                               dtype=f64)
+    torch.testing.assert_close(y.detach(), want_y, rtol=1e-4, atol=1e-4)
+    errs["y"] = float((y.detach() - want_y).abs().max())
+    fwd_terms = kh * kwd * w.shape[2] + 1
+    errs["near"] = check_masks(acc64, f32_sum_bound(fwd_terms, acc_s) / 2,
+                               relu_mask, pool_idx, cfg.relu)
+    del acc64, acc_s
+    t32 = tf32_round
+    if transpose:
+        ws = ref.grouped_swap_weights(wd, groups)
+        dual = dict(stride=cfg.stride, padding=cfg.padding, groups=groups,
+                    dilation=cfg.dilation, dtype=f64)
+        swapped_wgrad = lambda a, c: ref.grouped_swap_weights(  # noqa: E731
+            ref.conv2d_weight_grad_ref(a, c, kh, kwd, **dual), groups)
+        cases = {
+            "dx": (x, lambda a, c: ref.conv2d_ref(a, c, **dual), dacc, ws,
+                   kh * kwd * w.shape[3] // groups),
+            "dw": (w, swapped_wgrad, dacc, xd,
+                   x.shape[0] * x.shape[1] * x.shape[2])}
+    else:
+        cases = {
+            "dx": (x, lambda a, c: ref.conv2d_input_grad_ref(
+                       a, c, x.shape, **geo, dtype=f64), dacc, wd,
+                   kh * kwd * w.shape[3] // groups),
+            "dw": (w, lambda a, c: ref.conv2d_weight_grad_ref(
+                       a, c, kh, kwd, **geo, dtype=f64), xd, dacc,
+                   dacc.shape[0] * dacc.shape[1] * dacc.shape[2])}
+    if b is not None:
+        cases["db"] = (b, lambda a, _: ref.conv2d_bias_grad_ref(a, f64),
+                       dacc, None, dacc.shape[0] * dacc.shape[1] *
+                       dacc.shape[2])
+    for name, (t, oracle, a, c, terms) in cases.items():
+        if id(t) not in grads:
+            continue
+        err, rel, ctl = check_grad(
+            name, grads[id(t)], oracle(a, c),
+            oracle(a.abs(), None if c is None else c.abs()), terms,
+            oracle(t32(a), None if c is None else t32(c)))
+        errs[name], errs["rel"][name] = err, (rel, ctl)
+    return errs
+
+
+def check_matmul_vjp(x, w, b, g):
+    """``ops.matmul_ws`` differentiated on the card: dx, dw and db against
+    the float64 products, each through ``check_grad``, two scalar
+    ``matmul_ws`` launches → {name: (max abs err, rel L2, TF32 control's
+    rel L2)}."""
+    from repro_torch.kernels import ops
+    y = ops.matmul_ws(x, w, b)
+    before = matmul_ws.path_launches["scalar"]
+    dx, dw, db = torch.autograd.grad(y, (x, w, b), g)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+        assert matmul_ws.path_launches["scalar"] == before + 2
+    gd, xd, wd = g.double(), x.detach().double(), w.detach().double()
+    gt, xt, wt = (tf32_round(t.detach()).double() for t in (g, x, w))
+    return {name: check_grad(name, got, want, s, terms, ctl)
+            for name, got, want, s, terms, ctl in (
+                ("dx", dx, gd @ wd.T, gd.abs() @ wd.abs().T, w.shape[1],
+                 gt @ wt.T),
+                ("dw", dw, xd.T @ gd, xd.abs().T @ gd.abs(), x.shape[0],
+                 xt.T @ gt),
+                ("db", db, gd.sum(0), gd.abs().sum(0), x.shape[0],
+                 gt.sum(0)))}
+
+
+def vgg_f32_layer(i, batch=8, device="cuda", seed=0):
+    """x, He-initialized w, b and the conv kwargs (whole map, the
+    trainer's banks) of ``vgg_imagenet``'s conv ``i`` in f32."""
+    from repro_torch.core import network
+    plan = network.vgg_imagenet()
+    convs = [j for j, sp in enumerate(plan.layers) if sp.kind == "conv"]
+    j = convs[i]
+    sp = plan.layers[j]
+    src = plan.input_shape if j == 0 else plan.activation_shapes()[j - 1]
+    ws = plan.param_shapes()[j]["w"]
+    g = torch.Generator(device=device).manual_seed(seed + i)
+    x = torch.randn((batch, *src), generator=g, device=device)
+    w = torch.randn(ws, generator=g, device=device) * (
+        2.0 / (ws[0] * ws[1] * ws[2])) ** 0.5
+    b = torch.randn((ws[3],), generator=g, device=device) * 0.05
+    cb, kb = ref.grouped_banks(ws[2], ws[3])
+    return x, w, b, dict(stride=sp.stride, padding=sp.padding,
+                         cin_banks=cb, kout_banks=kb, relu=sp.relu,
+                         pool=sp.pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [1, 5])
+def test_cuda_whole_map_f32_conv_equals_tiled(cuda, layer):
+    """A whole-map f32 conv overflows a block's shared memory; the scalar
+    launch picks its own tiles and gives the value the same call with
+    explicit tiles gives, bit for bit."""
+    x, w, b, kw = vgg_f32_layer(layer)
+    want = conv2d_ws_plain(x, w, b, **kw)
+    for fn in (conv2d_ws, conv2d_ws_pipe):
+        whole = fn(x, w, b, **kw)
+        tiled = fn(x, w, b, h_tile=8, w_tile=16, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(whole, tiled), fn.__name__
+        torch.testing.assert_close(whole, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_pieces_within_the_bound(cuda):
+    x, w, b, kw = vgg_f32_layer(2)
+    x.requires_grad_(), w.requires_grad_(), b.requires_grad_()
+    kw["pool"] = True
+    g = torch.randn((8, 56, 56, 64), device=cuda)
+    for pipelined in (False, True):
+        errs = check_conv_vjp(x, w, b, g, dict(kw, pipelined=pipelined))
+        assert set(errs["rel"]) == {"dx", "dw", "db"}
+    # the head: [8, 256] @ [256, 1000]
+    hx = torch.randn((8, 256), device=cuda).requires_grad_()
+    hw = (torch.randn((256, 1000), device=cuda) / 16).requires_grad_()
+    hb = torch.randn((1000,), device=cuda).requires_grad_()
+    check_matmul_vjp(hx, hw, hb, torch.randn((8, 1000), device=cuda))
+    # unet_small's first upsampling, at a 32×32 map
+    ux = torch.randn((2, 16, 16, 32), device=cuda).requires_grad_()
+    uw = (torch.randn((2, 2, 32, 16), device=cuda) / 8).requires_grad_()
+    ub = torch.randn((16,), device=cuda).requires_grad_()
+    check_conv_vjp(ux, uw, ub, torch.randn((2, 32, 32, 16), device=cuda),
+                   dict(stride=2, relu=True), transpose=True)
+
+
+@pytest.mark.cuda
+def test_cuda_lenet_fit_step_launches(cuda):
+    """One ``fit`` step of ``lenet`` on the card: 3 forward convs, 2 input
+    gradients (none for the input layer), 27 weight-gradient taps and the
+    two dense layers' 2 + 4 GEMMs, all on the scalar path and form."""
+    from repro_torch.core import network, training
+    plan = network.lenet(input_shape=(12, 12, 1))
+    x, y = training.synthetic_digits(np.random.default_rng(0), 64,
+                                     device=cuda)
+    counts = (conv2d_ws.launches, conv2d_ws.tc_launches,
+              conv2d_ws_pipe.launches, matmul_ws.launches,
+              matmul_ws.path_launches["scalar"])
+    state, hist = training.fit(plan, x, y, steps=1, batch=32,
+                               cfg=training.TrainConfig(qat=True))
+    assert state.step.device.type == "cuda" and np.isfinite(hist[0]["loss"])
+    assert (conv2d_ws.launches - counts[0], conv2d_ws.tc_launches - counts[1],
+            conv2d_ws_pipe.launches - counts[2],
+            matmul_ws.launches - counts[3],
+            matmul_ws.path_launches["scalar"] - counts[4]) == (5, 0, 0, 33, 33)

@@ -33,6 +33,10 @@ def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     assert "repro_torch.kernels.conv2d_ws_pipe" in mods
     assert "repro_torch.launch.serve" in mods
+    for m in ("repro_torch.core.training", "repro_torch.optim.adamw",
+              "repro_torch.optim.schedule",
+              "repro_torch.kernels.conv2d_ws_bwd"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
