@@ -91,18 +91,36 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    quantized on 8 training images and served bit-equal to the plain
    backend; the ``lenet`` QAT round trip at the reference test's settings
    (float accuracy ≥ 0.9, int8 within 0.02); 3 steps of ``unet_small`` at
-   224×224×4;
-9. print the per-kernel JSON line and, last, the run's device line.  A
+   224×224×4; each f32 forward conv is timed on ``conv2d_ws_pipe`` too;
+9. the calibrated cost model: ``calibration_sweep`` times the smoke grid
+   and ``vgg_imagenet``'s six convs at batch 8 on both kernels and fits a
+   table (into ``build/``), failing if no term was fit, if more than half
+   the samples are noisy, or if a sample launched on another path or
+   ``TcPlan`` than ``conv_path`` / ``tc_plan`` give; prints each
+   ``vgg_imagenet`` layer's calibrated ``kernel="auto"`` verdict beside
+   both kernels' measured times; tunes ``vgg_imagenet``, ``unet_small``
+   and ``mobilenet_small`` at 224×224×4 with ``autotune_network(...,
+   calib=)`` and serves 16 requests of each through
+   ``ConvNetEngine(tune=)``, bit-equal to the plain backend, launches held
+   to what the tuned plans give; serves ``vgg_imagenet`` through one
+   ``ContinuousBatchingEngine(n_cores=4, route=True, calib=,
+   drift_band=(0.5, 2.0))``: three single images released by the
+   deadline, then two full batches, bit-equal, with the route counters,
+   the first batch's per-layer measured/predicted ratios and the drift
+   events; and loads the committed ``CALIBRATION_h100.json``, whose
+   provenance must name the card;
+10. print the per-kernel JSON line and, last, the run's device line.  A
    kernel timed over several shapes reports the sum of their times (each
    of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
    bounds; ``matmul_ws``'s ``library_ms`` sums ``torch.matmul`` over its
    four bf16 shapes (the int8 head has no library call), and the convs'
    and ``matmul_ws``'s ``launches`` add phases 7 and 8 to their main
-   paths'.  ``conv2d_ws`` and ``matmul_ws`` also carry phase 8's f32
-   sums (``f32_ms``, ``f32_bound_ms``, ``f32_library_ms``: the six
-   forward convs beside ``F.conv2d``, the 54 weight-gradient taps beside
-   ``torch.matmul``, each bound that of the whole function: x, the
-   cotangent and dw moved once for the weight gradient).
+   paths', and phase 9's tuned and routed serving.  The two convs and
+   ``matmul_ws`` also carry phase 8's f32 sums (``f32_ms``,
+   ``f32_bound_ms``, ``f32_library_ms``: the six forward convs beside
+   ``F.conv2d``, the 54 weight-gradient taps beside ``torch.matmul``, each
+   bound that of the whole function: x, the cotangent and dw moved once
+   for the weight gradient).
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
@@ -127,11 +145,6 @@ sys.path.insert(0, str(ROOT / "tests"))     # the card tests' conv cases
 
 BATCH = 8
 REQUESTS = 16
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-INT8_OPS_PER_S = 1979e12      # H100 SXM data sheet, dense int8
-BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
-F32_OPS_PER_S = 67e12         # H100 SXM data sheet, f32 outside the
-                              # tensor cores
 F32_TOL = 1e-4
 LM_ARCH = "llama3p2_3b"
 LM_PROMPTS = (64, 512, 777, 1024, 1536, 2048, 2500, 3000)
@@ -238,6 +251,8 @@ def main():
     from repro_torch.configs.base import (get_config, param_count,
                                           reduce_config)
     from repro_torch.core import network, perfmodel
+    from repro_torch.core.perfmodel import (BF16_OPS_PER_S, F32_OPS_PER_S,
+                                            HBM_BYTES_PER_S, INT8_OPS_PER_S)
     from repro_torch.core.convcore import (ConvCore, ConvCoreConfig,
                                            get_backend, paper_workload,
                                            register_backend,
@@ -260,7 +275,9 @@ def main():
     from repro_torch.serving.engine import (ConvNetEngine, Request,
                                             ServingEngine)
     from repro_torch import obs
-    from repro_torch.core import training
+    from repro_torch.core import autotune, calibration_sweep, training
+    from repro_torch.core.calibration import (CalibrationTable,
+                                              fit_calibration)
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.conv2d_ws import scalar_tiles
     from repro_torch.kernels.conv2d_ws_bwd import (conv2d_ws_input_grad,
@@ -1233,13 +1250,14 @@ def main():
                                x.dtype))
             return self.inner.matmul(x, w, bias)
 
-    def expected_launches(qnet, mode, cores, batches):
+    def expected_launches(qnet, mode, cores, batches, tile_plans=None):
         """(launches, tensor-core launches, matmul forms) that ``batches``
-        batches of ``qnet`` make under (mode, cores): one batch runs
-        through the same scheduler around ``Recorder`` and each recorded
-        call becomes one kernel launch, on the conv kernel its tile plan
-        names and the path ``conv_path`` gives its geometry (a transposed
-        conv's: its stride-1 lowering), or on the ``mm_path`` form."""
+        batches of ``qnet`` make under (mode, cores) and ``tile_plans``
+        (None: the default plans): one batch runs through the same
+        scheduler around ``Recorder`` and each recorded call becomes one
+        kernel launch, on the conv kernel its tile plan names and the path
+        ``conv_path`` gives its geometry (a transposed conv's: its
+        stride-1 lowering), or on the ``mm_path`` form."""
         rec = Recorder()
         register_backend(rec)
         sched = MultiCoreScheduler(SchedulerConfig(cores, mode))
@@ -1249,7 +1267,7 @@ def main():
             register_backend(sb)
             name = sb.name
         program = network.make_int8_program(qnet, ConvCoreConfig(
-            int8=True, backend=name))
+            int8=True, backend=name), tile_plans=tile_plans)
         sched.run(program, torch.zeros((BATCH, *qnet.plan.input_shape),
                                        device=dev))
         torch.cuda.synchronize()
@@ -1480,17 +1498,17 @@ def main():
 
     # -- 8. training -------------------------------------------------------
     log("phase 8: training through the kernels' backward (f32, TF32 off)")
-    f32 = {k: 0.0 for k in ("conv_ms", "conv_lib_ms", "conv_bound",
-                            "mm_ms", "mm_lib_ms", "mm_bound")}
+    f32 = {k: 0.0 for k in ("conv_ms", "pipe_ms", "conv_lib_ms",
+                            "conv_bound", "mm_ms", "mm_lib_ms", "mm_bound")}
     log("  vgg_imagenet f32 at batch 8, whole map, per layer (ms: CUDA "
         "events around back-to-back calls; F.conv2d and torch.matmul on "
         "the same operands, TF32 off; bounds at 3.35 TB/s and 67 TFLOP/s "
         "f32; grad errors against the plain oracles in float64, each "
         "element within f32_sum_bound, each gradient within GRAD_REL_L2 = "
         f"{GRAD_REL_L2:g} relative L2 and its TF32 control outside it):")
-    log("    layer  GFLOP    fwd ms   F.conv2d ms  bound ms  tiles   "
-        "dx ms   dx bound  dw ms    taps on matmul_ws ms  torch.matmul ms"
-        "  dw bound  max err y / dx / dw / db")
+    log("    layer  GFLOP    fwd ms (pipe)      F.conv2d ms  bound ms  "
+        "tiles   dx ms   dx bound  dw ms    taps on matmul_ws ms  "
+        "torch.matmul ms  dw bound  max err y / dx / dw / db")
     for i in range(6):
         x, w, b, kw = vgg_f32_layer(i)
         geo = {k: v for k, v in kw.items() if k not in ("relu", "pool")}
@@ -1513,6 +1531,7 @@ def main():
                                     kw["padding"])
         flop = 2 * n * oh * ow * k * kh * kwd * c
         fwd_ms = elapsed_ms(lambda: conv2d_ws(x, w, b, **kw), reps=3)
+        pipe_ms = elapsed_ms(lambda: conv2d_ws_pipe(x, w, b, **kw), reps=3)
         pad = ref.normalize_padding(kw["padding"], kh, kwd, kw["stride"], h,
                                     wd)
         assert pad[0][0] == pad[0][1] and pad[1][0] == pad[1][1], pad
@@ -1556,12 +1575,14 @@ def main():
         dw_bound = bound_ms(4 * (x.numel() + dacc.numel() + w.numel()),
                             2 * kh * kwd * c * m * k, F32_OPS_PER_S)
         f32["conv_ms"] += fwd_ms
+        f32["pipe_ms"] += pipe_ms
         f32["conv_lib_ms"] += lib_ms
         f32["conv_bound"] += fwd_bound
         f32["mm_ms"] += mm_ms
         f32["mm_lib_ms"] += mm_lib
         f32["mm_bound"] += dw_bound
-        log(f"    conv{i}  {flop / 1e9:7.3f}  {fwd_ms:8.3f}  {lib_ms:9.3f}"
+        log(f"    conv{i}  {flop / 1e9:7.3f}  {fwd_ms:8.3f} ({pipe_ms:8.3f})"
+            f"  {lib_ms:9.3f}"
             f"    {fwd_bound:7.4f}  {tiles.th}x{tiles.tw}/{tiles.kb}  "
             f"{dx_ms:7.3f}  "
             f"{dx_bound:7.4f}   {dw_ms:8.3f} {mm_ms:8.3f}              "
@@ -1577,7 +1598,8 @@ def main():
                 + ", ".join(f"{g_} {r_:.2e}" for g_, (r_, _) in
                             perrs["rel"].items()))
         del xts, xr, wr, br, dacc, acc
-    log(f"    sum: forward conv2d_ws {f32['conv_ms']:.3f} ms, F.conv2d "
+    log(f"    sum: forward conv2d_ws {f32['conv_ms']:.3f} ms, "
+        f"conv2d_ws_pipe {f32['pipe_ms']:.3f} ms, F.conv2d "
         f"{f32['conv_lib_ms']:.3f} ms, bound {f32['conv_bound']:.4f} ms; "
         f"weight-grad taps on matmul_ws {f32['mm_ms']:.3f} ms, torch.matmul "
         f"{f32['mm_lib_ms']:.3f} ms, bound {f32['mm_bound']:.4f} ms")
@@ -1782,10 +1804,232 @@ def main():
                     6)
     stats["conv2d_ws"]["f32"] = (f32["conv_ms"], f32["conv_bound"],
                                  f32["conv_lib_ms"])
+    stats["conv2d_ws_pipe"]["f32"] = (f32["pipe_ms"], f32["conv_bound"],
+                                      f32["conv_lib_ms"])
     stats["matmul_ws"]["f32"] = (f32["mm_ms"], f32["mm_bound"],
                                  f32["mm_lib_ms"])
 
-    # -- 9. results --------------------------------------------------------
+    # -- 9. the calibrated cost model, the autotuner, routing ---------------
+    log("phase 9: a calibration table fitted on the card; the calibrated "
+        "planner; tuned and routed serving")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    samples = calibration_sweep.sweep(smoke=True)
+    table = fit_calibration(samples,
+                            provenance=calibration_sweep.provenance(True))
+    table_path = ROOT / "build" / "CALIBRATION_smoke.json"
+    table_path.parent.mkdir(exist_ok=True)
+    table.save(str(table_path))
+    fit = table.fit
+    log(f"  sweep: {len(samples)} points (the smoke grid and vgg_imagenet's "
+        f"six convs at batch 8 on both kernels) timed and fitted in "
+        f"{time.perf_counter() - t0:.1f} s; mean |error| "
+        f"{fit['mean_abs_error_pct']:.1f}%, max {fit['max_abs_error_pct']:.1f}%"
+        f", {fit['n_rejected_noisy']} of {fit['n_samples']} rejected as "
+        f"noisy")
+    log(f"  table ({table_path.relative_to(ROOT)}): "
+        + json.dumps(table.to_dict()))
+    if not fit["terms_fit"] or fit["n_rejected_noisy"] > len(samples) / 2:
+        raise AssertionError(f"calibration fit: {dict(fit)}")
+    for smp in samples:
+        rule = calibration_sweep.launch_plan(smp.meta["geometry"])
+        if {k: smp.meta[k] for k in rule} != rule:
+            raise AssertionError(f"{smp.name}: launched {smp.meta}, the "
+                                 f"path rule gives {rule}")
+    paths = {p: sum(smp.meta["conv_path"] == p for smp in samples)
+             for p in ("tc", "scalar")}
+    log(f"  every sample launched on the path conv_path gives and with the "
+        f"TcPlan (bn, stages, slots) tc_plan gives: {paths}")
+
+    measured = {smp.name: smp for smp in samples}
+    device = {r[0]: r[3] for r in conv_rows}      # phase 3's device ms
+    cal_plans = network.program_tile_plans(
+        vq.plan, ConvCoreConfig(int8=True, calib=table))
+    ana_plans = network.program_tile_plans(vq.plan, ConvCoreConfig(int8=True))
+    agree = agree_dev = 0
+    log("  vgg_imagenet 224, kernel='auto' per conv (us: the sweep's median "
+        "at batch 8, CUDA events around each call, host work included; "
+        "device us: phase 3's device events of one call):")
+    for i, (cp, ap) in enumerate(
+            (c, a) for c, a in zip(cal_plans, ana_plans) if c is not None):
+        seq = measured[f"vgg_imagenet/conv{i}/seq"]
+        pipe = measured[f"vgg_imagenet/conv{i}/pipe"]
+        faster = "pipe" if pipe.measured_us < seq.measured_us else "seq"
+        verdict = "pipe" if cp.pipelined else "seq"
+        agree += verdict == faster
+        dev_row = device[f"vgg_imagenet conv{i}"]
+        dseq, dpipe = (1e3 * dev_row[k][1] for k in convs)
+        dev_faster = "pipe" if dpipe < dseq else "seq"
+        agree_dev += verdict == dev_faster
+        log(f"    conv{i}: calibrated {verdict}, analytic "
+            f"{'pipe' if ap.pipelined else 'seq'}; measured seq "
+            f"{seq.measured_us:.2f} (IQR {seq.iqr_us:.2f}), pipe "
+            f"{pipe.measured_us:.2f} (IQR {pipe.iqr_us:.2f}): {faster} "
+            f"faster; device seq {dseq:.2f}, pipe {dpipe:.2f}: "
+            f"{dev_faster} faster")
+    log(f"  the calibrated 'auto' picks the kernel that measured faster in "
+        f"the sweep on {agree} of 6 layers, in device time on {agree_dev}")
+
+    rng = np.random.default_rng(3)
+    mplan = network.mobilenet_small(input_shape=(224, 224, 4))
+    mparams = mplan.init_params(rng, device=dev)
+    mq = network.quantize_network(mplan, mparams, torch.from_numpy(
+        rng.normal(size=(REQUESTS, *mplan.input_shape)).astype(
+            np.float32)).to(dev))
+    mimages = rng.normal(size=(REQUESTS, *mplan.input_shape)).astype(
+        np.float32)
+    ref_engine = ConvNetEngine(mq, batch=BATCH, core_config=ConvCoreConfig(
+        int8=True, backend="ref"))
+    mref = ref_engine.submit(mimages)
+    ref_engine.close()
+    tuned_nets = {"vgg_imagenet": (vq, vimages, vref),
+                  "unet_small": (uq, uimages, uref),
+                  "mobilenet_small": (mq, mimages, mref)}
+    tunes = {}
+    tuned_launches = {k: 0 for k in wrappers}
+    for name, (q, images, want_logits) in tuned_nets.items():
+        t0 = time.perf_counter()
+        tune = autotune.autotune_network(q.plan, calib=table)
+        tune_s = time.perf_counter() - t0
+        tunes[name] = tune
+        log(f"  {name} {q.plan.input_shape}: tuned in {tune_s:.2f} s, "
+            f"layers_differ {tune.layers_differ}, speedup "
+            f"{tune.speedup:.4f} (calibrated cycles, greedy / tuned), mode "
+            f"{tune.scheduler_mode} × {tune.n_cores} cores")
+        batches = -(-len(images) // BATCH)
+        want, want_tc, want_forms = expected_launches(
+            q, tune.scheduler_mode, tune.n_cores, batches,
+            tile_plans=tune.tile_plans)
+        eng = ConvNetEngine(q, batch=BATCH, tune=tune, calib=table)
+        eng.submit(images[:1])               # build outside the counted run
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = eng.submit(images)
+        wall = time.perf_counter() - t0
+        seen = counts()
+        tc = {k: wrappers[k].tc_launches for k in convs}
+        forms = dict(matmul_ws.path_launches)
+        eng.close()
+        if (seen, tc, forms) != (want, want_tc, want_forms):
+            raise AssertionError(
+                f"tuned {name}: launches {seen}, tensor-core {tc}, forms "
+                f"{forms}; expected {want}, {want_tc}, {want_forms}")
+        if logits.shape != want_logits.shape or not np.array_equal(
+                logits, want_logits):
+            raise AssertionError(f"tuned {name}: logits differ from the "
+                                 f"plain backend")
+        for k in wrappers:
+            tuned_launches[k] += seen[k]
+        log(f"    served {len(images)} requests through ConvNetEngine(tune=) "
+            f"in {1e3 * wall:.2f} ms: launches {seen} (tensor-core {tc}, "
+            f"matmul_ws forms {forms}, as conv_path / mm_path give them); "
+            f"logits {logits.shape} bit-equal to the plain backend")
+
+    # one routed engine: deadline-released single images, then full batches
+    vtune = tunes["vgg_imagenet"]
+    routes = {n: autotune.route_batch(vtune.layers, n, 4, calib=table)
+              for n in (1, BATCH)}
+    n_single = 3
+    want = {k: 0 for k in wrappers}
+    want_tc = {k: 0 for k in convs}
+    want_forms = dict.fromkeys(PATHS, 0)
+    # the first batch is profiled (one warm-up and one timed pass of the
+    # routed program) before it runs
+    for n, n_batches in ((1, n_single + 2), (BATCH, 2)):
+        mode, cores, _ = routes[n]
+        w_, t_, f_ = expected_launches(vq, mode, cores, n_batches,
+                                       tile_plans=vtune.tile_plans)
+        for d, add in ((want, w_), (want_tc, t_), (want_forms, f_)):
+            for k in d:
+                d[k] += add[k]
+    eng = ContinuousBatchingEngine(batch=BATCH, n_cores=4, route=True,
+                                   calib=table, drift_band=(0.5, 2.0),
+                                   device=dev)
+    eng.add_model(vq, tune=vtune)
+    obs.reset()
+    obs.enable()
+    reset_counts()
+    single_ms = []
+    try:
+        for i in range(n_single):
+            t0 = time.perf_counter()
+            got = eng.submit_async(vimages[i]).result(timeout=300)
+            single_ms.append(1e3 * (time.perf_counter() - t0))
+            obs.disable()                  # only the first batch profiles
+            if not np.array_equal(got, vref[i]):
+                raise AssertionError(f"routed single image {i}: logits "
+                                     f"differ from the plain backend")
+        t0 = time.perf_counter()
+        futs = eng.submit_async(vimages)
+        got = np.stack([f.result(timeout=300) for f in futs])
+        full_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        obs.disable()
+    seen = counts()
+    tc = {k: wrappers[k].tc_launches for k in convs}
+    forms = dict(matmul_ws.path_launches)
+    if not np.array_equal(got, vref):
+        raise AssertionError("routed full batches: logits differ from the "
+                             "plain backend")
+    if (seen, tc, forms) != (want, want_tc, want_forms):
+        raise AssertionError(
+            f"routed vgg_imagenet: launches {seen}, tensor-core {tc}, forms "
+            f"{forms}; expected {want}, {want_tc}, {want_forms}")
+    route_counts = {m: eng.metrics.counter(f"route.{m}").value
+                    for m in ("batch", "kout", "spatial")}
+    formed = eng.formation_counts()
+    prof, drift = eng.layer_profile, eng.drift_events
+    drift_counter = obs.metrics.counter("obs.drift.events").value
+    eng.close()
+    obs.reset()
+    if formed["deadline"] != n_single or formed["full"] != 2:
+        raise AssertionError(f"routed engine formation {formed}")
+    if prof is None or not prof.calibrated or drift_counter != len(drift):
+        raise AssertionError("routed engine: no calibrated profile of its "
+                             "first batch")
+    for k in wrappers:
+        tuned_launches[k] += seen[k]
+    log(f"  routed vgg_imagenet (ContinuousBatchingEngine(n_cores=4, "
+        f"route=True, calib=, drift_band=(0.5, 2.0)), tune=): route_batch "
+        f"at 4 cores gives batch 1 → {routes[1][:2]}, batch {BATCH} → "
+        f"{routes[BATCH][:2]}; route counters {route_counts}; formation "
+        f"{formed}; launches {seen} (tensor-core {tc}, matmul_ws forms "
+        f"{forms}; the first batch's profile included); every logit "
+        f"bit-equal to the plain backend")
+    log(f"    single images released by the deadline: "
+        + ", ".join(f"{t:.2f}" for t in single_ms)
+        + f" ms each, enqueue → result (the first builds the routed "
+        f"program and profiles it); {REQUESTS} images as two full batches "
+        f"in {full_ms:.2f} ms")
+    log(f"    per layer of the first batch ({prof.batch} images, routed "
+        f"{routes[1][0]}; wall us measured with a sync after each node / "
+        f"predicted us for one image on the table's clock = ratio):")
+    for r in prof.records:
+        if r.predicted_us:
+            log(f"      {r.name:8s} {r.kind:8s} {r.wall_us:9.2f} / "
+                f"{r.predicted_us:9.2f} = {r.ratio:.3f}")
+    log(f"    drift events (band 0.5–2.0): {len(drift)} of "
+        f"{sum(1 for r in prof.records if r.predicted_us)} priced nodes: "
+        + ", ".join(f"{e.name} {e.ratio:.2f}" for e in drift))
+    # which conv kernel each layer runs is the table's verdict; the path
+    # runs one of them for every conv and matmul_ws for every head
+    if not (tuned_launches["conv2d_ws"] + tuned_launches["conv2d_ws_pipe"]
+            and tuned_launches["matmul_ws"]):
+        raise AssertionError(f"phase 9 launches {tuned_launches}")
+
+    committed = CalibrationTable.load(str(ROOT / "CALIBRATION_h100.json"))
+    prov = committed.provenance
+    if prov.get("mode") != "native" or "H100" not in prov.get("card", ""):
+        raise AssertionError(f"CALIBRATION_h100.json provenance {prov}")
+    log(f"  CALIBRATION_h100.json loads: fitted on {prov['card']} (torch "
+        f"{prov['torch_version']}, CUDA {prov['cuda_version']}, "
+        f"{'smoke' if prov['smoke'] else 'full'} grid), fit "
+        f"{dict(committed.fit)}")
+    for k in wrappers:
+        stats[k]["launches"] += tuned_launches[k]
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 10. results -------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         st = stats[name]

@@ -1,5 +1,7 @@
 """Core of the port: quantization (with the QAT estimators), the §5.2
-cycle model, the tile planner, ConvCore, the int8 network compiler, the
+cycle model and its calibration (``calibration``; ``calibration_sweep``
+fits a table from the card's kernel times), the tile planner and the
+autotuner (``autotune``), ConvCore, the int8 network compiler, the
 multi-core scheduler and the trainer (``training``: the float shadow of a
 ``NetworkPlan`` trained through the kernels' autograd Functions)."""
 

@@ -107,14 +107,17 @@ def plan_tiles(h: int, w: int, c: int, k: int, kh: int = 3, kw: int = 3, *,
                acc_bytes: int = 4, out_bytes: Optional[int] = None,
                cin_banks: int = 4, kout_banks: int = 4,
                smem_budget: Optional[int] = SMEM_BYTES,
-               kernel: str = "auto") -> TilePlan:
+               kernel: str = "auto", calib=None) -> TilePlan:
     """Jointly choose (h_tile, w_tile, cin_banks, kout_banks) so the
     working set fits ``smem_budget`` (None: whole map, one tile).
 
     ``kernel``: ``"sequential"`` (conv2d_ws), ``"pipelined"``
     (conv2d_ws_pipe) or ``"auto"`` — set ``pipelined`` where the §5.2
     crossover model (``perfmodel.pipeline_estimate``) says the ping-pong
-    pipeline wins.  The choice never affects fitting."""
+    pipeline wins, under the fitted terms of ``calib`` (a
+    ``core.calibration.CalibrationTable``) where one is given.  The choice
+    never affects fitting; ``core/autotune.py`` searches the whole
+    candidate space instead of this descent."""
     if kernel not in ("auto", "pipelined", "sequential"):
         raise ValueError(f"kernel must be auto|pipelined|sequential, "
                          f"got {kernel!r}")
@@ -167,7 +170,7 @@ def plan_tiles(h: int, w: int, c: int, k: int, kh: int = 3, kw: int = 3, *,
         psums = perfmodel.psum_count(h, w, c, k, kh, kw, stride=stride,
                                      padding=padding, groups=groups,
                                      dilation=dilation)
-        est = perfmodel.pipeline_estimate(plan, psums)
+        est = perfmodel.pipeline_estimate(plan, psums, calib=calib)
         return replace(plan, pipelined=est["profitable"])
 
     state = (oh, ow, cin_banks, kout_banks)

@@ -155,6 +155,9 @@ class ConvCoreConfig:
     smem_budget: int = banking.SMEM_BYTES   # per-block shared memory
     kernel: str = "auto"          # per layer: "auto" (crossover model),
                                   # "pipelined" or "sequential"
+    calib: Optional[object] = None  # core.calibration.CalibrationTable:
+                                  # fitted terms for the "auto" crossover;
+                                  # None: the analytic §5.2 model
 
 
 class ConvCore:
@@ -178,7 +181,7 @@ class ConvCore:
             groups=groups, in_bytes=1 if cfg.int8 else 4, acc_bytes=4,
             out_bytes=out_bytes, cin_banks=cb_n, kout_banks=kb_n,
             smem_budget=cfg.smem_budget,
-            kernel=cfg.kernel)
+            kernel=cfg.kernel, calib=cfg.calib)
 
     def apply_layer(self, x: torch.Tensor, w: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,

@@ -361,13 +361,15 @@ class NetworkPlan:
     def tile_plans(self, cin_banks: int = 4, kout_banks: int = 4,
                    in_bytes: int = 1,
                    smem_budget: Optional[int] = banking.SMEM_BYTES,
-                   kernel: str = "auto"
+                   kernel: str = "auto", calib=None
                    ) -> List[Optional[banking.TilePlan]]:
         """Per-node tile × bank plans (None for nodes without a conv); the
         final parametric layer keeps a 4-byte epilogue output, every other
         conv writes int8 (at ``in_bytes``).  A transposed conv is planned
         on its equivalent stride-1 conv (``transpose_eq_conv_geometry``),
-        the geometry its lowering launches."""
+        the geometry its lowering launches.  ``calib`` (a
+        ``core.calibration.CalibrationTable``) prices the ``"auto"``
+        crossover."""
         last_param = max((i for i, sp in enumerate(self.layers)
                           if sp.kind in PARAM_KINDS), default=-1)
         acts = self.activation_shapes()
@@ -392,7 +394,7 @@ class NetworkPlan:
                 dilation=sp.dilation, in_bytes=in_bytes,
                 out_bytes=4 if i == last_param else in_bytes,
                 cin_banks=cb_n, kout_banks=kb_n,
-                smem_budget=smem_budget, kernel=kernel))
+                smem_budget=smem_budget, kernel=kernel, calib=calib))
         return plans
 
     def perf_report(self, cfg: perfmodel.IPCoreConfig =
@@ -401,7 +403,7 @@ class NetworkPlan:
                     calib=None) -> dict:
         """The §5.2 cycle model summed over the network, with the 20-core
         full board (``perfmodel.network_report``); ``tile_plans`` adds the
-        tiled DMA traffic."""
+        tiled DMA traffic, ``calib`` the fitted terms."""
         return perfmodel.network_report(self.psum_table(), cfg,
                                         tile_plans=tile_plans, calib=calib)
 
@@ -506,7 +508,7 @@ def program_tile_plans(plan: NetworkPlan, core_config) -> List:
         cin_banks=core_config.cin_banks,
         kout_banks=core_config.kout_banks, in_bytes=1,
         smem_budget=core_config.smem_budget,
-        kernel=core_config.kernel)
+        kernel=core_config.kernel, calib=core_config.calib)
 
 
 @dataclass(frozen=True)

@@ -12,8 +12,18 @@ numbers exactly:
 These are FPGA analytics, not H100 figures.  ``pipeline_estimate`` is the
 crossover the tile planner consults for ``kernel="auto"``;
 ``network_report`` and ``train_report`` price a whole network's inference
-and training step.  Only the analytic model is ported: a calibration table
-(``calib``) raises ``NotImplementedError`` (ROADMAP A7).
+and training step.
+
+Every cost entry point takes an optional ``calib=``, a
+``core.calibration.CalibrationTable`` of terms fitted to measured kernel
+times (compute-overhead factor, effective DMA bytes/cycle, per-slab
+pipeline overhead, per-call overhead).  With ``calib=None`` every function
+is bit-identical to the analytic model.  The table is duck-typed here
+(attributes, not an import), so perfmodel does not depend on the layer it
+feeds.
+
+``h100_conv_roofline`` is the one H100 figure: the least time the card
+could take for a conv layer, from the data-sheet peaks below.
 """
 
 from __future__ import annotations
@@ -109,36 +119,39 @@ def tile_traffic(plan) -> dict:
             "kout_revisits": plan.kout_banks}
 
 
-def dma_cycles(total_bytes: int, cfg: IPCoreConfig = IPCoreConfig()) -> int:
-    """DMA cycles for ``total_bytes`` on the shared interface."""
-    return math.ceil(total_bytes / max(cfg.dma_bytes_per_cycle, 1e-9))
+def dma_cycles(total_bytes: int, cfg: IPCoreConfig = IPCoreConfig(),
+               calib=None) -> int:
+    """DMA cycles for ``total_bytes`` on the shared interface; a table's
+    fitted ``dma_bytes_per_cycle`` replaces the config's bandwidth."""
+    bpc = cfg.dma_bytes_per_cycle
+    if calib is not None and getattr(calib, "dma_bytes_per_cycle", None):
+        bpc = calib.dma_bytes_per_cycle
+    return math.ceil(total_bytes / max(bpc, 1e-9))
 
 
 # Per-slab cost of the explicit ping-pong protocol (descriptor setup,
 # semaphore wait, buffer swap): the reason tiny layers stay sequential.
+# The no-table value; a fitted table carries its own.
 PIPELINE_OVERHEAD_CYCLES = 16
 
 
-def _no_calib(calib) -> None:
-    if calib is not None:
-        raise NotImplementedError(
-            "calibration tables are not ported to the PyTorch cost model "
-            "yet (ROADMAP A7); pass calib=None for the analytic model")
-
-
 def pipeline_overhead_cycles(calib=None) -> float:
-    """The per-slab protocol cost the crossover charges: the 16-cycle
-    analytic constant."""
-    _no_calib(calib)
-    return PIPELINE_OVERHEAD_CYCLES
+    """The per-slab protocol cost the crossover charges: the table's
+    fitted value, or the 16-cycle analytic constant without one."""
+    if calib is None:
+        return PIPELINE_OVERHEAD_CYCLES
+    return float(getattr(calib, "pipeline_overhead_cycles",
+                         PIPELINE_OVERHEAD_CYCLES))
 
 
 def calibrated_cycles(n_psums: int, cfg: IPCoreConfig = IPCoreConfig(),
                       calib=None) -> int:
-    """Compute cycles under a calibration table; with none (the only case
-    ported) exactly ``cycles``."""
-    _no_calib(calib)
-    return cycles(n_psums, cfg)
+    """Compute cycles with the table's ``compute_factor`` applied;
+    ``calib=None`` returns ``cycles`` unchanged."""
+    base = cycles(n_psums, cfg)
+    if calib is None:
+        return base
+    return math.ceil(base * float(getattr(calib, "compute_factor", 1.0)))
 
 
 def pipeline_slabs(plan) -> int:
@@ -147,17 +160,22 @@ def pipeline_slabs(plan) -> int:
 
 
 def pipeline_estimate(plan, psums: int,
-                      cfg: IPCoreConfig = IPCoreConfig()) -> dict:
+                      cfg: IPCoreConfig = IPCoreConfig(),
+                      calib=None) -> dict:
     """Sequential-vs-pipelined cost of one layer pass under ``plan``:
     sequential = D + C; pipelined = d + (n−1)·max(d, c) + c plus the
-    per-slab protocol overhead, with d, c the per-slab shares."""
+    per-slab protocol overhead, with d, c the per-slab shares.  ``calib``
+    applies the fitted terms to each, and adds its per-call overhead to
+    both variants (so it never changes the verdict)."""
     n = max(pipeline_slabs(plan), 1)
-    dma = dma_cycles(tile_traffic(plan)["total_bytes"], cfg)
-    compute = cycles(psums, cfg) if psums else 0
+    dma = dma_cycles(tile_traffic(plan)["total_bytes"], cfg, calib)
+    compute = calibrated_cycles(psums, cfg, calib) if psums else 0
+    base = 0 if calib is None else math.ceil(
+        float(getattr(calib, "per_call_overhead_cycles", 0.0)))
     d, c = -(-dma // n), -(-compute // n)
-    sequential = dma + compute
-    pipelined = d + (n - 1) * max(d, c) + c \
-        + math.ceil(n * PIPELINE_OVERHEAD_CYCLES)
+    sequential = dma + compute + base
+    pipelined = d + (n - 1) * max(d, c) + c + base \
+        + math.ceil(n * pipeline_overhead_cycles(calib))
     return {
         "n_slabs": n,
         "dma_cycles": dma,
@@ -179,23 +197,23 @@ def network_report(layers: Sequence[Tuple[str, int]],
     (``full_board_cores`` replicated IP cores).  ``tile_plans`` (one
     ``banking.TilePlan`` or None per layer) adds the tiled DMA traffic:
     each layer is priced by ``pipeline_estimate`` for the variant its plan
-    carries, and the shared DMA interface floors the full board's cycles."""
-    _no_calib(calib)
+    carries, and the shared DMA interface floors the full board's cycles.
+    ``calib`` prices every row under the fitted terms."""
     board = replace(cfg, ip_cores=full_board_cores)
     if tile_plans is None:
         tile_plans = [None] * len(layers)
     per_layer: List[dict] = []
     total = total_board = 0
     for (name, p), tp in zip(layers, tile_plans):
-        compute = cycles(p, cfg) if p else 0
-        compute_board = cycles(p, board) if p else 0
+        compute = calibrated_cycles(p, cfg, calib) if p else 0
+        compute_board = calibrated_cycles(p, board, calib) if p else 0
         row = {"name": name, "psums": p, "cycles": compute}
         if tp is not None:
             traffic = tile_traffic(tp)
-            dma = dma_cycles(traffic["total_bytes"], cfg)
+            dma = dma_cycles(traffic["total_bytes"], cfg, calib)
             pipelined = bool(getattr(tp, "pipelined", False))
-            est = pipeline_estimate(tp, p, cfg)
-            est_board = pipeline_estimate(tp, p, board)
+            est = pipeline_estimate(tp, p, cfg, calib)
+            est_board = pipeline_estimate(tp, p, board, calib)
             key = "pipelined_cycles" if pipelined else "sequential_cycles"
             row.update(dma_bytes=traffic["total_bytes"], dma_cycles=dma,
                        halo_read_factor=traffic["halo_read_factor"],
@@ -246,21 +264,21 @@ def train_report(layers: Sequence[Tuple[str, int]],
     forward's psums, so the backward is 2× and the step 3×.
     ``weight_bytes`` (per layer, None for parameter-free nodes) prices the
     weight gradients' writeback on the shared DMA interface: a layer's
-    backward takes max(compute, dW DMA) cycles."""
-    _no_calib(calib)
+    backward takes max(compute, dW DMA) cycles.  ``calib`` prices both
+    passes under the fitted terms."""
     fwd = network_report(layers, cfg, full_board_cores=full_board_cores,
-                         tile_plans=tile_plans)
+                         tile_plans=tile_plans, calib=calib)
     board = replace(cfg, ip_cores=full_board_cores)
     if weight_bytes is None:
         weight_bytes = [None] * len(layers)
     bwd_rows: List[dict] = []
     bwd_total = bwd_board = 0
     for (name, p), wb in zip(layers, weight_bytes):
-        compute = cycles(2 * p, cfg) if p else 0
-        compute_board = cycles(2 * p, board) if p else 0
+        compute = calibrated_cycles(2 * p, cfg, calib) if p else 0
+        compute_board = calibrated_cycles(2 * p, board, calib) if p else 0
         row = {"name": name, "psums_bwd": 2 * p, "cycles": compute}
         if wb:
-            dma = dma_cycles(wb, cfg)
+            dma = dma_cycles(wb, cfg, calib)
             row.update(dw_bytes=wb, dw_dma_cycles=dma,
                        cycles=max(compute, dma))
             bwd_total += row["cycles"]
@@ -290,3 +308,29 @@ def train_report(layers: Sequence[Tuple[str, int]],
             if total_board else 0.0,
         },
     }
+
+
+# H100 SXM data-sheet peaks (dense, no sparsity, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12     # HBM3
+INT8_OPS_PER_S = 1979e12      # int8 tensor cores
+BF16_OPS_PER_S = 989e12       # bf16 tensor cores
+F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
+
+
+def h100_conv_roofline(h: int, w: int, c: int, k: int, kh: int = 3,
+                       kw: int = 3, in_bytes: int = 1,
+                       peak_ops: float = INT8_OPS_PER_S,
+                       hbm_bw: float = HBM_BYTES_PER_S) -> dict:
+    """Roofline terms of one VALID conv layer on one H100 (the int8
+    datapath by default; pass ``F32_OPS_PER_S`` and ``in_bytes=4`` for
+    f32): the least time the card could take, the larger of the
+    operations over the peak rate and the bytes moved (input and weights
+    read once, int32 output written once) over HBM's rate."""
+    oh, ow = h - kh + 1, w - kw + 1
+    ops = 2.0 * oh * ow * k * c * kh * kw
+    bytes_moved = (h * w * c + kh * kw * c * k) * in_bytes + oh * ow * k * 4
+    t = max(ops / peak_ops, bytes_moved / hbm_bw)
+    return {"flops": ops, "bytes": bytes_moved,
+            "t_compute": ops / peak_ops, "t_memory": bytes_moved / hbm_bw,
+            "seconds": t, "gops_macs": ops / t / 1e9,
+            "gops_paper": (oh * ow * k * c) / t / 1e9}

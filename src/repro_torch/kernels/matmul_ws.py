@@ -42,6 +42,7 @@ STREAM_COLS = 256         # columns a stream block covers (csrc: stream::BN)
 STREAM_BLOCKS = 4 * SMS   # stream blocks wanted in flight
 STREAM_MIN_KC = 256       # K rows a stream block takes at least ...
 STREAM_MAX_KC = 512       # ... and at most (its x slice in shared memory)
+STREAM_WARPS = 8          # warps a stream block, each every 8th row of K
 PATHS = ("wgmma", "stream", "scalar")
 _DTYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 
@@ -93,6 +94,49 @@ def stream_plan(m: int, k: int, n: int) -> Tuple[int, int]:
     rows = -(-k // split)
     kc = -(-rows // 32) * 32
     return -(-k // kc), kc
+
+
+def matmul_ws_stream_emulate(x, w, bias=None) -> torch.Tensor:
+    """The stream form's arithmetic, replayed in PyTorch on any device:
+    K in ``stream_plan``'s slices of ``kc`` rows; in each slice warp ``g``
+    sums rows g, g + 8, g + 16, ... in order from 0 (exact bf16 products in
+    f32, or int32); the eight warps' sums meet in warp order, onto the bias
+    where K is not split; with a split, each slice's sum is a partial, and
+    the reduce adds bias and partials in slice order; bf16 rounds once.
+    The same rounding steps in the same order as ``csrc/matmul_ws.cu``'s
+    ``mm_stream_kernel`` and ``mm_split_reduce_kernel``."""
+    dt = _dtype(x, w)
+    (m, k), n = x.shape, w.shape[1]
+    if mm_path(m, k, n, dt) != "stream":
+        raise ValueError(f"[{m},{k}]@[{k},{n}] {dt} runs the "
+                         f"{mm_path(m, k, n, dt)} form, not the stream form")
+    split, kc = stream_plan(m, k, n)
+    acc_dt = torch.int32 if dt == torch.int8 else torch.float32
+    steps = kc // STREAM_WARPS
+    xp = x.new_zeros((m, split * kc), dtype=acc_dt)
+    xp[:, :k] = x.to(acc_dt)
+    wp = w.new_zeros((split * kc, n), dtype=acc_dt)
+    wp[:k] = w.to(acc_dt)
+    # row s·kc + STREAM_WARPS·t + g of K: slice s, step t, warp g
+    xs = xp.reshape(m, split, steps, STREAM_WARPS).permute(2, 1, 3, 0)
+    ws = wp.reshape(split, steps, STREAM_WARPS, n).permute(1, 0, 2, 3)
+    acc = x.new_zeros((split, STREAM_WARPS, m, n), dtype=acc_dt)
+    for t in range(steps):                  # [s, g, m, 1] · [s, g, 1, n]
+        acc += xs[t].unsqueeze(-1) * ws[t].unsqueeze(-2)
+    b = (x.new_zeros((n,), dtype=acc_dt) if bias is None
+         else bias.to(device=x.device, dtype=acc_dt))
+    if split == 1:
+        out = b.expand(m, n).clone()
+        for g in range(STREAM_WARPS):
+            out += acc[0, g]
+    else:
+        part = acc[:, 0].clone()
+        for g in range(1, STREAM_WARPS):
+            part += acc[:, g]
+        out = b.expand(m, n).clone()
+        for s in range(split):
+            out += part[s]
+    return out if dt == torch.int8 else out.to(dt)
 
 
 def matmul_ws_plain(x, w, bias=None) -> torch.Tensor:

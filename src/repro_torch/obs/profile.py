@@ -14,10 +14,12 @@
   leaves a band; events land in ``obs.metrics`` (``obs.drift.events``) and
   as trace marks.
 
-Only the analytic model is ported: a calibration table (``calib=``) needs
-``core/calibration.py`` (ROADMAP A7).  Without a table the predicted
-column is the FPGA's §5.2 time, a cross-platform reference and not
-comparable to the card's wall time.
+With a calibration table (``calib=``, fitted on the card by
+``core/calibration_sweep.py``) the predicted column is the calibrated
+model's time on the table's clock, comparable to the measured one.
+Without one it is the FPGA's §5.2 time, a cross-platform reference and
+not comparable to the card's wall time: pass a drift detector only
+together with a table.
 """
 
 from __future__ import annotations
@@ -135,19 +137,25 @@ class DriftDetector:
         return events
 
 
-def _predicted_us(psums: int, tile_plan, cfg) -> Optional[float]:
-    """The §5.2 model's time for one node, priced the way the planner
-    prices it (``perfmodel.pipeline_estimate`` for planned convs, compute
-    cycles for GEMMs); None for nodes the model prices free."""
+def _predicted_us(psums: int, tile_plan, calib, cfg) -> Optional[float]:
+    """The cost model's time for one node, priced the way the planner and
+    the autotuner price it (``perfmodel.pipeline_estimate`` for planned
+    convs, calibrated compute cycles plus the per-call overhead for
+    GEMMs), on the table's clock; None for nodes the model prices free
+    (merges, pools, flatten)."""
     from repro_torch.core import perfmodel
+    clock = float(getattr(calib, "clock_hz", None) or cfg.clock_hz)
     if tile_plan is not None:
-        est = perfmodel.pipeline_estimate(tile_plan, psums, cfg)
+        est = perfmodel.pipeline_estimate(tile_plan, psums, cfg, calib)
         cyc = est["pipelined_cycles" if tile_plan.pipelined
                   else "sequential_cycles"]
-        return cyc / cfg.clock_hz * 1e6
+        return cyc / clock * 1e6
     if not psums:
         return None
-    return perfmodel.cycles(psums, cfg) / cfg.clock_hz * 1e6
+    cyc = perfmodel.calibrated_cycles(psums, cfg, calib)
+    if calib is not None:
+        cyc += float(getattr(calib, "per_call_overhead_cycles", 0.0))
+    return cyc / clock * 1e6
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -166,14 +174,13 @@ def profile_network(qnet, x: torch.Tensor, *, core_config=None,
     matches the ``NetworkPlan`` topology exactly (one record per node).
     Each node gets a ``layer:<name>`` trace event when obs is enabled.
     ``warmup`` extra passes absorb first-call costs (kernel builds, plan
-    caches).  ``calib`` must be None (ROADMAP A7)."""
+    caches).  ``calib`` (a ``core.calibration.CalibrationTable``) prices
+    the predicted column under the fitted terms; a layer's measured time
+    holds one launch and one synchronize, which the table's per-call
+    overhead stands for."""
     from repro_torch.core import network, perfmodel
     from repro_torch.core.convcore import ConvCoreConfig, get_backend
 
-    if calib is not None:
-        raise NotImplementedError(
-            "profile_network(calib=...) needs the calibration table, not "
-            "ported to the PyTorch package yet (ROADMAP A7)")
     if core_config is None:
         core_config = ConvCoreConfig(int8=True)
     plan = qnet.plan
@@ -211,7 +218,7 @@ def profile_network(qnet, x: torch.Tensor, *, core_config=None,
         psums = psum_rows[names[i]]
         t0, t1 = intervals[i]
         wall = (t1 - t0) / 1e3
-        pred = _predicted_us(psums, tile_plans[i], cfg)
+        pred = _predicted_us(psums, tile_plans[i], calib, cfg)
         rec = LayerProfile(
             index=i, name=names[i], kind=sp.kind, wall_us=wall,
             psums=psums, batch=batch,
@@ -219,7 +226,7 @@ def profile_network(qnet, x: torch.Tensor, *, core_config=None,
             predicted_us=pred,
             pipelined=(bool(tile_plans[i].pipelined)
                        if tile_plans[i] is not None else None),
-            calibrated=False)
+            calibrated=calib is not None)
         records.append(rec)
         if obs.enabled():
             # the measured walk as trace events with their real intervals
@@ -233,5 +240,5 @@ def profile_network(qnet, x: torch.Tensor, *, core_config=None,
     if drift is not None:
         events = tuple(drift.check(records))
     return NetworkProfile(network=plan.name, batch=batch,
-                          records=tuple(records), calibrated=False,
-                          drift=events)
+                          records=tuple(records),
+                          calibrated=calib is not None, drift=events)

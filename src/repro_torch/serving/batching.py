@@ -20,7 +20,13 @@ keeps its lanes full.  Three pieces:
 * :class:`ContinuousBatchingEngine` — the serving loop.  ``submit_async``
   returns a :class:`concurrent.futures.Future` per request; one worker
   thread forms batches, pads them onto the fixed ``[batch,H,W,C]``
-  program shape and dispatches them through ``MultiCoreScheduler``.
+  program shape and dispatches them through ``MultiCoreScheduler``.  A
+  model added with ``tune=`` (a ``core.autotune.NetworkTunePlan``) runs
+  the tuned tile plans under the tuned scheduler verdict; with
+  ``route=True`` each formed batch is routed through the scheduler mode
+  the calibrated model predicts fastest for its size
+  (``autotune.route_batch``): a deadline-launched single image takes the
+  kout / spatial modes, a full batch batch sharding.
 
 Where the reference keeps up to ``max_inflight`` batches unmaterialized
 through JAX's async dispatch, the port runs every batch on one CUDA
@@ -39,12 +45,11 @@ Telemetry (the engine's own ``MetricsRegistry``): ``queue.depth`` /
 (dispatch → retired, an upper bound on the batch's device time when
 batches queue behind ``max_inflight``) and enqueue → result
 ``request_latency_us`` histograms; ``batch_formed.{full,deadline,drain}``
-and ``cache.{hits,misses,evictions}`` counters; ``batch_fill``.
-
-Not ported yet: per-batch routing (``route=True``) and tuned plans
-(``tune=``) need the autotuner (ROADMAP A13b); the calibrated profile and
-the drift check (``calib=``, ``drift_band=``) need the calibration table
-(ROADMAP A7/A11).  Each raises ``NotImplementedError``.
+and ``cache.{hits,misses,evictions}`` counters; ``batch_fill``; and
+``route.<mode>`` counters when routing is live.  With obs enabled the
+first batch is profiled layer by layer; under ``calib=`` its prediction
+is the calibrated model's and a drift check (band ``drift_band``) flags
+the layers the table no longer describes (``drift_events``).
 """
 
 from __future__ import annotations
@@ -68,11 +73,6 @@ FORMATION_REASONS = ("full", "deadline", "drain")
 # a synchronous caller waiting on its own requests fails loudly, not
 # forever, if the worker dies
 SUBMIT_TIMEOUT_S = 600.0
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass
@@ -250,13 +250,17 @@ class ProgramCache:
 @dataclasses.dataclass
 class _Model:
     """One registered network: quantized weights (on the engine's
-    device), admission shape, output shape, backend and scheduler."""
+    device), admission shape, output shape, tune plan, the static backend
+    and scheduler, and (when routing) the per-formed-size route table."""
     name: str
     qnet: Any
     input_shape: Tuple[int, int, int]
     out_shape: Tuple[int, ...]
+    tune: Any
     backend_name: str
     sched: Any
+    routes: Dict[int, Tuple[str, Any, str]] = \
+        dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -299,7 +303,16 @@ class ContinuousBatchingEngine:
     ``n_cores > 1`` the formed batches are batch-sharded.  ``core_config``
     (the port's) is the ``ConvCoreConfig`` the programs build under
     (kernel choice, banks, shared-memory budget); its backend is replaced
-    by ``backend``."""
+    by ``backend``, and its ``calib`` by the engine's where one is given.
+
+    ``calib`` (a ``core.calibration.CalibrationTable``) prices the
+    planner's kernel choice, the routes and the profile; ``drift_band``
+    is the drift check's band.  ``route=True`` with a model's ``tune``
+    plan routes each formed batch through the mode
+    ``autotune.route_batch`` predicts fastest for its size on
+    ``n_cores`` cores (the tune plan's cores where ``n_cores`` is 1); the
+    routed kout / spatial programs build on first use of each formed
+    size and are cache entries of their own."""
 
     def __init__(self, *, batch: int = 8, n_cores: int = 1,
                  backend: str = "cuda", deadline_ms: float = 5.0,
@@ -314,20 +327,17 @@ class ContinuousBatchingEngine:
         if max_inflight < 1:
             raise ValueError(
                 f"max_inflight must be >= 1, got {max_inflight}")
-        if calib is not None:
-            raise _not_ported("calib= (the calibrated profile)", "A7/A11")
-        if drift_band is not None:
-            raise _not_ported("drift_band= (the live drift check)",
-                              "A7/A11")
-        if route:
-            raise _not_ported("route=True (per-batch scheduler routing)",
-                              "A13b")
         self.device = resolve_device(device)
         self.batch = batch
         self.n_cores = n_cores
         self.backend = backend
+        self.calib = calib
+        self.route = route
         self.clock = clock
         self.core_config = core_config or ConvCoreConfig(int8=True)
+        if calib is not None:
+            self.core_config = dataclasses.replace(self.core_config,
+                                                   calib=calib)
         self.metrics = obs.MetricsRegistry()
         self.queue = RequestQueue(self.metrics, deadline_ms=deadline_ms,
                                   bulk_aging_ms=bulk_aging_ms, clock=clock)
@@ -356,6 +366,7 @@ class ContinuousBatchingEngine:
         self.max_inflight = max_inflight
         self.layer_profile = None          # first obs'd batch, any model
         self.drift_events: tuple = ()
+        self._drift_band = drift_band
 
     # -- model registry ------------------------------------------------------
 
@@ -363,23 +374,42 @@ class ContinuousBatchingEngine:
                   tune=None) -> str:
         """Register a quantized network, copy it to the engine's device and
         build its program (a cache miss, an ``engine.compile`` span).
-        Returns the model name used for admission."""
+        ``tune`` (a ``NetworkTunePlan`` of the same network) supplies the
+        program's tile plans and the scheduler verdict.  Returns the model
+        name used for admission."""
         from repro_torch.core.scheduler import (MultiCoreScheduler,
                                                 SchedulerConfig)
-        if tune is not None:
-            raise _not_ported("tune= (autotuned plans)", "A13b")
         name = name or qnet.plan.name
         if name in self._models:
             raise ValueError(f"model {name!r} already registered")
+        if tune is not None and tune.network != qnet.plan.name:
+            raise ValueError(
+                f"tune plan is for network {tune.network!r}, "
+                f"engine serves {qnet.plan.name!r}")
+        if tune is not None:
+            sched = MultiCoreScheduler.from_tune(tune)
+            backend_name = self._shard_backend_name(sched)
+        else:
+            sched = MultiCoreScheduler(SchedulerConfig(n_cores=self.n_cores))
+            backend_name = self.backend
         entry = _Model(
             name=name, qnet=qnet.to(self.device),
             input_shape=tuple(qnet.plan.input_shape),
             out_shape=tuple(qnet.plan.activation_shapes()[-1]),
-            backend_name=self.backend,
-            sched=MultiCoreScheduler(SchedulerConfig(n_cores=self.n_cores)))
+            tune=tune, backend_name=backend_name, sched=sched)
         self._models[name] = entry
         self._compiled(entry, entry.backend_name)
         return name
+
+    def _shard_backend_name(self, sched) -> str:
+        """kout / spatial verdicts put the cores inside the program as a
+        registered sharded backend; batch verdicts shard around it."""
+        from repro_torch.core.convcore import register_backend
+        if sched.config.mode in ("kout", "spatial"):
+            sb = sched.shard_backend(self.backend)
+            register_backend(sb)
+            return sb.name
+        return self.backend
 
     def models(self) -> List[str]:
         return sorted(self._models)
@@ -423,7 +453,10 @@ class ContinuousBatchingEngine:
             with obs.span("engine.compile", network=entry.qnet.plan.name,
                           model=entry.name, backend=backend_name,
                           batch=self.batch):
-                tile_plans = program_tile_plans(entry.qnet.plan, cfg)
+                if entry.tune is not None:
+                    tile_plans = entry.tune.tile_plans
+                else:
+                    tile_plans = program_tile_plans(entry.qnet.plan, cfg)
                 program = make_int8_program(entry.qnet, cfg,
                                             tile_plans=tile_plans)
             return program, tile_plans, cfg
@@ -560,11 +593,39 @@ class ContinuousBatchingEngine:
     def _maybe_profile(self, entry: _Model, x: torch.Tensor, tile_plans,
                        cfg) -> None:
         """One-off layer-at-a-time profile of the first observed batch
-        (obs enabled only)."""
-        from repro_torch.obs.profile import profile_network
+        (obs enabled only), with the live drift check under a table."""
+        from repro_torch.obs.profile import DriftDetector, profile_network
+        drift = None
+        if self.calib is not None:
+            drift = DriftDetector(self._drift_band) if self._drift_band \
+                else DriftDetector()
         self.layer_profile = profile_network(
-            entry.qnet, x, core_config=cfg, tile_plans=tile_plans)
+            entry.qnet, x, core_config=cfg, tile_plans=tile_plans,
+            calib=self.calib, drift=drift)
         self.drift_events = self.layer_profile.drift
+
+    def _route_for(self, entry: _Model,
+                   n_real: int) -> Tuple[str, Any, Optional[str]]:
+        """(backend name, scheduler, routed mode) of one formed batch: the
+        static verdict unless routing is on and the model carries a tune
+        plan (the route table needs its per-layer costs)."""
+        if not self.route or entry.tune is None:
+            return entry.backend_name, entry.sched, None
+        cached = entry.routes.get(n_real)
+        if cached is None:
+            from repro_torch.core.autotune import route_batch
+            from repro_torch.core.scheduler import (MultiCoreScheduler,
+                                                    SchedulerConfig)
+            budget = self.n_cores if self.n_cores > 1 \
+                else max(entry.tune.n_cores, 1)
+            mode, cores, _ = route_batch(entry.tune.layers, n_real,
+                                         budget, calib=self.calib)
+            sched = MultiCoreScheduler(
+                SchedulerConfig(n_cores=cores, mode=mode))
+            bname = self._shard_backend_name(sched)
+            cached = entry.routes[n_real] = (bname, sched, mode)
+        self.metrics.counter(f"route.{cached[2]}").inc()
+        return cached
 
     def _dispatch(self, fb: FormedBatch) -> None:
         """Stage, upload and launch one formed batch on the engine's
@@ -580,7 +641,8 @@ class ContinuousBatchingEngine:
         self._fill.observe(n_real / self.batch)
         if pad:
             self._padded.inc(pad)
-        program, tile_plans, cfg = self._compiled(entry, entry.backend_name)
+        backend_name, sched, routed = self._route_for(entry, n_real)
+        program, tile_plans, cfg = self._compiled(entry, backend_name)
         slot = self._take_slot(entry)
         try:
             # one copy into the staging rows (torch's copy uses the host's
@@ -588,27 +650,29 @@ class ContinuousBatchingEngine:
             torch.stack([torch.from_numpy(r.image) for r in fb.requests],
                         out=slot.inp[:n_real])
             slot.inp[n_real:] = 0.0
+            run = (entry, fb, slot, program, tile_plans, cfg, sched, routed)
             if self._stream is None:
-                keep = self._run(entry, fb, slot, program, tile_plans, cfg)
+                keep = self._run(*run)
             else:
                 with torch.cuda.device(self.device), \
                         torch.cuda.stream(self._stream):
-                    keep = self._run(entry, fb, slot, program, tile_plans,
-                                     cfg)
+                    keep = self._run(*run)
         except BaseException:
             self._free_slots[slot.key].append(slot)
             raise
         self._inflight.append(_InFlight(slot, fb, self.clock(), keep))
 
-    def _run(self, entry, fb, slot, program, tile_plans, cfg) -> tuple:
+    def _run(self, entry, fb, slot, program, tile_plans, cfg, sched,
+             routed) -> tuple:
         x = slot.inp.to(self.device, non_blocking=True)
         if obs.enabled() and self.layer_profile is None:
             self._maybe_profile(entry, x, tile_plans, cfg)
         with obs.span("engine.batch", network=entry.qnet.plan.name,
                       model=entry.name, fill=len(fb.requests) / self.batch,
                       padded=self.batch - len(fb.requests),
-                      reason=fb.reason):
-            logits = entry.sched.run(program, x)
+                      reason=fb.reason,
+                      **({"routed": routed} if routed else {})):
+            logits = sched.run(program, x)
         slot.out.copy_(logits, non_blocking=True)
         if slot.event is not None:
             slot.event.record(self._stream)

@@ -167,9 +167,13 @@ class ConvNetEngine:
     qnet is copied there once.  ``core_config`` (default: the int8
     datapath on the hand-written kernels, each layer on the kernel its
     tile plan picks) sets the program's kernel choice and banks, and its
-    backend unless ``backend`` names one.  ``tune``, ``calib``,
-    ``drift_band`` and ``route=True`` raise ``NotImplementedError``
-    (ROADMAP A13b, A7/A11)."""
+    backend unless ``backend`` names one.  ``tune`` (a
+    ``NetworkTunePlan`` of this network) supplies the tuned tile plans and
+    scheduler verdict; ``calib`` (a ``CalibrationTable``) prices the
+    planner, the routes and the profile; ``drift_band`` bounds the drift
+    check's measured/predicted ratio; ``route=True`` routes each formed
+    batch through the scheduler mode the model predicts fastest for its
+    size (see ``ContinuousBatchingEngine``)."""
 
     def __init__(self, qnet: QuantizedNetwork, *, batch: int = 8,
                  n_cores: int = 1, backend: Optional[str] = None,

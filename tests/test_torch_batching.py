@@ -8,24 +8,34 @@ and formation calls under one fake clock, and must form the same
 ``deadline`` and ``drain`` reasons, bulk aging and interactive
 preemption, in hand-written and seeded random scripts.
 
-The engine tests port ``tests/test_serving_queue.py``'s (per-batch routing
-waits on ROADMAP A13b): a deadline launch without a drain waiter, LRU
-evict → rebuild bit-exact, four concurrent submitters, close drains,
-validation.  They run on the CPU (``device="cpu"``), where the ``cuda``
+The engine tests port ``tests/test_serving_queue.py``'s: a deadline launch
+without a drain waiter, LRU evict → rebuild bit-exact, four concurrent
+submitters, close drains, validation, and per-batch routing (each formed
+size routed to the mode the reference's ``route_batch`` gives it, under
+one fake clock).  ``tune=`` serves ``dilated_context`` bit-equal to the
+untuned engine; ``calib=`` with ``drift_band=`` flags the layers a table
+misprices.  They run on the CPU (``device="cpu"``), where the ``cuda``
 backend's wrappers take the kernels' plain versions, and every logit is
 held bit-equal (int8 paths have no tolerance) to the program run directly
 or to the ``ref`` backend."""
 
 import threading
 from concurrent.futures import Future
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro import obs as jobs
+from repro.core import autotune as jautotune
+from repro.core import calibration as jcal
+from repro.core import network as jnetwork
 from repro.serving import batching as jbatching
 from repro_torch import obs as tobs
+from repro_torch.core import autotune as tautotune
+from repro_torch.core import banking as tbanking
+from repro_torch.core import calibration as tcal
 from repro_torch.core import convcore as tconvcore
 from repro_torch.core import network
 from repro_torch.core.convcore import ConvCoreConfig
@@ -37,6 +47,7 @@ from repro_torch.serving.batching import (ContinuousBatchingEngine,
 from repro_torch.serving.engine import ConvNetEngine
 
 MS = 1_000_000                           # ns per ms
+ROOT = Path(__file__).resolve().parents[1]
 
 
 class FakeClock:
@@ -355,22 +366,186 @@ def test_engine_validation_and_admission_errors():
         _engine(max_inflight=0)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(calib=object()), "A7/A11"), (dict(drift_band=(0.5, 2.0)), "A7/A11"),
-    (dict(route=True), "A13b")])
-def test_parameters_not_ported_raise_naming_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _engine(**kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ConvNetEngine(_qnet(), device="cpu", **kw)
+# -- calibrated, tuned and routed serving --------------------------------------
+
+SYNTH = dict(compute_factor=2.0, dma_bytes_per_cycle=4.0,
+             pipeline_overhead_cycles=32.0, per_call_overhead_cycles=500.0)
 
 
-def test_tuned_plans_raise_naming_their_item():
+def _tables(name):
+    """(reference table, port table) by name: none, a synthetic one, or
+    the card's fitted table."""
+    if name == "none":
+        return None, None
+    if name == "synthetic":
+        return jcal.CalibrationTable(**SYNTH), tcal.CalibrationTable(**SYNTH)
+    path = str(ROOT / "CALIBRATION_h100.json")
+    return jcal.CalibrationTable.load(path), tcal.CalibrationTable.load(path)
+
+
+@pytest.mark.parametrize("table", ["none", "synthetic", "h100"])
+@pytest.mark.parametrize("n_cores", [1, 4])
+def test_route_takes_the_reference_mode_per_formed_size(table, n_cores):
+    """route=True under one fake clock: each formed size runs the mode and
+    cores the reference's ``route_batch`` gives it (on the reference's own
+    tune plan of the same net and table), once per size in the route
+    table, counted in ``route.<mode>``; the logits equal the plain
+    program's."""
+    jt, tt = _tables(table)
+    qnet = _qnet()
+    jtune_plan = jautotune.autotune_network(
+        jnetwork.lenet(input_shape=(12, 12, 1)),
+        vmem_budget=tbanking.SMEM_BYTES, calib=jt)
+    tune = tautotune.autotune_network(qnet.plan, calib=tt)
+    budget = n_cores if n_cores > 1 else tune.n_cores
+    rng = np.random.default_rng(4)
+    sizes = [1, 3, 4, 2, 1, 4]
+    imgs = rng.normal(size=(sum(sizes), 12, 12, 1)).astype(np.float32)
+    want = network.make_int8_program(qnet, ConvCoreConfig(
+        int8=True, backend="ref"))(torch.from_numpy(imgs)).numpy()
+    eng = _engine(batch=4, n_cores=n_cores, route=True, calib=tt,
+                  clock=FakeClock())
+    try:
+        eng.add_model(qnet, tune=tune)
+        got, start = [], 0
+        for n in sizes:
+            got.append(eng.submit(imgs[start:start + n]))
+            start += n
+        np.testing.assert_array_equal(np.concatenate(got), want)
+        routes = eng._models[qnet.plan.name].routes
+        assert sorted(routes) == sorted(set(sizes))
+        seen = {}
+        for n in sizes:
+            mode, cores, _ = jautotune.route_batch(jtune_plan.layers, n,
+                                                   budget, calib=jt)
+            bname, sched, routed = routes[n]
+            assert (routed, sched.config.mode, sched.config.n_cores) == \
+                (mode, mode, cores)
+            assert bname == ("cuda" if mode == "batch" else
+                             f"cuda@{mode}{cores}")
+            seen[mode] = seen.get(mode, 0) + 1
+        for mode in ("batch", "kout", "spatial"):
+            assert eng.metrics.counter(f"route.{mode}").value == \
+                seen.get(mode, 0)
+        assert eng.stats["batches"] == len(sizes)
+    finally:
+        eng.close()
+
+
+def test_route_needs_a_tune_plan_and_tags_the_dispatch_span():
+    """Without a tune plan a routed engine keeps the static verdict; with
+    one, each ``engine.batch`` span names its routed mode."""
+    tobs.enable()
+    try:
+        eng = _engine(batch=2, route=True)
+        eng.add_model(_qnet(), name="plain")
+        eng.submit(np.zeros((1, 12, 12, 1), np.float32), model="plain")
+        assert eng._models["plain"].routes == {}
+        eng.add_model(_qnet(), name="tuned",
+                      tune=tautotune.autotune_network(_qnet().plan))
+        eng.submit(np.zeros((1, 12, 12, 1), np.float32), model="tuned")
+        eng.close()
+        spans = [e for e in tobs.tracer.events()
+                 if e["name"] == "engine.batch"]
+        assert [e["args"].get("routed") for e in spans] == [None, "kout"]
+        assert eng.metrics.counter("route.kout").value == 1
+    finally:
+        tobs.disable()
+        tobs.reset()
+
+
+@pytest.mark.parametrize("table", ["none", "h100"])
+def test_tuned_engine_serves_bit_equal_and_refuses_another_network(table):
+    """``tune=`` runs the tuned tile plans under the tuned scheduler
+    verdict, bit-equal to the untuned engine; a plan for another network
+    raises the reference's ``ValueError``."""
+    _, tt = _tables(table)
+    qnet = _qnet((16, 16, 4), "dilated_context")
+    tune = tautotune.autotune_network(qnet.plan, calib=tt)
+    imgs = np.random.default_rng(6).normal(size=(5, 16, 16, 4)).astype(
+        np.float32)
+    base = ConvNetEngine(qnet, batch=2, device="cpu")
+    tuned = ConvNetEngine(qnet, batch=2, device="cpu", tune=tune, calib=tt)
+    try:
+        want = base.submit(imgs)
+        np.testing.assert_array_equal(tuned.submit(imgs), want)
+        entry = tuned.engine._models[tuned.model]
+        assert entry.tune is tune
+        assert entry.sched.config == tune.scheduler_config()
+        _, plans, cfg = tuned.engine._compiled(entry, entry.backend_name)
+        assert plans == tune.tile_plans and cfg.calib is tt
+    finally:
+        base.close()
+        tuned.close()
+    other = _qnet((16, 16, 4), "unet_small")
+    with pytest.raises(ValueError, match="tune plan is for network"):
+        ConvNetEngine(other, device="cpu", tune=tune)
     eng = _engine()
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        eng.add_model(_qnet(), tune=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        ConvNetEngine(_qnet(), device="cpu", tune=object())
+    try:
+        with pytest.raises(ValueError, match="tune plan is for network"):
+            eng.add_model(other, tune=tune)
+        assert eng.models() == []
+    finally:
+        eng.close()
+
+
+def test_calib_prices_the_programs_kernel_choice():
+    """The engine's table goes into its core config: a table whose slabs
+    cost 1e9 cycles keeps every layer on the sequential kernel."""
+    qnet = _qnet()
+    flip = tcal.CalibrationTable(pipeline_overhead_cycles=1e9)
+    eng = _engine(calib=flip)
+    plain = _engine()
+    try:
+        eng.add_model(qnet)
+        plain.add_model(qnet)
+        _, plans, cfg = eng._compiled(eng._models["lenet"], "cuda")
+        _, pplans, _ = plain._compiled(plain._models["lenet"], "cuda")
+        assert cfg.calib is flip
+        assert not any(p.pipelined for p in plans if p is not None)
+        assert any(p.pipelined for p in pplans if p is not None)
+    finally:
+        eng.close()
+        plain.close()
+
+
+@pytest.mark.parametrize("calib,band,flagged", [
+    (dict(compute_factor=1e6), None, "all_low"),            # test_obs:243
+    (dict(compute_factor=1e6), (0.5, 2.0), "all_low"),
+    (dict(compute_factor=1e-9, dma_bytes_per_cycle=1e12,
+          clock_hz=1e15), (0.5, 2.0), "all_high"),
+    (dict(compute_factor=1e6), (1e-30, 1e30), "none")])
+def test_calib_and_drift_band_give_drift_events(calib, band, flagged):
+    """With obs on, the first batch is profiled under the engine's table
+    and the drift check flags every priced layer the band excludes (the
+    counterpart of ``tests/test_obs.py``'s miscalibrated-table cases)."""
+    table = tcal.CalibrationTable(**calib)
+    tobs.enable()
+    tobs.reset()
+    try:
+        eng = ConvNetEngine(_qnet(), batch=2, device="cpu", calib=table,
+                            drift_band=band)
+        eng.submit(np.zeros((2, 12, 12, 1), np.float32))
+        prof = eng.layer_profile
+        eng.close()
+        assert prof.calibrated and all(r.calibrated for r in prof.records)
+        priced = [r for r in prof.records if r.predicted_us]
+        assert priced
+        events = eng.drift_events
+        assert events == prof.drift
+        if flagged == "none":
+            assert events == ()
+        else:
+            assert [e.name for e in events] == [r.name for r in priced]
+            lo, hi = band or (0.5, 2.0)
+            for e in events:
+                assert e.band == (lo, hi)
+                assert (e.ratio < lo) if flagged == "all_low" else \
+                    (e.ratio > hi)
+        assert tobs.metrics.counter("obs.drift.events").value == len(events)
+    finally:
+        tobs.disable()
+        tobs.reset()
 
 
 def test_close_drains_queued_work():

@@ -35,7 +35,9 @@ def test_importing_every_module_loads_no_jax():
     assert "repro_torch.launch.serve" in mods
     for m in ("repro_torch.core.training", "repro_torch.optim.adamw",
               "repro_torch.optim.schedule",
-              "repro_torch.kernels.conv2d_ws_bwd"):
+              "repro_torch.kernels.conv2d_ws_bwd",
+              "repro_torch.core.calibration", "repro_torch.core.autotune",
+              "repro_torch.core.calibration_sweep"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

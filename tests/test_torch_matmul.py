@@ -1,6 +1,8 @@
 """``matmul_ws`` of the port on the CPU: its bf16 plain version against the
 reference's ``ops.matmul_ws`` (Pallas in interpret mode), the form rule
-``mm_path``, the stream form's K split, and the C entries' signatures.
+``mm_path``, the stream form's K split and its CPU emulation
+(``matmul_ws_stream_emulate``, against the plain version and the
+reference), and the C entries' signatures.
 
 A bf16 result is f32 products and sums plus the bias, rounded once to bf16,
 on both sides, from sums taken in another order.  So two results may differ
@@ -20,7 +22,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import matmul_ws as mm
 from repro_torch.kernels import ops
-from test_torch_cuda import bf16_gemm_bound
+from test_torch_cuda import MM_CASES, bf16_gemm_bound, mm_case_inputs
 
 CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
 
@@ -109,6 +111,86 @@ def test_stream_plan_at_the_main_paths_shapes():
     assert mm.stream_plan(4, 3072, 8192) == (12, 256)
     assert mm.stream_plan(4, 8192, 3072) == (32, 256)
     assert mm.stream_plan(8, 256, 1000) == (1, 256)
+
+
+STREAM_CASES = sorted({c for c in MM_CASES
+                       if c[3] != "float32"
+                       and mm.mm_path(c[0], c[1], c[2],
+                                      getattr(torch, c[3])) == "stream"})
+
+
+def _ref_matmul(x, w, b):
+    """The reference's ``ops.matmul_ws`` (Pallas in interpret mode) on the
+    same operands → a torch tensor (int32, or bf16 values as f32)."""
+    def j(t):
+        if t is None:
+            return None
+        dt = {torch.int8: jnp.int8, torch.int32: jnp.int32,
+              torch.bfloat16: jnp.bfloat16}.get(t.dtype, jnp.float32)
+        return jnp.asarray(t.float().numpy()).astype(dt)
+    out = jops.matmul_ws(j(x), j(w), j(b))
+    if out.dtype == jnp.bfloat16:
+        out = out.astype(jnp.float32)
+    return torch.from_numpy(np.array(out))
+
+
+@pytest.mark.parametrize("m,k,n,dtype,bias", STREAM_CASES)
+def test_stream_form_emulation_equals_plain_and_reference(m, k, n, dtype,
+                                                          bias):
+    """``matmul_ws_stream_emulate`` replays the stream form's split-K
+    slices and fixed-order reduce on CPU tensors: int8 equal to
+    ``matmul_ws_plain`` and to the reference, bf16 within
+    ``bf16_gemm_bound`` of each."""
+    x, w, b = mm_case_inputs(m, k, n, dtype, bias)
+    got = mm.matmul_ws_stream_emulate(x, w, b)
+    want = mm.matmul_ws_plain(x, w, b)
+    ref = _ref_matmul(x, w, b)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    if dtype == "int8":
+        assert torch.equal(got, want) and torch.equal(got, ref)
+        return
+    for other in (want, ref.bfloat16()):
+        err = (got.float() - other.float()).abs()
+        assert bool((err <= bf16_gemm_bound(x, w, b, got, other)).all()), \
+            float(err.max())
+    assert torch.equal(got, mm.matmul_ws_stream_emulate(x, w, b))
+
+
+def test_stream_form_emulation_sums_in_the_kernels_order():
+    """Where K splits, the slices' partials meet in slice order after each
+    slice's eight warps meet in warp order: the result equals that order
+    spelled out in float32, and the decode shapes do split."""
+    assert mm.stream_plan(4, 3072, 8192)[0] == 12
+    g = torch.Generator().manual_seed(3)
+    m, k, n = 4, 2048, 64
+    x = torch.randn((m, k), generator=g).bfloat16()
+    w = torch.randn((k, n), generator=g).bfloat16()
+    b = torch.randn((n,), generator=g)
+    split, kc = mm.stream_plan(m, k, n)
+    assert split > 1
+    xf, wf = x.float(), w.float()
+    out = b.expand(m, n).clone()
+    for s_ in range(split):
+        part = torch.zeros((m, n))
+        for warp in range(mm.STREAM_WARPS):
+            acc = torch.zeros((m, n))
+            for r in range(s_ * kc + warp, min((s_ + 1) * kc, k),
+                           mm.STREAM_WARPS):
+                acc += xf[:, r:r + 1] * wf[r:r + 1]
+            part += acc
+        out += part
+    assert torch.equal(mm.matmul_ws_stream_emulate(x, w, b), out.bfloat16())
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(3000, 3072, 8192, torch.bfloat16),
+                                         (17, 200, 264, torch.int8),
+                                         (3, 70, 33, torch.bfloat16),
+                                         (4, 64, 64, torch.float32)])
+def test_stream_form_emulation_refuses_other_forms(m, k, n, dtype):
+    x = torch.zeros((m, k), dtype=dtype)
+    w = torch.zeros((k, n), dtype=dtype)
+    with pytest.raises(ValueError, match="not the stream form"):
+        mm.matmul_ws_stream_emulate(x, w)
 
 
 def _c_params(src: str, name: str):

@@ -4,12 +4,16 @@ span, nesting and exception tagging, the Chrome trace export, threads
 nesting apart, the metrics registry, histogram percentiles (held to
 numpy within the bucket bound, and equal to the reference's histogram on
 the same samples), the per-layer profile's layer set against the plan's
-topology (``lenet`` and ``unet_small``), layer spans, the drift detector,
-and the engine's first-batch profile with obs on and nothing with it
-off."""
+topology (``lenet`` and ``unet_small``), with and without a calibration
+table, each node's predicted time equal to the reference's under no
+table, a synthetic one and the repo's two fitted ones, layer spans, the
+drift detector, and the engine's first-batch profile with obs on and
+nothing with it off."""
 
+import dataclasses
 import json
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,11 +22,16 @@ import torch
 from repro.obs.metrics import Histogram as JHistogram
 from repro_torch import obs
 from repro_torch.core import network
+from repro_torch.core.calibration import CalibrationTable
+from repro_torch.core.convcore import ConvCoreConfig
 from repro_torch.obs.metrics import Histogram, MetricsRegistry, default_buckets
 from repro_torch.obs.profile import (DEFAULT_DRIFT_BAND, DriftDetector,
                                      LayerProfile, profile_network)
 from repro_torch.obs.trace import NOOP_SPAN, Tracer
 from repro_torch.serving.engine import ConvNetEngine
+
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -187,8 +196,56 @@ def test_profile_layer_set_matches_plan_topology(net, shape):
     assert {f"layer:{n}" for n in prof.layer_names} <= names
     h = obs.metrics.get(f"profile.layer_us.{plan.name}")
     assert h is not None and h.count == len(prof.records)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        profile_network(qnet, x, calib=object())
+    # under a table the same layer set, priced on the table's clock
+    table = CalibrationTable(compute_factor=2.0, clock_hz=1e9,
+                             per_call_overhead_cycles=100.0)
+    cal = profile_network(qnet, x, warmup=0, calib=table)
+    assert cal.calibrated and cal.layer_names == prof.layer_names
+    assert all(r.calibrated for r in cal.records)
+    assert [r.predicted_us is None for r in cal.records] == \
+        [r.predicted_us is None for r in prof.records]
+
+
+@pytest.mark.parametrize("table", [None, "synthetic", "CALIBRATION.json",
+                                   "CALIBRATION_h100.json"])
+@pytest.mark.parametrize("net,shape", [("lenet", (12, 12, 1)),
+                                       ("unet_small", (16, 16, 4)),
+                                       ("vgg_imagenet", (224, 224, 4))])
+def test_profile_prediction_equals_reference(net, shape, table):
+    """Each node's predicted µs (planned convs through
+    ``pipeline_estimate``, GEMMs on calibrated compute cycles plus the
+    per-call overhead, on the table's clock) equals the reference's."""
+    from repro.core import banking as jbanking
+    from repro.core import calibration as jcal
+    from repro.core import perfmodel as jperf
+    from repro.obs.profile import _predicted_us as jpredicted
+    from repro_torch.core import perfmodel as tperf
+    from repro_torch.obs.profile import _predicted_us as tpredicted
+    if table is None:
+        jt = tt = None
+    elif table == "synthetic":
+        kw = dict(compute_factor=3.0, dma_bytes_per_cycle=2.0,
+                  pipeline_overhead_cycles=7.0, per_call_overhead_cycles=9.0,
+                  clock_hz=2e9)
+        jt, tt = jcal.CalibrationTable(**kw), CalibrationTable(**kw)
+    else:
+        path = str(ROOT / table)
+        jt, tt = jcal.CalibrationTable.load(path), CalibrationTable.load(path)
+    plan = getattr(network, net)(input_shape=shape)
+    psums = dict(plan.psum_table())
+    names = plan.node_names()
+    plans = network.program_tile_plans(plan, ConvCoreConfig(int8=True))
+    n_priced = 0
+    for i, sp in enumerate(plan.layers):
+        tp = plans[i]
+        jp = None if tp is None else jbanking.TilePlan(
+            **dataclasses.asdict(tp))
+        got = tpredicted(psums[names[i]], tp, tt, tperf.IPCoreConfig())
+        want = jpredicted(sp.kind, psums[names[i]], jp, jt,
+                          jperf.IPCoreConfig())
+        assert got == want, names[i]
+        n_priced += got is not None
+    assert n_priced > 0
 
 
 def test_drift_detector_band_floor_and_events():

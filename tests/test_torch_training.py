@@ -12,8 +12,8 @@
 * The port's QAT round trip on the CPU (train, ``quantize_network``,
   ``make_int8_program``) holds the reference's bar: float accuracy ≥ 0.9,
   int8 within 0.02 of it.
-* ``train_report`` / ``network_report`` equal the reference's; a
-  calibration table raises ``NotImplementedError``.
+* ``train_report`` / ``network_report`` equal the reference's, with and
+  without a calibration table.
 * Entry points refuse to pick the CPU themselves.
 
 One train step from a carried-across state, on five zoo plans, is in
@@ -241,11 +241,16 @@ def test_reports_equal_reference(make):
             round(nums["gops_20cores"], 2)) == (3_154_176, 0.224, 4.48)
 
 
-def test_calibration_table_is_not_ported():
-    plan = tnet.lenet()
-    for call in (lambda: plan.perf_report(calib=object()),
-                 lambda: plan.train_report(calib=object()),
-                 lambda: tperf.calibrated_cycles(10, calib=object()),
-                 lambda: tperf.pipeline_overhead_cycles(object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            call()
+def test_reports_under_a_table_equal_reference():
+    from repro.core.calibration import CalibrationTable as JTable
+    from repro_torch.core.calibration import CalibrationTable as TTable
+    kw = dict(compute_factor=0.5, dma_bytes_per_cycle=3.0,
+              pipeline_overhead_cycles=20.0, per_call_overhead_cycles=40.0)
+    jplan, tplan = jnet.lenet(), tnet.lenet()
+    tt = tplan.tile_plans()
+    assert tplan.train_report(tile_plans=tt, calib=TTable(**kw)) == \
+        jplan.train_report(tile_plans=tt, calib=JTable(**kw))
+    assert tplan.train_report(tile_plans=tt, calib=TTable(**kw)) != \
+        tplan.train_report(tile_plans=tt)
+    assert tperf.calibrated_cycles(10, calib=TTable(**kw)) == \
+        jperf.calibrated_cycles(10, calib=JTable(**kw))
