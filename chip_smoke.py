@@ -37,6 +37,13 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    bound (and, for attention, ``scaled_dot_product_attention``, for the
    bf16 GEMMs ``torch.matmul``, and the achieved TFLOP/s); print the
    ``vgg_imagenet`` per-layer table and ``matmul_ws``'s host cost a call;
+   hold ``matmul_ws`` int8 at w8 serving's GEMM shapes (llama3.2-3b's,
+   yi-34b's and gemma-7b's, the scalar form at a prefill's M and the
+   stream form at a 4-slot decode's, each ``torch.equal``, form asserted;
+   the long-M ones timed beside ``torch._int_mm`` with the weight stored
+   row-major and column-major) and the int8 KV cache's two decode
+   contractions at 4 slots × 4096 positions (D = 128 and 256, random
+   and worst-case operands) to the CPU's int64 sums;
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
@@ -57,6 +64,22 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    it); then two full-width layers in f32 (logits within 1e-4, tokens
    equal to the plain attention), and the reduced model (tokens equal to
    the CPU run);
+6b. w8 serving with the int8 KV cache (``quantize_weights``, scale 0.25)
+   on the same engine timing: llama3.2-3b with phase 6's weights and
+   requests (7 × 28 ``matmul_ws`` launches a forward, the scalar form at
+   the prefills and the stream form at the decode steps; prefill logits
+   ``torch.equal`` to the same prefill with ``matmul_ws_plain`` in the
+   kernel's place; admit and decode times beside phase 6's bf16 ones;
+   relative L2 and top-1 against bf16 of the same weights, a diagnostic;
+   a decode step and a 3000-token prefill split by kernel under
+   ``torch.profiler``); gemma-7b at full width in bf16 (8 requests, one
+   D = 256 ``flash_attention`` launch a layer a prefill, prefill logits
+   against the plain attention) and in w8 (4 requests of 64–2048
+   tokens, each prefill equal to the plain GEMMs'), with the peak
+   memory; yi-34b at full width and depth in w8 (drawn and quantized one
+   layer group at a time, 3 requests of 64–1024 tokens; resident bytes,
+   shortest prefill equal to the plain GEMMs');
+   and the reduced w8 models, whose card tokens must equal the CPU run's;
 7. continuous batching: ``ContinuousBatchingEngine`` serves
    ``vgg_imagenet`` 224 at batch 8 under 4 virtual cores in each of the
    batch, kout and spatial modes, ``unet_small`` at 224×224×4 (transposed
@@ -120,7 +143,11 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``f32_bound_ms``, ``f32_library_ms``: the six forward convs beside
    ``F.conv2d``, the 54 weight-gradient taps beside ``torch.matmul``, each
    bound that of the whole function: x, the cotangent and dw moved once
-   for the weight gradient).
+   for the weight gradient); ``matmul_ws``'s ``int8_ms``,
+   ``int8_device_ms``, ``int8_bound_ms`` and ``int8_library_ms`` sum its
+   twelve long-M int8 shapes of phase 3 (the library ``torch._int_mm``,
+   each shape's faster of its two weight layouts),
+   and its and ``flash_attention``'s ``launches`` add phase 6b's.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
@@ -172,6 +199,25 @@ MM_TIMED = (("vgg_imagenet head", 8, 256, 1000, "int8"),
             ("decode wi", 4, 3072, 8192, "bfloat16"),
             ("decode wo", 4, 8192, 3072, "bfloat16"))
 MM_BEFORE = (3000, 3072, 8192)        # the scalar kernel's f32 time, once
+# w8a8 serving's int8 GEMMs (K, N) in llama3.2-3b, yi-34b and gemma-7b: the
+# attention's q / k / v and output projections, the MLP's up and down
+# projections; each at a prefill M (the scalar form: the longest prompt
+# each model is served with in phase 6b) and at the 4-slot decode M (the
+# stream form).  The long-M ones make the JSON row's int8_* sums
+W8_MM = (("llama3.2-3b", 3000, ((3072, 3072), (3072, 1024), (3072, 8192),
+                                (8192, 3072))),
+         ("yi-34b", 1024, ((7168, 7168), (7168, 1024), (7168, 20480),
+                           (20480, 7168))),
+         ("gemma-7b", 2048, ((3072, 4096), (4096, 3072), (3072, 24576),
+                             (24576, 3072))))
+# the int8 cache's decode contractions: (model, B, S, KV, G, D)
+W8_DECODE = (("llama3.2-3b", 4, 4096, 8, 3, 128),
+             ("yi-34b", 4, 4096, 8, 7, 128),
+             ("gemma-7b", 4, 4096, 16, 1, 256))
+W8_KV_SCALE = 0.25                    # the launcher's int8 cache scale
+GEMMA_ARCH, YI_ARCH = "gemma_7b", "yi_34b"
+GEMMA_W8_PROMPTS = (64, 512, 1024, 2048)
+YI_PROMPTS = (64, 512, 1024)
 KERNELS = {
     "conv2d_ws": ("src/repro_torch/kernels/csrc/conv2d_ws.cu",
                   "src/repro/kernels/conv2d_ws.py:255"),
@@ -268,8 +314,13 @@ def main():
                                                      kernel_variant)
     from repro_torch.kernels.matmul_ws import (PATHS, matmul_ws,
                                                matmul_ws_plain, mm_path)
-    from repro_torch.layers.common import materialize
+    from repro_torch.core.quantize import (quantize_weight_specs,
+                                           quantize_weights)
+    from repro_torch.layers.attention import _int8_contract as int8_contract
+    from repro_torch.layers.common import (materialize, stack_specs,
+                                           torch_dtype, tree_map)
     from repro_torch.models import lm
+    from repro_torch.models.blocks import block_specs
     from repro_torch.serving.batching import (ContinuousBatchingEngine,
                                               FormedBatch, ServeRequest)
     from repro_torch.serving.engine import (ConvNetEngine, Request,
@@ -384,10 +435,11 @@ def main():
         """Device time of one call of ``fn``: the durations of every device
         event (kernels, copies, fills) that ``reps`` calls issue under
         ``torch.profiler`` after a warm-up, over ``reps``.  A window whose
-        trace holds no device event at all (the profiler lost it, as seen
-        once in 10 calls of a kernel that had just run and been checked) is
-        profiled again, up to ``windows`` times, and said so; a trace with
-        some but fewer than ``reps`` events raises at once."""
+        trace holds fewer than ``reps`` device events (the profiler lost
+        some or all, as seen once in 10 calls of a kernel that had just run
+        and been checked, and once one of 3) is profiled again, up to
+        ``windows`` times, and said so; if every window is short, it
+        raises."""
         fn()
         torch.cuda.synchronize()
         act = torch.profiler.ProfilerActivity
@@ -399,10 +451,10 @@ def main():
                 torch.cuda.synchronize()
             evs = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            if evs:
+            if len(evs) >= reps:
                 break
-            log(f"  torch.profiler window {window + 1} of {windows} held no "
-                f"device event")
+            log(f"  torch.profiler window {window + 1} of {windows} held "
+                f"{len(evs)} device events of {reps} calls")
         if len(evs) < reps:
             raise AssertionError(f"torch.profiler saw {len(evs)} device "
                                  f"events in {reps} calls")
@@ -646,6 +698,101 @@ def main():
             f"84-launch decode step")
         return dev_times
 
+    def check_w8_matmuls():
+        """``matmul_ws`` int8 at w8 serving's GEMM shapes, each equal to
+        its plain version on the form ``mm_path`` names; the long-M ones
+        (the scalar form) timed beside ``torch._int_mm`` and their bound
+        at the int8 tensor-core peak, into the JSON row's int8_* sums."""
+        st = stats["matmul_ws"]
+        st["int8"] = dict.fromkeys(("int8_ms", "int8_device_ms",
+                                    "int8_bound_ms", "int8_library_ms"), 0.0)
+        st["int8_library_layouts"] = dict.fromkeys(("row-major",
+                                                    "column-major"), 0)
+        for model, m_long, shapes in W8_MM:
+            for k, n in shapes:
+                for m in (m_long, LM_SLOTS):
+                    x, w, _ = mm_operands(m, k, n, torch.int8, bias=False)
+                    path, _ = check_mm(x, w, None)
+                    want = "scalar" if m > 16 else "stream"
+                    if path != want:
+                        raise AssertionError(f"matmul_ws int8 [{m},{k}]@"
+                                             f"[{k},{n}] ran the {path} "
+                                             f"form, not {want}")
+                    call = lambda: matmul_ws(x, w)         # noqa: E731
+                    reps = 3 if m > 16 else 20
+                    ms = elapsed_ms(call, reps=reps, warmup=1)
+                    dev_ms = device_ms(call, reps)
+                    nbytes = m * k + k * n + 4 * m * n
+                    ops = 2 * m * k * n
+                    bound = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+                    lib = ""
+                    if m > 16:
+                        # the weight as a deployment would store it for
+                        # the library: row-major [K,N] as given, and
+                        # column-major (packed once, outside the timing)
+                        w_col = w.t().contiguous().t()
+                        lib_ms = {lay: elapsed_ms(
+                            lambda w_=w_: torch._int_mm(x, w_), reps=reps,
+                            warmup=1)
+                            for lay, w_ in (("row-major", w),
+                                            ("column-major", w_col))}
+                        fast = min(lib_ms, key=lib_ms.get)
+                        st["int8_library_layouts"][fast] += 1
+                        for key, v in zip(st["int8"], (ms, dev_ms, bound,
+                                                       lib_ms[fast])):
+                            st["int8"][key] += v
+                        lib = (", torch._int_mm " + ", ".join(
+                            f"{v:.4f} ms {lay}" for lay, v in lib_ms.items())
+                            + f" ({ms / lib_ms[fast]:.1f}x the faster)")
+                    log(f"  matmul_ws int8 {model} [{m},{k}]@[{k},{n}], "
+                        f"{path} form, equal: {ms:.4f} ms a call, "
+                        f"{dev_ms:.4f} ms on the device "
+                        f"({ops / dev_ms / 1e9:.1f} TOP/s, "
+                        f"{nbytes / dev_ms / 1e6:.0f} GB/s), bound "
+                        f"{bound:.5f} ms{lib}")
+        log("  matmul_ws int8 at the long-M shapes, summed: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in st["int8"].items())
+            + "; torch._int_mm faster with the weight "
+            + ", ".join(f"{lay} on {c}" for lay, c in
+                        st["int8_library_layouts"].items()))
+
+    def check_int8_decode():
+        """The int8 cache's two decode contractions on the card equal to
+        the int64 ones on the CPU: random operands (pq from a softmax of
+        random scores, as the decode makes it) and the worst cases, every
+        q and k entry −128 and the largest Σ pq a softmax gives against
+        v = −128."""
+        for model, b, s, kv, g, d in W8_DECODE:
+            qq, kc, vc = rand_i8(b, kv, g, d), rand_i8(b, s, kv, d), \
+                rand_i8(b, s, kv, d)
+            p = torch.softmax(3 * torch.randn(b, kv, g, s, generator=gen,
+                                              device=dev), -1)
+            pq = torch.round(p * 127.0).clamp(0, 127).to(torch.int8)
+            worst = torch.zeros_like(p)
+            worst[..., :253] = 0.501 / 127      # each rounds up to 1
+            worst[..., 253] = 1 - 253 * 0.501 / 127
+            wq = torch.round(worst * 127.0).clamp(0, 127).to(torch.int8)
+            minus = torch.full_like(vc, -128)
+            cases = (("q·k", "bkgd,bskd->bkgs", qq, kc),
+                     ("q·k all -128", "bkgd,bskd->bkgs",
+                      torch.full_like(qq, -128), minus),
+                     ("p·v", "bkgs,bskd->bkgd", pq, vc),
+                     ("p·v at the bound", "bkgs,bskd->bkgd", wq, minus))
+            for label, sub, a, c in cases:
+                got = int8_contract(sub, a, c)
+                torch.cuda.synchronize()
+                want = torch.einsum(sub, a.cpu().long(), c.cpu().long())
+                if got.dtype != torch.float32 or not torch.equal(
+                        got.cpu().long(), want):
+                    raise AssertionError(f"int8 decode {model} {label}: the "
+                                         f"card's f32 contraction is not the "
+                                         f"exact int sum")
+            log(f"  int8 cache decode contractions {model} B={b} S={s} "
+                f"KV={kv} G={g} D={d}: q·k (random, all -128: "
+                f"{128 * 128 * d}) and p·v (softmax pq, Σpq = "
+                f"{int(wq[0, 0, 0].long().sum())} against v = -128) equal "
+                f"to the CPU's int64 sums")
+
     def net_layers(plan):
         """(input shape, weight shape, conv kwargs) of every conv of
         ``plan`` under its default Hopper tile plan."""
@@ -720,6 +867,8 @@ def main():
                None, dict(padding="SAME", relu=True, pool=True, h_tile=8,
                           w_tile=10))
     mm_device_ms = check_matmuls()
+    check_w8_matmuls()
+    check_int8_decode()
 
     # bf16 attention: the kernel and the plain version each round an f32
     # result once, from sums taken in another order, so they may differ by
@@ -829,10 +978,11 @@ def main():
     def counts():
         return {k: fn.launches for k, fn in wrappers.items()}
 
-    def device_busy(fn):
+    def device_busy(fn, part=None):
         """(wall ms of ``fn`` unprofiled, device ms and kernel count of
-        ``fn`` under torch.profiler); device ms is None where the trace
-        holds no device events."""
+        ``fn`` under torch.profiler, and with ``part`` (a kernel name →
+        a label) the device ms by label); device ms is None where the
+        trace holds no device events."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -845,7 +995,14 @@ def main():
         evs = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
-        return wall, (busy if evs else None), len(evs)
+        if part is None:
+            return wall, (busy if evs else None), len(evs)
+        by_part = {}
+        for e in evs:
+            label = part(e.name)
+            by_part[label] = (by_part.get(label, 0.0)
+                              + e.time_range.elapsed_us() / 1e3)
+        return wall, (busy if evs else None), len(evs), by_part
 
 
     def serve(name, plan, seed, params=None, calib=None,
@@ -1082,6 +1239,7 @@ def main():
 
     generated = log_decode(engine, reqs, wall)
     xla_admit_ms = dict(engine.admit_ms)    # before log_busy admits again
+    xla_step_ms = [ms for b, ms in engine.step_ms if b == LM_SLOTS]
     longest = max((r.prompt for r in reqs), key=len)
     log_busy(engine, cfg, reqs, longest)
 
@@ -1220,6 +1378,303 @@ def main():
                              "the CPU run")
     log("  reduced llama3.2-3b: card tokens equal to the CPU run of the same "
         "engine")
+
+    # -- 6b. w8a8 serving with the int8 KV cache; gemma-7b and yi-34b ------
+    log("phase 6b: w8 weights with the int8 KV cache (matmul_ws int8), "
+        "gemma-7b and yi-34b at full width")
+
+    def w8_cfg(c):
+        return dataclasses.replace(c, kv_cache_dtype="int8",
+                                   kv_cache_scale=W8_KV_SCALE)
+
+    def serve_counted(name, eng, c, reqs, w8):
+        """Serve ``reqs`` with the counts reset just before; hold every
+        kernel's launches (and matmul_ws's forms) to what the run must
+        make: one flash_attention a layer a prefill, and for w8 the 7
+        GEMMs a layer a forward on matmul_ws, the scalar form at the
+        prefills' M (the prompt) and the stream form at the decode's M
+        (the slots)."""
+        eng.step_ms.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        wall = time.perf_counter() - t0
+        seen, forms = counts(), dict(matmul_ws.path_launches)
+        steps = len(eng.step_ms)
+        want = {k: 0 for k in wrappers}
+        want["flash_attention"] = c.num_layers * len(reqs)
+        want_forms = dict.fromkeys(PATHS, 0)
+        if w8:
+            gemms = 7 * c.num_layers
+            want["matmul_ws"] = gemms * (len(reqs) + steps)
+            want_forms.update(scalar=gemms * len(reqs), stream=gemms * steps)
+        if seen != want or forms != want_forms:
+            raise AssertionError(f"{name}: launches {seen}, matmul_ws forms "
+                                 f"{forms}; expected {want}, {want_forms}")
+        check_served(name, c, reqs)
+        for k in ("matmul_ws", "flash_attention"):
+            stats[k]["launches"] += seen[k]
+        log(f"  {name}: launches {seen}, matmul_ws forms {forms} over "
+            f"{len(reqs)} prefills and {steps} decode steps; {len(reqs)} "
+            f"requests × {reqs[0].max_new_tokens} tokens, all in range")
+        return wall
+
+    W8_PARTS = ("matmul_ws scalar", "matmul_ws stream", "flash_attention",
+                "cuBLAS", "the rest")
+
+    def w8_part(kernel):
+        """The label of a device event in a w8 admit or decode step:
+        matmul_ws's scalar and stream forms, flash_attention, cuBLAS (the
+        einsums: bf16 GEMMs and logits, the decode attention's f32
+        contractions; by kernel-name fragments, ``nvjet`` among them) and
+        the rest (the int8 cache's f32 upcasts, quantization, norms,
+        elementwise)."""
+        return ("matmul_ws scalar" if "matmul_ws_kernel" in kernel else
+                "matmul_ws stream" if "mm_stream" in kernel
+                or "mm_split_reduce" in kernel else
+                "flash_attention" if "flash_" in kernel else
+                "cuBLAS" if any(t in kernel for t in (
+                    "gemm", "gemv", "cutlass", "xmma", "nvjet"))
+                else "the rest")
+
+    def w8_split(name, fn):
+        """Device ms of one call of ``fn`` under torch.profiler, by
+        ``w8_part``."""
+        wall, busy, n, parts = device_busy(fn, part=w8_part)
+        if busy is None:
+            log(f"  {name}: {wall:.1f} ms of host clock; device time not "
+                f"measured (no device events in the trace)")
+            return
+        log(f"  {name}: {wall:.1f} ms of host clock, device busy "
+            f"{busy:.1f} ms ({100 * busy / wall:.0f}%), {n} device events; "
+            f"device ms by kernel: " + ", ".join(
+                f"{k} {parts.get(k, 0.0):.2f} "
+                f"({100 * parts.get(k, 0.0) / busy:.0f}%)" for k in W8_PARTS))
+
+    def median_step(eng):
+        """The median decode step with the most slots busy, and that
+        count."""
+        busy = max(b for b, _ in eng.step_ms)
+        return float(np.median([ms for b, ms in eng.step_ms
+                                if b == busy])), busy
+
+    def w8_against_bf16(name, w8_params, c8, bf_params, c, prompts):
+        """Relative L2 and top-1 agreement of w8 prefill logits against
+        the bf16 model of the same weights (a diagnostic, no limit)."""
+        rels, same = [], 0
+        for prompt in prompts:
+            a = last_logits(w8_params, c8, prompt)
+            b = last_logits(bf_params, c, prompt)
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: w8 prefill logits not finite")
+            rels.append(float((a - b).norm() / b.norm()))
+            same += int(a.argmax()) == int(b.argmax())
+        log(f"  {name} against bf16 of the same weights (diagnostic): "
+            f"prefill logits' relative L2 {min(rels):.4f}–{max(rels):.4f}, "
+            f"top-1 equal on {same} of {len(prompts)} prompts")
+
+    def equal_to_plain_gemms(name, params_, c, prompts):
+        """Prefill logits with the matmul_ws kernel and with
+        ``matmul_ws_plain`` in its place: the int8 GEMMs are exact, so
+        nothing may differ."""
+        for prompt in prompts:
+            a = last_logits(params_, c, prompt)
+            kops._matmul_kernel = matmul_ws_plain
+            try:
+                b = last_logits(params_, c, prompt)
+            finally:
+                kops._matmul_kernel = matmul_ws
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} prompt {len(prompt)}: prefill "
+                                     f"logits differ from matmul_ws_plain's "
+                                     f"(max abs {float((a - b).abs().max())})")
+        log(f"  {name}: prefill logits torch.equal to the same prefill with "
+            f"matmul_ws_plain in the kernel's place, {len(prompts)} prompts")
+
+    def log_admits(name, eng, reqs, ref_ms, ref_label):
+        for r in reqs:
+            ms = eng.admit_ms[r.uid]
+            ref = ref_ms.get(r.uid)
+            beside = ("" if ref is None else f", {ref_label} {ref:.1f} ms "
+                      f"({ms / ref:.2f}×)")
+            log(f"    {name} prompt {len(r.prompt):5d}: admit {ms:.1f} "
+                f"ms{beside}")
+
+    # llama3.2-3b as published, w8 + int8 KV, phase 6's requests
+    t0 = time.perf_counter()
+    params = materialize(lm.param_specs(cfg), torch.Generator(
+        device=dev).manual_seed(0), device=dev)     # phase 6's weights
+    bf = lm.compute_params(params, cfg)
+    q = quantize_weights(params, lm.param_specs(cfg))
+    del params
+    cfg8 = w8_cfg(cfg)
+    w8_engine = TimedEngine(cfg8, q, slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    del q
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} w8: weights quantized per layer on the card in "
+        f"{time.perf_counter() - t0:.1f} s; int8 KV cache at scale "
+        f"{W8_KV_SCALE}, attn_impl='flash'")
+    reqs = lm_requests(cfg, LM_PROMPTS, LM_NEW_TOKENS, seed=0)
+    last_logits(w8_engine.params, cfg8, reqs[0].prompt)     # warm-up
+    wall = serve_counted(f"{cfg.name} w8", w8_engine, cfg8, reqs, True)
+    log_admits(cfg.name, w8_engine, reqs, xla_admit_ms, "bf16 (phase 6, xla)")
+    log(f"  {cfg.name} w8 decode: median %.2f ms a step with %d slots "
+        f"busy, bf16 (phase 6, xla) {float(np.median(xla_step_ms)):.2f} ms"
+        % median_step(w8_engine))
+    log_decode(w8_engine, reqs, wall)
+    prompts = [r.prompt for r in reqs]
+    equal_to_plain_gemms(f"{cfg.name} w8", w8_engine.params, cfg8, prompts)
+    w8_against_bf16(f"{cfg.name} w8", w8_engine.params, cfg8, bf, cfg,
+                    prompts)
+    for r in reqs[:LM_SLOTS]:                # four busy slots again
+        w8_engine.admit(fresh([r])[0])
+    w8_split(f"{cfg.name} w8 decode step, {LM_SLOTS} slots", w8_engine.step)
+    w8_split(f"{cfg.name} w8 prefill of {len(longest)} tokens",
+             lambda: last_logits(w8_engine.params, cfg8, longest))
+    w8_split(f"{cfg.name} bf16 prefill of {len(longest)} tokens",
+             lambda: last_logits(bf, cfg, longest))
+    del w8_engine, bf
+    torch.cuda.empty_cache()
+
+    # gemma-7b at full width: bf16 with the D = 256 flash kernel, then w8
+    gemma = dataclasses.replace(get_config(GEMMA_ARCH), attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = materialize(lm.param_specs(gemma), torch.Generator(
+        device=dev).manual_seed(4), device=dev)
+    q = quantize_weights(params, lm.param_specs(gemma))
+    bf = lm.compute_params(params, gemma)
+    del params                               # q keeps the f32 embedding
+    g_engine = TimedEngine(gemma, bf, slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    log(f"  {gemma.name}: {param_count(gemma) / 1e9:.2f} B parameters "
+        f"({gemma.num_layers} layers, d_model {gemma.d_model}, "
+        f"{gemma.num_heads}/{gemma.num_kv_heads} heads of "
+        f"{gemma.head_dim}, d_ff {gemma.d_ff}, vocab {gemma.vocab_size}), "
+        f"drawn in f32 from seed 4, quantized and cast to bf16 in "
+        f"{time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+    if kernel_variant(torch.bfloat16, gemma.head_dim) != "wgmma":
+        raise AssertionError(f"{gemma.name}: D = {gemma.head_dim} is not "
+                             f"on the wgmma attention kernel")
+    reqs = lm_requests(gemma, LM_PROMPTS, LM_NEW_TOKENS, seed=4)
+    last_logits(bf, gemma, reqs[0].prompt)                  # warm-up
+    wall = serve_counted(f"{gemma.name} bf16", g_engine, gemma, reqs, False)
+    g_admit = dict(g_engine.admit_ms)
+    g_step = median_step(g_engine)
+    log_admits(gemma.name, g_engine, reqs, {}, "")
+    log_decode(g_engine, reqs, wall)
+    bound = gemma.num_layers * 2.0 ** -7     # as phase 6, one ulp a layer
+    worst = 0.0
+    plain_gemma = dataclasses.replace(gemma, attn_impl="dense")
+    for r in reqs:
+        a = last_logits(bf, gemma, r.prompt)
+        b = last_logits(bf, plain_gemma, r.prompt)
+        rel = float((a - b).norm() / b.norm())
+        if not bool(torch.isfinite(a).all()) or rel > bound:
+            raise AssertionError(f"{gemma.name} prompt {len(r.prompt)}: "
+                                 f"prefill logits off the plain attention's "
+                                 f"by {rel:.4g} (bound {bound:.4g})")
+        worst = max(worst, rel)
+    log(f"  {gemma.name} bf16 prefill logits against attn_impl='dense': "
+        f"relative L2 at most {worst:.4g} over {len(reqs)} prompts (bound "
+        f"{bound:.4g}); D = {gemma.head_dim} flash_attention, one launch a "
+        f"layer a prefill")
+    del g_engine
+    gemma8 = w8_cfg(gemma)
+    g8_engine = TimedEngine(gemma8, q, slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    del q
+    g8_reqs = [r for r in lm_requests(gemma, LM_PROMPTS, LM_NEW_TOKENS,
+                                      seed=4)
+               if len(r.prompt) in GEMMA_W8_PROMPTS]
+    last_logits(g8_engine.params, gemma8, reqs[0].prompt)    # warm-up
+    wall = serve_counted(f"{gemma.name} w8", g8_engine, gemma8, g8_reqs,
+                         True)
+    log_admits(f"{gemma.name} w8", g8_engine, g8_reqs, g_admit, "bf16")
+    log(f"  {gemma.name} w8 decode: median %.2f ms a step with %d slots "
+        f"busy, bf16 %.2f ms with %d" % (median_step(g8_engine) + g_step))
+    equal_to_plain_gemms(f"{gemma.name} w8", g8_engine.params, gemma8,
+                         [r.prompt for r in g8_reqs])
+    w8_against_bf16(f"{gemma.name} w8", g8_engine.params, gemma8, bf, gemma,
+                    [r.prompt for r in g8_reqs])
+    log(f"  {gemma.name}: peak {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+        f" GB allocated over the part")
+    del g8_engine, bf
+    torch.cuda.empty_cache()
+
+    # yi-34b at full width and depth, w8 + int8 KV: drawn and quantized one
+    # layer group at a time, so no f32 or bf16 copy of the model is held
+    yi = w8_cfg(dataclasses.replace(get_config(YI_ARCH), attn_impl="flash"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    specs = lm.param_specs(yi)
+    group = {f"b{i}": block_specs(yi, k)
+             for i, k in enumerate(yi.layer_pattern)}
+    one_specs = {"blocks": stack_specs(group, 1)}
+    yq = {"blocks": tree_map(
+        lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                              device=dev),
+        quantize_weight_specs(specs)["blocks"])}
+    ygen = torch.Generator(device=dev).manual_seed(5)
+    for g_ in range(yi.num_groups_scan):
+        one = quantize_weights(
+            {"blocks": materialize(one_specs["blocks"], ygen, device=dev)},
+            one_specs)
+        tree_map(lambda dst, src: dst[g_:g_ + 1].copy_(src), yq["blocks"],
+                 one["blocks"])
+        del one
+    for k in ("embedding", "final_norm"):
+        yq[k] = materialize(specs[k], ygen, device=dev)
+    y_engine = TimedEngine(yi, yq, slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    del yq
+    torch.cuda.synchronize()
+
+    def nbytes(tree):
+        sizes = []
+        tree_map(lambda t: sizes.append(t.numel() * t.element_size()), tree)
+        return sum(sizes)
+
+    log(f"  {yi.name}: {param_count(yi) / 1e9:.2f} B parameters "
+        f"({yi.num_layers} layers, d_model {yi.d_model}, {yi.num_heads}/"
+        f"{yi.num_kv_heads} heads, d_ff {yi.d_ff}, vocab {yi.vocab_size}), "
+        f"drawn from seed 5 and quantized one layer group at a time in "
+        f"{time.perf_counter() - t0:.1f} s; resident: weights "
+        f"{nbytes(y_engine.params) / 1e9:.2f} GB (int8 blocks, bf16 "
+        f"embeddings), int8 KV cache {nbytes(y_engine.cache) / 1e9:.2f} GB; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+    y_reqs = lm_requests(yi, YI_PROMPTS, LM_NEW_TOKENS, seed=5)
+    last_logits(y_engine.params, yi, y_reqs[0].prompt)       # warm-up
+    wall = serve_counted(f"{yi.name} w8", y_engine, yi, y_reqs, True)
+    log_admits(yi.name, y_engine, y_reqs, {}, "")
+    log_decode(y_engine, y_reqs, wall)
+    log(f"  {yi.name} w8 decode: median %.2f ms a step with %d slots busy"
+        % median_step(y_engine))
+    equal_to_plain_gemms(f"{yi.name} w8", y_engine.params, yi,
+                         [y_reqs[0].prompt])
+    log(f"  {yi.name}: peak {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+        f"GB allocated over the part")
+    del y_engine
+    torch.cuda.empty_cache()
+
+    # the reduced w8 models: the card's tokens equal the CPU run's
+    for arch in (LM_ARCH, GEMMA_ARCH, YI_ARCH):
+        small = w8_cfg(dataclasses.replace(reduce_config(get_config(arch)),
+                                           num_layers=2, attn_impl="flash"))
+        sp = quantize_weights(materialize(
+            lm.param_specs(small), torch.Generator().manual_seed(6),
+            device="cpu"), lm.param_specs(small))
+        reqs = lm_requests(small, (5, 17, 70, 130), 8, seed=6)
+        outs = []
+        for d in (dev, "cpu"):
+            run = fresh(reqs)
+            ServingEngine(small, sp, slots=2, max_seq=256, device=d).run(run)
+            check_served(f"reduced w8 {arch} on {d}", small, run)
+            outs.append([r.output for r in run])
+        if outs[0] != outs[1]:
+            raise AssertionError(f"reduced w8 {arch}: card tokens differ "
+                                 f"from the CPU run")
+    log("  reduced w8 llama3.2-3b, gemma-7b and yi-34b (2 layers, int8 KV): "
+        "card tokens equal to the CPU run of the same engine")
 
     # -- 7. continuous batching --------------------------------------------
     log("phase 7: continuous batching and the multi-core scheduler")
@@ -2043,6 +2498,9 @@ def main():
         if "f32" in st:     # the training path's f32 shapes, apart
             rows[-1].update(zip(("f32_ms", "f32_bound_ms", "f32_library_ms"),
                                 st["f32"]))
+        if "int8" in st:    # w8 serving's long-M int8 GEMMs, apart
+            rows[-1].update(st["int8"], int8_library_layouts=st[
+                "int8_library_layouts"])
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -3,10 +3,10 @@
 Every architecture is an :class:`ArchConfig`, a frozen dataclass with the
 reference's fields and defaults, so a config compares field for field with
 the JAX package's.  The port carries the LM stack for dense decoders:
-``get_config`` returns the ported architectures (llama3.2-3b, llama3-8b)
-and raises ``NotImplementedError`` for the rest, which wait on blocks the
-port does not have yet (ROADMAP A14).  :func:`reduce_config` derives the
-CPU-sized variant the tests run.
+``get_config`` returns the ported architectures (llama3.2-3b, llama3-8b,
+yi-34b, gemma-7b) and raises ``NotImplementedError`` for the rest, which
+wait on blocks the port does not have yet (ROADMAP A14).
+:func:`reduce_config` derives the CPU-sized variant the tests run.
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ ARCH_NAMES = (
     "seamless_m4t_medium",
     "rwkv6_1p6b",
 )
-PORTED = ("llama3_8b", "llama3p2_3b")
+PORTED = ("llama3_8b", "llama3p2_3b", "yi_34b", "gemma_7b")
 
 # CLI aliases (assignment ids → module names)
 ALIASES = {

@@ -3,17 +3,22 @@
 Brings up ``ServingEngine`` on the reduced variant of an architecture (as
 the reference's launcher does) with random weights from seed 0, serves a
 synthetic request stream, and prints the requests, tokens and seconds.
-It runs on the GPU unless ``--device`` names another device."""
+``--w8`` switches to the paper's 8-bit datapath: w8 weights
+(``quantize_weights``) and an int8 KV cache at a fixed scale of 0.25, as
+the reference does.  It runs on the GPU unless ``--device`` names another
+device."""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config, reduce_config
+from repro_torch.core.quantize import quantize_weights
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import materialize
 from repro_torch.models import lm
@@ -28,18 +33,19 @@ def main(argv=None):
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--max-new", type=int, default=16)
     p.add_argument("--w8", action="store_true",
-                   help="w8 weights + int8 KV cache (not ported yet)")
+                   help="w8 weights + int8 KV cache")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    if args.w8:
-        raise NotImplementedError("--w8 waits on the w8 serving slice of "
-                                  "the port (ROADMAP A14)")
 
     dev = resolve_device(args.device)
     cfg = reduce_config(get_config(args.arch))
     gen = torch.Generator(device=dev).manual_seed(0)
     params = materialize(lm.param_specs(cfg), gen, device=dev)
+    if args.w8:
+        params = quantize_weights(params, lm.param_specs(cfg))
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8",
+                                  kv_cache_scale=0.25)
 
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i, prompt=rng.integers(

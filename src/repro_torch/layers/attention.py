@@ -9,9 +9,11 @@ skipping KV chunks that are wholly masked.
 
 The decode cache is written in place (the reference returns updated
 arrays): a step changes one slot per row and copying the whole cache
-would cost a full cache write per layer and step.  Cross attention and the
-int8 cache wait on later slices (ROADMAP A14), so the reference's ``kv``
-and ``cross_kv`` arguments are not taken.
+would cost a full cache write per layer and step.  An int8 cache
+(``kv_cache_dtype="int8"``) holds K/V on a fixed ``kv_cache_scale`` grid
+and runs the paper's 8-bit datapath on the cache read.  Cross attention
+waits on the encoder-decoder slice (ROADMAP A14), so the reference's
+``kv`` and ``cross_kv`` arguments are not taken.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.quantize import quantize_symmetric
 from repro_torch.layers.common import ParamSpec, cast, dense, lconstraint
 from repro_torch.layers.norms import apply_norm, rmsnorm_specs
 from repro_torch.layers.rope import apply_rope
@@ -137,6 +140,38 @@ class KVCache(NamedTuple):
         )
 
 
+def to_cache(t: torch.Tensor, dtype, kv_scale: float) -> torch.Tensor:
+    """K/V in the cache's dtype: on an int8 cache ``clip(round(t /
+    kv_scale))`` (f32, round half to even), else a cast."""
+    if dtype in (torch.int8, "int8"):
+        return torch.round(t.to(torch.float32) / kv_scale).clamp(
+            -128, 127).to(torch.int8)
+    return cast(t, dtype)
+
+
+def _int8_contract(subscripts: str, a: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """The int32 value of an einsum of two int8 operands, as f32.
+
+    PyTorch has no int8 einsum with int32 accumulation on CUDA, so both
+    operands are upcast to f32 and contracted there.  That is exact, in
+    any summation order, while every partial sum stays under 2^24: each
+    product and partial sum is then an integer that f32 holds.  The decode
+    layer's two contractions do:
+      q·k: |Σ_d qq·k| ≤ 128 · 128 · D ≤ 2^22 at D = 256;
+      p·v: pq_s = round(127 p_s) ≤ 127 p_s + 1/2 and pq_s is non-zero only
+        where p_s ≥ 1/254, so with Σ_s p_s = 1 at most 254 slots count and
+        Σ_s pq_s ≤ 127 + 254/2 = 254: |Σ_s pq·v| ≤ 254 · 128 = 32,512.
+    TF32 would round the operands' products, so it must be off on the
+    card (PyTorch's default)."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the int8 KV cache's contractions are exact only "
+                           "with TF32 off "
+                           "(torch.backends.cuda.matmul.allow_tf32)")
+    return torch.einsum(subscripts, a.to(torch.float32),
+                        b.to(torch.float32))
+
+
 def _project_qkv(params, x, cfg, positions):
     q = dense(params["wq"], x, "bsd,dhe->bshe", backend="xla",
               compute_dtype=cfg.compute_dtype)
@@ -193,10 +228,14 @@ def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
 
     Grouped-einsum attention against the (possibly ring-buffered) cache;
     the KV tensors are never broadcast to full heads.  Writes the new K/V
-    into ``cache`` in place and returns (out [B,1,D], cache)."""
-    if cache.k.dtype == torch.int8:
-        raise NotImplementedError("the int8 KV cache waits on the w8 "
-                                  "serving slice of the port (ROADMAP A14)")
+    into ``cache`` in place and returns (out [B,1,D], cache).
+
+    On an int8 cache both contractions run in the paper's 8-bit datapath,
+    as the reference's: q quantized per tensor (over the whole
+    [B, KV, G, D], idle slots included), q·k scaled by ``sq · kv_scale /
+    sqrt(D)``, the masked softmax, p on a 1/127 grid (``clip(round(p ·
+    127), 0, 127)``), p·v scaled by ``kv_scale / 127`` (the integer sums
+    by ``_int8_contract``)."""
     B = x.shape[0]
     KV, D = cfg.num_kv_heads, cfg.head_dim
     G = cfg.num_heads // KV
@@ -207,12 +246,19 @@ def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
     # integers floors like jnp's, so negative operands below wrap the same
     slot = pos % S_cache                                          # [B]
     bidx = torch.arange(B, device=x.device)
-    cache.k[bidx, slot] = cast(k_new[:, 0], cache.k.dtype)
-    cache.v[bidx, slot] = cast(v_new[:, 0], cache.v.dtype)
+    int8_cache = cache.k.dtype == torch.int8
+    kv_scale = cfg.kv_cache_scale
+    cache.k[bidx, slot] = to_cache(k_new[:, 0], cache.k.dtype, kv_scale)
+    cache.v[bidx, slot] = to_cache(v_new[:, 0], cache.v.dtype, kv_scale)
 
     qg = q.reshape(B, KV, G, D)
-    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                          cache.k.float()) / math.sqrt(D)
+    if int8_cache:
+        qq = quantize_symmetric(qg)
+        acc = _int8_contract("bkgd,bskd->bkgs", qq.values, cache.k)
+        scores = acc * (qq.scale * kv_scale) / math.sqrt(D)
+    else:
+        scores = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                              cache.k.float()) / math.sqrt(D)
     # a slot s holds absolute position p(s); valid if p(s) <= pos and
     # (window) p(s) > pos - window.  A ring filled past capacity is all
     # valid.
@@ -223,7 +269,12 @@ def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
         valid &= abs_pos > pos[:, None] - window
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, cache.v.float())
+    if int8_cache:
+        pq = torch.round(p * 127.0).clamp(0, 127).to(torch.int8)
+        acc = _int8_contract("bkgs,bskd->bkgd", pq, cache.v)
+        out = acc * (kv_scale / 127.0)
+    else:
+        out = torch.einsum("bkgs,bskd->bkgd", p, cache.v.float())
     out = cast(out, cfg.compute_dtype).reshape(B, 1, cfg.num_heads, D)
     y = dense(params["wo"], out, "bshe,hed->bsd",
               compute_dtype=cfg.compute_dtype)

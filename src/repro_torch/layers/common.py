@@ -137,10 +137,20 @@ def dense(w, x: torch.Tensor, subscripts: str, *, backend: str = "xla",
     in it (the reference's ``preferred_element_type``: f32 accumulation,
     one rounding of the output).  ``backend="pallas_ws"`` routes 2-D
     weights through the ``matmul_ws`` kernel (bf16 or f32), as the
-    reference does."""
+    reference does.
+
+    w8a8 serving: a {"q": int8, "s": scale} weight of any rank runs the
+    paper's 8-bit datapath (``core.quantize.w8_einsum``: the int8 GEMM on
+    ``matmul_ws`` whatever ``backend`` says; in the reference too this
+    branch comes before the backend is read), the bias added after the
+    rescale."""
     if isinstance(w, dict):
-        raise NotImplementedError("w8 weights wait on the w8 serving slice "
-                                  "of the port (ROADMAP A14)")
+        from repro_torch.core.quantize import w8_einsum
+        y = w8_einsum(subscripts, x, w["q"], w["s"],
+                      compute_dtype=compute_dtype)
+        if bias is not None:
+            y = y + bias
+        return y
     x = cast(x, compute_dtype)
     w = cast(w, compute_dtype)
     if backend == "pallas_ws" and w.dim() == 2:

@@ -36,9 +36,10 @@ def logits(params, x: torch.Tensor, cfg):
     if cfg.tie_embeddings:
         w = cast(params["embed"], cfg.compute_dtype).float()
         out = torch.einsum("bsd,vd->bsv", x, w)
-    elif isinstance(params["unembed"], dict):
-        raise NotImplementedError("w8 weights wait on the w8 serving slice "
-                                  "of the port (ROADMAP A14)")
+    elif isinstance(params["unembed"], dict):   # w8 serving
+        from repro_torch.core.quantize import w8_einsum
+        out = w8_einsum("bsd,dv->bsv", x, params["unembed"]["q"],
+                        params["unembed"]["s"], compute_dtype="float32")
     else:
         w = cast(params["unembed"], cfg.compute_dtype).float()
         out = torch.einsum("bsd,dv->bsv", x, w)

@@ -18,7 +18,6 @@ import torch
 from repro_torch.configs.base import BLOCK_ATTN, BLOCK_LOCAL
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.attention import KVCache
-from repro_torch.layers.common import cast
 from repro_torch.layers.mlp import apply_mlp, mlp_specs
 from repro_torch.layers.norms import apply_norm, norm_specs
 
@@ -71,10 +70,9 @@ def _prime_cache(t, seq_len: int, window: int, cache_len: Optional[int]):
 
 
 def _to_cache(t, cfg):
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache waits on the w8 "
-                                  "serving slice of the port (ROADMAP A14)")
-    return cast(t, cfg.resolved_kv_dtype)
+    """Prefill K/V in the cache's dtype (an int8 cache on the fixed
+    ``kv_cache_scale`` grid)."""
+    return attn_lib.to_cache(t, cfg.resolved_kv_dtype, cfg.kv_cache_scale)
 
 
 def apply_block_seq(params, x, cfg, kind: str, *, positions,

@@ -34,7 +34,9 @@ def _check_decoder(cfg: ArchConfig) -> None:
 
 
 def _index(tree: PyTree, g: int) -> PyTree:
-    """Group ``g`` of a stacked tree (views: writes reach the stack)."""
+    """Group ``g`` of a stacked tree (views: writes reach the stack); a w8
+    weight's per-layer scale ``s`` [G, 1, ..., N] is sliced with its
+    ``q``."""
     return tree_map(lambda t: t[g], tree)
 
 
@@ -69,7 +71,8 @@ def compute_params(params: PyTree, cfg: ArchConfig) -> PyTree:
     """The parameter tree with every matmul weight cast to the compute
     dtype once.  The reference casts them on every call; the values that
     reach the matmuls are the same, so serving casts once at load.  Norm
-    scales stay as they are: they are read in f32."""
+    scales stay as they are: they are read in f32.  A w8 weight's
+    {"q": int8, "s": f32} dict stays as it is too (its GEMM reads int8)."""
     def walk(tree, key=None):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}

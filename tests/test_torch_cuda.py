@@ -25,7 +25,9 @@ f32 sums taken in another order, agree within one bf16 ulp; bf16 GEMMs
 within one bf16 ulp plus their f32 sums' rounding (``bf16_gemm_bound``).
 ``MM_CASES`` hold each ``matmul_ws`` form (``mm_path``) at its edges: M
 from 1 to 3000 across the stream / wgmma boundary at 16, K and N off the
-tiles, the head's N = 1000, and rows that are not 16-byte multiples."""
+tiles, the head's N = 1000, and rows that are not 16-byte multiples.
+``W8_SHAPES`` hold the int8 forms at w8 serving's GEMM shapes, and the
+int8 KV cache's decode contractions are held to the CPU's int64 sums."""
 
 import numpy as np
 import pytest
@@ -378,6 +380,93 @@ def test_cuda_lm_engine_tokens_equal_the_cpu(cuda):
         ServingEngine(cfg, params, slots=2, max_seq=96, device=dev).run(reqs)
         launched = flash_attention.launches - before
         assert launched == (0 if dev == "cpu" else 2 * len(prompts))
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# w8a8 serving: matmul_ws's int8 forms and the int8 KV cache
+# ---------------------------------------------------------------------------
+
+# the w8 GEMMs' (K, N) of llama3.2-3b, yi-34b and gemma-7b: wq / wo, wk /
+# wv (gemma-7b's as wide as wq), the MLP's up and down projections
+W8_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
+             (7168, 7168), (7168, 1024), (7168, 20480), (20480, 7168),
+             (3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", W8_SHAPES)
+def test_cuda_w8_gemm_shapes_equal_plain(cuda, k, n):
+    """int8 ``matmul_ws`` at the w8 GEMM shapes: the stream form at a
+    4-slot decode's M, the scalar form at a prefill's, each equal to the
+    plain version."""
+    for m, form in ((4, "stream"), (300, "scalar")):
+        x, w, _ = (t.to(cuda) for t in mm_case_inputs(m, k, n, "int8", True))
+        assert mm_path(m, k, n, torch.int8) == form
+        before = dict(matmul_ws.path_launches)
+        got = matmul_ws(x, w)
+        torch.cuda.synchronize()
+        assert matmul_ws.path_launches == {**before, form: before[form] + 1}
+        assert torch.equal(got, matmul_ws_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,g,d", [(8, 3, 128), (16, 1, 256)])
+def test_cuda_int8_decode_contractions_exact(cuda, kv, g, d):
+    """The int8 cache's decode contractions, f32 of the upcast operands on
+    the card, equal the CPU's int64 sums at a 4-slot, 4096-position cache:
+    random q and k, every entry −128, and pq from a softmax against v."""
+    from repro_torch.layers.attention import _int8_contract
+
+    gen = torch.Generator().manual_seed(kv * g * d)
+    b, s = 4, 4096
+    q = torch.randint(-128, 128, (b, kv, g, d), generator=gen,
+                      dtype=torch.int8)
+    k = torch.randint(-128, 128, (b, s, kv, d), generator=gen,
+                      dtype=torch.int8)
+    p = torch.softmax(3 * torch.randn((b, kv, g, s), generator=gen), -1)
+    pq = torch.round(p * 127.0).clamp(0, 127).to(torch.int8)
+    minus = torch.full_like(k, -128)
+    for sub, a, c in (("bkgd,bskd->bkgs", q, k),
+                      ("bkgd,bskd->bkgs", torch.full_like(q, -128), minus),
+                      ("bkgs,bskd->bkgd", pq, k),
+                      ("bkgs,bskd->bkgd", pq, minus)):
+        got = _int8_contract(sub, a.to(cuda), c.to(cuda))
+        assert got.dtype == torch.float32
+        assert torch.equal(got.cpu().long(),
+                           torch.einsum(sub, a.long(), c.long()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3p2_3b", "gemma_7b", "yi_34b"])
+def test_cuda_w8_engine_tokens_equal_the_cpu(cuda, arch):
+    """The reduced model in w8 with the int8 KV cache: the card (int8
+    GEMMs on matmul_ws, 7 a layer a forward) gives the CPU run's greedy
+    tokens."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.core.quantize import quantize_weights
+    from repro_torch.layers.common import materialize
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), num_layers=2,
+                              attn_impl="flash", kv_cache_dtype="int8",
+                              kv_cache_scale=0.25)
+    params = quantize_weights(materialize(
+        lm.param_specs(cfg), torch.Generator().manual_seed(0),
+        device="cpu"), lm.param_specs(cfg))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 70)]
+    outs = []
+    for dev in ("cpu", cuda):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        before = matmul_ws.launches
+        ServingEngine(cfg, params, slots=2, max_seq=96, device=dev).run(reqs)
+        assert (matmul_ws.launches > before) == (dev != "cpu")
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
 

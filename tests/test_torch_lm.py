@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.configs import base as jbase
+from repro.core import quantize as jquant
 from repro.layers import attention as jattn
 from repro.layers import common as jcommon
 from repro.layers import embedding as jemb
@@ -25,6 +26,7 @@ from repro.models import lm as jlm
 from repro.serving import serve_step as jserve
 from repro_torch import convert
 from repro_torch.configs import base
+from repro_torch.core import quantize as quant
 from repro_torch.layers import attention, common, embedding, mlp, norms, rope
 from repro_torch.models import blocks, lm
 from repro_torch.serving import serve_step
@@ -57,7 +59,10 @@ def _normal(*shape, seed=0):
 
 # -- configs ---------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["llama3p2_3b", "llama3_8b"])
+ARCHS = ["llama3p2_3b", "llama3_8b", "yi_34b", "gemma_7b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_configs_equal_the_reference_field_for_field(arch):
     full, jfull = base.get_config(arch), jbase.get_config(arch)
     assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
@@ -79,9 +84,10 @@ def test_unported_architectures_raise_naming_the_roadmap():
         base.get_config("gpt-17")
 
 
-@pytest.mark.parametrize("arch", ["llama3p2_3b", "llama3_8b"])
-def test_param_and_cache_specs_match_the_reference(arch):
-    jcfg, cfg = _configs(arch, num_layers=3)
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_and_cache_specs_match_the_reference(arch, kv):
+    jcfg, cfg = _configs(arch, num_layers=3, kv_cache_dtype=kv)
 
     def flat(tree, is_leaf):
         return [(s.shape, s.axes, s.dtype, s.init, s.scale, s.fan_in_axes)
@@ -90,6 +96,9 @@ def test_param_and_cache_specs_match_the_reference(arch):
             == flat(jlm.param_specs(jcfg), jcommon.is_spec))
     assert (flat(lm.cache_specs(cfg, 3, 40), common.is_spec)
             == flat(jlm.cache_specs(jcfg, 3, 40), jcommon.is_spec))
+    kv_dt = {s.dtype for s in jax.tree.leaves(lm.cache_specs(cfg, 3, 40),
+                                              is_leaf=common.is_spec)}
+    assert kv_dt == {"int8" if kv == "int8" else "float32"}
 
 
 def test_materialize_follows_the_specs_on_a_generator():
@@ -182,8 +191,36 @@ def test_dense_backends_and_dtypes():
     bound = bf16_gemm_bound(xb, torch.from_numpy(w).bfloat16(), None,
                             got.reshape(6, 48), want.reshape(6, 48))
     assert bool(((got.float() - want).abs().reshape(6, 48) <= bound).all())
-    with pytest.raises(NotImplementedError, match="w8"):
-        common.dense({"q": w, "s": 1.0}, torch.from_numpy(x), "bsd,df->bsf")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sub,xs,ws,bias", [
+    ("bsd,dhe->bshe", (2, 3, 64), (64, 4, 16), False),
+    ("bshe,hed->bsd", (2, 3, 4, 16), (4, 16, 64), False),
+    ("bsd,df->bsf", (2, 3, 64), (64, 48), False),
+    ("bsd,df->bsf", (2, 3, 64), (64, 48), True)])
+def test_dense_w8_equals_the_reference(sub, xs, ws, bias, dtype):
+    """A w8 weight (the reference's ``quantize_weights`` of it, carried
+    across) runs the int8 GEMM on matmul_ws, whatever the backend, and the
+    output equals the reference's bit for bit: the int32 sums are exact
+    and the rescale is the same f32 operations in the same order."""
+    w = _normal(*ws, seed=6)
+    x = _normal(*xs, seed=7)
+    b = _normal(ws[-1], seed=8) if bias else None
+    jw = jquant.quantize_weights({"m": {"w": jnp.asarray(w)}})["m"]["w"]
+    tw = convert.lm_params_to_torch(jax.tree.map(np.asarray, jw),
+                                    device="cpu")
+    assert tw["q"].dtype == torch.int8 and tw["s"].dtype == torch.float32
+    want = jcommon.dense(jw, jnp.asarray(x), sub, compute_dtype=dtype,
+                         bias=None if b is None else jnp.asarray(b))
+    for backend in ("xla", "pallas_ws"):
+        got = common.dense(tw, torch.from_numpy(x), sub, backend=backend,
+                           compute_dtype=dtype,
+                           bias=None if b is None else torch.from_numpy(b))
+        # an f32 bias promotes a bf16 product to f32 in both
+        assert str(got.dtype)[6:] == str(want.dtype)
+        assert torch.equal(got.float(), torch.from_numpy(
+            np.array(want.astype(jnp.float32))))
 
 
 @pytest.mark.parametrize("tied", [True, False])
@@ -281,9 +318,35 @@ def test_unported_blocks_raise():
         lm.param_specs(moe)
     with pytest.raises(NotImplementedError, match="encdec"):
         lm.param_specs(dataclasses.replace(cfg, kind="encdec"))
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        blocks._to_cache(torch.zeros(1),
-                         dataclasses.replace(cfg, kv_cache_dtype="int8"))
+
+
+@pytest.mark.parametrize("kind,window", [("attn", 0), ("local_attn", 8)])
+def test_int8_prefill_cache_equals_the_reference(kind, window):
+    """``_to_cache`` / ``_prime_cache`` on an int8 cache: the prefill K/V
+    on the ``kv_cache_scale`` grid, laid out in the decode slots (a ring
+    rolled past its capacity), equal to the reference's."""
+    jcfg, cfg = _configs(kv_cache_dtype="int8", kv_cache_scale=0.25,
+                         attention_window=window)
+    jp, tp = _weights(jblocks.block_specs(jcfg, kind))
+    x = _normal(2, 13, 64, seed=20)
+    pos = np.broadcast_to(np.arange(13), (2, 13))
+    _, _, jc = jblocks.apply_block_seq(jp, jnp.asarray(x), jcfg, kind,
+                                       positions=jnp.asarray(pos),
+                                       want_cache=True, cache_len=16)
+    _, _, tc = blocks.apply_block_seq(tp, torch.from_numpy(x), cfg, kind,
+                                      positions=torch.from_numpy(
+                                          pos.copy()).long(),
+                                      want_cache=True, cache_len=16)
+    for g in ("k", "v"):
+        got, want = getattr(tc["kv"], g), getattr(jc["kv"], g)
+        assert got.dtype == torch.int8 and want.dtype == jnp.int8
+        assert got.shape == (2, 8 if window else 16, 2, 16)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    t = _normal(2, 5, 2, 4, seed=21) * 40     # saturates at ±128 / 127
+    got = blocks._to_cache(torch.from_numpy(t), cfg)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), np.clip(
+        np.round(t / 0.25), -128, 127).astype(np.int8))
 
 
 # -- the model ---------------------------------------------------------------
@@ -373,6 +436,42 @@ def test_compute_params_casts_matmul_weights_only():
     assert bf["final_norm"]["scale"].dtype == torch.float32
     assert lm.compute_params(tp, cfg)["embedding"]["embed"] is \
         tp["embedding"]["embed"]
+
+
+def test_compute_params_leaves_w8_weights_untouched():
+    _, cfg = _configs(num_layers=2)
+    tp = common.materialize(lm.param_specs(cfg), torch.Generator()
+                            .manual_seed(0), device="cpu")
+    q = quant.quantize_weights(tp, lm.param_specs(cfg))
+    bf = lm.compute_params(q, dataclasses.replace(cfg,
+                                                  compute_dtype="bfloat16"))
+    wq = bf["blocks"]["b0"]["attn"]["wq"]
+    assert wq["q"] is q["blocks"]["b0"]["attn"]["wq"]["q"]
+    assert wq["s"] is q["blocks"]["b0"]["attn"]["wq"]["s"]
+    assert wq["q"].dtype == torch.int8 and wq["s"].dtype == torch.float32
+    assert bf["embedding"]["embed"].dtype == torch.bfloat16   # excluded
+    assert bf["blocks"]["b0"]["norm1"]["scale"].dtype == torch.float32
+
+
+def test_index_slices_the_per_layer_scale_with_its_values():
+    _, cfg = _configs(num_layers=3)
+    tp = common.materialize(lm.param_specs(cfg), torch.Generator()
+                            .manual_seed(0), device="cpu")
+    q = quant.quantize_weights(tp, lm.param_specs(cfg))
+    for g in range(3):
+        wo = lm._index(q["blocks"], g)["b0"]["mlp"]["wo"]
+        full = q["blocks"]["b0"]["mlp"]["wo"]
+        assert wo["s"].shape == (1, 64)
+        assert torch.equal(wo["q"], full["q"][g])
+        assert torch.equal(wo["s"], full["s"][g])
+    cache = common.tree_map(
+        lambda s: torch.zeros(s.shape, dtype=common.torch_dtype(s.dtype)),
+        lm.cache_specs(dataclasses.replace(cfg, kv_cache_dtype="int8"), 2,
+                       8))
+    one = lm._index(cache["blocks"], 1)["b0"]["kv"]
+    assert one.k.dtype == torch.int8 and one.k.shape == (2, 8, 2, 16)
+    one.k[0, 0, 0, 0] = 5                       # a view into the stack
+    assert int(cache["blocks"]["b0"]["kv"].k[1, 0, 0, 0, 0]) == 5
 
 
 def test_sampling():

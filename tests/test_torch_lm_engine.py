@@ -88,9 +88,18 @@ def test_engine_defaults_to_the_gpu(monkeypatch):
         engine.ServingEngine(cfg, tp)
 
 
-def test_launcher_serves_on_the_cpu(capsys):
+def test_launcher_serves_on_the_cpu(capsys, monkeypatch):
     serve.main(["--arch", "llama3.2-3b", "--device", "cpu", "--requests",
                 "3", "--max-new", "4"])
     assert capsys.readouterr().out.startswith("3 requests, 12 tokens")
-    with pytest.raises(NotImplementedError, match="w8"):
-        serve.main(["--arch", "llama3.2-3b", "--device", "cpu", "--w8"])
+    built = []
+    monkeypatch.setattr(serve, "ServingEngine", lambda cfg, params, **kw: (
+        built.append((cfg, params)) or engine.ServingEngine(cfg, params,
+                                                            **kw)))
+    serve.main(["--arch", "llama3.2-3b", "--device", "cpu", "--w8",
+                "--requests", "3", "--max-new", "4"])
+    assert capsys.readouterr().out.startswith("3 requests, 12 tokens")
+    (cfg, params), = built
+    assert (cfg.kv_cache_dtype, cfg.kv_cache_scale) == ("int8", 0.25)
+    wq = params["blocks"]["b0"]["attn"]["wq"]
+    assert wq["q"].dtype == torch.int8 and wq["s"].shape == (1, 1, 1, 16)
