@@ -21,8 +21,9 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    geometries (``TC_CASES`` of ``tests/test_torch_cuda.py``), the dense
    heads; every ``matmul_ws`` form at its edge shapes (M from 1 to 3000,
    K and N off the tiles, the head's N = 1000) and at the LM's MLP
-   shapes; llama3.2-3b's attention at S = 512, 777,
-   2048, 3000, the bf16 attention kernel's other head dims 16, 32, 64,
+   shapes (llama3.2-3b's, and recurrentgemma-9b's at M = 4 on the stream
+   form and M = 4096 on ``wgmma``, K up to 12,288); llama3.2-3b's
+   attention at S = 512, 777, 2048, 3000, the bf16 attention kernel's other head dims 16, 32, 64,
    and the head dims it runs padded, at D = 256 or on f32 copies — bf16
    D = 8, 96 and 256 at [1, 2048, H, D] with H·D = 3072, bf16 D = 320, f32
    D = 6 and 160, and f32 B·H = 65,600 — each asserting the variant
@@ -33,7 +34,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    events around back-to-back calls (``ms``, ``plain_ms``: host work
    included), and each kernel's call again as the sum of every device
    event it issues under ``torch.profiler`` (``device_ms``: its kernel and
-   whatever else it runs on the card, such as the scale fill), beside its
+   whatever else it runs on the card, such as the scale fill; the mean
+   over the calls whose events all reached the trace), beside its
    bound (and, for attention, ``scaled_dot_product_attention``, for the
    bf16 GEMMs ``torch.matmul``, and the achieved TFLOP/s); print the
    ``vgg_imagenet`` per-layer table and ``matmul_ws``'s host cost a call;
@@ -43,7 +45,12 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    the long-M ones timed beside ``torch._int_mm`` with the weight stored
    row-major and column-major) and the int8 KV cache's two decode
    contractions at 4 slots × 4096 positions (D = 128 and 256, random
-   and worst-case operands) to the CPU's int64 sums;
+   and worst-case operands) to the CPU's int64 sums; hold
+   ``ops.conv1d_depthwise`` at recurrentgemma-9b's temporal conv ([1,
+   4096, 4096], K = 4, f32 with a bias: one ``conv2d_ws`` launch on the
+   scalar path, 4096 one-lane groups) within 1e-4 of
+   ``conv1d_depthwise_ref`` and of the block's ``causal_conv1d``, timed
+   beside ``F.conv1d(groups=W)`` with its byte bound;
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
@@ -60,10 +67,13 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    tokens per request, prefill logits against the plain attention; the
    same requests again with ``gemm_backend="pallas_ws"`` on the same
    weights (three ``matmul_ws`` launches per layer per forward, admit
-   and decode times beside the ``xla`` run's, prefill logits against
-   it); then two full-width layers in f32 (logits within 1e-4, tokens
-   equal to the plain attention), and the reduced model (tokens equal to
-   the CPU run);
+   and decode times beside the ``xla`` run's; the longest prompt's
+   prefill with each of its ``matmul_ws`` calls held to
+   ``matmul_ws_plain`` on the same operands within ``bf16_gemm_bound``,
+   and every prompt's prefill logits against the ``xla`` run's); then
+   two full-width layers in f32 (logits within 1e-4, tokens equal to the
+   plain attention), and the reduced model (tokens equal to the CPU
+   run);
 6b. w8 serving with the int8 KV cache (``quantize_weights``, scale 0.25)
    on the same engine timing: llama3.2-3b with phase 6's weights and
    requests (7 × 28 ``matmul_ws`` launches a forward, the scalar form at
@@ -80,6 +90,27 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    layer group at a time, 3 requests of 64–1024 tokens; resident bytes,
    shortest prefill equal to the plain GEMMs');
    and the reduced w8 models, whose card tokens must equal the CPU run's;
+6c. the hybrid and attention-free families as published, on the same
+   engine timing with prompts of 64, 512, 2048, 2560 and 4096 tokens (the
+   last two past the 2048 window; all multiples of 512) and a 4112-position
+   pool: recurrentgemma-9b (38 layers, 12 × R,R,A + R,R; rnn_width 4096,
+   MQA, window 2048; drawn in bf16) with ``gemm_backend="xla"`` and again
+   ``"pallas_ws"`` on the same weights (3 × 38 ``matmul_ws`` launches a
+   forward on the forms ``mm_path`` names, no ``flash_attention`` launch
+   although ``attn_impl="flash"``: the windowed layers take the chunked
+   attention; the 4096-token prefill's 114 GEMMs each held to
+   ``matmul_ws_plain`` and the prefill logits within phase 6's bf16 bound
+   of ``xla``'s, as in phase 6), admits, decode steps, busy shares, peak
+   memory and a 4096-token admit split by part under ``torch.profiler``
+   (bf16 GEMMs, the f32 gate GEMMs, the RG-LRU scan, the chunked
+   attention, the logits, the rest; each device event counted once,
+   through the op whose correlation id it carries);
+   one R,R,A group and the R,R tail at full width in f32, a 2560-token
+   prefill (the ring rolled by 512) and 3 decode steps within 2e-3 of
+   ``forward_train``'s logits; rwkv6-1.6b (24 layers, d_model 2048, 32
+   heads of 64) on ``xla`` (no kernel on its path), with the chunked wkv6
+   of layer 0's real inputs at S = 2048 held to the sequential one; and
+   the reduced models of both families, card tokens equal to the CPU's;
 7. continuous batching: ``ContinuousBatchingEngine`` serves
    ``vgg_imagenet`` 224 at batch 8 under 4 virtual cores in each of the
    batch, kout and spatial modes, ``unet_small`` at 224×224×4 (transposed
@@ -147,12 +178,18 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``int8_device_ms``, ``int8_bound_ms`` and ``int8_library_ms`` sum its
    twelve long-M int8 shapes of phase 3 (the library ``torch._int_mm``,
    each shape's faster of its two weight layouts),
-   and its and ``flash_attention``'s ``launches`` add phase 6b's.
+   and its and ``flash_attention``'s ``launches`` count every served
+   run of phases 6, 6b and 6c (``serve_held``), and the
+   ``conv2d_ws`` row carries phase 3's ``conv1d_depthwise`` apart
+   (``conv1d_ms``, ``conv1d_device_ms``, ``conv1d_bound_ms``,
+   ``conv1d_plain_ms``: ``conv1d_depthwise_ref``, ``conv1d_library_ms``:
+   ``F.conv1d``).
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
 """
 
+import collections
 import ctypes
 import dataclasses
 import itertools
@@ -180,6 +217,7 @@ LM_SLOTS, LM_MAX_SEQ = 4, 4096
 FLASH_SEQS = (512, 777, 2048, 3000)   # bf16 [1, S, 24, 128] checks
 FLASH_ROW_SEQ = 2048                  # the S of the JSON row's numbers
 FLASH_SMALL_DIMS = (16, 32, 64)       # bf16 head dims besides 128
+MARK_CYCLES = 1000                    # device_ms's marker between calls
 # head dims the kernels take padded, at D = 256 or on f32 copies:
 # (B, S, H, D, dtype, variant); the bf16 ones at S = 2048 with H·D = 3072,
 # llama3.2-3b's attention width, so their work is comparable to its
@@ -216,6 +254,18 @@ W8_DECODE = (("llama3.2-3b", 4, 4096, 8, 3, 128),
              ("gemma-7b", 4, 4096, 16, 1, 256))
 W8_KV_SCALE = 0.25                    # the launcher's int8 cache scale
 GEMMA_ARCH, YI_ARCH = "gemma_7b", "yi_34b"
+# phase 6c: the hybrid and attention-free families, as published; prompts
+# are multiples of 512, so chunked_attention keeps 512-position chunks and
+# wkv6_chunked 32-token ones (a length such as 3000 would halve the
+# attention's chunk to 8 positions, 10^5-10^6 host iterations a layer)
+RG_ARCH, RWKV_ARCH = "recurrentgemma_9b", "rwkv6_1p6b"
+HYBRID_PROMPTS = (64, 512, 2048, 2560, 4096)
+HYBRID_MAX_SEQ = 4112                 # the longest prompt + 16 new tokens
+RG_CONV_SEQ = 4096                    # phase 3's conv1d_depthwise: [1, S, W]
+RG_MLP_FORMS = {4: "stream", 4096: "wgmma"}  # RG_MLP_CASES' form by M
+RG_CHECK_PROMPT, RG_CHECK_STEPS = 2560, 3   # the 5-layer f32 ring check
+RG_CHECK_TOL = 2e-3                   # tests/test_models_decode.py's own
+RWKV_CHECK_SEQ = 2048                 # wkv6 chunked against recurrent
 GEMMA_W8_PROMPTS = (64, 512, 1024, 2048)
 YI_PROMPTS = (64, 512, 1024)
 KERNELS = {
@@ -317,8 +367,12 @@ def main():
     from repro_torch.core.quantize import (quantize_weight_specs,
                                            quantize_weights)
     from repro_torch.layers.attention import _int8_contract as int8_contract
+    from repro_torch.layers import attention as attn_lib
+    from repro_torch.layers import rglru as rglru_lib
+    from repro_torch.layers import rwkv as rwkv_lib
     from repro_torch.layers.common import (materialize, stack_specs,
                                            torch_dtype, tree_map)
+    from repro_torch.layers.rglru import causal_conv1d
     from repro_torch.models import lm
     from repro_torch.models.blocks import block_specs
     from repro_torch.serving.batching import (ContinuousBatchingEngine,
@@ -334,8 +388,8 @@ def main():
     from repro_torch.kernels.conv2d_ws_bwd import (conv2d_ws_input_grad,
                                                    conv2d_ws_weight_grad)
     from test_torch_cuda import (MM_CASES, TC_CASES, bf16_gemm_bound,
-                                 GRAD_REL_L2, bf16_ulp, check_conv_vjp,
-                                 check_matmul_vjp,
+                                 GRAD_REL_L2, RG_MLP_CASES, bf16_ulp,
+                                 check_conv_vjp, check_matmul_vjp,
                                  mm_case_inputs, tc_case_inputs,
                                  vgg_f32_layer)
 
@@ -432,33 +486,59 @@ def main():
         return ms, side
 
     def device_ms(fn, reps, windows=3):
-        """Device time of one call of ``fn``: the durations of every device
-        event (kernels, copies, fills) that ``reps`` calls issue under
-        ``torch.profiler`` after a warm-up, over ``reps``.  A window whose
-        trace holds fewer than ``reps`` device events (the profiler lost
-        some or all, as seen once in 10 calls of a kernel that had just run
-        and been checked, and once one of 3) is profiled again, up to
-        ``windows`` times, and said so; if every window is short, it
-        raises."""
+        """Device time of one call of ``fn``: the durations of the device
+        events (kernels, copies, fills) of one call under torch.profiler,
+        averaged over ``reps`` calls after a warm-up.  A ``spin_kernel``
+        (``torch.cuda._sleep``) is launched before each call and after the
+        last, and splits the device timeline into calls.  torch.profiler
+        now and then loses a device event (one in 3, 10 or 20 calls; once
+        in every window of a run), so a call whose event count is not the
+        most common one is left out of the mean, and said so.  A window in
+        which fewer than half the calls are whole is profiled again, up to
+        ``windows`` times; if every window is short, it raises."""
         fn()
         torch.cuda.synchronize()
         act = torch.profiler.ProfilerActivity
+        cuda = torch.autograd.DeviceType.CUDA
         for window in range(windows):
             with torch.profiler.profile(
                     activities=[act.CPU, act.CUDA]) as prof:
+                fn()                 # the window's first call is not timed
                 for _ in range(reps):
+                    torch.cuda._sleep(MARK_CYCLES)
                     fn()
+                torch.cuda._sleep(MARK_CYCLES)
                 torch.cuda.synchronize()
-            evs = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-            if len(evs) >= reps:
+            evs = sorted((k for k in prof.profiler.kineto_results.events()
+                          if k.device_type() == cuda),
+                         key=lambda k: k.start_ns())
+            calls, call = [], None
+            for k in evs:
+                if "spin_kernel" in k.name():
+                    if call is not None:
+                        calls.append(call)
+                    call = []
+                elif call is not None:
+                    call.append(k.end_ns() - k.start_ns())
+            sizes = collections.Counter(map(len, calls)).most_common()
+            size = max(n for n, c in sizes if c == sizes[0][1]) \
+                if sizes else 0
+            whole = [sum(c) for c in calls if size and len(c) == size]
+            if 2 * len(whole) >= reps:
                 break
-            log(f"  torch.profiler window {window + 1} of {windows} held "
-                f"{len(evs)} device events of {reps} calls")
-        if len(evs) < reps:
-            raise AssertionError(f"torch.profiler saw {len(evs)} device "
-                                 f"events in {reps} calls")
-        return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps
+            names = "" if calls else \
+                f"; no marker among {sorted({k.name() for k in evs})[:4]}"
+            log(f"  torch.profiler window {window + 1} of {windows}: "
+                f"{len(whole)} of {reps} calls whole ({len(evs)} device "
+                f"events, {len(calls)} calls between markers){names}")
+        if 2 * len(whole) < reps:
+            raise AssertionError(f"torch.profiler: {len(whole)} of {reps} "
+                                 f"calls whole in each of {windows} windows")
+        if len(whole) < reps:
+            log(f"  torch.profiler lost device events of "
+                f"{reps - len(whole)} of {reps} calls; the time is the "
+                f"mean of the other {len(whole)}")
+        return sum(whole) / len(whole) / 1e6
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -569,7 +649,7 @@ def main():
 
     def check_mm(x, w, b):
         """One ``matmul_ws`` launch on the form ``mm_path`` names, against
-        ``matmul_ws_plain`` → (form, max abs err)."""
+        ``matmul_ws_plain`` → (form, max abs err, the kernel's output)."""
         (m, k), n = x.shape, w.shape[1]
         path = mm_path(m, k, n, x.dtype)
         before = (matmul_ws.launches, matmul_ws.path_launches[path])
@@ -581,7 +661,7 @@ def main():
                                  f"not one launch on the {path} form")
         want = matmul_ws_plain(x, w, b)
         if x.dtype != torch.bfloat16:
-            return path, compare("matmul_ws", got, want)
+            return path, compare("matmul_ws", got, want), got
         if got.dtype != want.dtype or got.shape != want.shape:
             raise AssertionError(f"matmul_ws: {got.dtype}{tuple(got.shape)} "
                                  f"vs plain {want.dtype}{tuple(want.shape)}")
@@ -593,7 +673,7 @@ def main():
                                  f"the bound (max abs err {err})")
         st = stats["matmul_ws"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
-        return path, err
+        return path, err, got
 
     def check_matmuls():
         """Every form at its edge shapes, then the timed main-path shapes,
@@ -603,8 +683,14 @@ def main():
         dev_times = {}
         line = []
         for m, k, n, dname, bias in MM_CASES:
-            path, err = check_mm(*(None if t is None else t.to(dev) for t in
-                                   mm_case_inputs(m, k, n, dname, bias)))
+            path, err, _ = check_mm(*(None if t is None else t.to(dev)
+                                      for t in mm_case_inputs(m, k, n, dname,
+                                                              bias)))
+            if (m, k, n, dname, bias) in RG_MLP_CASES and (
+                    path != RG_MLP_FORMS[m]):
+                raise AssertionError(f"matmul_ws [{m},{k}]@[{k},{n}]: {path} "
+                                     f"form, recurrentgemma-9b's serving "
+                                     f"runs {RG_MLP_FORMS[m]}")
             forms[path] += 1
             line.append(f"[{m},{k}]@[{k},{n}] {dname} {path} {err:.3g}")
         log(f"  matmul_ws edges (shape dtype form max-abs-err; int8 equal, "
@@ -623,7 +709,7 @@ def main():
             copies = 4 if m <= 16 else 1
             x, w, b = mm_operands(m, k, n, dt, bias=dt == torch.int8)
             ws = [w] + [mm_operands(m, k, n, dt)[1] for _ in range(copies - 1)]
-            path, _ = check_mm(x, w, b)
+            path, _, _ = check_mm(x, w, b)
             turn = itertools.count()
             call = lambda: matmul_ws(x, ws[next(turn) % copies], b)  # noqa
             ms = elapsed_ms(call, reps=20)
@@ -658,7 +744,7 @@ def main():
                 f"({side}), plain {plain:.3f} ms, torch.matmul {lib_txt}")
         m, k, n = MM_BEFORE
         xf, wf, _ = mm_operands(m, k, n, torch.float32, bias=False)
-        path, _ = check_mm(xf, wf, None)
+        path, _, _ = check_mm(xf, wf, None)
         before = elapsed_ms(lambda: matmul_ws(xf, wf), reps=2, warmup=1)
         log(f"  matmul_ws [{m},{k}]@[{k},{n}] f32, {path} form (the first "
             f"port's kernel, the only form before this one): {before:.3f} "
@@ -712,7 +798,7 @@ def main():
             for k, n in shapes:
                 for m in (m_long, LM_SLOTS):
                     x, w, _ = mm_operands(m, k, n, torch.int8, bias=False)
-                    path, _ = check_mm(x, w, None)
+                    path, _, _ = check_mm(x, w, None)
                     want = "scalar" if m > 16 else "stream"
                     if path != want:
                         raise AssertionError(f"matmul_ws int8 [{m},{k}]@"
@@ -870,6 +956,62 @@ def main():
     check_w8_matmuls()
     check_int8_decode()
 
+    def check_conv1d():
+        """``ops.conv1d_depthwise`` at recurrentgemma-9b's temporal conv, [1,
+        4096, 4096] with K = 4, f32 with a bias: one ``conv2d_ws`` launch on
+        the scalar path (4096 one-lane groups), within 1e-4 of
+        ``ref.conv1d_depthwise_ref`` and of the block's ``causal_conv1d``;
+        timed beside ``F.conv1d(groups=W)`` (cuDNN, TF32 off, on the
+        channels-first [1, W, S + K − 1] layout it takes, laid out outside
+        the timing) → the conv2d_ws row's ``conv1d_*`` keys."""
+        rg_full = get_config(RG_ARCH)
+        s_len, width, k = RG_CONV_SEQ, rg_full.rnn_width, rg_full.conv1d_width
+        x = torch.randn(1, s_len, width, generator=gen, device=dev)
+        w = torch.randn(k, width, generator=gen, device=dev) / k ** 0.5
+        bias = torch.randn(width, generator=gen, device=dev)
+        before = (conv2d_ws.launches, conv2d_ws.tc_launches)
+        got = kops.conv1d_depthwise(x, w, bias)
+        torch.cuda.synchronize()
+        if (conv2d_ws.launches, conv2d_ws.tc_launches) != (before[0] + 1,
+                                                           before[1]):
+            raise AssertionError("conv1d_depthwise: not one conv2d_ws launch "
+                                 "on the scalar path")
+        err = compare("conv2d_ws", got, ref.conv1d_depthwise_ref(x, w, bias))
+        shifted = causal_conv1d(x, w, bias)
+        if not torch.allclose(got, shifted, rtol=F32_TOL, atol=F32_TOL):
+            raise AssertionError("conv1d_depthwise disagrees with the "
+                                 "recurrent block's causal_conv1d")
+        xt = F.pad(x.transpose(1, 2), (k - 1, 0)).contiguous()
+        wt = w.t().contiguous()[:, None, :]                 # [W, 1, K]
+        lib_call = lambda: F.conv1d(xt, wt, bias, groups=width)  # noqa
+        if not torch.allclose(lib_call().transpose(1, 2), got, rtol=F32_TOL,
+                              atol=F32_TOL):
+            raise AssertionError("F.conv1d(groups=W) computes another "
+                                 "function than conv1d_depthwise")
+        call = lambda: kops.conv1d_depthwise(x, w, bias)    # noqa: E731
+        ms = elapsed_ms(call, reps=10)
+        dev_ms = device_ms(call, 10)
+        plain = elapsed_ms(lambda: ref.conv1d_depthwise_ref(x, w, bias),
+                           reps=5)
+        lib = elapsed_ms(lib_call, reps=10)
+        nbytes = 4 * (2 * s_len * width + k * width + width)
+        ops = 2 * s_len * width * k
+        side = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+                else "operations")
+        bound = bound_ms(nbytes, ops, F32_OPS_PER_S)
+        stats["conv2d_ws"]["conv1d"] = dict(
+            conv1d_ms=ms, conv1d_device_ms=dev_ms, conv1d_bound_ms=bound,
+            conv1d_plain_ms=plain, conv1d_library_ms=lib)
+        log(f"  conv1d_depthwise [1,{s_len},{width}] K={k} f32 (recurrentgemma"
+            f"-9b's temporal conv) on conv2d_ws's scalar path: max abs err "
+            f"{err:.3g} against conv1d_depthwise_ref, within {F32_TOL} of "
+            f"causal_conv1d; {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
+            f"device ({nbytes / dev_ms / 1e6:.0f} GB/s), bound {bound:.4f} ms"
+            f" ({side}), plain {plain:.3f} ms, F.conv1d(groups={width}) "
+            f"{lib:.4f} ms")
+
+    check_conv1d()
+
     # bf16 attention: the kernel and the plain version each round an f32
     # result once, from sums taken in another order, so they may differ by
     # one bf16 ulp; 1e-5 more absolute covers outputs near zero, where the
@@ -978,32 +1120,90 @@ def main():
     def counts():
         return {k: fn.launches for k, fn in wrappers.items()}
 
-    def device_busy(fn, part=None):
-        """(wall ms of ``fn`` unprofiled, device ms and kernel count of
-        ``fn`` under torch.profiler, and with ``part`` (a kernel name →
-        a label) the device ms by label); device ms is None where the
-        trace holds no device events."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-        act = torch.profiler.ProfilerActivity
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    def device_busy(fn, part=None, ranges=None):
+        """(wall ms of ``fn`` unprofiled, device ms and device event count
+        of ``fn`` under torch.profiler, and with ``part`` the device ms by
+        label); device ms is None where the trace holds no device events.
+        ``ranges`` ({(module, attribute): label}) runs those functions
+        inside a ``record_function`` range of that label in both calls;
+        the spans a range leaves on the device timeline are not counted.
+        ``part(kernel, op, scope)`` labels a device event by its kernel
+        name, the op that launched it (the CPU op whose correlation id the
+        event carries; None if there is none) and the innermost range
+        around that op (or None): each event is counted once, so the
+        labels add up to the device ms."""
+        saved = []
+        for (mod, attr), label in (ranges or {}).items():
+            orig = getattr(mod, attr)
+
+            def scoped(*a, _orig=orig, _label=label, **k):
+                with torch.profiler.record_function(_label):
+                    return _orig(*a, **k)
+            setattr(mod, attr, scoped)
+            saved.append((mod, attr, orig))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+            wall = 1e3 * (time.perf_counter() - t0)
+            act = torch.profiler.ProfilerActivity
+            with torch.profiler.profile(
+                    activities=[act.CPU, act.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        finally:
+            for mod, attr, orig in saved:
+                setattr(mod, attr, orig)
+        scopes = set((ranges or {}).values())
+        kind = torch.autograd.DeviceType
+        raw = prof.profiler.kineto_results.events()
+        evs = [k for k in raw if k.device_type() == kind.CUDA
+               and k.name() not in scopes]
+        busy = sum(k.end_ns() - k.start_ns() for k in evs) / 1e6
         if part is None:
             return wall, (busy if evs else None), len(evs)
+        # an op's event carries its own correlation id and links to none;
+        # its kernels link to it
+        launchers = {k.correlation_id() for k in raw
+                     if k.device_type() == kind.CPU
+                     and k.linked_correlation_id() == 0}
+        ops = {}
+        for e in prof.events():
+            if (e.device_type == kind.CPU and not e.is_async
+                    and e.id in launchers):
+                inner = ops.get(e.id)
+                if inner is None or e.time_range.start > \
+                        inner.time_range.start:
+                    ops[e.id] = e
         by_part = {}
-        for e in evs:
-            label = part(e.name)
+        for k in evs:
+            op = up = ops.get(k.linked_correlation_id())
+            scope = None
+            while up is not None and scope is None:
+                scope = up.name if up.name in scopes else None
+                up = up.cpu_parent
+            label = part(k.name(), op, scope)
             by_part[label] = (by_part.get(label, 0.0)
-                              + e.time_range.elapsed_us() / 1e3)
+                              + (k.end_ns() - k.start_ns()) / 1e6)
         return wall, (busy if evs else None), len(evs), by_part
 
+    def log_split(name, fn, part, labels, ranges=None):
+        """Device ms of one call of ``fn`` under torch.profiler, by
+        ``part`` (``device_busy``), in the order of ``labels``."""
+        wall, busy, n, parts = device_busy(fn, part=part, ranges=ranges)
+        if set(parts) - set(labels):
+            raise AssertionError(f"{name}: parts {sorted(parts)} outside "
+                                 f"{labels}")
+        if busy is None:
+            log(f"  {name}: {wall:.1f} ms of host clock; device time not "
+                f"measured (no device events in the trace)")
+            return
+        log(f"  {name}: {wall:.1f} ms of host clock, device busy "
+            f"{busy:.1f} ms ({100 * busy / wall:.0f}%), {n} device events; "
+            f"device ms by part: " + ", ".join(
+                f"{k} {parts.get(k, 0.0):.2f} "
+                f"({100 * parts.get(k, 0.0) / busy:.0f}%)" for k in labels))
 
     def serve(name, plan, seed, params=None, calib=None,
               per_channel=False):
@@ -1165,6 +1365,114 @@ def main():
                 prompt, dtype=torch.long, device=dev)[None]}, cfg)
         return lg[0].float()
 
+    def layer_gemms(c, w8=False):
+        """(K, N) of each matmul_ws call a layer makes in a forward: the
+        gated MLP's three under ``pallas_ws``, and with ``w8`` the
+        attention's q / k / v / output projections before them."""
+        mlp = [(c.d_model, c.d_ff)] * 2 + [(c.d_ff, c.d_model)]
+        if not w8:
+            return mlp
+        q = c.num_heads * c.head_dim
+        kv = c.num_kv_heads * c.head_dim
+        return [(c.d_model, q), (c.d_model, kv), (c.d_model, kv),
+                (q, c.d_model)] + mlp
+
+    def serve_held(name, eng, c, reqs, gemms=(), flash=0,
+                   dtype=torch.bfloat16):
+        """Serve ``reqs`` with the counts reset just before; hold every
+        kernel's launches to what the run must make: ``flash``
+        flash_attention launches a prefill (none where the attention has a
+        window, which takes the chunked path, or where there is none), no
+        conv, and a matmul_ws launch a layer a forward for each (K, N) in
+        ``gemms``, on the form ``mm_path`` names for it in ``dtype`` (int8
+        with w8 weights): M = the prompt at a prefill, the slots at a
+        decode step.  Adds the launches to the JSON rows → the wall s of
+        the run."""
+        eng.step_ms.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        wall = time.perf_counter() - t0
+        seen, forms = counts(), dict(matmul_ws.path_launches)
+        steps = len(eng.step_ms)
+        want = {k: 0 for k in wrappers}
+        want["flash_attention"] = flash * len(reqs)
+        want_forms = dict.fromkeys(PATHS, 0)
+        for m in [len(r.prompt) for r in reqs] + [eng.slots] * steps:
+            for k, n in gemms:
+                want_forms[mm_path(m, k, n, dtype)] += c.num_layers
+        want["matmul_ws"] = sum(want_forms.values())
+        if seen != want or forms != want_forms:
+            raise AssertionError(f"{name}: launches {seen}, matmul_ws forms "
+                                 f"{forms}; expected {want}, {want_forms}")
+        check_served(name, c, reqs)
+        for k in ("matmul_ws", "flash_attention"):
+            stats[k]["launches"] += seen[k]
+        log(f"  {name}: launches {seen}, matmul_ws forms {forms} over "
+            f"{len(reqs)} prefills and {steps} decode steps; {len(reqs)} "
+            f"requests × {reqs[0].max_new_tokens} tokens, all in range")
+        return wall
+
+    def ws_against_xla(name, ws_eng, c_ws, xla_eng, c, reqs, wreqs):
+        """The ``pallas_ws`` run against the ``xla`` one on the same
+        weights: the longest prompt's prefill with every ``matmul_ws``
+        call held to ``matmul_ws_plain`` on its own operands
+        (``check_mm``: the form ``mm_path`` names, within
+        ``bf16_gemm_bound``), then each prompt's last-token logits against
+        the ``xla`` backend's within a bf16 bound, and the greedy tokens
+        equal to the ``xla`` run counted."""
+        longest = max((r.prompt for r in wreqs), key=len)
+        held = collections.Counter()
+
+        def hold(x, w, bias=None):
+            path, _, got = check_mm(x, w, bias)
+            held[path] += 1
+            return got
+        kops._matmul_kernel = hold
+        try:
+            last_logits(ws_eng.params, c_ws, longest)
+        finally:
+            kops._matmul_kernel = matmul_ws
+        if sum(held.values()) != 3 * c.num_layers:
+            raise AssertionError(f"{name} pallas_ws: {dict(held)} matmul_ws "
+                                 f"calls in a prefill, not 3 × "
+                                 f"{c.num_layers}")
+        # each layer's MLP rounds three bf16 GEMM outputs, each of which
+        # may move by one bf16 ulp (at most 2^-7 relative) between
+        # matmul_ws and the xla backend's torch.einsum; 3 × L such moves
+        # add at most linearly unless the network amplifies them
+        ws_bound = 3 * c.num_layers * 2.0 ** -7
+        worst = 0.0
+        for r in wreqs:
+            a = last_logits(ws_eng.params, c_ws, r.prompt)
+            b = last_logits(xla_eng.params, c, r.prompt)
+            rel = float((a - b).norm() / b.norm())
+            if not bool(torch.isfinite(a).all()) or rel > ws_bound:
+                raise AssertionError(f"{name} pallas_ws prompt "
+                                     f"{len(r.prompt)}: prefill logits off "
+                                     f"the xla backend's by {rel:.4g} "
+                                     f"(bound {ws_bound:.4g})")
+            worst = max(worst, rel)
+        same = sum(a == b for r, w in zip(reqs, wreqs)
+                   for a, b in zip(r.output, w.output))
+        log(f"  {name} pallas_ws: the {len(longest)}-token prefill's "
+            f"{sum(held.values())} matmul_ws calls (forms {dict(held)}) each "
+            f"within bf16_gemm_bound of matmul_ws_plain on its operands; "
+            f"prefill last-token logits against gemm_backend='xla': "
+            f"relative L2 at most {worst:.4g} over {len(wreqs)} prompts "
+            f"(bound {ws_bound:.4g}); greedy tokens equal to the xla run: "
+            f"{same} of {sum(len(r.output) for r in reqs)} (counted, not "
+            f"required)")
+
+    def log_admits(name, eng, reqs, ref_ms, ref_label):
+        for r in reqs:
+            ms = eng.admit_ms[r.uid]
+            ref = ref_ms.get(r.uid)
+            beside = ("" if ref is None else f", {ref_label} {ref:.1f} ms "
+                      f"({ms / ref:.2f}×)")
+            log(f"    {name} prompt {len(r.prompt):5d}: admit {ms:.1f} "
+                f"ms{beside}")
+
     log("phase 6: the LM main path")
     cfg = dataclasses.replace(lm_full, attn_impl="flash")
     plain_cfg = dataclasses.replace(cfg, attn_impl="dense")
@@ -1182,20 +1490,7 @@ def main():
         f"{LM_SLOTS} slots × {LM_MAX_SEQ} positions")
     reqs = lm_requests(cfg, LM_PROMPTS, LM_NEW_TOKENS, seed=0)
     last_logits(engine.params, cfg, reqs[0].prompt)    # warm-up, uncounted
-    reset_counts()
-    t0 = time.perf_counter()
-    engine.run(reqs)
-    wall = time.perf_counter() - t0
-    seen = counts()
-    want = {k: 0 for k in wrappers}
-    want["flash_attention"] = cfg.num_layers * len(reqs)
-    if seen != want:
-        raise AssertionError(f"{cfg.name}: launches {seen}, expected {want}")
-    check_served(cfg.name, cfg, reqs)
-    stats["flash_attention"]["launches"] = seen["flash_attention"]
-    log(f"  {cfg.name}: launches {seen} (one flash_attention per layer per "
-        f"prefill); {len(reqs)} requests × {LM_NEW_TOKENS} tokens, all in "
-        f"range")
+    wall = serve_held(cfg.name, engine, cfg, reqs, flash=cfg.num_layers)
     for r in reqs:
         n, ms = len(r.prompt), engine.admit_ms[r.uid]
         share = ""
@@ -1279,59 +1574,14 @@ def main():
                             max_seq=LM_MAX_SEQ)
     last_logits(ws_engine.params, cfg_ws, reqs[0].prompt)    # warm-up
     wreqs = fresh(reqs)
-    reset_counts()
-    t0 = time.perf_counter()
-    ws_engine.run(wreqs)
-    wall = time.perf_counter() - t0
-    seen, forms = counts(), dict(matmul_ws.path_launches)
-    steps = len(ws_engine.step_ms)
-    mlp = 3 * cfg.num_layers
-    want = {k: 0 for k in wrappers}
-    want["flash_attention"] = cfg.num_layers * len(wreqs)
-    want["matmul_ws"] = mlp * (len(wreqs) + steps)
-    # prefills run M = prompt length > 16 rows, decode steps M = 4 slots
-    want_forms = {"wgmma": mlp * len(wreqs), "stream": mlp * steps,
-                  "scalar": 0}
-    if seen != want or forms != want_forms:
-        raise AssertionError(f"{cfg_ws.name} pallas_ws: launches {seen}, "
-                             f"matmul_ws forms {forms}; expected {want}, "
-                             f"{want_forms}")
-    check_served(f"{cfg_ws.name} pallas_ws", cfg_ws, wreqs)
-    stats["matmul_ws"]["launches"] += seen["matmul_ws"]
-    log(f"  gemm_backend='pallas_ws': launches {seen} (3 × "
-        f"{cfg.num_layers} matmul_ws per forward over {len(wreqs)} "
-        f"prefills and {steps} decode steps; forms {forms}); "
-        f"{len(wreqs)} requests × {LM_NEW_TOKENS} tokens, all in range")
-    for r in wreqs:
-        n, ms = len(r.prompt), ws_engine.admit_ms[r.uid]
-        xla_ms = xla_admit_ms[r.uid]
-        log(f"    prompt {n:5d}: admit {ms:.1f} ms with pallas_ws, "
-            f"{xla_ms:.1f} ms with xla ({ms / xla_ms:.2f}×)")
+    wall = serve_held(f"{cfg.name} pallas_ws", ws_engine, cfg_ws, wreqs,
+                      layer_gemms(cfg), flash=cfg.num_layers)
+    log_admits(f"{cfg.name} pallas_ws", ws_engine, wreqs, xla_admit_ms,
+               "xla")
     log_decode(ws_engine, wreqs, wall)
     log_busy(ws_engine, cfg_ws, wreqs, longest)
 
-    # each layer's MLP rounds three bf16 GEMM outputs, each of which may
-    # move by one bf16 ulp (at most 2^-7 relative) between matmul_ws and
-    # the xla backend's torch.einsum; 3 × 28 such moves add at most
-    # linearly unless the network amplifies them
-    ws_bound = 3 * cfg.num_layers * 2.0 ** -7
-    worst = 0.0
-    for r in wreqs:
-        a = last_logits(ws_engine.params, cfg_ws, r.prompt)
-        b = last_logits(engine.params, cfg, r.prompt)
-        rel = float((a - b).norm() / b.norm())
-        if not bool(torch.isfinite(a).all()) or rel > ws_bound:
-            raise AssertionError(f"{cfg_ws.name} pallas_ws prompt "
-                                 f"{len(r.prompt)}: prefill logits off the "
-                                 f"xla backend's by {rel:.4g} (bound "
-                                 f"{ws_bound:.4g})")
-        worst = max(worst, rel)
-    same = sum(a == b for r, w in zip(reqs, wreqs)
-               for a, b in zip(r.output, w.output))
-    log(f"  prefill last-token logits against gemm_backend='xla': relative "
-        f"L2 error at most {worst:.4g} over the {len(wreqs)} prompts "
-        f"(bound {ws_bound:.4g}); greedy tokens equal to the xla run: "
-        f"{same} of {generated} (counted, not required)")
+    ws_against_xla(cfg.name, ws_engine, cfg_ws, engine, cfg, reqs, wreqs)
     del engine, ws_engine
     torch.cuda.empty_cache()
 
@@ -1387,42 +1637,10 @@ def main():
         return dataclasses.replace(c, kv_cache_dtype="int8",
                                    kv_cache_scale=W8_KV_SCALE)
 
-    def serve_counted(name, eng, c, reqs, w8):
-        """Serve ``reqs`` with the counts reset just before; hold every
-        kernel's launches (and matmul_ws's forms) to what the run must
-        make: one flash_attention a layer a prefill, and for w8 the 7
-        GEMMs a layer a forward on matmul_ws, the scalar form at the
-        prefills' M (the prompt) and the stream form at the decode's M
-        (the slots)."""
-        eng.step_ms.clear()
-        reset_counts()
-        t0 = time.perf_counter()
-        eng.run(reqs)
-        wall = time.perf_counter() - t0
-        seen, forms = counts(), dict(matmul_ws.path_launches)
-        steps = len(eng.step_ms)
-        want = {k: 0 for k in wrappers}
-        want["flash_attention"] = c.num_layers * len(reqs)
-        want_forms = dict.fromkeys(PATHS, 0)
-        if w8:
-            gemms = 7 * c.num_layers
-            want["matmul_ws"] = gemms * (len(reqs) + steps)
-            want_forms.update(scalar=gemms * len(reqs), stream=gemms * steps)
-        if seen != want or forms != want_forms:
-            raise AssertionError(f"{name}: launches {seen}, matmul_ws forms "
-                                 f"{forms}; expected {want}, {want_forms}")
-        check_served(name, c, reqs)
-        for k in ("matmul_ws", "flash_attention"):
-            stats[k]["launches"] += seen[k]
-        log(f"  {name}: launches {seen}, matmul_ws forms {forms} over "
-            f"{len(reqs)} prefills and {steps} decode steps; {len(reqs)} "
-            f"requests × {reqs[0].max_new_tokens} tokens, all in range")
-        return wall
-
     W8_PARTS = ("matmul_ws scalar", "matmul_ws stream", "flash_attention",
                 "cuBLAS", "the rest")
 
-    def w8_part(kernel):
+    def w8_part(kernel, *_):
         """The label of a device event in a w8 admit or decode step:
         matmul_ws's scalar and stream forms, flash_attention, cuBLAS (the
         einsums: bf16 GEMMs and logits, the decode attention's f32
@@ -1436,20 +1654,6 @@ def main():
                 "cuBLAS" if any(t in kernel for t in (
                     "gemm", "gemv", "cutlass", "xmma", "nvjet"))
                 else "the rest")
-
-    def w8_split(name, fn):
-        """Device ms of one call of ``fn`` under torch.profiler, by
-        ``w8_part``."""
-        wall, busy, n, parts = device_busy(fn, part=w8_part)
-        if busy is None:
-            log(f"  {name}: {wall:.1f} ms of host clock; device time not "
-                f"measured (no device events in the trace)")
-            return
-        log(f"  {name}: {wall:.1f} ms of host clock, device busy "
-            f"{busy:.1f} ms ({100 * busy / wall:.0f}%), {n} device events; "
-            f"device ms by kernel: " + ", ".join(
-                f"{k} {parts.get(k, 0.0):.2f} "
-                f"({100 * parts.get(k, 0.0) / busy:.0f}%)" for k in W8_PARTS))
 
     def median_step(eng):
         """The median decode step with the most slots busy, and that
@@ -1491,15 +1695,6 @@ def main():
         log(f"  {name}: prefill logits torch.equal to the same prefill with "
             f"matmul_ws_plain in the kernel's place, {len(prompts)} prompts")
 
-    def log_admits(name, eng, reqs, ref_ms, ref_label):
-        for r in reqs:
-            ms = eng.admit_ms[r.uid]
-            ref = ref_ms.get(r.uid)
-            beside = ("" if ref is None else f", {ref_label} {ref:.1f} ms "
-                      f"({ms / ref:.2f}×)")
-            log(f"    {name} prompt {len(r.prompt):5d}: admit {ms:.1f} "
-                f"ms{beside}")
-
     # llama3.2-3b as published, w8 + int8 KV, phase 6's requests
     t0 = time.perf_counter()
     params = materialize(lm.param_specs(cfg), torch.Generator(
@@ -1516,7 +1711,8 @@ def main():
         f"{W8_KV_SCALE}, attn_impl='flash'")
     reqs = lm_requests(cfg, LM_PROMPTS, LM_NEW_TOKENS, seed=0)
     last_logits(w8_engine.params, cfg8, reqs[0].prompt)     # warm-up
-    wall = serve_counted(f"{cfg.name} w8", w8_engine, cfg8, reqs, True)
+    wall = serve_held(f"{cfg.name} w8", w8_engine, cfg8, reqs,
+                      layer_gemms(cfg8, w8=True), cfg8.num_layers, torch.int8)
     log_admits(cfg.name, w8_engine, reqs, xla_admit_ms, "bf16 (phase 6, xla)")
     log(f"  {cfg.name} w8 decode: median %.2f ms a step with %d slots "
         f"busy, bf16 (phase 6, xla) {float(np.median(xla_step_ms)):.2f} ms"
@@ -1528,11 +1724,13 @@ def main():
                     prompts)
     for r in reqs[:LM_SLOTS]:                # four busy slots again
         w8_engine.admit(fresh([r])[0])
-    w8_split(f"{cfg.name} w8 decode step, {LM_SLOTS} slots", w8_engine.step)
-    w8_split(f"{cfg.name} w8 prefill of {len(longest)} tokens",
-             lambda: last_logits(w8_engine.params, cfg8, longest))
-    w8_split(f"{cfg.name} bf16 prefill of {len(longest)} tokens",
-             lambda: last_logits(bf, cfg, longest))
+    log_split(f"{cfg.name} w8 decode step, {LM_SLOTS} slots", w8_engine.step,
+              w8_part, W8_PARTS)
+    log_split(f"{cfg.name} w8 prefill of {len(longest)} tokens",
+              lambda: last_logits(w8_engine.params, cfg8, longest),
+              w8_part, W8_PARTS)
+    log_split(f"{cfg.name} bf16 prefill of {len(longest)} tokens",
+              lambda: last_logits(bf, cfg, longest), w8_part, W8_PARTS)
     del w8_engine, bf
     torch.cuda.empty_cache()
 
@@ -1559,7 +1757,8 @@ def main():
                              f"on the wgmma attention kernel")
     reqs = lm_requests(gemma, LM_PROMPTS, LM_NEW_TOKENS, seed=4)
     last_logits(bf, gemma, reqs[0].prompt)                  # warm-up
-    wall = serve_counted(f"{gemma.name} bf16", g_engine, gemma, reqs, False)
+    wall = serve_held(f"{gemma.name} bf16", g_engine, gemma, reqs,
+                      flash=gemma.num_layers)
     g_admit = dict(g_engine.admit_ms)
     g_step = median_step(g_engine)
     log_admits(gemma.name, g_engine, reqs, {}, "")
@@ -1588,8 +1787,9 @@ def main():
                                       seed=4)
                if len(r.prompt) in GEMMA_W8_PROMPTS]
     last_logits(g8_engine.params, gemma8, reqs[0].prompt)    # warm-up
-    wall = serve_counted(f"{gemma.name} w8", g8_engine, gemma8, g8_reqs,
-                         True)
+    wall = serve_held(f"{gemma.name} w8", g8_engine, gemma8, g8_reqs,
+                      layer_gemms(gemma8, w8=True), gemma8.num_layers,
+                      torch.int8)
     log_admits(f"{gemma.name} w8", g8_engine, g8_reqs, g_admit, "bf16")
     log(f"  {gemma.name} w8 decode: median %.2f ms a step with %d slots "
         f"busy, bf16 %.2f ms with %d" % (median_step(g8_engine) + g_step))
@@ -1644,7 +1844,8 @@ def main():
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
     y_reqs = lm_requests(yi, YI_PROMPTS, LM_NEW_TOKENS, seed=5)
     last_logits(y_engine.params, yi, y_reqs[0].prompt)       # warm-up
-    wall = serve_counted(f"{yi.name} w8", y_engine, yi, y_reqs, True)
+    wall = serve_held(f"{yi.name} w8", y_engine, yi, y_reqs,
+                      layer_gemms(yi, w8=True), yi.num_layers, torch.int8)
     log_admits(yi.name, y_engine, y_reqs, {}, "")
     log_decode(y_engine, y_reqs, wall)
     log(f"  {yi.name} w8 decode: median %.2f ms a step with %d slots busy"
@@ -1675,6 +1876,212 @@ def main():
                                  f"from the CPU run")
     log("  reduced w8 llama3.2-3b, gemma-7b and yi-34b (2 layers, int8 KV): "
         "card tokens equal to the CPU run of the same engine")
+
+    # -- 6c. the hybrid and attention-free LMs at full width ----------------
+    log("phase 6c: recurrentgemma-9b (RG-LRU + local attention) and "
+        "rwkv6-1.6b at full width")
+    t_phase = time.perf_counter()
+
+    RG_PARTS = ("bf16 GEMMs", "f32 gate GEMMs", "RG-LRU scan",
+                "chunked attention", "logits (f32)", "the rest",
+                "linked to no op")
+    RG_RANGES = {(rglru_lib, "_gates"): "gates",
+                 (rglru_lib, "linear_scan"): "RG-LRU scan",
+                 (attn_lib, "chunked_attention"): "chunked attention",
+                 (lm, "logits"): "logits (f32)"}
+    MM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+    def rg_part(kernel, op, scope):
+        """The part of a recurrentgemma prefill (xla backend) that a
+        device event belongs to, from the op that launched it and the
+        ``RG_RANGES`` range around that op: a GEMM op in the gates is an
+        f32 gate GEMM, one outside every range a bf16 GEMM (on xla every
+        other GEMM of a layer is a bf16 einsum); the rest of each range is
+        its part, except the gates' elementwise work, which is the
+        rest."""
+        if op is None:
+            return "linked to no op"
+        if scope == "gates":
+            return "f32 gate GEMMs" if op.name in MM_OPS else "the rest"
+        if scope is not None:
+            return scope
+        return "bf16 GEMMs" if op.name in MM_OPS else "the rest"
+
+    # recurrentgemma-9b as published, drawn in bf16 (f32 weights alone are
+    # 37.6 GB), on xla and then pallas_ws with the same weights
+    rg = dataclasses.replace(get_config(RG_ARCH), attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = materialize(lm.param_specs(rg), torch.Generator(
+        device=dev).manual_seed(7), device=dev, dtype_override="bfloat16")
+    rg_engine = TimedEngine(rg, params, slots=LM_SLOTS,
+                            max_seq=HYBRID_MAX_SEQ)
+    del params
+    torch.cuda.synchronize()
+    log(f"  {rg.name}: {param_count(rg) / 1e9:.2f} B parameters "
+        f"({rg.num_layers} layers: {rg.num_groups_scan} × "
+        f"{'/'.join(rg.layer_pattern)} + {'/'.join(rg.tail_blocks)}; "
+        f"d_model {rg.d_model}, {rg.num_heads}/{rg.num_kv_heads} heads of "
+        f"{rg.head_dim}, rnn_width {rg.rnn_width}, d_ff {rg.d_ff} GeGLU, "
+        f"vocab {rg.vocab_size}, window {rg.attention_window}), drawn in "
+        f"bf16 on the card from seed 7 in {time.perf_counter() - t0:.1f} s;"
+        f" resident {nbytes(rg_engine.params) / 1e9:.2f} GB of weights, "
+        f"{nbytes(rg_engine.cache) / 1e6:.1f} MB of cache ({LM_SLOTS} slots, "
+        f"a {min(HYBRID_MAX_SEQ, rg.attention_window)}-slot ring a local "
+        f"layer)")
+    reqs = lm_requests(rg, HYBRID_PROMPTS, LM_NEW_TOKENS, seed=7)
+    last_logits(rg_engine.params, rg, reqs[0].prompt)        # warm-up
+    wall = serve_held(f"{rg.name} xla", rg_engine, rg, reqs)
+    rg_admit = dict(rg_engine.admit_ms)
+    log_admits(rg.name, rg_engine, reqs, {}, "")
+    log_decode(rg_engine, reqs, wall)
+    log(f"  {rg.name} decode: median %.2f ms a step with %d slots busy"
+        % median_step(rg_engine))
+    rg_longest = max((r.prompt for r in reqs), key=len)
+    log_busy(rg_engine, rg, reqs, rg_longest)
+    log_split(f"{rg.name} prefill of {len(rg_longest)} tokens (xla)",
+              lambda: last_logits(rg_engine.params, rg, rg_longest),
+              rg_part, RG_PARTS, ranges=RG_RANGES)
+    log(f"  {rg.name}: peak {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+        f"GB allocated")
+
+    rg_ws = dataclasses.replace(rg, gemm_backend="pallas_ws")
+    ws_engine = TimedEngine(rg_ws, rg_engine.params, slots=LM_SLOTS,
+                            max_seq=HYBRID_MAX_SEQ)
+    last_logits(ws_engine.params, rg_ws, reqs[0].prompt)     # warm-up
+    wreqs = fresh(reqs)
+    wall = serve_held(f"{rg.name} pallas_ws", ws_engine, rg_ws, wreqs,
+                      layer_gemms(rg))
+    log_admits(f"{rg.name} pallas_ws", ws_engine, wreqs, rg_admit, "xla")
+    log(f"  {rg.name} pallas_ws decode: median %.2f ms a step with %d slots "
+        f"busy" % median_step(ws_engine))
+    log_decode(ws_engine, wreqs, wall)
+    log_busy(ws_engine, rg_ws, wreqs, rg_longest)
+    ws_against_xla(rg.name, ws_engine, rg_ws, rg_engine, rg, reqs, wreqs)
+    del rg_engine, ws_engine
+    torch.cuda.empty_cache()
+
+    # the ring and the recurrent state at the real width: one R,R,A group
+    # and the R,R tail in f32, a prompt past the window (the ring rolled by
+    # 512, decode writing from slot 512) and decode steps, against
+    # forward_train's logits at the same positions; forward_train runs on
+    # a 512-multiple length, whose first positions are the same sequence
+    # (the model is causal)
+    rg5 = dataclasses.replace(get_config(RG_ARCH), num_layers=5,
+                              compute_dtype="float32")
+    params = materialize(lm.param_specs(rg5), torch.Generator(
+        device=dev).manual_seed(8), device=dev)
+    n_total = -(-(RG_CHECK_PROMPT + RG_CHECK_STEPS) // 512) * 512
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, rg5.vocab_size, n_total), dtype=torch.long, device=dev)[None]
+    with torch.no_grad():
+        full, _ = lm.forward_train(params, {"tokens": toks}, rg5)
+        got = []
+        lg, cache = lm.prefill(params, {"tokens": toks[:, :RG_CHECK_PROMPT]},
+                               rg5, cache_len=RG_CHECK_PROMPT
+                               + RG_CHECK_STEPS + 1)
+        got.append(lg)
+        for j in range(RG_CHECK_STEPS):
+            p = RG_CHECK_PROMPT + j
+            lg, cache = lm.decode_step(params, rg5, token=toks[:, p],
+                                       pos=torch.full((1,), p, device=dev),
+                                       cache=cache)
+            got.append(lg)
+    worst = 0.0
+    for j, lg in enumerate(got):
+        want = full[:, RG_CHECK_PROMPT - 1 + j]
+        if not torch.allclose(lg, want, rtol=RG_CHECK_TOL, atol=RG_CHECK_TOL):
+            raise AssertionError(
+                f"{rg5.name} 5 layers f32: position "
+                f"{RG_CHECK_PROMPT - 1 + j} off forward_train by "
+                f"{float((lg - want).abs().max()):.4g}")
+        worst = max(worst, float((lg - want).abs().max()))
+    log(f"  {rg5.name} at full width, 5 layers (R,R,A + R,R), f32: a "
+        f"{RG_CHECK_PROMPT}-token prefill (the {rg5.attention_window}-slot "
+        f"ring rolled by {RG_CHECK_PROMPT % rg5.attention_window}) and "
+        f"{RG_CHECK_STEPS} decode steps within {RG_CHECK_TOL} of "
+        f"forward_train's logits (max abs err {worst:.3g}, logits up to "
+        f"{float(full.abs().max()):.3g})")
+    del params, full, cache, got
+    torch.cuda.empty_cache()
+
+    # rwkv6-1.6b as published: no kernel on its path (its GEMMs pass no
+    # backend in the reference), served once on xla
+    rw = get_config(RWKV_ARCH)
+    t0 = time.perf_counter()
+    params = materialize(lm.param_specs(rw), torch.Generator(
+        device=dev).manual_seed(9), device=dev)
+    rw_engine = TimedEngine(rw, params, slots=LM_SLOTS,
+                            max_seq=HYBRID_MAX_SEQ)
+    del params
+    torch.cuda.synchronize()
+    log(f"  {rw.name}: {param_count(rw) / 1e9:.2f} B parameters "
+        f"({rw.num_layers} layers, d_model {rw.d_model}, "
+        f"{rw.d_model // rw.rwkv_head_size} heads of {rw.rwkv_head_size}, "
+        f"d_ff {rw.d_ff}, vocab {rw.vocab_size}, {rw.norm}), drawn on the "
+        f"card from seed 9 in {time.perf_counter() - t0:.1f} s; state "
+        f"{nbytes(rw_engine.cache) / 1e6:.1f} MB for {LM_SLOTS} slots")
+    rw_reqs = lm_requests(rw, HYBRID_PROMPTS, LM_NEW_TOKENS, seed=9)
+    last_logits(rw_engine.params, rw, rw_reqs[0].prompt)     # warm-up
+    wall = serve_held(f"{rw.name} xla", rw_engine, rw, rw_reqs)
+    log_admits(rw.name, rw_engine, rw_reqs, {}, "")
+    log_decode(rw_engine, rw_reqs, wall)
+    log(f"  {rw.name} decode: median %.2f ms a step with %d slots busy"
+        % median_step(rw_engine))
+    log_busy(rw_engine, rw, rw_reqs,
+             max((r.prompt for r in rw_reqs), key=len))
+    # the reference's own cross-check, on one layer's real inputs: the
+    # chunked wkv6 of a prefill against the sequential recurrence, in f32
+    seen_wkv = []
+    chunked = rwkv_lib.wkv6_chunked
+
+    def record(*a, **k):
+        seen_wkv.append(a)
+        return chunked(*a, **k)
+    rwkv_lib.wkv6_chunked = record
+    try:
+        last_logits(rw_engine.params, rw, np.random.default_rng(10)
+                    .integers(0, rw.vocab_size, RWKV_CHECK_SEQ))
+    finally:
+        rwkv_lib.wkv6_chunked = chunked
+    r_, k_, v_, lw_, u_ = seen_wkv[0]
+    with torch.no_grad():
+        o1, s1 = rwkv_lib.wkv6_chunked(r_, k_, v_, lw_, u_)
+        o2, s2 = rwkv_lib.wkv6_recurrent(r_, k_, v_, lw_, u_)
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in ((o1, o2), (s1, s2)))
+    if not (r_.dtype == torch.float32 and rel <= F32_TOL):
+        raise AssertionError(f"{rw.name}: wkv6_chunked off wkv6_recurrent by "
+                             f"{rel:.3g} of the largest magnitude at S = "
+                             f"{RWKV_CHECK_SEQ} ({r_.dtype})")
+    log(f"  {rw.name} layer 0's wkv6 inputs at S = {RWKV_CHECK_SEQ} "
+        f"(r, k, v, log w [1,{RWKV_CHECK_SEQ},{r_.shape[2]},{r_.shape[3]}] "
+        f"f32): wkv6_chunked against wkv6_recurrent, output and state within "
+        f"{rel:.3g} of their largest magnitude (limit {F32_TOL})")
+    del rw_engine
+    torch.cuda.empty_cache()
+
+    # the reduced models: the card's tokens equal the CPU run's
+    for arch, backend in ((RG_ARCH, "pallas_ws"), (RWKV_ARCH, "xla")):
+        small = reduce_config(get_config(arch))
+        small = dataclasses.replace(small, num_layers=max(small.num_layers,
+                                                          2),
+                                    attn_impl="flash", gemm_backend=backend)
+        sp = materialize(lm.param_specs(small), torch.Generator()
+                         .manual_seed(11), device="cpu")
+        reqs = lm_requests(small, (5, 17, 70, 130), 8, seed=11)
+        outs = []
+        for d in (dev, "cpu"):
+            run = fresh(reqs)
+            ServingEngine(small, sp, slots=2, max_seq=256, device=d).run(run)
+            check_served(f"reduced {arch} on {d}", small, run)
+            outs.append([r.output for r in run])
+        if outs[0] != outs[1]:
+            raise AssertionError(f"reduced {arch}: card tokens differ from "
+                                 f"the CPU run")
+    log("  reduced recurrentgemma-9b (5 layers, pallas_ws) and rwkv6-1.6b (2 "
+        "layers): card tokens equal to the CPU run of the same engine")
+    log(f"  phase 6c: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 7. continuous batching --------------------------------------------
     log("phase 7: continuous batching and the multi-core scheduler")
@@ -2501,6 +2908,8 @@ def main():
         if "int8" in st:    # w8 serving's long-M int8 GEMMs, apart
             rows[-1].update(st["int8"], int8_library_layouts=st[
                 "int8_library_layouts"])
+        if "conv1d" in st:  # recurrentgemma-9b's temporal conv, apart
+            rows[-1].update(st["conv1d"])
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 Every architecture is an :class:`ArchConfig`, a frozen dataclass with the
 reference's fields and defaults, so a config compares field for field with
-the JAX package's.  The port carries the LM stack for dense decoders:
-``get_config`` returns the ported architectures (llama3.2-3b, llama3-8b,
-yi-34b, gemma-7b) and raises ``NotImplementedError`` for the rest, which
-wait on blocks the port does not have yet (ROADMAP A14).
+the JAX package's.  The port carries the LM stack for decoders:
+``get_config`` returns the ported architectures (the dense decoders
+llama3.2-3b, llama3-8b, yi-34b and gemma-7b, the hybrid recurrentgemma-9b
+and the attention-free rwkv6-1.6b) and raises ``NotImplementedError`` for
+the rest (MoE, VLM and encoder-decoder), which wait on blocks the port does
+not have yet (ROADMAP A14).
 :func:`reduce_config` derives the CPU-sized variant the tests run.
 """
 
@@ -147,7 +149,8 @@ ARCH_NAMES = (
     "seamless_m4t_medium",
     "rwkv6_1p6b",
 )
-PORTED = ("llama3_8b", "llama3p2_3b", "yi_34b", "gemma_7b")
+PORTED = ("llama3_8b", "llama3p2_3b", "yi_34b", "gemma_7b",
+          "recurrentgemma_9b", "rwkv6_1p6b")
 
 # CLI aliases (assignment ids → module names)
 ALIASES = {
@@ -171,8 +174,8 @@ def get_config(name: str) -> ArchConfig:
                        f"have {sorted(ALIASES)}")
     if mod_name not in PORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported yet: the port serves the dense decoders "
-            f"{PORTED}; the other families wait on ROADMAP A14")
+            f"{name!r} is not ported yet: the port serves {PORTED}; the "
+            f"other families wait on ROADMAP A14")
     cfg: ArchConfig = importlib.import_module(
         f"repro_torch.configs.{mod_name}").CONFIG
     cfg.validate()

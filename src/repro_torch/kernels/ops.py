@@ -12,7 +12,10 @@
   operands their own dtype (bf16 is accumulated in f32 and rounded once),
   as the reference's entry returns;
 * ``flash_attention`` is the attention entry of the LM prefill, the kernel
-  wrapper itself (bf16 or f32, ``[B,S,H,D]``).
+  wrapper itself (bf16 or f32, ``[B,S,H,D]``);
+* ``conv1d_depthwise`` is the causal depthwise temporal conv (the
+  RecurrentGemma site) as a 1×K ``conv2d`` over a height-1 map, one group
+  per lane: ``conv2d_ws``'s scalar path.
 
 The float paths of ``conv2d`` (float input, no ``out_scale``, no
 ``wrap8``), of ``conv2d_transpose`` (no ``out_scale``) and of ``matmul_ws``
@@ -53,8 +56,8 @@ from repro_torch.kernels.conv2d_ws_trans import conv2d_ws_transpose
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul_ws import matmul_ws as _matmul_kernel
 
-__all__ = ["conv2d", "conv2d_transpose", "flash_attention", "matmul_ws",
-           "matmul_ws_backward"]
+__all__ = ["conv1d_depthwise", "conv2d", "conv2d_transpose",
+           "flash_attention", "matmul_ws", "matmul_ws_backward"]
 
 
 def _recorded(*tensors) -> bool:
@@ -343,3 +346,25 @@ def conv2d_transpose(x, w, bias=None, *, stride: int = 1, padding="VALID",
         cin_banks=cin_banks, kout_banks=kout_banks, h_tile=h_tile,
         w_tile=w_tile, relu=relu, pool=pool, dilation=dilation,
         out_spatial=(oh, ow), pipelined=pipelined)
+
+
+def conv1d_depthwise(x, w, bias=None) -> torch.Tensor:
+    """Causal depthwise temporal conv through the grouped WS conv kernel.
+
+    x: [B,S,W], w: [K,W] (+bias [W]) → [B,S,W] in x's dtype.  The temporal
+    conv is a width-grouped 1×K ``conv2d`` over a height-1 map: the
+    sequence plays the spatial W axis, causality is a left padding of
+    K−1, and ``groups == W`` makes every lane its own group (one cin bank,
+    W kout banks: the depthwise case, ``conv2d_ws``'s scalar path).  The
+    conv kernels take f32 operands, so a bf16 x is widened first (exact)
+    and the f32 result cast back, as the reference's kernel sums a bf16
+    window against f32 weights in f32.  Going through ``conv2d`` keeps its
+    autograd Function, so the conv is differentiable as the reference's
+    custom VJP makes it; ``ref.conv1d_depthwise_ref`` is the contract."""
+    k, width = w.shape
+    acc = conv2d(x.to(torch.float32)[:, None],
+                 w.to(torch.float32)[None, :, None, :],
+                 None if bias is None else bias.to(torch.float32),
+                 stride=1, padding=((0, 0), (k - 1, 0)), groups=width,
+                 cin_banks=1, kout_banks=width)[:, 0]
+    return acc.to(x.dtype)

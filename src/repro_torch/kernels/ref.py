@@ -519,3 +519,17 @@ def matmul_ref_int8(x, w, bias=None):
     if bias is not None:
         out = out + bias.to(torch.int32)
     return out
+
+
+def conv1d_depthwise_ref(x, w, bias=None):
+    """Causal depthwise temporal conv (the RecurrentGemma site), summed in
+    f32 tap by tap.  x: [B,S,W]; w: [K,W] → [B,S,W] in x's dtype."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    s = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(k):
+        out = out + xp[:, j:j + s].to(torch.float32) * w[j].to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(x.dtype)

@@ -5,8 +5,9 @@ the reference's launcher does) with random weights from seed 0, serves a
 synthetic request stream, and prints the requests, tokens and seconds.
 ``--w8`` switches to the paper's 8-bit datapath: w8 weights
 (``quantize_weights``) and an int8 KV cache at a fixed scale of 0.25, as
-the reference does.  It runs on the GPU unless ``--device`` names another
-device."""
+the reference does; the recurrent families (recurrentgemma-9b, rwkv6-1.6b)
+have no w8 path, in the reference either, so ``--w8`` refuses them.  It
+runs on the GPU unless ``--device`` names another device."""
 
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config, reduce_config
+from repro_torch.configs.base import (BLOCK_RGLRU, BLOCK_RWKV6, get_config,
+                                      reduce_config)
 from repro_torch.core.quantize import quantize_weights
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import materialize
@@ -38,8 +40,12 @@ def main(argv=None):
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = reduce_config(get_config(args.arch))
+    recurrent = {BLOCK_RGLRU, BLOCK_RWKV6} & set(cfg.layer_pattern)
+    if args.w8 and recurrent:
+        p.error(f"--w8: {args.arch} has {sorted(recurrent)} blocks, whose "
+                f"weights are read outside dense and have no w8 path")
+    dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = materialize(lm.param_specs(cfg), gen, device=dev)
     if args.w8:

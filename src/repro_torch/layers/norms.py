@@ -38,3 +38,14 @@ def apply_norm(params, x: torch.Tensor, cfg, eps: float = 1e-6):
     var = x.var(dim=-1, keepdim=True, correction=0)
     x = (x - mean) * torch.rsqrt(var + eps)
     return (x * params["scale"].float() + params["bias"].float()).to(orig)
+
+
+def groupnorm_heads(x: torch.Tensor, scale, bias, eps: float = 64e-5):
+    """Per-head group norm (the RWKV6 wkv output).  x: [..., H, N]; its
+    eps is RWKV's 64e-5, not ``apply_norm``'s 1e-6."""
+    orig = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(orig)

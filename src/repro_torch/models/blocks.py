@@ -2,11 +2,19 @@
 of ``repro.models.blocks``).
 
 A "block" is one pre-norm residual pair: x += mixer(norm(x));
-x += ffn(norm(x)).
-The port has the attention kinds (``attn``, ``local_attn``) with the dense
-gated MLP; RG-LRU, RWKV-6 and MoE raise ``NotImplementedError`` until their
-slices, and so do encoder-decoder models, whose decoder blocks hold the
-cross attention (``models.lm``; ROADMAP A14).
+x += ffn(norm(x)).  Kinds: ``attn`` and ``local_attn`` (self attention,
+the latter over a sliding window with a ring-buffer cache), ``rglru``
+(RecurrentGemma's recurrent block) and ``rwkv6`` (RWKV-6's time mix, with
+the channel mix in place of the gated MLP).  MoE feed-forward raises
+``NotImplementedError`` until its slice, and so do encoder-decoder
+models, whose decoder blocks hold the cross attention (``models.lm``;
+ROADMAP A14).
+
+Decode updates every cache in place: the attention layers write their
+KV slot, and ``apply_block_decode`` ``copy_``s the recurrent states that
+``rglru`` and ``rwkv6`` return (``conv``, ``h``; ``S``, ``x_att``,
+``x_ffn``) into the cache tensors it was handed, which are views of the
+serving pool.  The reference returns new caches instead.
 """
 
 from __future__ import annotations
@@ -15,17 +23,24 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.configs.base import BLOCK_ATTN, BLOCK_LOCAL
+from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_RGLRU,
+                                      BLOCK_RWKV6)
 from repro_torch.layers import attention as attn_lib
+from repro_torch.layers import rglru as rglru_lib
+from repro_torch.layers import rwkv as rwkv_lib
 from repro_torch.layers.attention import KVCache
+from repro_torch.layers.common import cast, torch_dtype
 from repro_torch.layers.mlp import apply_mlp, mlp_specs
 from repro_torch.layers.norms import apply_norm, norm_specs
+from repro_torch.layers.rglru import RGLRUState
+from repro_torch.layers.rwkv import RWKVState
+
+KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_RGLRU, BLOCK_RWKV6)
 
 
 def _check_ported(cfg, kind: str) -> None:
-    if kind not in (BLOCK_ATTN, BLOCK_LOCAL):
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet "
-                                  f"(ROADMAP A14)")
+    if kind not in KINDS:
+        raise ValueError(kind)
     if cfg.moe is not None:
         raise NotImplementedError("MoE feed-forward is not ported yet "
                                   "(ROADMAP A14)")
@@ -33,13 +48,27 @@ def _check_ported(cfg, kind: str) -> None:
 
 def block_specs(cfg, kind: str):
     _check_ported(cfg, kind)
-    return {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg),
-            "attn": attn_lib.attention_specs(cfg), "mlp": mlp_specs(cfg)}
+    specs = {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg)}
+    if kind in (BLOCK_ATTN, BLOCK_LOCAL):
+        specs["attn"] = attn_lib.attention_specs(cfg)
+    elif kind == BLOCK_RGLRU:
+        specs["rglru"] = rglru_lib.rglru_specs(cfg)
+    else:
+        specs["timemix"] = rwkv_lib.timemix_specs(cfg)
+    if kind == BLOCK_RWKV6:
+        specs["channelmix"] = rwkv_lib.channelmix_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(cfg)
+    return specs
 
 
 def block_cache_specs(cfg, kind: str, batch: int, seq_len: int):
     """Decode-time cache spec for one block."""
     _check_ported(cfg, kind)
+    if kind == BLOCK_RGLRU:
+        return {"rglru": RGLRUState.init_specs(cfg, batch)}
+    if kind == BLOCK_RWKV6:
+        return {"rwkv": RWKVState.init_specs(cfg, batch)}
     window = cfg.attention_window if kind == BLOCK_LOCAL else 0
     return {"kv": KVCache.init_specs(cfg, batch, seq_len, window=window)}
 
@@ -75,42 +104,88 @@ def _to_cache(t, cfg):
     return attn_lib.to_cache(t, cfg.resolved_kv_dtype, cfg.kv_cache_scale)
 
 
+def _zero_rglru_state(cfg, batch: int, device) -> RGLRUState:
+    return RGLRUState(
+        conv=torch.zeros((batch, cfg.conv1d_width - 1, cfg.rnn_width),
+                         dtype=torch_dtype(cfg.compute_dtype), device=device),
+        h=torch.zeros((batch, cfg.rnn_width), device=device))
+
+
 def apply_block_seq(params, x, cfg, kind: str, *, positions,
                     causal: bool = True, want_cache: bool = False,
                     cache_len: Optional[int] = None):
     """Returns (x, aux_loss, new_cache_or_None).
 
     want_cache=True (prefill) also produces the block's decode cache,
-    sized ``cache_len`` (≥ prompt length) so decode can append."""
+    sized ``cache_len`` (≥ prompt length) so decode can append; a
+    recurrent block's cache is its state after the last token."""
     _check_ported(cfg, kind)
     aux = torch.zeros((), device=x.device)
     new_cache: Optional[dict] = None
     h = apply_norm(params["norm1"], x, cfg)
-    window = cfg.attention_window if kind == BLOCK_LOCAL else 0
-    y, (k, v) = attn_lib.attention_layer(
-        params["attn"], h, cfg, positions=positions, causal=causal,
-        window=window)
-    if want_cache:
-        S = x.shape[1]
-        new_cache = {"kv": KVCache(
-            k=_prime_cache(_to_cache(k, cfg), S, window, cache_len),
-            v=_prime_cache(_to_cache(v, cfg), S, window, cache_len))}
+    if kind in (BLOCK_ATTN, BLOCK_LOCAL):
+        window = cfg.attention_window if kind == BLOCK_LOCAL else 0
+        y, (k, v) = attn_lib.attention_layer(
+            params["attn"], h, cfg, positions=positions, causal=causal,
+            window=window)
+        if want_cache:
+            S = x.shape[1]
+            new_cache = {"kv": KVCache(
+                k=_prime_cache(_to_cache(k, cfg), S, window, cache_len),
+                v=_prime_cache(_to_cache(v, cfg), S, window, cache_len))}
+    elif kind == BLOCK_RGLRU:
+        state = (_zero_rglru_state(cfg, x.shape[0], x.device) if want_cache
+                 else None)
+        y, st = rglru_lib.apply_rglru(params["rglru"], h, cfg, state=state)
+        if want_cache:
+            new_cache = {"rglru": st}
+    else:
+        y, (S_fin, x_last) = rwkv_lib.apply_timemix(
+            params["timemix"], h, cfg, chunked=True)
+        if want_cache:
+            new_cache = {"rwkv": RWKVState(S=S_fin, x_att=x_last,
+                                           x_ffn=torch.zeros_like(x_last))}
     x = x + y
+
     h = apply_norm(params["norm2"], x, cfg)
-    x = x + apply_mlp(params["mlp"], h, cfg)
-    return x, aux, new_cache
+    if kind == BLOCK_RWKV6:
+        y, xl = rwkv_lib.apply_channelmix(params["channelmix"], h, cfg)
+        if want_cache:
+            new_cache["rwkv"] = new_cache["rwkv"]._replace(
+                x_ffn=cast(xl, cfg.compute_dtype))
+    else:
+        y = apply_mlp(params["mlp"], h, cfg)
+    return x + y, aux, new_cache
 
 
 def apply_block_decode(params, x, cfg, kind: str, *, pos, cache: Any):
-    """x: [B,1,D]; pos: [B].  Returns (x, new_cache); the KV cache is
-    updated in place."""
+    """x: [B,1,D]; pos: [B].  Returns (x, cache); the cache's tensors are
+    updated in place (see the module note)."""
     _check_ported(cfg, kind)
-    new_cache = dict(cache)
     h = apply_norm(params["norm1"], x, cfg)
-    window = cfg.attention_window if kind == BLOCK_LOCAL else 0
-    y, kv = attn_lib.decode_attention_layer(
-        params["attn"], h, cfg, cache=cache["kv"], pos=pos, window=window)
-    new_cache["kv"] = kv
+    if kind in (BLOCK_ATTN, BLOCK_LOCAL):
+        window = cfg.attention_window if kind == BLOCK_LOCAL else 0
+        y, _ = attn_lib.decode_attention_layer(
+            params["attn"], h, cfg, cache=cache["kv"], pos=pos, window=window)
+    elif kind == BLOCK_RGLRU:
+        st = cache["rglru"]
+        y, new = rglru_lib.decode_rglru(params["rglru"], h, cfg, state=st)
+        st.conv.copy_(new.conv)
+        st.h.copy_(new.h)
+    else:
+        st = cache["rwkv"]
+        y, (S_fin, x_last) = rwkv_lib.apply_timemix(
+            params["timemix"], h, cfg, state=st, chunked=False)
+        st.S.copy_(S_fin)
+        st.x_att.copy_(x_last)
     x = x + y
+
     h = apply_norm(params["norm2"], x, cfg)
-    return x + apply_mlp(params["mlp"], h, cfg), new_cache
+    if kind == BLOCK_RWKV6:
+        st = cache["rwkv"]
+        y, xl = rwkv_lib.apply_channelmix(params["channelmix"], h, cfg,
+                                          state_x_last=st.x_ffn)
+        st.x_ffn.copy_(xl)
+    else:
+        y = apply_mlp(params["mlp"], h, cfg)
+    return x + y, cache

@@ -1,10 +1,17 @@
-"""Decoder-only LM assembly (counterpart of ``repro.models.lm``).
+"""Decoder-only LM assembly (counterpart of ``repro.models.lm``): dense,
+hybrid (RG-LRU + local attention) and attention-free (RWKV-6) stacks, by
+the config's layer pattern.
 
 The parameter and cache trees keep the reference's layout: the layers of
 each pattern group stacked under ``blocks`` with a leading ``stack``
 dimension, remainder layers under ``tail``.  Where the reference scans
-over the stacked groups, the port loops over them in Python.  Encoder-
-decoder and VLM models wait on later slices (ROADMAP A14).
+over the stacked groups, the port loops over them in Python.  Decode
+updates the cache in place: ``_index`` hands each block views of the
+stacked pool, the attention layers write their KV slot into them and the
+recurrent blocks ``copy_`` their new states into them
+(``blocks.apply_block_decode``), so ``decode_step`` returns the cache it
+was given.  Encoder-decoder and VLM models wait on later slices (ROADMAP
+A14).
 """
 
 from __future__ import annotations
@@ -22,9 +29,12 @@ from repro_torch.models.blocks import (apply_block_decode, apply_block_seq,
 
 PyTree = Any
 
-# leaves that only ever enter a matmul in the compute dtype
+# leaves that the reference casts to the compute dtype before every use
+# (a GEMM, or the RG-LRU's conv taps); the RG-LRU gates, the RWKV lerps,
+# decays, bonus and group norm read theirs in f32 and are not listed
 _MATMUL_WEIGHTS = ("embed", "unembed", "wq", "wk", "wv", "wo", "wi_gate",
-                   "wi_up")
+                   "wi_up", "w_gate", "w_rnn_in", "w_out", "conv_w", "wr",
+                   "wg")
 
 
 def _check_decoder(cfg: ArchConfig) -> None:
@@ -138,7 +148,9 @@ def prefill(params, batch, cfg: ArchConfig, cache_len: Optional[int] = None):
 
 def decode_step(params, cfg: ArchConfig, *, token, pos, cache):
     """One serving step.  token: [B] int, pos: [B] int (absolute).
-    Returns (logits [B,V] f32, cache); the cache is updated in place."""
+    Returns (logits [B,V] f32, cache); the cache is updated in place (KV
+    slots and recurrent states alike; see the module note), so the
+    blocks' returned caches are not collected."""
     _check_decoder(cfg)
     x = embed_tokens(params["embedding"], token[:, None], cfg)
     for g in range(cfg.num_groups_scan):

@@ -25,7 +25,9 @@ f32 sums taken in another order, agree within one bf16 ulp; bf16 GEMMs
 within one bf16 ulp plus their f32 sums' rounding (``bf16_gemm_bound``).
 ``MM_CASES`` hold each ``matmul_ws`` form (``mm_path``) at its edges: M
 from 1 to 3000 across the stream / wgmma boundary at 16, K and N off the
-tiles, the head's N = 1000, and rows that are not 16-byte multiples.
+tiles, the head's N = 1000, and rows that are not 16-byte multiples;
+``RG_MLP_CASES`` hold the stream and wgmma forms at recurrentgemma-9b's
+gated-MLP shapes, where K reaches 12,288.
 ``W8_SHAPES`` hold the int8 forms at w8 serving's GEMM shapes, and the
 int8 KV cache's decode contractions are held to the CPU's int64 sums."""
 
@@ -261,7 +263,13 @@ def bf16_gemm_bound(x, w, b, got, want):
     return bf16_ulp(mag) + (x.shape[1] + 1) * 2.0 ** -23 * s
 
 
-# matmul_ws edges: (m, k, n, dtype, bias)
+# recurrentgemma-9b's gated-MLP GEMMs (d_model 4096, d_ff 12288) at a
+# 4-slot decode step (the stream form, K = 12288 in 32 slices) and at a
+# 4096-token prefill (the wgmma form): (m, k, n, dtype, bias)
+RG_MLP_CASES = [(m, k, n, "bfloat16", False) for m in (4, 4096)
+                for k, n in ((4096, 12288), (12288, 4096))]
+
+# matmul_ws edges and main-path shapes: (m, k, n, dtype, bias)
 MM_CASES = ([(m, 200, 264, "bfloat16", m != 64)
              for m in (1, 4, 8, 16, 17, 63, 64, 65, 3000)]
             + [(m, 200, 264, "int8", m != 4) for m in (1, 4, 16, 17, 65)]
@@ -272,7 +280,8 @@ MM_CASES = ([(m, 200, 264, "bfloat16", m != 64)
                (3000, 3072, 8192, "bfloat16", False),
                (3, 70, 33, "bfloat16", True), (65, 70, 264, "bfloat16", True),
                (3, 70, 33, "float32", True), (8, 512, 64, "int8", True),
-               (8, 64, 10, "int8", True)])
+               (8, 64, 10, "int8", True)]
+            + RG_MLP_CASES)
 
 
 def mm_case_inputs(m, k, n, dtype, bias):
@@ -762,3 +771,75 @@ def test_cuda_lenet_fit_step_launches(cuda):
             conv2d_ws_pipe.launches - counts[2],
             matmul_ws.launches - counts[3],
             matmul_ws.path_launches["scalar"] - counts[4]) == (5, 0, 0, 33, 33)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid and attention-free LMs: the temporal conv's kernel route and
+# the reduced engines
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,width,dtype", [(2, 37, 8, torch.float32),
+                                             (1, 512, 4096, torch.float32),
+                                             (1, 64, 4096, torch.bfloat16)])
+def test_cuda_conv1d_depthwise_equals_plain(cuda, b, s, width, dtype):
+    """``ops.conv1d_depthwise`` on the card: one ``conv2d_ws`` launch on
+    the scalar path (one group a lane), within 1e-4 of the f32 oracle and
+    of the recurrent block's shifted multiply-adds (bf16: the kernel's f32
+    sum and the oracle's each rounded once, one bf16 ulp apart at most)."""
+    from repro_torch.kernels import ops
+    from repro_torch.layers.rglru import causal_conv1d
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(b, s, width, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(4, width, generator=gen, device=cuda) / 2
+    bias = torch.randn(width, generator=gen, device=cuda)
+    before = (conv2d_ws.launches, conv2d_ws.tc_launches)
+    got = ops.conv1d_depthwise(x, w, bias)
+    torch.cuda.synchronize()
+    assert (conv2d_ws.launches, conv2d_ws.tc_launches) == (before[0] + 1,
+                                                           before[1])
+    want = ref.conv1d_depthwise_ref(x, w, bias)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got, causal_conv1d(x, w, bias),
+                                   rtol=1e-4, atol=1e-4)
+    else:
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= bf16_ulp(want) + 1e-6).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,backend", [("recurrentgemma_9b", "pallas_ws"),
+                                          ("rwkv6_1p6b", "xla")])
+def test_cuda_hybrid_engine_tokens_equal_the_cpu(cuda, arch, backend):
+    """The reduced recurrentgemma-9b (its MLPs on matmul_ws, no
+    flash_attention launch: its attention is windowed) and rwkv6-1.6b at
+    2 layers, served on the card, give the CPU run's greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.layers.common import materialize
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = reduce_config(get_config(arch))
+    cfg = dataclasses.replace(cfg, num_layers=max(cfg.num_layers, 2),
+                              attn_impl="flash", gemm_backend=backend)
+    params = materialize(lm.param_specs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 70)]
+    outs = []
+    for dev in ("cpu", cuda):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        before = (flash_attention.launches, matmul_ws.launches)
+        ServingEngine(cfg, params, slots=2, max_seq=96, device=dev).run(reqs)
+        assert flash_attention.launches == before[0]
+        assert (matmul_ws.launches > before[1]) == (
+            dev != "cpu" and backend == "pallas_ws")
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]

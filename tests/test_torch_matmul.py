@@ -111,6 +111,9 @@ def test_stream_plan_at_the_main_paths_shapes():
     assert mm.stream_plan(4, 3072, 8192) == (12, 256)
     assert mm.stream_plan(4, 8192, 3072) == (32, 256)
     assert mm.stream_plan(8, 256, 1000) == (1, 256)
+    # recurrentgemma-9b's decode: K in 11 and in 32 slices of 384 rows
+    assert mm.stream_plan(4, 4096, 12288) == (11, 384)
+    assert mm.stream_plan(4, 12288, 4096) == (32, 384)
 
 
 STREAM_CASES = sorted({c for c in MM_CASES
