@@ -2,12 +2,11 @@
 
 Every architecture is an :class:`ArchConfig`, a frozen dataclass with the
 reference's fields and defaults, so a config compares field for field with
-the JAX package's.  The port carries the LM stack for decoders:
-``get_config`` returns the ported architectures (the dense decoders
-llama3.2-3b, llama3-8b, yi-34b and gemma-7b, the hybrid recurrentgemma-9b
-and the attention-free rwkv6-1.6b) and raises ``NotImplementedError`` for
-the rest (MoE, VLM and encoder-decoder), which wait on blocks the port does
-not have yet (ROADMAP A14).
+the JAX package's.  ``get_config`` returns every architecture the reference
+defines: the dense decoders llama3.2-3b, llama3-8b, yi-34b and gemma-7b,
+the hybrid recurrentgemma-9b, the attention-free rwkv6-1.6b, the MoE
+decoders deepseek-moe-16b and qwen3-moe-30b-a3b, the encoder-decoder
+seamless-m4t-medium and the VLM internvl2-26b.
 :func:`reduce_config` derives the CPU-sized variant the tests run.
 """
 
@@ -149,10 +148,8 @@ ARCH_NAMES = (
     "seamless_m4t_medium",
     "rwkv6_1p6b",
 )
-PORTED = ("llama3_8b", "llama3p2_3b", "yi_34b", "gemma_7b",
-          "recurrentgemma_9b", "rwkv6_1p6b")
 
-# CLI aliases (assignment ids → module names)
+# CLI aliases (published names → module names)
 ALIASES = {
     "llama3-8b": "llama3_8b",
     "llama3.2-3b": "llama3p2_3b",
@@ -172,10 +169,6 @@ def get_config(name: str) -> ArchConfig:
     if mod_name not in ARCH_NAMES:
         raise KeyError(f"unknown architecture {name!r}; "
                        f"have {sorted(ALIASES)}")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet: the port serves {PORTED}; the "
-            f"other families wait on ROADMAP A14")
     cfg: ArchConfig = importlib.import_module(
         f"repro_torch.configs.{mod_name}").CONFIG
     cfg.validate()

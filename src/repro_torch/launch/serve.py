@@ -5,9 +5,12 @@ the reference's launcher does) with random weights from seed 0, serves a
 synthetic request stream, and prints the requests, tokens and seconds.
 ``--w8`` switches to the paper's 8-bit datapath: w8 weights
 (``quantize_weights``) and an int8 KV cache at a fixed scale of 0.25, as
-the reference does; the recurrent families (recurrentgemma-9b, rwkv6-1.6b)
-have no w8 path, in the reference either, so ``--w8`` refuses them.  It
-runs on the GPU unless ``--device`` names another device."""
+the reference does; the recurrent (recurrentgemma-9b, rwkv6-1.6b), MoE
+(deepseek-moe-16b, qwen3-moe-30b-a3b), encoder-decoder
+(seamless-m4t-medium) and VLM (internvl2-26b) families have no w8 path,
+in the reference either (it fails on each), so ``--w8`` refuses them.
+An encoder-decoder is not served at all (see ``ServingEngine``).  It runs
+on the GPU unless ``--device`` names another device."""
 
 from __future__ import annotations
 
@@ -45,6 +48,11 @@ def main(argv=None):
     if args.w8 and recurrent:
         p.error(f"--w8: {args.arch} has {sorted(recurrent)} blocks, whose "
                 f"weights are read outside dense and have no w8 path")
+    if args.w8 and (cfg.moe is not None or cfg.kind != "decoder"):
+        what = "MoE" if cfg.moe is not None else cfg.kind
+        p.error(f"--w8: {args.arch} is a {what} model, whose weights are "
+                f"read outside dense (the router, the experts, the "
+                f"frontend projection) and have no w8 path")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = materialize(lm.param_specs(cfg), gen, device=dev)

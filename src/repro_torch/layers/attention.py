@@ -1,19 +1,25 @@
-"""Self attention: GQA, RoPE, three prefill implementations and one-token
-decode against a KV cache (counterpart of ``repro.layers.attention``).
+"""Self and cross attention: GQA, RoPE, three prefill implementations and
+one-token decode against a KV cache (counterpart of
+``repro.layers.attention``).
 
 ``attention_layer`` picks by ``cfg.attn_impl``: "dense" materializes the
 scores, "flash" runs the ``flash_attention`` kernel (windowed attention
-and a ``q_offset`` go to the chunked path, as in the reference), and
-"chunked" is the reference's flash-style two-level loop in plain torch,
-skipping KV chunks that are wholly masked.
+goes to the chunked path, as in the reference), and "chunked" is the
+reference's flash-style two-level loop in plain torch, skipping KV chunks
+that are wholly masked.  Cross attention (``kv=`` the encoder's output)
+is full attention from the decoder's queries to the source's keys; under
+"flash" it goes to the kernel too, as the reference's code routes it (its
+config note promises the chunked path), so it runs where source and
+target have one length and the kernel's shape check refuses it
+elsewhere, where the reference's kernel fails as well.
 
 The decode cache is written in place (the reference returns updated
 arrays): a step changes one slot per row and copying the whole cache
 would cost a full cache write per layer and step.  An int8 cache
 (``kv_cache_dtype="int8"``) holds K/V on a fixed ``kv_cache_scale`` grid
-and runs the paper's 8-bit datapath on the cache read.  Cross attention
-waits on the encoder-decoder slice (ROADMAP A14), so the reference's
-``kv`` and ``cross_kv`` arguments are not taken.
+and runs the paper's 8-bit datapath on the cache read.  The cross
+attention's decode step reads the static ``cross_k`` / ``cross_v`` cache
+that the prefill wrote and writes nothing.
 """
 
 from __future__ import annotations
@@ -199,11 +205,26 @@ def _broadcast_kv(t, num_heads: int):
     return lconstraint(t, ("batch", "seq", "heads", "head_dim"))
 
 
-def attention_layer(params, x, cfg, *, positions, causal=True, window=0):
-    """Full self attention over a sequence (train / prefill).
+def attention_layer(params, x, cfg, *, positions, causal=True, window=0,
+                    kv=None):
+    """Full attention over a sequence (train / prefill / encoder).
 
+    ``kv``: the source hidden states [B, S_src, D] for cross attention
+    (q from ``x``, k and v projected from the source, full attention, no
+    q_norm / k_norm; RoPE on q only where ``positions`` is given).
     Returns (out, (k, v)) — projected k/v for cache priming."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    if kv is None:
+        q, k, v = _project_qkv(params, x, cfg, positions)
+    else:
+        q = dense(params["wq"], x, "bsd,dhe->bshe",
+                  compute_dtype=cfg.compute_dtype)
+        if cfg.use_rope and positions is not None:
+            q = apply_rope(q, positions, cfg.rope_theta)
+        k = dense(params["wk"], kv, "bsd,dke->bske",
+                  compute_dtype=cfg.compute_dtype)
+        v = dense(params["wv"], kv, "bsd,dke->bske",
+                  compute_dtype=cfg.compute_dtype)
+        causal = False
     kf = _broadcast_kv(k, cfg.num_heads)
     vf = _broadcast_kv(v, cfg.num_heads)
     if cfg.attn_impl == "dense":
@@ -223,12 +244,16 @@ def attention_layer(params, x, cfg, *, positions, causal=True, window=0):
 
 
 def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
-                           window=0):
+                           window=0, cross_kv=None):
     """One-token decode.  x: [B,1,D]; pos: [B] absolute positions.
 
     Grouped-einsum attention against the (possibly ring-buffered) cache;
     the KV tensors are never broadcast to full heads.  Writes the new K/V
     into ``cache`` in place and returns (out [B,1,D], cache).
+
+    ``cross_kv`` = (k, v) [B, S_src, KV, D]: cross attention against that
+    static cache in f32, every source position valid; ``cache`` is not
+    read and is returned as given.
 
     On an int8 cache both contractions run in the paper's 8-bit datapath,
     as the reference's: q quantized per tensor (over the whole
@@ -239,6 +264,20 @@ def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
     B = x.shape[0]
     KV, D = cfg.num_kv_heads, cfg.head_dim
     G = cfg.num_heads // KV
+
+    if cross_kv is not None:
+        q = dense(params["wq"], x, "bsd,dhe->bshe",
+                  compute_dtype=cfg.compute_dtype)
+        if cfg.use_rope:
+            q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_all, v_all = cross_kv
+        scores = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KV, G, D)
+                              .float(), k_all.float()) / math.sqrt(D)
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd", p, v_all.float())
+        out = cast(out, cfg.compute_dtype).reshape(B, 1, cfg.num_heads, D)
+        return dense(params["wo"], out, "bshe,hed->bsd",
+                     compute_dtype=cfg.compute_dtype), cache
 
     q, k_new, v_new = _project_qkv(params, x, cfg, pos[:, None])
     S_cache = cache.k.shape[1]

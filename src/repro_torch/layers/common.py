@@ -66,14 +66,32 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return fn(tree, *rest)
 
 
+# a leaf with more elements than this is drawn one index of its leading
+# axis at a time (see ``materialize``); every leaf of the dense, hybrid
+# and attention-free models is smaller (the largest, gemma-7b's stacked
+# MLP weights, has 2.11e9)
+DRAW_WHOLE_MAX = 2 ** 31
+
+
 def materialize(tree: PyTree, generator: torch.Generator, *,
                 device: DeviceLike = None,
                 dtype_override: Optional[str] = None) -> PyTree:
     """Real parameters on ``device`` (default: the GPU), drawn from
     ``generator`` (which must live on that device) leaf by leaf in the
     reference's flatten order.  The numbers differ from ``jax.random``'s
-    for the same seed; tests carry weights across instead."""
+    for the same seed; tests carry weights across instead.
+
+    Each value is drawn in f32 and scaled there, then cast to the leaf's
+    dtype.  A leaf of more than ``DRAW_WHOLE_MAX`` elements (the MoE
+    models' stacked experts: 9.66e9 in qwen3-moe-30b-a3b's, 38.7 GB as
+    f32) is drawn into its allocated tensor one index of its leading axis
+    at a time, so the f32 scratch is one slice; its numbers then differ
+    from a whole draw's."""
     dev = resolve_device(device)
+
+    def draw(shape, std, dt):
+        return torch.randn(shape, generator=generator,
+                           device=dev).mul_(std).to(dt)
 
     def one(s: ParamSpec):
         dt = torch_dtype(dtype_override or s.dtype)
@@ -89,8 +107,12 @@ def materialize(tree: PyTree, generator: torch.Generator, *,
             std = s.scale / math.sqrt(fan)
         elif s.init != "normal":
             raise ValueError(s.init)
-        return (torch.randn(s.shape, generator=generator, device=dev)
-                * std).to(dt)
+        if math.prod(s.shape) <= DRAW_WHOLE_MAX:
+            return draw(s.shape, std, dt)
+        out = torch.empty(s.shape, dtype=dt, device=dev)
+        for i in range(s.shape[0]):
+            out[i] = draw(s.shape[1:], std, dt)
+        return out
 
     return tree_map(one, tree)
 

@@ -5,16 +5,20 @@ A "block" is one pre-norm residual pair: x += mixer(norm(x));
 x += ffn(norm(x)).  Kinds: ``attn`` and ``local_attn`` (self attention,
 the latter over a sliding window with a ring-buffer cache), ``rglru``
 (RecurrentGemma's recurrent block) and ``rwkv6`` (RWKV-6's time mix, with
-the channel mix in place of the gated MLP).  MoE feed-forward raises
-``NotImplementedError`` until its slice, and so do encoder-decoder
-models, whose decoder blocks hold the cross attention (``models.lm``;
-ROADMAP A14).
+the channel mix in place of the gated MLP).  The feed-forward is the
+gated MLP, or the MoE layer where ``cfg.moe`` is set (its aux loss comes
+back from ``apply_block_seq``).  An encoder-decoder's decoder blocks
+(``cross=True``) hold a cross attention after the mixer: over the
+encoder's output at prefill, whose projected K/V they keep as the
+``cross_k`` / ``cross_v`` cache in the compute dtype, and over that cache
+at decode.
 
 Decode updates every cache in place: the attention layers write their
 KV slot, and ``apply_block_decode`` ``copy_``s the recurrent states that
 ``rglru`` and ``rwkv6`` return (``conv``, ``h``; ``S``, ``x_att``,
 ``x_ffn``) into the cache tensors it was handed, which are views of the
-serving pool.  The reference returns new caches instead.
+serving pool.  The cross cache and the MoE layer write nothing.  The
+reference returns new caches instead.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import rglru as rglru_lib
 from repro_torch.layers import rwkv as rwkv_lib
 from repro_torch.layers.attention import KVCache
-from repro_torch.layers.common import cast, torch_dtype
+from repro_torch.layers.common import ParamSpec, cast, torch_dtype
 from repro_torch.layers.mlp import apply_mlp, mlp_specs
+from repro_torch.layers.moe import apply_moe, moe_specs
 from repro_torch.layers.norms import apply_norm, norm_specs
 from repro_torch.layers.rglru import RGLRUState
 from repro_torch.layers.rwkv import RWKVState
@@ -38,16 +43,13 @@ from repro_torch.layers.rwkv import RWKVState
 KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_RGLRU, BLOCK_RWKV6)
 
 
-def _check_ported(cfg, kind: str) -> None:
+def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE feed-forward is not ported yet "
-                                  "(ROADMAP A14)")
 
 
-def block_specs(cfg, kind: str):
-    _check_ported(cfg, kind)
+def block_specs(cfg, kind: str, cross: bool = False):
+    _check_kind(kind)
     specs = {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg)}
     if kind in (BLOCK_ATTN, BLOCK_LOCAL):
         specs["attn"] = attn_lib.attention_specs(cfg)
@@ -57,20 +59,36 @@ def block_specs(cfg, kind: str):
         specs["timemix"] = rwkv_lib.timemix_specs(cfg)
     if kind == BLOCK_RWKV6:
         specs["channelmix"] = rwkv_lib.channelmix_specs(cfg)
+    elif cfg.moe is not None:
+        specs["moe"] = moe_specs(cfg)
     else:
         specs["mlp"] = mlp_specs(cfg)
+    if cross:               # an encoder-decoder's decoder block
+        specs["cross_norm"] = norm_specs(cfg)
+        specs["cross_attn"] = attn_lib.attention_specs(cfg, cross=True)
     return specs
 
 
-def block_cache_specs(cfg, kind: str, batch: int, seq_len: int):
-    """Decode-time cache spec for one block."""
-    _check_ported(cfg, kind)
+def block_cache_specs(cfg, kind: str, batch: int, seq_len: int,
+                      cross_len: int = 0):
+    """Decode-time cache spec for one block; ``cross_len`` > 0 adds the
+    cross attention's ``cross_k`` / ``cross_v`` in the compute dtype."""
+    _check_kind(kind)
     if kind == BLOCK_RGLRU:
-        return {"rglru": RGLRUState.init_specs(cfg, batch)}
-    if kind == BLOCK_RWKV6:
-        return {"rwkv": RWKVState.init_specs(cfg, batch)}
-    window = cfg.attention_window if kind == BLOCK_LOCAL else 0
-    return {"kv": KVCache.init_specs(cfg, batch, seq_len, window=window)}
+        cache = {"rglru": RGLRUState.init_specs(cfg, batch)}
+    elif kind == BLOCK_RWKV6:
+        cache = {"rwkv": RWKVState.init_specs(cfg, batch)}
+    else:
+        window = cfg.attention_window if kind == BLOCK_LOCAL else 0
+        cache = {"kv": KVCache.init_specs(cfg, batch, seq_len,
+                                          window=window)}
+    if cross_len:
+        shp = (batch, cross_len, cfg.num_kv_heads, cfg.head_dim)
+        axes = ("batch", "cache_seq", "kv_heads", "qkv")
+        for k in ("cross_k", "cross_v"):
+            cache[k] = ParamSpec(shp, axes, dtype=cfg.compute_dtype,
+                                 init="zeros")
+    return cache
 
 
 def _prime_cache(t, seq_len: int, window: int, cache_len: Optional[int]):
@@ -112,14 +130,17 @@ def _zero_rglru_state(cfg, batch: int, device) -> RGLRUState:
 
 
 def apply_block_seq(params, x, cfg, kind: str, *, positions,
-                    causal: bool = True, want_cache: bool = False,
+                    causal: bool = True, enc_out=None,
+                    want_cache: bool = False,
                     cache_len: Optional[int] = None):
     """Returns (x, aux_loss, new_cache_or_None).
 
     want_cache=True (prefill) also produces the block's decode cache,
     sized ``cache_len`` (≥ prompt length) so decode can append; a
-    recurrent block's cache is its state after the last token."""
-    _check_ported(cfg, kind)
+    recurrent block's cache is its state after the last token.
+    ``enc_out`` (an encoder-decoder's encoder output) adds the cross
+    attention after the mixer."""
+    _check_kind(kind)
     aux = torch.zeros((), device=x.device)
     new_cache: Optional[dict] = None
     h = apply_norm(params["norm1"], x, cfg)
@@ -147,12 +168,23 @@ def apply_block_seq(params, x, cfg, kind: str, *, positions,
                                            x_ffn=torch.zeros_like(x_last))}
     x = x + y
 
+    if enc_out is not None:
+        h = apply_norm(params["cross_norm"], x, cfg)
+        y, (ck, cv) = attn_lib.attention_layer(
+            params["cross_attn"], h, cfg, positions=None, kv=enc_out)
+        x = x + y
+        if want_cache:
+            new_cache["cross_k"] = cast(ck, cfg.compute_dtype)
+            new_cache["cross_v"] = cast(cv, cfg.compute_dtype)
+
     h = apply_norm(params["norm2"], x, cfg)
     if kind == BLOCK_RWKV6:
         y, xl = rwkv_lib.apply_channelmix(params["channelmix"], h, cfg)
         if want_cache:
             new_cache["rwkv"] = new_cache["rwkv"]._replace(
                 x_ffn=cast(xl, cfg.compute_dtype))
+    elif cfg.moe is not None:
+        y, aux = apply_moe(params["moe"], h, cfg)
     else:
         y = apply_mlp(params["mlp"], h, cfg)
     return x + y, aux, new_cache
@@ -161,7 +193,7 @@ def apply_block_seq(params, x, cfg, kind: str, *, positions,
 def apply_block_decode(params, x, cfg, kind: str, *, pos, cache: Any):
     """x: [B,1,D]; pos: [B].  Returns (x, cache); the cache's tensors are
     updated in place (see the module note)."""
-    _check_ported(cfg, kind)
+    _check_kind(kind)
     h = apply_norm(params["norm1"], x, cfg)
     if kind in (BLOCK_ATTN, BLOCK_LOCAL):
         window = cfg.attention_window if kind == BLOCK_LOCAL else 0
@@ -180,12 +212,21 @@ def apply_block_decode(params, x, cfg, kind: str, *, pos, cache: Any):
         st.x_att.copy_(x_last)
     x = x + y
 
+    if "cross_k" in cache:
+        h = apply_norm(params["cross_norm"], x, cfg)
+        y, _ = attn_lib.decode_attention_layer(
+            params["cross_attn"], h, cfg, cache=None, pos=pos,
+            cross_kv=(cache["cross_k"], cache["cross_v"]))
+        x = x + y
+
     h = apply_norm(params["norm2"], x, cfg)
     if kind == BLOCK_RWKV6:
         st = cache["rwkv"]
         y, xl = rwkv_lib.apply_channelmix(params["channelmix"], h, cfg,
                                           state_x_last=st.x_ffn)
         st.x_ffn.copy_(xl)
+    elif cfg.moe is not None:
+        y, _ = apply_moe(params["moe"], h, cfg)
     else:
         y = apply_mlp(params["mlp"], h, cfg)
     return x + y, cache

@@ -1,17 +1,26 @@
-"""Decoder-only LM assembly (counterpart of ``repro.models.lm``): dense,
-hybrid (RG-LRU + local attention) and attention-free (RWKV-6) stacks, by
-the config's layer pattern.
+"""LM assembly (counterpart of ``repro.models.lm``): decoder-only stacks
+(dense, MoE, hybrid RG-LRU + local attention, attention-free RWKV-6, by the
+config's layer pattern), the VLM (a patch prefix through a stub vision
+frontend) and the encoder-decoder (a stub audio frontend, an encoder and
+cross attention).
 
 The parameter and cache trees keep the reference's layout: the layers of
 each pattern group stacked under ``blocks`` with a leading ``stack``
-dimension, remainder layers under ``tail``.  Where the reference scans
-over the stacked groups, the port loops over them in Python.  Decode
-updates the cache in place: ``_index`` hands each block views of the
-stacked pool, the attention layers write their KV slot into them and the
-recurrent blocks ``copy_`` their new states into them
-(``blocks.apply_block_decode``), so ``decode_step`` returns the cache it
-was given.  Encoder-decoder and VLM models wait on later slices (ROADMAP
-A14).
+dimension, remainder layers under ``tail``, an encoder-decoder's encoder
+layers stacked under ``encoder``.  Where the reference scans over the
+stacked groups, the port loops over them in Python.  Decode updates the
+cache in place: ``_index`` hands each block views of the stacked pool,
+the attention layers write their KV slot into them and the recurrent
+blocks ``copy_`` their new states into them (``blocks.apply_block_decode``),
+so ``decode_step`` returns the cache it was given.
+
+The VLM's ``patches`` [B, P, frontend_dim] go through ``frontend_proj``
+and are concatenated before the token embeddings, so the positions (and
+the cache) count the patches first; ``forward_train`` slices them off
+before the logits.  The encoder-decoder's ``frames`` [B, S_src,
+frontend_dim] go through ``frontend_proj``, sinusoidal positions and
+non-causal attention blocks; its decoder adds sinusoidal positions to the
+token embeddings.
 """
 
 from __future__ import annotations
@@ -20,27 +29,23 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.layers.common import cast, stack_specs, tree_map
+from repro_torch.configs.base import BLOCK_ATTN, ArchConfig
+from repro_torch.layers.common import ParamSpec, cast, stack_specs, tree_map
 from repro_torch.layers.embedding import embed_tokens, embedding_specs, logits
 from repro_torch.layers.norms import apply_norm, norm_specs
+from repro_torch.layers.rope import sinusoidal_positions
 from repro_torch.models.blocks import (apply_block_decode, apply_block_seq,
                                        block_cache_specs, block_specs)
 
 PyTree = Any
 
 # leaves that the reference casts to the compute dtype before every use
-# (a GEMM, or the RG-LRU's conv taps); the RG-LRU gates, the RWKV lerps,
-# decays, bonus and group norm read theirs in f32 and are not listed
+# (a GEMM, or the RG-LRU's conv taps; the MoE's experts share the MLP's
+# names); the RG-LRU gates, the RWKV lerps, decays, bonus and group norm
+# and the MoE router read theirs in f32 and are not listed
 _MATMUL_WEIGHTS = ("embed", "unembed", "wq", "wk", "wv", "wo", "wi_gate",
                    "wi_up", "w_gate", "w_rnn_in", "w_out", "conv_w", "wr",
-                   "wg")
-
-
-def _check_decoder(cfg: ArchConfig) -> None:
-    if cfg.kind != "decoder":
-        raise NotImplementedError(f"{cfg.kind} models are not ported yet "
-                                  f"(ROADMAP A14)")
+                   "wg", "frontend_proj")
 
 
 def _index(tree: PyTree, g: int) -> PyTree:
@@ -51,28 +56,40 @@ def _index(tree: PyTree, g: int) -> PyTree:
 
 
 def param_specs(cfg: ArchConfig) -> PyTree:
-    _check_decoder(cfg)
+    cross = cfg.kind == "encdec"
     specs: Dict[str, Any] = {
         "embedding": embedding_specs(cfg),
         "final_norm": norm_specs(cfg),
     }
-    group = {f"b{i}": block_specs(cfg, k)
+    group = {f"b{i}": block_specs(cfg, k, cross=cross)
              for i, k in enumerate(cfg.layer_pattern)}
     specs["blocks"] = stack_specs(group, cfg.num_groups_scan)
     if cfg.tail_blocks:
-        specs["tail"] = {f"b{i}": block_specs(cfg, k)
+        specs["tail"] = {f"b{i}": block_specs(cfg, k, cross=cross)
                          for i, k in enumerate(cfg.tail_blocks)}
+    if cross:
+        specs["encoder"] = {
+            "blocks": stack_specs({"b0": block_specs(cfg, BLOCK_ATTN)},
+                                  cfg.encoder_layers),
+            "final_norm": norm_specs(cfg),
+        }
+    if cfg.frontend is not None and cfg.frontend_dim:
+        specs["frontend_proj"] = ParamSpec(
+            (cfg.frontend_dim, cfg.d_model), (None, "embed"))
     return specs
 
 
 def cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> PyTree:
-    """Decode cache tree (ParamSpecs) matching the stacked structure."""
-    _check_decoder(cfg)
-    group = {f"b{i}": block_cache_specs(cfg, k, batch, seq_len)
+    """Decode cache tree (ParamSpecs) matching the stacked structure; an
+    encoder-decoder's holds a ``seq_len``-long cross cache a layer, as the
+    reference's does."""
+    cross_len = seq_len if cfg.kind == "encdec" else 0
+    group = {f"b{i}": block_cache_specs(cfg, k, batch, seq_len, cross_len)
              for i, k in enumerate(cfg.layer_pattern)}
     out = {"blocks": stack_specs(group, cfg.num_groups_scan)}
     if cfg.tail_blocks:
-        out["tail"] = {f"b{i}": block_cache_specs(cfg, k, batch, seq_len)
+        out["tail"] = {f"b{i}": block_cache_specs(cfg, k, batch, seq_len,
+                                                  cross_len)
                        for i, k in enumerate(cfg.tail_blocks)}
     return out
 
@@ -91,14 +108,44 @@ def compute_params(params: PyTree, cfg: ArchConfig) -> PyTree:
     return walk(params)
 
 
-def forward_seq(params, cfg: ArchConfig, *, tokens, want_cache: bool = False,
+def _frontend(params, t, cfg: ArchConfig):
+    """Stub-frontend embeddings [B, S, frontend_dim] → [B, S, d_model],
+    in the compute dtype."""
+    return torch.einsum("bsf,fd->bsd", cast(t, cfg.compute_dtype),
+                        cast(params["frontend_proj"], cfg.compute_dtype))
+
+
+def _encoder_forward(params, frames, cfg: ArchConfig):
+    """The encoder: frames [B, S, frontend_dim] → [B, S, D] through the
+    frontend projection, sinusoidal positions and non-causal attention
+    blocks."""
+    x = _frontend(params, frames, cfg)
+    B, S = x.shape[:2]
+    pos = torch.arange(S, device=x.device).expand(B, S)
+    x = x + cast(sinusoidal_positions(pos, cfg.d_model), x.dtype)
+    enc = params["encoder"]
+    for g in range(cfg.encoder_layers):
+        x, _, _ = apply_block_seq(_index(enc["blocks"], g)["b0"], x, cfg,
+                                  BLOCK_ATTN, positions=pos, causal=False)
+    return apply_norm(enc["final_norm"], x, cfg)
+
+
+def forward_seq(params, cfg: ArchConfig, *, tokens, patches=None,
+                frames=None, want_cache: bool = False,
                 cache_len: Optional[int] = None):
-    """Full-sequence forward.  tokens: [B, S].
+    """Full-sequence forward.  tokens: [B, S_text]; a VLM's ``patches``
+    [B, P, frontend_dim] are prepended; an encoder-decoder's ``frames``
+    [B, S_src, frontend_dim] go through the encoder and cross attention.
     Returns (hidden [B,S,D], aux_loss, cache_or_None)."""
-    _check_decoder(cfg)
     x = embed_tokens(params["embedding"], tokens, cfg)
+    if cfg.kind == "vlm" and patches is not None:
+        x = torch.cat([_frontend(params, patches, cfg), x], dim=1)
+    enc_out = (_encoder_forward(params, frames, cfg)
+               if cfg.kind == "encdec" else None)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.kind == "encdec":
+        x = x + cast(sinusoidal_positions(positions, cfg.d_model), x.dtype)
     aux = torch.zeros((), device=x.device)
 
     group_caches = []
@@ -108,7 +155,8 @@ def forward_seq(params, cfg: ArchConfig, *, tokens, want_cache: bool = False,
         for i, kind in enumerate(cfg.layer_pattern):
             x, a, caches[f"b{i}"] = apply_block_seq(
                 gparams[f"b{i}"], x, cfg, kind, positions=positions,
-                causal=True, want_cache=want_cache, cache_len=cache_len)
+                causal=True, enc_out=enc_out, want_cache=want_cache,
+                cache_len=cache_len)
             aux = aux + a
         group_caches.append(caches)
 
@@ -116,7 +164,8 @@ def forward_seq(params, cfg: ArchConfig, *, tokens, want_cache: bool = False,
     for i, kind in enumerate(cfg.tail_blocks):
         x, a, tail_caches[f"b{i}"] = apply_block_seq(
             params["tail"][f"b{i}"], x, cfg, kind, positions=positions,
-            causal=True, want_cache=want_cache, cache_len=cache_len)
+            causal=True, enc_out=enc_out, want_cache=want_cache,
+            cache_len=cache_len)
         aux = aux + a
 
     x = apply_norm(params["final_norm"], x, cfg)
@@ -130,18 +179,26 @@ def forward_seq(params, cfg: ArchConfig, *, tokens, want_cache: bool = False,
 
 
 def forward_train(params, batch, cfg: ArchConfig):
-    """batch → (logits [B,S,V] f32, aux_loss)."""
-    x, aux, _ = forward_seq(params, cfg, tokens=batch["tokens"])
+    """batch → (logits [B,S_text,V] f32, aux_loss).  A VLM's patch prefix
+    carries no loss: its hidden states are sliced off before the vocab
+    projection."""
+    x, aux, _ = forward_seq(params, cfg, tokens=batch["tokens"],
+                            patches=batch.get("patches"),
+                            frames=batch.get("frames"))
+    if cfg.kind == "vlm" and batch.get("patches") is not None:
+        x = x[:, batch["patches"].shape[1]:]
     return logits(params["embedding"], x, cfg), aux
 
 
 def prefill(params, batch, cfg: ArchConfig, cache_len: Optional[int] = None):
     """Prefill: returns (last-token logits [B,V], cache).
 
-    cache_len (≥ prompt length) sizes the decode cache so generation can
-    append; defaults to the prompt length."""
+    cache_len (≥ prompt length, patches included) sizes the decode cache
+    so generation can append; defaults to the prompt length."""
     x, _, cache = forward_seq(params, cfg, tokens=batch["tokens"],
-                              want_cache=True, cache_len=cache_len)
+                              patches=batch.get("patches"),
+                              frames=batch.get("frames"), want_cache=True,
+                              cache_len=cache_len)
     lg = logits(params["embedding"], x[:, -1:], cfg)
     return lg[:, 0], cache
 
@@ -150,9 +207,11 @@ def decode_step(params, cfg: ArchConfig, *, token, pos, cache):
     """One serving step.  token: [B] int, pos: [B] int (absolute).
     Returns (logits [B,V] f32, cache); the cache is updated in place (KV
     slots and recurrent states alike; see the module note), so the
-    blocks' returned caches are not collected."""
-    _check_decoder(cfg)
+    blocks' returned caches are not collected.  A VLM's ``pos`` counts its
+    patch prefix."""
     x = embed_tokens(params["embedding"], token[:, None], cfg)
+    if cfg.kind == "encdec":
+        x = x + cast(sinusoidal_positions(pos[:, None], cfg.d_model), x.dtype)
     for g in range(cfg.num_groups_scan):
         gparams, gcache = _index(params["blocks"], g), _index(
             cache["blocks"], g)

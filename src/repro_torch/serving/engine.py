@@ -51,10 +51,21 @@ class ServingEngine:
     """LM server over ``slots`` lockstep decode lanes of a ``max_seq``
     cache.  ``params`` is the model's tree (as ``lm.param_specs``); it is
     moved to ``device`` (default: the GPU) and its matmul weights are cast
-    to the compute dtype once (``lm.compute_params``)."""
+    to the compute dtype once (``lm.compute_params``).
+
+    Requests are token prompts, as in the reference: a VLM is served from
+    tokens alone (no patch prefix).  An encoder-decoder is refused: the
+    reference's engine prefills tokens only, and its encoder then fails
+    on the missing frames, so there is no served path to hold it to."""
 
     def __init__(self, cfg: ArchConfig, params: PyTree, *, slots: int = 4,
                  max_seq: int = 256, device: DeviceLike = None):
+        if cfg.kind == "encdec":
+            raise NotImplementedError(
+                f"{cfg.name}: ServingEngine prefills token prompts only, "
+                f"and an encoder-decoder needs its source frames (the "
+                f"reference's engine fails there too); run lm.prefill and "
+                f"lm.decode_step with frames")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = lm.compute_params(tree_map(

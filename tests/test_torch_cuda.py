@@ -27,7 +27,9 @@ within one bf16 ulp plus their f32 sums' rounding (``bf16_gemm_bound``).
 from 1 to 3000 across the stream / wgmma boundary at 16, K and N off the
 tiles, the head's N = 1000, and rows that are not 16-byte multiples;
 ``RG_MLP_CASES`` hold the stream and wgmma forms at recurrentgemma-9b's
-gated-MLP shapes, where K reaches 12,288.
+gated-MLP shapes, where K reaches 12,288, and ``LM_MLP_CASES`` at
+deepseek-moe-16b's shared experts', internvl2-26b's (K to 16,384) and
+seamless-m4t-medium's.
 ``W8_SHAPES`` hold the int8 forms at w8 serving's GEMM shapes, and the
 int8 KV cache's decode contractions are held to the CPU's int64 sums."""
 
@@ -269,6 +271,16 @@ def bf16_gemm_bound(x, w, b, got, want):
 RG_MLP_CASES = [(m, k, n, "bfloat16", False) for m in (4, 4096)
                 for k, n in ((4096, 12288), (12288, 4096))]
 
+# the MoE, VLM and encoder-decoder families' gated-MLP GEMMs under
+# pallas_ws, (m, d_model, d_ff): deepseek-moe-16b's shared experts (2 ×
+# 1408) and internvl2-26b's MLP at a 4-slot decode step (the stream form)
+# and a 4096-position prefill (wgmma), seamless-m4t-medium's at a 1-row
+# decode step and a 2048-position prefill; both directions of each
+LM_MLP_SHAPES = ((4, 2048, 2816), (4096, 2048, 2816), (4, 6144, 16384),
+                 (4096, 6144, 16384), (1, 1024, 4096), (2048, 1024, 4096))
+LM_MLP_CASES = [(m, k, n, "bfloat16", False) for m, d, f in LM_MLP_SHAPES
+                for k, n in ((d, f), (f, d))]
+
 # matmul_ws edges and main-path shapes: (m, k, n, dtype, bias)
 MM_CASES = ([(m, 200, 264, "bfloat16", m != 64)
              for m in (1, 4, 8, 16, 17, 63, 64, 65, 3000)]
@@ -281,7 +293,7 @@ MM_CASES = ([(m, 200, 264, "bfloat16", m != 64)
                (3, 70, 33, "bfloat16", True), (65, 70, 264, "bfloat16", True),
                (3, 70, 33, "float32", True), (8, 512, 64, "int8", True),
                (8, 64, 10, "int8", True)]
-            + RG_MLP_CASES)
+            + RG_MLP_CASES + LM_MLP_CASES)
 
 
 def mm_case_inputs(m, k, n, dtype, bias):
@@ -335,6 +347,12 @@ def test_cuda_matmul_forms_equal_plain(cuda, m, k, n, dtype, bias):
     ((2, 300, 4, 32), torch.bfloat16, True),
     ((2, 300, 4, 64), torch.bfloat16, False),
     ((1, 3000, 24, 128), torch.bfloat16, True),
+    # seamless-m4t-medium's encoder and cross attention (full) and its
+    # decoder's self attention at 2048 positions, 16 heads of 64; full
+    # attention at D = 128
+    ((1, 2048, 16, 64), torch.bfloat16, False),
+    ((1, 2048, 16, 64), torch.bfloat16, True),
+    ((1, 2048, 16, 128), torch.bfloat16, False),
     # head dims run padded (8, 96, 6), at D = 256, wider than one scalar
     # block's 128 columns (160), on f32 copies (bf16 320), and B·H above
     # the 65,535 blocks a grid's y axis holds
@@ -843,3 +861,85 @@ def test_cuda_hybrid_engine_tokens_equal_the_cpu(cuda, arch, backend):
             dev != "cpu" and backend == "pallas_ws")
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_moe_engine_tokens_equal_the_cpu(cuda):
+    """The reduced deepseek-moe-16b (2 layers, f32) with its shared
+    experts on matmul_ws and its attention on the flash kernel, served on
+    the card, gives the CPU run's greedy tokens; the routed experts are
+    batched einsums on both."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.layers.common import materialize
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(reduce_config(get_config("deepseek_moe_16b")),
+                              num_layers=2, attn_impl="flash",
+                              gemm_backend="pallas_ws")
+    params = materialize(lm.param_specs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 70)]
+    outs = []
+    for dev in ("cpu", cuda):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        before = (flash_attention.launches, matmul_ws.launches)
+        ServingEngine(cfg, params, slots=2, max_seq=96, device=dev).run(reqs)
+        on_card = dev != "cpu"
+        assert flash_attention.launches - before[0] == (
+            2 * len(prompts) if on_card else 0)
+        assert (matmul_ws.launches > before[1]) == on_card
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_prefill_and_decode_equal_the_cpu(cuda):
+    """The reduced seamless-m4t-medium (2 + 2 layers, f32) on the card:
+    frames and tokens of one length, so the encoder's and the cross
+    attention's full attention run the flash kernel, the MLPs matmul_ws;
+    the prefill and 3 decode steps against the cross cache within 1e-4 of
+    the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.layers.common import materialize, tree_map
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(
+        reduce_config(get_config("seamless_m4t_medium")), attn_impl="flash",
+        gemm_backend="pallas_ws")
+    params = materialize(lm.param_specs(cfg), torch.Generator().manual_seed(1),
+                         device="cpu")
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 48), generator=g),
+             "frames": torch.randn((2, 48, cfg.frontend_dim), generator=g)}
+    runs = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = (flash_attention.launches, matmul_ws.launches)
+        with torch.no_grad():
+            lg, cache = lm.prefill(p, {k: v.to(dev) for k, v in
+                                       batch.items()}, cfg, cache_len=56)
+            out = [lg]
+            for j in range(3):
+                lg, cache = lm.decode_step(
+                    p, cfg, token=torch.tensor([3 + j, 7 + j], device=dev),
+                    pos=torch.full((2,), 48 + j, device=dev), cache=cache)
+                out.append(lg)
+        if dev != "cpu":
+            # the prefill: every layer's MLP, a flash launch a layer of
+            # the encoder and two a decoder layer; a decode step: the
+            # decoder's MLPs
+            layers = cfg.encoder_layers + cfg.num_layers
+            assert flash_attention.launches - before[0] == \
+                cfg.encoder_layers + 2 * cfg.num_layers
+            assert matmul_ws.launches - before[1] == 3 * (
+                layers + 3 * cfg.num_layers)
+        runs.append([t.cpu() for t in out])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

@@ -37,7 +37,12 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.optim.schedule",
               "repro_torch.kernels.conv2d_ws_bwd",
               "repro_torch.core.calibration", "repro_torch.core.autotune",
-              "repro_torch.core.calibration_sweep"):
+              "repro_torch.core.calibration_sweep",
+              "repro_torch.layers.moe",
+              "repro_torch.configs.deepseek_moe_16b",
+              "repro_torch.configs.qwen3_moe_30b_a3b",
+              "repro_torch.configs.seamless_m4t_medium",
+              "repro_torch.configs.internvl2_26b"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -6,6 +6,7 @@ Each case feeds the same seeded numpy inputs, and the reference's own
 outputs agree within rtol = atol = 1e-4 (the two sum in another order)."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -60,7 +61,8 @@ def _normal(*shape, seed=0):
 # -- configs ---------------------------------------------------------------
 
 ARCHS = ["llama3p2_3b", "llama3_8b", "yi_34b", "gemma_7b",
-         "recurrentgemma_9b", "rwkv6_1p6b"]
+         "recurrentgemma_9b", "rwkv6_1p6b", "deepseek_moe_16b",
+         "qwen3_moe_30b_a3b", "seamless_m4t_medium", "internvl2_26b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -77,10 +79,15 @@ def test_configs_equal_the_reference_field_for_field(arch):
 
 
 def test_unported_architectures_raise_naming_the_roadmap():
+    """Every architecture the reference defines is ported: each name in
+    ``ARCH_NAMES`` (and its CLI alias) resolves to the reference's config;
+    only an unknown name raises."""
+    assert sorted(base.ARCH_NAMES) == sorted(jbase.ARCH_NAMES) == sorted(
+        ARCHS)
     for name in base.ARCH_NAMES:
-        if name not in base.PORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                base.get_config(name)
+        assert base.get_config(name) == base.get_config(
+            base.get_config(name).name)
+    assert not hasattr(base, "PORTED")
     with pytest.raises(KeyError, match="unknown architecture"):
         base.get_config("gpt-17")
 
@@ -97,14 +104,20 @@ def test_param_and_cache_specs_match_the_reference(arch, kv):
             == flat(jlm.param_specs(jcfg), jcommon.is_spec))
     assert (flat(lm.cache_specs(cfg, 3, 40), common.is_spec)
             == flat(jlm.cache_specs(jcfg, 3, 40), jcommon.is_spec))
-    # the attention layers' K/V leaves (a recurrent block's state keeps its
-    # own dtypes; rwkv6 has no K/V)
-    kv_dt = {s.dtype for s in jax.tree.leaves(lm.cache_specs(cfg, 3, 40),
-                                              is_leaf=common.is_spec)
-             if s.axes[-1] == "qkv"}
+    # the self-attention layers' K/V leaves (a recurrent block's state
+    # keeps its own dtypes; rwkv6 has no K/V); an encoder-decoder's cross
+    # cache is in the compute dtype whatever kv_cache_dtype says, as the
+    # reference's
+    cache = lm.cache_specs(cfg, 3, 40)
+    blocks_ = [b for part in ("blocks", "tail") for b in
+               cache.get(part, {}).values()]
+    kv_dt = {s.dtype for b in blocks_ if "kv" in b for s in b["kv"]}
+    cross_dt = {b[k].dtype for b in blocks_ for k in ("cross_k", "cross_v")
+                if k in b}
     attends = any(k in ("attn", "local_attn") for k in cfg.layer_pattern)
     assert kv_dt == ({"int8" if kv == "int8" else "float32"} if attends
                      else set())
+    assert cross_dt == ({"float32"} if cfg.kind == "encdec" else set())
 
 
 def test_materialize_follows_the_specs_on_a_generator():
@@ -126,6 +139,47 @@ def test_materialize_follows_the_specs_on_a_generator():
     bf = common.materialize(specs, gen, device="cpu",
                             dtype_override="bfloat16")
     assert bf["blocks"]["b0"]["mlp"]["wo"].dtype == torch.bfloat16
+
+
+def test_materialize_draws_a_large_leaf_one_slice_at_a_time(monkeypatch):
+    """A leaf above ``DRAW_WHOLE_MAX`` elements is drawn one index of its
+    leading axis at a time into its allocated tensor: the spec's shape and
+    dtype, each slice a fan-in scaled normal, its numbers those of drawing
+    the slices in turn.  Leaves at or under the limit keep the whole draw
+    (``randn · std``, then the cast), so their numbers are unchanged."""
+    _, cfg = _configs("deepseek_moe_16b", num_layers=3)
+    specs = lm.param_specs(cfg)
+    monkeypatch.setattr(common, "DRAW_WHOLE_MAX", 3 * 8 * 64 * 64 - 1)
+    p = common.materialize(specs, torch.Generator().manual_seed(0),
+                           device="cpu", dtype_override="bfloat16")
+    for s, t in zip(jax.tree.leaves(specs, is_leaf=common.is_spec),
+                    jax.tree.leaves(p)):
+        assert tuple(t.shape) == s.shape and t.dtype == torch.bfloat16
+    wo = p["blocks"]["b0"]["moe"]["wo"]                  # [3, 8, 64, 64]
+    for i in range(3):
+        assert abs(float(wo[i].float().std()) - 64 ** -0.5) < 0.01
+        assert abs(float(wo[i].float().mean())) < 0.01
+    # replay the draws: every leaf before wo in flatten order whole, wo's
+    # three slices in turn
+    gen = torch.Generator().manual_seed(0)
+    flat = [(path, s) for path, s in jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=common.is_spec)[0]]
+    for path, s in flat:
+        keys = [k.key for k in path]
+        if s.init in ("zeros", "ones", "constant"):
+            continue
+        fan = math.prod(s.shape[a] for a in s.fan_in_axes)
+        std = s.scale / math.sqrt(fan) if s.init == "fan_in" else s.scale
+        if math.prod(s.shape) > common.DRAW_WHOLE_MAX:
+            want = torch.stack([(torch.randn(s.shape[1:], generator=gen)
+                                 * std).bfloat16()
+                                for _ in range(s.shape[0])])
+        else:
+            want = (torch.randn(s.shape, generator=gen) * std).bfloat16()
+        got = p
+        for k in keys:
+            got = got[k]
+        assert torch.equal(got, want), keys
 
 
 # -- layers ----------------------------------------------------------------
@@ -315,19 +369,45 @@ def test_prime_cache_layout(seq_len, window, cache_len):
 
 
 def test_unported_blocks_raise():
-    """MoE feed-forward and encoder-decoder models wait on later slices;
-    the recurrent kinds build."""
+    """Only an unknown block kind raises.  The MoE feed-forward (on every
+    mixer but rwkv6's, which keeps its channel mix), the encoder-decoder's
+    cross blocks and their cross cache, and the VLM's frontend build and
+    equal the reference's specs."""
     jcfg, cfg = _configs()
-    for kind in ("rglru", "rwkv6"):
-        assert blocks.block_specs(cfg, kind)
-    moe = dataclasses.replace(cfg, moe=base.MoEConfig(8, 2, 64))
-    for kind in ("attn", "rglru"):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            blocks.block_specs(moe, kind)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm.param_specs(moe)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        lm.param_specs(dataclasses.replace(cfg, kind="encdec"))
+    with pytest.raises(ValueError):
+        blocks.block_specs(cfg, "mamba")
+    with pytest.raises(ValueError):
+        blocks.block_cache_specs(cfg, "mamba", 2, 8)
+
+    def same(got, want):
+        assert [(s.shape, s.axes, s.dtype, s.init, s.scale, s.fan_in_axes)
+                for s in jax.tree.leaves(got, is_leaf=common.is_spec)] == [
+            (s.shape, s.axes, s.dtype, s.init, s.scale, s.fan_in_axes)
+            for s in jax.tree.leaves(want, is_leaf=jcommon.is_spec)]
+        assert sorted(got) == sorted(want)
+
+    moe = base.MoEConfig(8, 2, 64, num_shared=1)
+    jmoe = jbase.MoEConfig(8, 2, 64, num_shared=1)
+    for kind in ("attn", "local_attn", "rglru", "rwkv6"):
+        kw = dict(rnn_width=64) if kind == "rglru" else {}
+        c = dataclasses.replace(cfg, moe=moe, **kw)
+        jc = dataclasses.replace(jcfg, moe=jmoe, **kw)
+        got = blocks.block_specs(c, kind)
+        same(got, jblocks.block_specs(jc, kind))
+        assert ("moe" in got) == (kind != "rwkv6")
+        for cross in (False, True):
+            same(blocks.block_specs(c, kind, cross=cross),
+                 jblocks.block_specs(jc, kind, cross=cross))
+            same(blocks.block_cache_specs(c, kind, 2, 8, 8 if cross else 0),
+                 jblocks.block_cache_specs(jc, kind, 2, 8,
+                                           8 if cross else 0))
+    for arch in ("seamless_m4t_medium", "internvl2_26b"):
+        jc, c = _configs(arch)
+        same(lm.param_specs(c), jlm.param_specs(jc))
+        same(lm.cache_specs(c, 2, 8), jlm.cache_specs(jc, 2, 8))
+        assert "frontend_proj" in lm.param_specs(c)
+    enc = lm.param_specs(_configs("seamless_m4t_medium")[1])["encoder"]
+    assert enc["blocks"]["b0"]["attn"]["wq"].shape[0] == 2    # 2 layers
 
 
 @pytest.mark.parametrize("kind,window", [("attn", 0), ("local_attn", 8)])
