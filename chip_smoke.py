@@ -194,7 +194,32 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    the first batch's per-layer measured/predicted ratios and the drift
    events; and loads the committed ``CALIBRATION_h100.json``, whose
    provenance must name the card;
-10. print the per-kernel JSON line and, last, the run's device line.  A
+10. train an LM (TF32 off): one f32 step of the reduced llama3.2-3b on
+   ``xla`` and ``pallas_ws`` and of the reduced recurrentgemma-9b,
+   rwkv6-1.6b and deepseek-moe-16b on ``xla``, card == CPU within 1e-4
+   (loss, every gradient, every updated param, m and v, at lr 5e-4; a
+   param whose gradient is near zero on either side held to 2·lr);
+   ``matmul_ws``'s
+   f32 VJP at llama3.2-3b's MLP backward shapes (``check_matmul_vjp``)
+   and its dx / dw times beside ``torch.matmul``; llama3.2-3b at full
+   width with 2 layers in f32 on ``pallas_ws``: every ``matmul_ws`` call
+   of one step (forward, remat recompute, dx, dw) held to
+   ``matmul_ws_plain`` and the float64 product, the step's gradients
+   within a relative L2 of the same step on ``xla`` that the per-call
+   readings set; llama3.2-3b as published (28 layers, f32 params, bf16
+   compute, remat ``"minimal"``, chunked attention) trained a recording
+   step and 3 timed ones on ``xla``, then on ``pallas_ws``, at 2 × 4096
+   tokens in two microbatches: ms a step, tokens/s, peak memory,
+   ``matmul_ws`` launches a step by form held to the recording step, in
+   which every call (bf16 forward and recompute, f32 dx and dw) is held
+   to ``matmul_ws_plain``, each run's first loss against
+   ``make_eval_step``'s, one profiled step's device time by part, and
+   one step at the config's own attention chunk; ``Trainer`` at full
+   width with 2 layers, a failure injected at step 3 and a
+   ``Checkpointer`` restore, the losses equal to an uninterrupted run's
+   bit for bit under deterministic algorithms (checkpoints under
+   ``build/``, removed after); the training launcher on the card;
+11. print the per-kernel JSON line and, last, the run's device line.  A
    kernel timed over several shapes reports the sum of their times (each
    of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
    bounds; ``matmul_ws``'s ``library_ms`` sums ``torch.matmul`` over its
@@ -215,7 +240,10 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``conv2d_ws`` row carries phase 3's ``conv1d_depthwise`` apart
    (``conv1d_ms``, ``conv1d_device_ms``, ``conv1d_bound_ms``,
    ``conv1d_plain_ms``: ``conv1d_depthwise_ref``, ``conv1d_library_ms``:
-   ``F.conv1d``).
+   ``F.conv1d``); the ``matmul_ws`` row carries phase 10's f32 backward
+   GEMMs at llama3.2-3b's MLP shapes apart (``lm_bwd_ms``,
+   ``lm_bwd_bound_ms``, ``lm_bwd_library_ms``: ``torch.matmul``, TF32 off),
+   and its ``launches`` add phase 10's training steps.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
@@ -226,6 +254,7 @@ import ctypes
 import dataclasses
 import itertools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -236,6 +265,9 @@ from concurrent.futures import Future
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# cuBLAS reads this when CUDA starts; phase 10 turns deterministic
+# algorithms on, which need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))     # the card tests' conv cases
 
@@ -308,6 +340,15 @@ LM_DIRECT_STEPS = 8                   # decode steps after a direct prefill
 # attention, 16 heads of 64, and full attention at D = 128
 LM_FLASH = ((1, ENCDEC_SEQ, 16, 64, False), (1, ENCDEC_SEQ, 16, 64, True),
             (1, ENCDEC_SEQ, 16, 128, False))
+# phase 10's full-depth training: the chunked attention's chunk.  At the
+# config's 512 a 4096-token causal layer runs 36 chunk pairs, and a step
+# issued 223k device ops at 22% busy (14.8 s a step on xla, on an H100
+# 80GB HBM3 at 700 W); at 2048 it runs 3 pairs of [24, 2048, 2048] f32
+# scores (the same function, summed in fewer online-softmax rescalings).
+# The config's own chunk, which the launcher and ``Trainer`` take, is
+# timed for one step beside it; the repair of the chunk loop's host cost
+# belongs in the attention layer
+TRAIN_ATTN_CHUNK = 2048
 GEMMA_W8_PROMPTS = (64, 512, 1024, 2048)
 YI_PROMPTS = (64, 512, 1024)
 KERNELS = {
@@ -1170,18 +1211,22 @@ def main():
     def counts():
         return {k: fn.launches for k, fn in wrappers.items()}
 
-    def device_busy(fn, part=None, ranges=None):
+    def device_busy(fn, part=None, ranges=None, once=False):
         """(wall ms of ``fn`` unprofiled, device ms and device event count
         of ``fn`` under torch.profiler, and with ``part`` the device ms by
         label); device ms is None where the trace holds no device events.
+        With ``once`` (for an ``fn`` that changes state) ``fn`` runs only
+        under the profiler, and its output takes the wall ms's place.
         ``ranges`` ({(module, attribute): label}) runs those functions
         inside a ``record_function`` range of that label in both calls;
         the spans a range leaves on the device timeline are not counted.
-        ``part(kernel, op, scope)`` labels a device event by its kernel
-        name, the op that launched it (the CPU op whose correlation id the
-        event carries; None if there is none) and the innermost range
-        around that op (or None): each event is counted once, so the
-        labels add up to the device ms."""
+        ``part(kernel, op, scope, fwd)`` labels a device event by its
+        kernel name, the op that launched it (the CPU op whose correlation
+        id the event carries; None if there is none), the innermost range
+        around that op (or None), and ``fwd``: None outside the autograd
+        engine's backward, else the innermost range around the forward op
+        that made the node the op runs for ("" if none).  Each event is
+        counted once, so the labels add up to the device ms."""
         saved = []
         for (mod, attr), label in (ranges or {}).items():
             orig = getattr(mod, attr)
@@ -1192,19 +1237,22 @@ def main():
             setattr(mod, attr, scoped)
             saved.append((mod, attr, orig))
         try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
+            if not once:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                first = 1e3 * (time.perf_counter() - t0)
             act = torch.profiler.ProfilerActivity
             with torch.profiler.profile(
                     activities=[act.CPU, act.CUDA]) as prof:
-                fn()
+                out = fn()
                 torch.cuda.synchronize()
         finally:
             for mod, attr, orig in saved:
                 setattr(mod, attr, orig)
+        if once:
+            first = out
         scopes = set((ranges or {}).values())
         kind = torch.autograd.DeviceType
         raw = prof.profiler.kineto_results.events()
@@ -1212,31 +1260,47 @@ def main():
                and k.name() not in scopes]
         busy = sum(k.end_ns() - k.start_ns() for k in evs) / 1e6
         if part is None:
-            return wall, (busy if evs else None), len(evs)
+            return first, (busy if evs else None), len(evs)
+        engine = "autograd::engine::evaluate_function"
+
+        def up_from(e):
+            """(the innermost range around ``e``, the innermost autograd
+            node ``e`` runs in)."""
+            scope = node = None
+            while e is not None and (scope is None or node is None):
+                if scope is None and e.name in scopes:
+                    scope = e.name
+                if node is None and e.name.startswith(engine):
+                    node = e
+                e = e.cpu_parent
+            return scope, node
         # an op's event carries its own correlation id and links to none;
-        # its kernels link to it
+        # its kernels link to it.  An op that records an autograd node
+        # carries the node's sequence number
         launchers = {k.correlation_id() for k in raw
                      if k.device_type() == kind.CPU
                      and k.linked_correlation_id() == 0}
-        ops = {}
+        ops, made_in = {}, {}
         for e in prof.events():
-            if (e.device_type == kind.CPU and not e.is_async
-                    and e.id in launchers):
+            if e.device_type != kind.CPU or e.is_async:
+                continue
+            if e.id in launchers:
                 inner = ops.get(e.id)
                 if inner is None or e.time_range.start > \
                         inner.time_range.start:
                     ops[e.id] = e
+            if e.sequence_nr >= 0 and not e.name.startswith(engine):
+                made_in[(e.thread, e.sequence_nr)] = up_from(e)[0] or ""
         by_part = {}
         for k in evs:
-            op = up = ops.get(k.linked_correlation_id())
-            scope = None
-            while up is not None and scope is None:
-                scope = up.name if up.name in scopes else None
-                up = up.cpu_parent
-            label = part(k.name(), op, scope)
+            op = ops.get(k.linked_correlation_id())
+            scope, node = up_from(op)
+            fwd = None if node is None else made_in.get(
+                (node.fwd_thread, node.sequence_nr), "")
+            label = part(k.name(), op, scope, fwd)
             by_part[label] = (by_part.get(label, 0.0)
                               + (k.end_ns() - k.start_ns()) / 1e6)
-        return wall, (busy if evs else None), len(evs), by_part
+        return first, (busy if evs else None), len(evs), by_part
 
     def log_split(name, fn, part, labels, ranges=None):
         """Device ms of one call of ``fn`` under torch.profiler, by
@@ -1941,7 +2005,7 @@ def main():
                  (lm, "logits"): "logits (f32)"}
     MM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
 
-    def rg_part(kernel, op, scope):
+    def rg_part(kernel, op, scope, _):
         """The part of a recurrentgemma prefill (xla backend) that a
         device event belongs to, from the op that launched it and the
         ``RG_RANGES`` range around that op: a GEMM op in the gates is an
@@ -2209,7 +2273,7 @@ def main():
                   (attn_lib, "chunked_attention"): "chunked attention",
                   (lm, "logits"): "logits (f32)"}
 
-    def moe_part(kernel, op, scope):
+    def moe_part(kernel, op, scope, _):
         """The part of an MoE model's prefill or decode step that a device
         event belongs to: the two kernels by name; inside the MoE layer
         (``blocks.apply_moe``, the shared experts included) its GEMM ops
@@ -3381,7 +3445,462 @@ def main():
         stats[k]["launches"] += tuned_launches[k]
     log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
 
-    # -- 10. results -------------------------------------------------------
+    # -- 10. training an LM ------------------------------------------------
+    log("phase 10: LM training (train step, trainer, checkpointer, launcher; "
+        "TF32 off)")
+    t_phase = time.perf_counter()
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.optim.adamw import (UPDATE_ROWS, AdamWConfig,
+                                         adamw_update_, tree_leaves)
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from torch.utils._python_dispatch import _disable_current_modes
+    from test_torch_cuda import (LM_BWD_SHAPES, check_grad, f32_sum_bound,
+                                 lm_bwd_inputs, lm_train_step_card_vs_cpu,
+                                 rel_l2, tf32_round)
+
+    # (a) the reduced models: one f32 step on the card equals the CPU's
+    for arch, backend in (("llama3p2_3b", "xla"), ("llama3p2_3b", "pallas_ws"),
+                          (RG_ARCH, "xla"), (RWKV_ARCH, "xla"),
+                          (DS_ARCH, "xla")):
+        out = lm_train_step_card_vs_cpu(arch, dev, backend)
+        log(f"  reduced {arch} {backend}: one f32 step card == CPU within "
+            f"1e-4: max abs err loss {out['loss']:.2e}, gradients "
+            f"{out['grads']:.2e}, params/m/v {out['state']:.2e} (lr "
+            f"5e-4; {out['near_zero']} param elements at a near-zero "
+            f"gradient held to 2·lr); {out['matmul_ws']} matmul_ws launches")
+
+    def draw_state(cfg, seed=0):
+        """A train state on the card: params from ``seed``, m and v zero,
+        step 0."""
+        specs = ts.init_state_specs(cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return {"params": materialize(specs["params"], gen, device=dev),
+                "opt": materialize(specs["opt"], gen, device=dev),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def state_bytes(state):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(state))
+
+    # matmul_ws's f32 VJP at the LM's backward shapes, and its time there
+    # beside torch.matmul (the f32 dx and dw GEMMs of a layer's MLP at a
+    # 4096-token microbatch)
+    lm_bwd = dict.fromkeys(("lm_bwd_ms", "lm_bwd_bound_ms",
+                            "lm_bwd_library_ms"), 0.0)
+    for m_, k_, n_ in LM_BWD_SHAPES:
+        x, w, b, g = lm_bwd_inputs(m_, k_, n_, dev)
+        errs = check_matmul_vjp(x, w, b, g)
+        x, w = x.detach(), w.detach()
+        for name, a, c in (("dx", g, w.t().contiguous()),
+                           ("dw", x.t().contiguous(), g)):
+            mm_ms = elapsed_ms(lambda: matmul_ws(a, c), 3)
+            lib_ms = elapsed_ms(lambda: torch.matmul(a, c), 3)
+            (m2, k2), n2 = a.shape, c.shape[1]
+            bd = bound_ms(4 * (m2 * k2 + k2 * n2 + m2 * n2),
+                          2 * m2 * k2 * n2, F32_OPS_PER_S)
+            lm_bwd["lm_bwd_ms"] += mm_ms
+            lm_bwd["lm_bwd_library_ms"] += lib_ms
+            lm_bwd["lm_bwd_bound_ms"] += bd
+            log(f"  matmul_ws f32 {name} [{m2},{k2}]@[{k2},{n2}] (VJP of "
+                f"[{m_},{k_}]@[{k_},{n_}]): {mm_ms:.3f} ms "
+                f"({2e-9 * m2 * k2 * n2 / mm_ms:.1f} TFLOP/s), torch.matmul "
+                f"{lib_ms:.3f} ms, bound {bd:.3f} ms (operations); max err "
+                f"{errs[name][0]:.2e}, rel L2 {errs[name][1]:.2e} (TF32 "
+                f"control {errs[name][2]:.2e})")
+        del x, w, b, g
+    stats["matmul_ws"]["lm_bwd"] = lm_bwd
+
+    # (b) full width, 2 layers, f32 on pallas_ws: every matmul_ws call of
+    # one step held to matmul_ws_plain and to the float64 product, the
+    # step's gradients against the same step on xla
+    seq = 4096
+    cfg2 = dataclasses.replace(get_config(LM_ARCH), num_layers=2,
+                               compute_dtype="float32",
+                               remat_policy="minimal")
+    state = draw_state(cfg2, seed=1)
+    batch = on_card(SyntheticLM(DataConfig(
+        vocab_size=cfg2.vocab_size, seq_len=seq, global_batch=1,
+        seed=1)).batch_at(0))
+    held = collections.Counter()
+    worst = {"plain": 0.0, "ws": 0.0, "lib": 0.0, "ctl": float("inf")}
+
+    def hold_mm(x, w, bias=None):
+        """One ``matmul_ws`` call of a training step held to
+        ``matmul_ws_plain`` on its own operands → (form, max abs err,
+        output): bf16 through ``check_mm`` (the form ``mm_path`` names,
+        within ``bf16_gemm_bound``), f32 on one scalar launch within
+        ``f32_sum_bound`` elementwise.  Its callers run it outside the
+        dispatch modes of the remat's selective checkpoint, which would
+        keep the checks' own GEMM outputs (it saves every ``mm``'s) and
+        hand them back in the recompute."""
+        if x.dtype == torch.bfloat16:
+            return check_mm(x, w, bias)
+        (m_, k_), n_ = x.shape, w.shape[1]
+        path = mm_path(m_, k_, n_, x.dtype)
+        before = matmul_ws.path_launches[path]
+        got = matmul_ws(x, w, bias)
+        torch.cuda.synchronize()
+        if path != "scalar" or matmul_ws.path_launches[path] != before + 1:
+            raise AssertionError(f"matmul_ws f32 [{m_},{k_}]@[{k_},{n_}]: "
+                                 f"{path}, not one scalar launch")
+        s = x.abs() @ w.abs()
+        if bias is not None:
+            s = s + bias.abs()
+        err_t = (got - matmul_ws_plain(x, w, bias)).abs()
+        if bool((err_t > f32_sum_bound(k_, s)).any()):
+            raise AssertionError(f"matmul_ws f32 [{m_},{k_}]@[{k_},{n_}]: "
+                                 f"{float(err_t.max())} from matmul_ws_plain, "
+                                 f"past f32_sum_bound")
+        err = float(err_t.max())
+        st = stats["matmul_ws"]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        return path, err, got
+
+    def hold_f32(x, w, bias=None):
+        """``hold_mm`` on one f32 call of the step, then its output and
+        torch.matmul's on the same operands against the float64 product
+        (``check_grad`` for the kernel: within ``GRAD_REL_L2``, its TF32
+        control outside) → the kernel's output."""
+        (m_, k_), n_ = x.shape, w.shape[1]
+        with _disable_current_modes():
+            _, err, got = hold_mm(x, w, bias)
+            xd, wd = x.double(), w.double()
+            want, s, lib = xd @ wd, xd.abs() @ wd.abs(), x @ w
+            if bias is not None:
+                want, s = want + bias.double(), s + bias.double().abs()
+                lib = lib + bias
+            ctl = tf32_round(x).double() @ tf32_round(w).double()
+            _, rel, ctl_rel = check_grad(f"[{m_},{k_}]@[{k_},{n_}]", got,
+                                         want, s, k_, ctl)
+        worst["plain"] = max(worst["plain"], err)
+        worst["ws"] = max(worst["ws"], rel)
+        worst["lib"] = max(worst["lib"], rel_l2(lib, want))
+        worst["ctl"] = min(worst["ctl"], ctl_rel)
+        held[(m_, k_, n_)] += 1
+        return got
+
+    grads = {}
+    for backend in ("xla", "pallas_ws"):
+        c = dataclasses.replace(cfg2, gemm_backend=backend)
+        kops._matmul_kernel = hold_f32
+        try:
+            _, loss, _, g = ts._grads(state["params"], batch, c)
+        finally:
+            kops._matmul_kernel = matmul_ws
+        grads[backend] = (float(loss), g)
+    n_mlp = 3 * cfg2.num_layers
+    # each MLP GEMM once forward, once in the remat recompute, dx and dw
+    if sum(held.values()) != 4 * n_mlp:
+        raise AssertionError(f"2-layer f32 step: {dict(held)} matmul_ws "
+                             f"calls, not 4 × {n_mlp}")
+    # the gradient bound, from this step's readings: the two steps differ
+    # in their 4 × 6 MLP GEMM calls (forward, recompute, dx, dw), each
+    # within w relative L2 of the exact product (w the worst reading
+    # above, matmul_ws's or torch.matmul's on the same operands); a
+    # gradient leaf's relative difference adds them at most linearly
+    # unless the network amplifies them: 2 × 24 × w.  It must sit under
+    # the TF32 control's reading, which a TF32 GEMM would reach
+    per_call = max(worst["ws"], worst["lib"])
+    lm_grad_bound = 2 * 4 * n_mlp * per_call
+    if not lm_grad_bound < worst["ctl"]:
+        raise AssertionError(f"2-layer f32 step: the gradient bound "
+                             f"{lm_grad_bound} would pass a TF32 GEMM "
+                             f"({worst['ctl']})")
+    g_rel = max(rel_l2(a, b.double()) for a, b in zip(
+        grads["pallas_ws"][1], grads["xla"][1]) if float(b.norm()) > 0)
+    log(f"  full width, 2 layers, f32, one step at {seq} tokens: "
+        f"{dict(held)} matmul_ws calls held (scalar form; max err from "
+        f"matmul_ws_plain {worst['plain']:.2e}, worst rel L2 from float64 "
+        f"{worst['ws']:.2e} <= {GRAD_REL_L2:g}, torch.matmul's "
+        f"{worst['lib']:.2e}, the TF32 control's at least "
+        f"{worst['ctl']:.2e}); loss {grads['pallas_ws'][0]:.6f} (xla "
+        f"{grads['xla'][0]:.6f}); gradients within {g_rel:.2e} relative L2 "
+        f"of xla's (bound 2 × {4 * n_mlp} × {per_call:.2e} = "
+        f"{lm_grad_bound:.2e})")
+    if not (g_rel <= lm_grad_bound and abs(grads["pallas_ws"][0] -
+                                           grads["xla"][0]) <= 1e-4):
+        raise AssertionError(f"2-layer f32 step: pallas_ws against xla "
+                             f"{g_rel} (bound {lm_grad_bound})")
+    # the in-place update's transient memory: the global norm squares one
+    # leaf at a time (the largest, the embedding, bounds it) and the update
+    # holds a dozen temporaries of one row block at most
+    g_tree = ts._unflatten(state["params"], grads["pallas_ws"][1])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = adamw_update_(state["params"], g_tree, state["opt"],
+                            state["step"], AdamWConfig())
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    leaf = max(t.numel() * 4 for t in tree_leaves(state["params"]))
+    limit = leaf + 12 * 4 * UPDATE_ROWS
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(state)):
+        raise AssertionError("2-layer f32 step: a non-finite leaf")
+    if extra > limit:
+        raise AssertionError(f"adamw_update_ took {extra} bytes beyond the "
+                             f"state, past {limit}")
+    log(f"    the in-place update: lr {float(metrics['lr']):.3g}, grad norm "
+        f"{float(metrics['grad_norm']):.4f}; {extra / 1e9:.3f} GB beyond "
+        f"the state and gradients ({state_bytes(state) / 1e9:.2f} GB of "
+        f"params, m and v; limit {limit / 1e9:.3f} GB: the largest leaf "
+        f"squared for the norm, 12 row blocks)")
+    del state, grads, g_tree, batch
+    torch.cuda.empty_cache()
+
+    # (c) llama3.2-3b as published, 28 layers, f32 params, bf16 compute,
+    # remat "minimal", chunked attention; 2 x 4096 tokens a step in two
+    # microbatches.  Timed at TRAIN_ATTN_CHUNK, then one step each at the
+    # config's own chunk, which the launcher and Trainer use
+    cfg = dataclasses.replace(get_config(LM_ARCH), remat_policy="minimal",
+                              attn_impl="chunked")
+    cfg_chunk = cfg.attn_chunk
+    cfg = dataclasses.replace(cfg, attn_chunk=TRAIN_ATTN_CHUNK)
+    batch_size, accum = 2, 2
+    tokens = batch_size * seq
+    state = draw_state(cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch_size, seed=0))
+    log(f"  {cfg.name} as published ({cfg.num_layers} layers, "
+        f"{param_count(cfg) / 1e9:.3f} B params; params, m and v "
+        f"{state_bytes(state) / 1e9:.1f} GB on the card), batch "
+        f"{batch_size} x {seq} in {accum} microbatches, SyntheticLM, "
+        f"attention chunks of {cfg.attn_chunk} (the config's {cfg_chunk} "
+        f"timed for one step apart)")
+    eval_step = ts.make_eval_step(dataclasses.replace(cfg,
+                                                      gemm_backend="xla"))
+    hp = AdamWConfig(warmup_steps=2, total_steps=100)
+    LC = "logits + cross entropy"
+    TRAIN_RANGES = {(lm, "apply_block_seq"): "block",
+                    (attn_lib, "chunked_attention"): "attention",
+                    (lm, "logits"): "logits",
+                    (ts, "cross_entropy"): "cross_entropy",
+                    (ts, "adamw_update_"): "adamw"}
+    FWD_PARTS = {"attention": "attention", "logits": LC,
+                 "cross_entropy": LC}
+    TRAIN_PARTS = ("forward", "attention", LC, "remat recompute",
+                   "backward GEMMs", "matmul_ws f32 backward",
+                   "backward, the rest", "AdamW update")
+
+    def train_part(kernel, op, scope, fwd):
+        """The part of a train step that a device event belongs to
+        (``device_busy`` with ``TRAIN_RANGES``): the update; in the
+        forward, attention, logits + cross entropy or the rest; in the
+        backward, a block run again is the remat recompute, else the
+        range its node's forward op ran in names attention or logits,
+        else ``matmul_ws`` kernels are its f32 backward, cuBLAS GEMMs
+        the backward GEMMs."""
+        if scope == "adamw":
+            return "AdamW update"
+        if fwd is None:
+            return FWD_PARTS.get(scope, "forward")
+        if scope in ("block", "attention"):
+            return "remat recompute"
+        if fwd in FWD_PARTS:
+            return FWD_PARTS[fwd]
+        if "matmul_ws_kernel" in kernel:
+            return "matmul_ws f32 backward"
+        if any(t in kernel.lower() for t in ("gemm", "cutlass", "xmma",
+                                             "nvjet")):
+            return "backward GEMMs"
+        return "backward, the rest"
+
+    def timed_step(step_fn, state):
+        """One step on the next batch → (state, metrics, ms)."""
+        batch = on_card(data.batch_at(int(state["step"])))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        m = {key: float(v) for key, v in m.items()}
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"step {int(state['step']) - 1}: {m}")
+        return state, m, ms
+
+    reset_counts()
+    lm_launches, lm_runs = 0, {}
+    n_gemm = 3 * cfg.num_layers * accum       # MLP GEMM calls a step
+    for backend in ("xla", "pallas_ws"):
+        step_fn = ts.make_train_step(
+            dataclasses.replace(cfg, gemm_backend=backend), hp,
+            accum_steps=accum)
+        times, forms, recorded = [], [], collections.Counter()
+        torch.cuda.empty_cache()
+
+        def record(x, w, bias=None):
+            """The recording run: each call held to ``matmul_ws_plain``
+            and counted by form."""
+            with _disable_current_modes():
+                path, _, got = hold_mm(x, w, bias)
+            recorded[path] += 1
+            return got
+        for i in range(4):
+            k = int(state["step"])
+            before = dict(matmul_ws.path_launches)
+            if i == 0:
+                # the step's loss is the mean of its two microbatches'
+                # token means, the eval step's (xla) the mean over all
+                # tokens: the same function, computed from bf16
+                # activations in GEMMs of other shapes; one bf16 rounding
+                # (2^-8) of the loss bounds their difference
+                eval_loss = float(eval_step(
+                    state["params"], on_card(data.batch_at(k)))["loss"])
+                kops._matmul_kernel = record
+            try:
+                state, m, ms = timed_step(step_fn, state)
+            finally:
+                kops._matmul_kernel = matmul_ws
+            times.append(ms)
+            forms.append({p: matmul_ws.path_launches[p] - before[p]
+                          for p in PATHS})
+            if i == 0:
+                if abs(m["loss"] - eval_loss) > 2.0 ** -8 * abs(eval_loss):
+                    raise AssertionError(f"{backend} step {k} loss "
+                                         f"{m['loss']} against "
+                                         f"make_eval_step's {eval_loss}")
+                log(f"    {backend} step {k} (every matmul_ws call held to "
+                    f"matmul_ws_plain): loss {m['loss']:.6f}, make_eval_step "
+                    f"on the same batch {eval_loss:.6f} (bound 2^-8 "
+                    f"relative)")
+                # the checks' temporaries fragment the allocator's
+                # cache: the timed steps start from an empty one (the
+                # first of them a warm-up), and their peak is read
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            log(f"    {backend} step {k}: {times[-1]:.1f} ms, loss "
+                f"{m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, lr "
+                f"{m['lr']:.3g}; matmul_ws by form {forms[-1]}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = {p: recorded.get(p, 0) for p in PATHS}
+        # pallas_ws: each MLP GEMM runs wgmma forward and in the recompute,
+        # two scalar launches backward
+        expect = dict.fromkeys(PATHS, 0)
+        if backend == "pallas_ws":
+            expect.update(wgmma=2 * n_gemm, scalar=2 * n_gemm)
+        if want != expect or any(f != want for f in forms):
+            raise AssertionError(f"{backend}: matmul_ws launches a step "
+                                 f"{forms}, the recording run {want}, "
+                                 f"expected {expect}")
+        ms = float(np.median(times[2:]))
+        batch = on_card(data.batch_at(int(state["step"])))
+        (state, _), busy, n_ev, parts = device_busy(
+            lambda: step_fn(state, batch), part=train_part,
+            ranges=TRAIN_RANGES, once=True)
+        if busy is None or set(parts) - set(TRAIN_PARTS):
+            raise AssertionError(f"{backend}: device ms {busy}, parts "
+                                 f"{sorted(parts or ())}")
+        # one step at the config's own attention chunk
+        state, m, cfg_ms = timed_step(ts.make_train_step(
+            dataclasses.replace(cfg, gemm_backend=backend,
+                                attn_chunk=cfg_chunk), hp,
+            accum_steps=accum), state)
+        lm_runs[backend] = (ms, busy, peak, parts, cfg_ms)
+        log(f"  {backend}: {ms:.1f} ms a step (the median of the last two "
+            f"of three steps after the recording one), "
+            f"{tokens / ms * 1e3:.0f} tokens/s, peak {peak:.1f} GB (those "
+            f"three); matmul_ws a step {want}; one profiled step: device busy "
+            f"{busy:.1f} ms ({100 * busy / ms:.0f}% of the median step), "
+            f"{n_ev} device events; device ms by part: " + ", ".join(
+                f"{p} {parts.get(p, 0.0):.1f} "
+                f"({100 * parts.get(p, 0.0) / busy:.0f}%)"
+                for p in TRAIN_PARTS))
+        log(f"  {backend} at the config's attn_chunk {cfg_chunk}: "
+            f"{cfg_ms:.1f} ms for one step, {tokens / cfg_ms * 1e3:.0f} "
+            f"tokens/s (loss {m['loss']:.4f})")
+        # recorded, 3 timed, profiled, the config's chunk
+        lm_launches += sum(want.values()) * 6
+    if flash_attention.launches:
+        raise AssertionError("LM training launched flash_attention")
+    if matmul_ws.launches != lm_launches:
+        raise AssertionError(f"LM training: {matmul_ws.launches} matmul_ws "
+                             f"launches, the recorded steps give "
+                             f"{lm_launches}")
+    stats["matmul_ws"]["launches"] += matmul_ws.launches
+    del state
+    torch.cuda.empty_cache()
+
+    # (d) the trainer at full width, 2 layers: an injected failure at step
+    # 3 and a restore from the step-2 checkpoint give the uninterrupted
+    # run's losses bit for bit (deterministic algorithms on)
+    cfg_t = dataclasses.replace(get_config(LM_ARCH), num_layers=2)
+    ckpt_dir = ROOT / "build" / "lm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    free = shutil.disk_usage(ckpt_dir).free / 1e9
+    t_data = SyntheticLM(DataConfig(vocab_size=cfg_t.vocab_size,
+                                    seq_len=seq, global_batch=2, seed=2))
+    t_hp = AdamWConfig(warmup_steps=2, total_steps=6)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            st = draw_state(cfg_t, seed=3)
+            fn = ts.make_train_step(cfg_t, t_hp)
+            losses = []
+            for k in range(6):
+                st, m = fn(st, on_card(t_data.batch_at(k)))
+                losses.append(float(m["loss"]))
+            runs.append(losses)
+            del st
+        if runs[0] != runs[1]:
+            raise AssertionError(f"two uninterrupted runs differ: {runs}")
+        st = draw_state(cfg_t, seed=3)
+        nbytes = state_bytes(st)
+        trainer = Trainer(TrainerConfig(
+            total_steps=6, checkpoint_every=2, fail_at_steps=(3,),
+            keep_checkpoints=2, checkpoint_dir=str(ckpt_dir), log_every=0),
+            ts.make_train_step(cfg_t, t_hp), t_data, st)
+        timed = collections.defaultdict(list)
+        for attr in ("save", "_write", "restore"):
+            orig = getattr(trainer.ckpt, attr)
+
+            def clocked(*a, _orig=orig, _attr=attr, **k):
+                t0 = time.perf_counter()
+                out = _orig(*a, **k)
+                timed[_attr].append(1e3 * (time.perf_counter() - t0))
+                return out
+            setattr(trainer.ckpt, attr, clocked)
+        hist = trainer.run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps = [h["step"] for h in hist]
+    if (trainer.restarts != 1 or sorted(set(steps)) != list(range(6))
+            or any(h["loss"] != runs[0][h["step"]] for h in hist)):
+        got = [(h["step"], h["loss"]) for h in hist]
+        raise AssertionError(f"resumed run {got} against the "
+                             f"uninterrupted {runs[0]}")
+    log(f"  trainer, full width, 2 layers (state {nbytes / 1e9:.2f} GB, "
+        f"{free:.0f} GB free on the checkpoint's disk before the run): "
+        f"steps run {steps} (a failure injected at step 3, the step-2 "
+        f"checkpoint restored); every loss equals the uninterrupted run's "
+        f"bit for bit, which two runs reproduced: {runs[0]}")
+    log(f"    checkpoint of {nbytes / 1e9:.2f} GB: save (host copy; the "
+        f"write inline when blocking) " + ", ".join(
+            f"{t:.0f}" for t in timed["save"]) + " ms; disk writes " +
+        ", ".join(f"{t:.0f}" for t in timed["_write"]) + " ms; restore " +
+        ", ".join(f"{t:.0f}" for t in timed["restore"]) + " ms")
+    del trainer, st
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) the launcher on the card (the reduced config, the default device)
+    launch_dir = ROOT / "build" / "lm_launch_ckpt"
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    hist = train_launcher.main(["--arch", "llama3.2-3b", "--steps", "20",
+                                "--ckpt-dir", str(launch_dir)])
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    if not last < first:
+        raise AssertionError(f"launcher: loss {first} -> {last}")
+    log(f"  launcher (reduced llama3.2-3b, 20 steps on the card): loss "
+        f"{first:.4f} -> {last:.4f}")
+    log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 11. results -------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         st = stats[name]
@@ -3400,6 +3919,8 @@ def main():
                 "int8_library_layouts"])
         if "conv1d" in st:  # recurrentgemma-9b's temporal conv, apart
             rows[-1].update(st["conv1d"])
+        if "lm_bwd" in st:  # LM training's f32 backward GEMMs, apart
+            rows[-1].update(st["lm_bwd"])
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

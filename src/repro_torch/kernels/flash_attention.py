@@ -35,7 +35,8 @@ tiles are the kernel's own.
 
 On a CUDA tensor ``flash_attention`` launches the kernel and counts the
 launch in ``flash_attention.launches``; on a CPU tensor it runs
-``flash_attention_plain``.
+``flash_attention_plain``.  Under autograd it raises on both (no
+backward).
 """
 
 from __future__ import annotations
@@ -134,8 +135,19 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
                     block_k: int = 512) -> torch.Tensor:
     """q, k, v: [B,S,H,D] → [B,S,H,D] in q's dtype.  A CUDA tensor
     launches the kernel, a CPU tensor runs the plain version; ``block_q``
-    and ``block_k`` are accepted and ignored (see the module note)."""
+    and ``block_k`` are accepted and ignored (see the module note).
+
+    The kernel has no backward, as the reference's has no VJP: where
+    autograd would record the call (grad mode on and an operand that
+    requires grad) it raises ``RuntimeError`` on either device, rather
+    than return a result that no gradient flows through."""
+    from repro_torch.kernels.ops import _recorded
     del block_q, block_k
+    if _recorded(q, k, v):
+        raise RuntimeError(
+            "flash_attention has no backward (the reference's Pallas kernel "
+            "has no VJP either): train with attn_impl=\"chunked\" or "
+            "\"dense\", or call it under torch.no_grad()")
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)

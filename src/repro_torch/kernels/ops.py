@@ -12,7 +12,8 @@
   operands their own dtype (bf16 is accumulated in f32 and rounded once),
   as the reference's entry returns;
 * ``flash_attention`` is the attention entry of the LM prefill, the kernel
-  wrapper itself (bf16 or f32, ``[B,S,H,D]``);
+  wrapper itself (bf16 or f32, ``[B,S,H,D]``); it has no backward and
+  raises where autograd would record it;
 * ``conv1d_depthwise`` is the causal depthwise temporal conv (the
   RecurrentGemma site) as a 1×K ``conv2d`` over a height-1 map, one group
   per lane: ``conv2d_ws``'s scalar path.

@@ -66,6 +66,11 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return fn(tree, *rest)
 
 
+def spec_map(fn: Callable[[ParamSpec], Any], tree: PyTree) -> PyTree:
+    """``fn`` over the :class:`ParamSpec` leaves of ``tree``."""
+    return tree_map(fn, tree)
+
+
 # a leaf with more elements than this is drawn one index of its leading
 # axis at a time (see ``materialize``); every leaf of the dense, hybrid
 # and attention-free models is smaller (the largest, gemma-7b's stacked

@@ -19,10 +19,15 @@ KV slot, and ``apply_block_decode`` ``copy_``s the recurrent states that
 ``x_ffn``) into the cache tensors it was handed, which are views of the
 serving pool.  The cross cache and the MoE layer write nothing.  The
 reference returns new caches instead.
+
+``apply_block_seq`` names the mixer's and the feed-forward's outputs
+``attn_out`` and ``ffn_out`` (``checkpoint_name``), for the
+``"save_block_outputs"`` remat policy of ``models.lm``.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Optional
 
 import torch
@@ -41,6 +46,26 @@ from repro_torch.layers.rglru import RGLRUState
 from repro_torch.layers.rwkv import RWKVState
 
 KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_RGLRU, BLOCK_RWKV6)
+
+
+_NAMING = threading.local()
+
+
+def checkpoint_name(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t`` through an ``aten.alias`` (a view, the same values) during
+    which ``naming()`` returns ``name``: a remat policy reads it to save
+    this tensor, as the reference's ``jax.ad_checkpoint.checkpoint_name``
+    tags one."""
+    _NAMING.name = name
+    try:
+        return torch.ops.aten.alias(t)
+    finally:
+        _NAMING.name = None
+
+
+def naming() -> Optional[str]:
+    """The name of the ``checkpoint_name`` call running on this thread."""
+    return getattr(_NAMING, "name", None)
 
 
 def _check_kind(kind: str) -> None:
@@ -166,7 +191,7 @@ def apply_block_seq(params, x, cfg, kind: str, *, positions,
         if want_cache:
             new_cache = {"rwkv": RWKVState(S=S_fin, x_att=x_last,
                                            x_ffn=torch.zeros_like(x_last))}
-    x = x + y
+    x = x + checkpoint_name(y, "attn_out")
 
     if enc_out is not None:
         h = apply_norm(params["cross_norm"], x, cfg)
@@ -187,7 +212,7 @@ def apply_block_seq(params, x, cfg, kind: str, *, positions,
         y, aux = apply_moe(params["moe"], h, cfg)
     else:
         y = apply_mlp(params["mlp"], h, cfg)
-    return x + y, aux, new_cache
+    return x + checkpoint_name(y, "ffn_out"), aux, new_cache
 
 
 def apply_block_decode(params, x, cfg, kind: str, *, pos, cache: Any):

@@ -12,7 +12,26 @@ stacked groups, the port loops over them in Python.  Decode updates the
 cache in place: ``_index`` hands each block views of the stacked pool,
 the attention layers write their KV slot into them and the recurrent
 blocks ``copy_`` their new states into them (``blocks.apply_block_decode``),
-so ``decode_step`` returns the cache it was given.
+so ``decode_step`` returns the cache it was given.  The sequence forward
+takes each stacked leaf apart with one ``unbind(0)``, so its backward
+stacks each leaf's gradient once.
+
+Where autograd records the forward, ``cfg.remat_policy`` wraps each group
+body and each encoder body in ``torch.utils.checkpoint`` (non-reentrant),
+as the reference wraps its scan bodies in ``jax.checkpoint``:
+
+* ``"none"``: no checkpoint, everything the backward reads is kept;
+* ``"minimal"``: the outputs of dots without batch dimensions are saved
+  (``aten.mm``, ``aten.addmm``, and ``aten.bmm`` of batch 1, which is how
+  an einsum with no batch dimension runs), the rest is recomputed — the
+  reference's ``dots_with_no_batch_dims_saveable``.  A GEMM on the
+  ``matmul_ws`` kernel is no aten op and is recomputed, as the
+  reference's ``pallas_call`` is;
+* ``"save_block_outputs"``: the blocks' ``attn_out`` and ``ffn_out``
+  (``blocks.checkpoint_name``) are saved;
+* anything else (``"full"``): nothing is saved.
+
+Recomputation changes no value.
 
 The VLM's ``patches`` [B, P, frontend_dim] go through ``frontend_proj``
 and are concatenated before the token embeddings, so the positions (and
@@ -25,15 +44,19 @@ token embeddings.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import BLOCK_ATTN, ArchConfig
 from repro_torch.layers.common import ParamSpec, cast, stack_specs, tree_map
 from repro_torch.layers.embedding import embed_tokens, embedding_specs, logits
 from repro_torch.layers.norms import apply_norm, norm_specs
 from repro_torch.layers.rope import sinusoidal_positions
+from repro_torch.models import blocks as blocks_lib
 from repro_torch.models.blocks import (apply_block_decode, apply_block_seq,
                                        block_cache_specs, block_specs)
 
@@ -53,6 +76,50 @@ def _index(tree: PyTree, g: int) -> PyTree:
     weight's per-layer scale ``s`` [G, 1, ..., N] is sliced with its
     ``q``."""
     return tree_map(lambda t: t[g], tree)
+
+
+def _unbind(tree: PyTree, n: int) -> List[PyTree]:
+    """The ``n`` groups of a stacked tree, each leaf taken apart by one
+    ``unbind(0)``."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p: p[g], parts) for g in range(n)]
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``"minimal"``: save the outputs of dots without batch dimensions."""
+    if op in _DOTS or (op is torch.ops.aten.bmm.default
+                       and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_block_outputs(ctx, op, *args, **kwargs):
+    """``"save_block_outputs"``: save the tensors the blocks name
+    ``attn_out`` and ``ffn_out``."""
+    if op is torch.ops.aten.alias.default and blocks_lib.naming() in (
+            "attn_out", "ffn_out"):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_POLICIES = {"minimal": _save_dots,
+             "save_block_outputs": _save_block_outputs}
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under the config's remat policy (see the module note); as
+    it is where autograd does not record."""
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn
+    policy = _POLICIES.get(cfg.remat_policy)
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def param_specs(cfg: ArchConfig) -> PyTree:
@@ -124,9 +191,14 @@ def _encoder_forward(params, frames, cfg: ArchConfig):
     pos = torch.arange(S, device=x.device).expand(B, S)
     x = x + cast(sinusoidal_positions(pos, cfg.d_model), x.dtype)
     enc = params["encoder"]
-    for g in range(cfg.encoder_layers):
-        x, _, _ = apply_block_seq(_index(enc["blocks"], g)["b0"], x, cfg,
-                                  BLOCK_ATTN, positions=pos, causal=False)
+
+    def body(h, gparams):
+        return apply_block_seq(gparams["b0"], h, cfg, BLOCK_ATTN,
+                               positions=pos, causal=False)[0]
+
+    body = _remat(body, cfg)
+    for gparams in _unbind(enc["blocks"], cfg.encoder_layers):
+        x = body(x, gparams)
     return apply_norm(enc["final_norm"], x, cfg)
 
 
@@ -148,16 +220,20 @@ def forward_seq(params, cfg: ArchConfig, *, tokens, patches=None,
         x = x + cast(sinusoidal_positions(positions, cfg.d_model), x.dtype)
     aux = torch.zeros((), device=x.device)
 
-    group_caches = []
-    for g in range(cfg.num_groups_scan):
-        gparams = _index(params["blocks"], g)
+    def group(h, aux, gparams):
         caches = {}
         for i, kind in enumerate(cfg.layer_pattern):
-            x, a, caches[f"b{i}"] = apply_block_seq(
-                gparams[f"b{i}"], x, cfg, kind, positions=positions,
+            h, a, caches[f"b{i}"] = apply_block_seq(
+                gparams[f"b{i}"], h, cfg, kind, positions=positions,
                 causal=True, enc_out=enc_out, want_cache=want_cache,
                 cache_len=cache_len)
             aux = aux + a
+        return h, aux, caches
+
+    group = _remat(group, cfg)
+    group_caches = []
+    for gparams in _unbind(params["blocks"], cfg.num_groups_scan):
+        x, aux, caches = group(x, aux, gparams)
         group_caches.append(caches)
 
     tail_caches = {}

@@ -31,7 +31,11 @@ gated-MLP shapes, where K reaches 12,288, and ``LM_MLP_CASES`` at
 deepseek-moe-16b's shared experts', internvl2-26b's (K to 16,384) and
 seamless-m4t-medium's.
 ``W8_SHAPES`` hold the int8 forms at w8 serving's GEMM shapes, and the
-int8 KV cache's decode contractions are held to the CPU's int64 sums."""
+int8 KV cache's decode contractions are held to the CPU's int64 sums.
+LM training: ``LM_BWD_SHAPES`` hold ``matmul_ws``'s f32 VJP at
+llama3.2-3b's MLP backward shapes, ``flash_attention`` refuses autograd
+on the card, and ``lm_train_step_card_vs_cpu`` (also run by
+``chip_smoke.py``) holds one train step of a reduced model to the CPU's."""
 
 import numpy as np
 import pytest
@@ -290,6 +294,9 @@ MM_CASES = ([(m, 200, 264, "bfloat16", m != 64)
                (4, 3072, 8192, "bfloat16", False),
                (4, 8192, 3072, "bfloat16", False),
                (3000, 3072, 8192, "bfloat16", False),
+               # a 4096-token training microbatch's MLP, up and down
+               (4096, 3072, 8192, "bfloat16", False),
+               (4096, 8192, 3072, "bfloat16", False),
                (3, 70, 33, "bfloat16", True), (65, 70, 264, "bfloat16", True),
                (3, 70, 33, "float32", True), (8, 512, 64, "int8", True),
                (8, 64, 10, "int8", True)]
@@ -943,3 +950,165 @@ def test_cuda_encdec_prefill_and_decode_equal_the_cpu(cuda):
         runs.append([t.cpu() for t in out])
     for a, b in zip(*runs):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# LM training: matmul_ws's f32 backward at the LM's shapes, the flash
+# kernel's refusal, one train step card == CPU
+# ---------------------------------------------------------------------------
+
+# llama3.2-3b's MLP GEMMs at a 4096-token microbatch, (M, K, N): the up
+# and gate projections and the down projection; their VJPs run dx as
+# [4096, 8192] @ [8192, 3072] and [4096, 3072] @ [3072, 8192], and dw as
+# [3072, 4096] @ [4096, 8192] and [8192, 4096] @ [4096, 3072]
+LM_BWD_SHAPES = ((4096, 3072, 8192), (4096, 8192, 3072))
+
+
+def lm_bwd_inputs(m, k, n, device, seed=0):
+    """f32 x [m, k], w [k, n] at the fan-in scale, a zero bias and a
+    cotangent g [m, n], the operands requiring grad."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=device)
+    w = torch.randn((k, n), generator=gen, device=device) * k ** -0.5
+    g = torch.randn((m, n), generator=gen, device=device)
+    b = torch.zeros(n, device=device)
+    return (*(t.requires_grad_() for t in (x, w, b)), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", LM_BWD_SHAPES)
+def test_cuda_matmul_vjp_at_the_lm_backward_shapes(cuda, m, k, n):
+    errs = check_matmul_vjp(*lm_bwd_inputs(m, k, n, cuda))
+    assert set(errs) == {"dx", "dw", "db"}
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_autograd(cuda):
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 64, 2, 16), generator=gen, device=cuda)
+               for _ in range(3))
+    for fn in (flash_attention, ops.flash_attention):
+        before = flash_attention.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(q.clone().requires_grad_(), k, v)
+        assert flash_attention.launches == before
+        with torch.no_grad():
+            got = fn(q.clone().requires_grad_(), k, v)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                                   rtol=1e-4, atol=1e-4)
+
+
+# the CPU tests' AdamW hyperparameters: step 0 runs at lr = 5e-4, so a
+# skipped or wrong update moves a param past the 1e-4 tolerance
+LM_STEP_HP = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+
+# how far the two gradients of a param may move its step-0 update before
+# the param is held to 2·lr (see ``lm_train_step_card_vs_cpu``): a tenth
+# of the tolerance
+NEAR_ZERO_MOVE = 1e-5
+
+
+def lm_train_step_card_vs_cpu(arch, card, backend="xla", seed=0,
+                              seq=32, batch=2):
+    """One f32 train step of the reduced ``arch`` (``gemm_backend=
+    backend``, TF32 off, ``LM_STEP_HP``) from one state drawn on the CPU,
+    on the CPU and on ``card``: the loss, every gradient and every updated
+    param, m and v within rtol = atol = 1e-4 → {"loss", "grads", "state":
+    max abs err (outside the near-zero elements), "near_zero": the param
+    elements held to 2·lr, "matmul_ws": the card step's launches}.
+
+    The first AdamW step moves a param by lr·ĝ/(|ĝ| + eps) plus the
+    weight decay (ĝ the clipped gradient: m̂ = ĝ, v̂ = ĝ²), so by ±lr
+    wherever |ĝ| ≫ eps.  Two gradients ĝ₁, ĝ₂ of one sign move it by
+    amounts lr·eps·|ĝ₁ − ĝ₂| / ((|ĝ₁| + eps)(|ĝ₂| + eps)) apart, of
+    opposite signs by up to 2·lr.  A param whose two gradients may move
+    its update by more than ``NEAR_ZERO_MOVE`` (one gradient near zero)
+    is held to 2·lr plus the tolerance; every other to the tolerance."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.layers.common import materialize, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.train import train_step as ts
+
+    cfg = dataclasses.replace(reduce_config(get_config(arch)),
+                              compute_dtype="float32", gemm_backend=backend)
+    hp = AdamWConfig(**LM_STEP_HP)
+    specs = ts.init_state_specs(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    state = {"params": materialize(specs["params"], gen, device="cpu"),
+             "opt": materialize(specs["opt"], gen, device="cpu"),
+             "step": torch.zeros((), dtype=torch.int32)}
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=seed)).batch_at(0)
+    step = ts.make_train_step(cfg, hp)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    try:
+        for dev in ("cpu", card):
+            st = tree_map(lambda t: t.to(dev, copy=True), state)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+            before = matmul_ws.launches
+            grads = ts._grads(st["params"], b, cfg)[3]
+            new, m = step(st, b)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            runs.append(({k: float(v) for k, v in m.items()},
+                         [t.cpu() for t in grads],
+                         {k: [t.cpu() for t in tree_leaves(v)] for k, v in (
+                             ("params", new["params"]),
+                             ("m", new["opt"]["m"]),
+                             ("v", new["opt"]["v"]))},
+                         int(new["step"]), matmul_ws.launches - before))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cm, cg, cs, cstep, _), (m, g, s, gstep, launches) = runs
+    assert cstep == gstep == 1
+    assert abs(m["loss"] - cm["loss"]) <= 1e-4 + 1e-4 * abs(cm["loss"])
+    for a, w in zip(g, cg):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+    lr = cm["lr"]
+    assert lr == m["lr"] > 1e-4
+    clip = min(1.0, hp.grad_clip_norm / cm["grad_norm"])
+    near, errs = 0, []
+    for name in ("params", "m", "v"):
+        for i, (a, w) in enumerate(zip(s[name], cs[name])):
+            tol = 1e-4 + 1e-4 * w.abs()
+            if name == "params":
+                ga, gw = g[i] * clip, cg[i] * clip
+                eps = hp.eps
+                move = lr * eps * (ga - gw).abs() / (
+                    (ga.abs() + eps) * (gw.abs() + eps))
+                loose = (torch.sign(ga) != torch.sign(gw)) | (
+                    move > NEAR_ZERO_MOVE)
+                near += int(loose.sum())
+                tol = torch.where(loose, tol + 2 * lr, tol)
+            err = (a - w).abs()
+            assert bool((err <= tol).all()), (name, i, float(err.max()))
+            if name == "params":
+                err = torch.where(loose, 0.0, err)
+            errs.append(float(err.max()))
+    return {"loss": abs(m["loss"] - cm["loss"]),
+            "grads": max(float((a - w).abs().max()) for a, w in zip(g, cg)),
+            "state": max(errs), "near_zero": near, "matmul_ws": launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["xla", "pallas_ws"])
+def test_cuda_lm_train_step_equals_the_cpu(cuda, backend):
+    """One train step of the reduced llama3.2-3b: the card equals the CPU
+    within 1e-4; under ``pallas_ws`` each MLP GEMM launches ``matmul_ws``
+    once forward and twice backward (the reduced config's remat policy is
+    ``"none"``: nothing is recomputed)."""
+    from repro_torch.configs.base import get_config, reduce_config
+    out = lm_train_step_card_vs_cpu("llama3p2_3b", cuda, backend)
+    cfg = reduce_config(get_config("llama3p2_3b"))
+    assert cfg.remat_policy == "none"
+    # the helper runs the gradients once, then the step
+    assert out["matmul_ws"] == (0 if backend == "xla" else
+                                2 * 3 * cfg.num_layers * (1 + 2))

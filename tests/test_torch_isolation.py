@@ -42,7 +42,11 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.configs.deepseek_moe_16b",
               "repro_torch.configs.qwen3_moe_30b_a3b",
               "repro_torch.configs.seamless_m4t_medium",
-              "repro_torch.configs.internvl2_26b"):
+              "repro_torch.configs.internvl2_26b",
+              "repro_torch.data.pipeline", "repro_torch.train.train_step",
+              "repro_torch.train.trainer",
+              "repro_torch.checkpoint.checkpoint",
+              "repro_torch.launch.train"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -55,19 +59,27 @@ def test_importing_every_module_loads_no_jax():
                    timeout=120)
 
 
-def test_launcher_help_runs_with_jax_blocked():
-    """``python -m repro_torch.launch.serve --help`` with ``jax`` and
+def _launcher_help(launcher):
+    """``python -m repro_torch.launch.<launcher> --help`` with ``jax`` and
     ``repro`` made unimportable."""
     code = ("import runpy, sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
-            "sys.argv = ['serve', '--help']\n"
-            "runpy.run_module('repro_torch.launch.serve', "
+            f"sys.argv = [{launcher!r}, '--help']\n"
+            f"runpy.run_module('repro_torch.launch.{launcher}', "
             "run_name='__main__')\n")
     run = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     assert "--arch" in run.stdout and "--device" in run.stdout
+
+
+def test_launcher_help_runs_with_jax_blocked():
+    _launcher_help("serve")
+
+
+def test_train_launcher_help_runs_with_jax_blocked():
+    _launcher_help("train")
 
 
 def test_no_source_imports_jax_or_the_reference():
