@@ -219,7 +219,31 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``Checkpointer`` restore, the losses equal to an uninterrupted run's
    bit for bit under deterministic algorithms (checkpoints under
    ``build/``, removed after); the training launcher on the card;
-11. print the per-kernel JSON line and, last, the run's device line.  A
+11. distribution on ``torch.distributed`` (DTensor): (a) on a one-rank
+   NCCL mesh ``(data=1, model=1)`` in this process, llama3.2-3b at full
+   width with 4 layers (f32 state, bf16 compute, remat ``"minimal"``,
+   ``pallas_ws``) placed by ``ShardingPlan(fsdp=True, mode="train")``:
+   one train step at 2 × 4096 tokens in two microbatches against the
+   unsharded step from the same state and batch, gradients, params, m, v
+   and metrics bit for bit (under deterministic algorithms), every
+   ``matmul_ws`` call of both held to ``matmul_ws_plain`` on its local
+   operands and their counts by form equal; the two steps timed in turns
+   and one sharded step profiled for its collectives' and redistributes'
+   share; a ``mode="decode"`` step of 4 slots × 4096 positions after a
+   3000-token prefill against the unsharded decode within phase 6's bf16
+   bound; the sharded params restored from a checkpoint onto the
+   unsharded tree and back, bit for bit.  (b) 4 ranks spawned on the
+   card (gloo where they share it, NCCL with a card each):
+   ``compressed_psum`` of a full-width gradient leaf ([3072, 8192] f32)
+   bit-equal to the sum of the ranks' own quantized shards, and
+   ``pipeline_apply`` over 4 stages of one full-width block each, 8
+   microbatches, forward and backward, against the sequential stack.
+   The sharded train and decode steps run in (b) only where DTensor's
+   all-gather works on the ranks' backend, which a 4-rank probe
+   (``tools/collectives_probe.py``) decides first; where it does not
+   (gloo with CUDA tensors aborts on it), the log names each check left
+   for a machine with one card per rank;
+12. print the per-kernel JSON line and, last, the run's device line.  A
    kernel timed over several shapes reports the sum of their times (each
    of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
    bounds; ``matmul_ws``'s ``library_ms`` sums ``torch.matmul`` over its
@@ -243,7 +267,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``F.conv1d``); the ``matmul_ws`` row carries phase 10's f32 backward
    GEMMs at llama3.2-3b's MLP shapes apart (``lm_bwd_ms``,
    ``lm_bwd_bound_ms``, ``lm_bwd_library_ms``: ``torch.matmul``, TF32 off),
-   and its ``launches`` add phase 10's training steps.
+   and its ``launches`` add phase 10's training steps and phase 11(a)'s
+   sharded and unsharded steps and decode steps.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
@@ -571,7 +596,7 @@ def main():
         stats[name]["bound"][side] += ms
         return ms, side
 
-    def device_ms(fn, reps, windows=3):
+    def device_ms(fn, reps, windows=6):
         """Device time of one call of ``fn``: the durations of the device
         events (kernels, copies, fills) of one call under torch.profiler,
         averaged over ``reps`` calls after a warm-up.  A ``spin_kernel``
@@ -580,8 +605,9 @@ def main():
         now and then loses a device event (one in 3, 10 or 20 calls; once
         in every window of a run), so a call whose event count is not the
         most common one is left out of the mean, and said so.  A window in
-        which fewer than half the calls are whole is profiled again, up to
-        ``windows`` times; if every window is short, it raises."""
+        which fewer than half the calls are whole (some windows hold no
+        device event at all) is profiled again, up to ``windows`` times;
+        if every window is short, it raises."""
         fn()
         torch.cuda.synchronize()
         act = torch.profiler.ProfilerActivity
@@ -3456,9 +3482,10 @@ def main():
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from torch.utils._python_dispatch import _disable_current_modes
-    from test_torch_cuda import (LM_BWD_SHAPES, check_grad, f32_sum_bound,
-                                 lm_bwd_inputs, lm_train_step_card_vs_cpu,
-                                 rel_l2, tf32_round)
+    from test_torch_cuda import (LM_BWD_SHAPES, f32_sum_bound, lm_bwd_inputs,
+                                 lm_train_step_card_vs_cpu, rel_l2)
+
+    import torch_dist_checks as dc
 
     # (a) the reduced models: one f32 step on the card equals the CPU's
     for arch, backend in (("llama3p2_3b", "xla"), ("llama3p2_3b", "pallas_ws"),
@@ -3560,26 +3587,21 @@ def main():
         st["max_abs_err"] = max(st["max_abs_err"], err)
         return path, err, got
 
-    def hold_f32(x, w, bias=None):
+    def hold_f32(x, w, bias=None, worst=worst, held=held, control=True):
         """``hold_mm`` on one f32 call of the step, then its output and
         torch.matmul's on the same operands against the float64 product
-        (``check_grad`` for the kernel: within ``GRAD_REL_L2``, its TF32
-        control outside) → the kernel's output."""
+        (``torch_dist_checks.f32_reading``: the kernel's within
+        ``GRAD_REL_L2``, with ``control`` its TF32 control outside), the
+        readings kept in ``worst`` → the kernel's output."""
         (m_, k_), n_ = x.shape, w.shape[1]
         with _disable_current_modes():
             _, err, got = hold_mm(x, w, bias)
-            xd, wd = x.double(), w.double()
-            want, s, lib = xd @ wd, xd.abs() @ wd.abs(), x @ w
-            if bias is not None:
-                want, s = want + bias.double(), s + bias.double().abs()
-                lib = lib + bias
-            ctl = tf32_round(x).double() @ tf32_round(w).double()
-            _, rel, ctl_rel = check_grad(f"[{m_},{k_}]@[{k_},{n_}]", got,
-                                         want, s, k_, ctl)
+            rel, lib, ctl = dc.f32_reading(x, w, bias, got, control)
         worst["plain"] = max(worst["plain"], err)
         worst["ws"] = max(worst["ws"], rel)
-        worst["lib"] = max(worst["lib"], rel_l2(lib, want))
-        worst["ctl"] = min(worst["ctl"], ctl_rel)
+        worst["lib"] = max(worst["lib"], lib)
+        if control:
+            worst["ctl"] = min(worst["ctl"], ctl)
         held[(m_, k_, n_)] += 1
         return got
 
@@ -3900,7 +3922,326 @@ def main():
         f"{first:.4f} -> {last:.4f}")
     log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
 
-    # -- 11. results -------------------------------------------------------
+    # -- 11. distribution ----------------------------------------------------
+    log("phase 11: distribution on torch.distributed (DTensor; TF32 off)")
+    t_phase = time.perf_counter()
+    import contextlib
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.distributed.sharding import (ShardingPlan, device_put,
+                                                  use_mesh)
+    from repro_torch.launch.mesh import (backend_for, init_world,
+                                         make_debug_mesh)
+    from repro_torch.layers.common import tree_map
+    sys.path.insert(0, str(ROOT / "tools"))
+    from collectives_probe import probe_one
+
+    # (a) one rank, NCCL, in this process
+    backend_a = init_world(0, 1, f"tcp://localhost:{dc.free_port()}",
+                           device=dev)
+    mesh1 = make_debug_mesh(1, 1, device=dev)
+    cfg_a = dataclasses.replace(get_config(LM_ARCH), num_layers=4,
+                                remat_policy="minimal", attn_impl="chunked",
+                                attn_chunk=TRAIN_ATTN_CHUNK,
+                                gemm_backend="pallas_ws")
+    # at lr 5e-4 a skipped update moves a param past the 1e-4 tolerance
+    hp_a, accum_a = AdamWConfig(**dc.STEP_HP), 2
+    specs_a = ts.init_state_specs(cfg_a)
+    plan_a = ShardingPlan(mesh=mesh1, fsdp=True, mode="train")
+    data_a = SyntheticLM(DataConfig(vocab_size=cfg_a.vocab_size,
+                                    seq_len=seq, global_batch=2, seed=5))
+    n_gemm_a = 3 * cfg_a.num_layers * accum_a
+    reset_counts()
+    states = {"unsharded": draw_state(cfg_a, seed=5)}
+    states["sharded"] = device_put(tree_map(torch.clone,
+                                            states["unsharded"]),
+                                   dc.full_shardings(plan_a, specs_a))
+    if not all(isinstance(t, DTensor) and t.to_local().is_cuda
+               for t in tree_leaves(states["sharded"])):
+        raise AssertionError("device_put left a leaf off the mesh or the "
+                             "card")
+    fns = {"unsharded": ts.make_train_step(cfg_a, hp_a,
+                                           accum_steps=accum_a),
+           "sharded": ts.make_train_step(cfg_a, hp_a, act_rules=plan_a.acts,
+                                         accum_steps=accum_a)}
+
+    def scoped(name):
+        return use_mesh(mesh1) if name == "sharded" else \
+            contextlib.nullcontext()
+
+    worst_a = {"plain": 0.0, "ws": 0.0, "lib": 0.0}
+
+    def recorder(forms):
+        def record(x, w, bias=None):
+            """Each call held to ``matmul_ws_plain`` on its (local)
+            operands, counted by form; an f32 call also read against the
+            float64 product (``hold_f32``; its operands are bf16 values,
+            on which TF32 rounds nothing: no control)."""
+            if isinstance(x, DTensor) or isinstance(w, DTensor):
+                raise AssertionError("a DTensor reached the matmul_ws "
+                                     "kernel")
+            if x.dtype == torch.float32:
+                forms["scalar"] += 1
+                return hold_f32(x, w, bias, worst=worst_a,
+                                held=collections.Counter(), control=False)
+            with _disable_current_modes():
+                path, _, got = hold_mm(x, w, bias)
+            forms[path] += 1
+            return got
+        return record
+
+    batch_a = on_card(data_a.batch_at(0))
+    outs, forms_a = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ("unsharded", "sharded"):
+            forms_a[name] = collections.Counter()
+            kops._matmul_kernel = recorder(forms_a[name])
+            try:
+                with scoped(name):
+                    outs[name], states[name] = dc.captured_step(
+                        fns[name], states[name], batch_a)
+            finally:
+                kops._matmul_kernel = matmul_ws
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want_forms = {"wgmma": 2 * n_gemm_a, "scalar": 2 * n_gemm_a}
+    if not (dict(forms_a["sharded"]) == dict(forms_a["unsharded"])
+            == want_forms):
+        raise AssertionError(f"matmul_ws calls by form: {forms_a}, "
+                             f"expected {want_forms} each")
+    # the gradient bound, derived as phase 10(b) derives its own: the
+    # step's gradients come from its 2 × 24 f32 matmul_ws calls (dx and
+    # dw; the forward and recompute run bf16 on the same operands in
+    # both steps), each within w relative L2 of the exact product (w the
+    # worst reading of either step's, matmul_ws's or torch.matmul's on the
+    # same operands): 2 × 48 × w.  Phase 10(b)'s TF32 control has no
+    # counterpart here: those calls' operands are bf16 values (the bf16
+    # activations and cotangents, the bf16 weights), which TF32 holds
+    # exactly, so a TF32 GEMM would give the same products
+    per_call_a = max(worst_a["ws"], worst_a["lib"])
+    bound_a = 2 * 2 * n_gemm_a * per_call_a
+    differ = dc.outputs_equal(outs["sharded"], outs["unsharded"])
+    if differ:
+        # not bit-equal: name the differing leaves and hold them (the
+        # gradients within bound_a, params / m / v by hold_step's rule)
+        held_a = dc.hold_step(outs["sharded"], outs["unsharded"],
+                              grad_rel=bound_a)
+        log(f"  (a) sharded step differs from the unsharded one at "
+            f"{differ[:12]}{' ...' if len(differ) > 12 else ''}: held "
+            f"{held_a} (gradient bound {bound_a:.2e})")
+    m_a = outs["sharded"][0]
+    log(f"  (a) one rank, backend {backend_a}, mesh (data=1, model=1), "
+        f"{cfg_a.name} at full width with {cfg_a.num_layers} layers "
+        f"({param_count(cfg_a) / 1e9:.3f} B params), 2 x {seq} tokens in "
+        f"{accum_a} microbatches, attention chunks of {cfg_a.attn_chunk}, "
+        f"lr {m_a['lr']:.3g}: the sharded step "
+        f"{'is bit-equal to' if not differ else 'held to'}"
+        f" the unsharded one ({len(outs['sharded'][1])} gradients, params, "
+        f"m, v and metrics; loss {m_a['loss']:.6f}, grad norm "
+        f"{m_a['grad_norm']:.4f}); matmul_ws calls by form, each held to "
+        f"matmul_ws_plain on its local operands: {dict(forms_a['sharded'])}"
+        f" sharded, {dict(forms_a['unsharded'])} unsharded; f32 calls' "
+        f"worst rel L2 from float64 {worst_a['ws']:.2e} (torch.matmul's "
+        f"{worst_a['lib']:.2e}; bf16-valued operands, no TF32 control): "
+        f"the bound a differing gradient would be held to, 2 × "
+        f"{2 * n_gemm_a} × {per_call_a:.2e} = {bound_a:.2e}")
+    del outs
+
+    def timed_a(name, k):
+        b = on_card(data_a.batch_at(k))
+        with scoped(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[name], m = fns[name](states[name], b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+        if not np.isfinite(loss):
+            raise AssertionError(f"(a) {name} step {k}: loss {loss}")
+        return 1e3 * (time.perf_counter() - t0)
+
+    step_ms = collections.defaultdict(list)
+    for k, name in enumerate(("unsharded", "sharded", "sharded", "unsharded",
+                              "unsharded", "sharded"), start=1):
+        step_ms[name].append(timed_a(name, k))
+
+    def dist_part(kernel, op, scope, fwd):
+        """Collectives (NCCL kernels) and the work of DTensor's
+        redistributes, forward or backward, against the rest."""
+        if "nccl" in kernel.lower() or "redistribute" in (scope, fwd):
+            return "collectives + redistribute"
+        return "the rest"
+    with use_mesh(mesh1):
+        (states["sharded"], _), busy_a, n_ev_a, parts_a = device_busy(
+            lambda: fns["sharded"](states["sharded"],
+                                   on_card(data_a.batch_at(7))),
+            part=dist_part, ranges={(DTensor, "redistribute"):
+                                    "redistribute"}, once=True)
+    coll_ms = (parts_a or {}).get("collectives + redistribute", 0.0)
+    ms_u = float(np.mean(step_ms["unsharded"][1:]))
+    ms_s = float(np.mean(step_ms["sharded"][1:]))
+    log(f"  (a) step times in turns (unsharded, sharded, sharded, "
+        f"unsharded, unsharded, sharded; the first of each a warm-up): "
+        f"unsharded {ms_u:.1f} ms, sharded {ms_s:.1f} ms "
+        f"({100 * (ms_s / ms_u - 1):+.1f}%), "
+        f"{2 * seq / ms_s * 1e3:.0f} tokens/s sharded; one profiled sharded "
+        f"step: device busy "
+        + (f"{busy_a:.1f} ms over {n_ev_a} events, collectives and "
+           f"redistributes {coll_ms:.2f} ms "
+           f"({100 * coll_ms / busy_a:.2f}% of device time)"
+           if busy_a else "not measured (no device events in the trace)")
+        + f" [{smi}]")
+    phase11 = {"step_ms": (ms_u, ms_s), "coll_ms": coll_ms,
+               "busy_ms": busy_a}
+
+    # the sharded state (params, m, v, step) through a checkpoint onto the
+    # unsharded tree and back onto the mesh, bit for bit
+    sharded_s = states.pop("sharded")
+    del states
+    torch.cuda.empty_cache()
+    ck_dir = ROOT / "build" / "dist_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = Checkpointer(str(ck_dir))
+    t0 = time.perf_counter()
+    ck.save(1, sharded_s)
+    plain_s, _ = ck.restore(tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+        sharded_s))
+    ck.save(2, plain_s)
+    back_s, _ = ck.restore(sharded_s, step=2, shardings=dc.full_shardings(
+        plan_a, specs_a))
+    ck_ms = 1e3 * (time.perf_counter() - t0)
+    n_ck = 0
+    for a, b, c in zip(tree_leaves(sharded_s), tree_leaves(plain_s),
+                       tree_leaves(back_s)):
+        if isinstance(b, DTensor) or not isinstance(c, DTensor) or not (
+                torch.equal(a.full_tensor(), b)
+                and torch.equal(c.to_local(), a.to_local())):
+            raise AssertionError("checkpoint: the sharded state did not "
+                                 "come back bit for bit")
+        n_ck += 1
+    log(f"  (a) checkpoint of the sharded state, params, m, v and step "
+        f"({n_ck} leaves, {state_bytes(plain_s) / 1e9:.2f} GB), restored "
+        f"onto the unsharded tree and that one's back onto the mesh, bit "
+        f"for bit ({ck_ms:.0f} ms for two saves and two restores)")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    del sharded_s, plain_s, back_s
+    torch.cuda.empty_cache()
+
+    # the sharded decode: 4 slots × 4096 positions after a 3000-token
+    # prefill (plain, dense attention: 3000 is no multiple of the chunk)
+    cfg_d = dataclasses.replace(cfg_a, remat_policy="none")
+    gen_d = torch.Generator(device=dev).manual_seed(6)
+    params_d = lm.compute_params(materialize(lm.param_specs(cfg_d), gen_d,
+                                             device=dev), cfg_d)
+    cache_d, tok_d, pos_d = dc.prefilled_cache(
+        params_d, dataclasses.replace(cfg_d, attn_impl="dense"), LM_SLOTS,
+        4096, 3000)
+    plan_d = ShardingPlan(mesh=mesh1, fsdp=False, mode="decode")
+    forms_d = {}
+    runs_d = {}
+    for name in ("unsharded", "sharded"):
+        forms_d[name] = collections.Counter()
+        kops._matmul_kernel = recorder(forms_d[name])
+        try:
+            c = tree_map(torch.clone, cache_d)
+            if name == "sharded":
+                runs_d[name] = dc.sharded_decode(
+                    params_d, c, cfg_d, plan_d, lm.param_specs(cfg_d),
+                    lm.cache_specs(cfg_d, LM_SLOTS, 4096), tok_d, pos_d, 2)
+            else:
+                runs_d[name] = dc.plain_decode(params_d, c, cfg_d, tok_d,
+                                               pos_d, 2)
+        finally:
+            kops._matmul_kernel = matmul_ws
+    d_bound = cfg_d.num_layers * 2.0 ** -7
+    d_rel = max(dc.rel_l2(a, b) for a, b in zip(runs_d["sharded"][0],
+                                                runs_d["unsharded"][0]))
+    d_equal = all(torch.equal(a, b) for a, b in zip(
+        runs_d["sharded"][0], runs_d["unsharded"][0]))
+    cache_equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs_d["sharded"][1]),
+        tree_leaves(runs_d["unsharded"][1])))
+    want_d = {"stream": 2 * 3 * cfg_d.num_layers}
+    if (d_rel > d_bound or not cache_equal or not all(
+            bool(torch.isfinite(t).all()) for t in runs_d["sharded"][0])
+            or not (dict(forms_d["sharded"]) == dict(forms_d["unsharded"])
+                    == want_d)):
+        raise AssertionError(f"(a) sharded decode: logits rel L2 {d_rel} "
+                             f"(bound {d_bound}), cache equal {cache_equal},"
+                             f" matmul_ws forms {forms_d}")
+    log(f"  (a) decode under mode='decode' (cache_seq over model), "
+        f"{LM_SLOTS} slots x 4096 positions after a 3000-token prefill, 2 "
+        f"steps: logits {'bit-equal to' if d_equal else 'within'} the "
+        f"unsharded decode's (rel L2 {d_rel:.2e}, bound {d_bound:.4g}), "
+        f"caches bit-equal; matmul_ws {dict(forms_d['sharded'])} held to "
+        f"matmul_ws_plain")
+    del params_d, cache_d, runs_d
+    torch.cuda.empty_cache()
+    if flash_attention.launches:
+        raise AssertionError("phase 11 launched flash_attention")
+    log(f"  (a) matmul_ws launches: {matmul_ws.launches} (by form "
+        f"{matmul_ws.path_launches})")
+    stats["matmul_ws"]["launches"] += matmul_ws.launches
+    dist.destroy_process_group()
+
+    # (b) 4 ranks on the card
+    world_b = 4
+    n_cards = torch.cuda.device_count()
+    backend_b = backend_for(dev, world_b)
+    needs = sorted({c for v in dc.CARD_CHECKS.values() for c in v})
+    probe = {c: {"ok": True, "error": ""} for c in needs}
+    if backend_b == "gloo":
+        probe = {c: probe_one(c, world_b, "gloo", "cuda") for c in needs}
+    allowed = [k for k, v in dc.CARD_CHECKS.items()
+               if all(probe[c]["ok"] for c in v)]
+    waiting = [k for k in dc.CARD_CHECKS if k not in allowed]
+    log(f"  (b) {world_b} ranks on {n_cards} card(s), backend {backend_b}"
+        f"{' (the ranks share the card)' if n_cards < world_b else ''}; "
+        f"probe of what the checks need beyond their own collectives: "
+        + ", ".join(f"{c} {'ok' if r['ok'] else 'NO: ' + r['error']}"
+                    for c, r in probe.items()))
+    out_b, _ = dc.spawn_ranks(dc.card_scenarios, world_b, tuple(allowed),
+                              LM_ARCH, 8, device=dev, timeout_s=900)
+    ps, pp = out_b.get("compressed_psum"), out_b.get("pipeline_apply")
+    if ps is None or not ps["equal"]:
+        raise AssertionError(f"(b) compressed_psum: {ps}")
+    if pp is None or not (pp["forward_equal"] and pp["grad_rel"] <= 1e-5):
+        raise AssertionError(f"(b) pipeline_apply: {pp}")
+    log(f"  (b) compressed_psum of a [3072, 8192] f32 leaf over 4 ranks: "
+        f"bit-equal to the sum of the ranks' own int8 shards times the "
+        f"largest scale (max |sum| {ps['max']:.4g})")
+    log(f"  (b) pipeline_apply, 4 stages of one full-width {LM_ARCH} block "
+        f"each (f32, xla), 8 microbatches of 512 tokens: output bit-equal "
+        f"to the sequential stack's, gradients of all {pp['leaves']} stage "
+        f"leaves within {pp['grad_rel']:.2e} relative L2 (bound 1e-5: the "
+        f"8 microbatches' terms summed in another order); "
+        f"{pp['ms']:.0f} ms forward + backward")
+    st = out_b.get("sharded_train_step")
+    sd = out_b.get("sharded_decode_step")
+    if st is not None:
+        log(f"  (b) sharded train step, 2 full-width layers on (data=2, "
+            f"model=2), FSDP, f32 compute, 2 x 2048 tokens: {st['ms']:.0f} "
+            f"ms; against rank 0's unsharded step: loss {st['loss']:.2e}, "
+            f"gradients {st['grad_rel']:.2e} relative L2 (bound 2 × "
+            f"{st['calls']} × {st['per_call']:.2e} = {st['bound']:.2e}, "
+            f"the TF32 control's at least {st['ctl']:.2e}), params, m and "
+            f"v within {st['state']:.2e} ({st['near_zero']} near-zero "
+            f"param elements at 2·lr) [{smi}]")
+    if sd is not None:
+        log(f"  (b) sharded decode, 2 full-width layers, 4 slots x 4096 "
+            f"after 3000 tokens: logits {sd['rel']:.2e} relative L2 of the "
+            f"unsharded decode's (bound {sd['bound']:.4g})")
+    if waiting:
+        log("  (b) waiting for a machine with one card per rank, where "
+            "NCCL carries DTensor's all-gather: " + ", ".join(waiting))
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 12. results -------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         st = stats[name]

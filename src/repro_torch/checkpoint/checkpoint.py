@@ -23,9 +23,17 @@ checkpoint written by either package restores into the other's tree.
   reproduces the uninterrupted run bit for bit (tested).
 
 A leaf numpy cannot hold (bf16) raises ``TypeError`` naming the leaf: the
-train state is f32 and int32.  Restoring onto a sharded layout (the
-reference's elastic restore, ``shardings=``) waits on the sharding slice
-(ROADMAP A14.5) and is refused.
+train state is f32 and int32.
+
+* **Sharded state** — a DTensor leaf is saved whole (``full_tensor``), so
+  each ``shard_<rank>.npz`` holds the full state, as the reference's
+  single-host layout does, and a checkpoint restores onto any mesh and
+  any plan (elastic restore): ``restore(shardings=)`` places each leaf on
+  its NamedSharding; a DTensor target leaf without one is placed as the
+  target is.  Under a multi-rank process group rank 0 makes and renames
+  the step's directory, the ranks meeting at a barrier between, and the
+  save is synchronous; a rank whose file is missing (a larger world than
+  the saver's) reads rank 0's.
 """
 
 from __future__ import annotations
@@ -83,10 +91,21 @@ def _rebuild(tree: PyTree, flat: Dict[str, Any], prefix=()) -> PyTree:
     return flat[_SEP.join(prefix)]
 
 
+def _barrier():
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _to_host(key: str, leaf) -> np.ndarray:
-    """A copy of ``leaf`` in host memory as a numpy array."""
+    """A copy of ``leaf`` in host memory as a numpy array (a DTensor's
+    whole value)."""
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype not in (torch.float64, torch.float32, torch.float16,
                            torch.int64, torch.int32, torch.int16, torch.int8,
                            torch.uint8, torch.bool):
@@ -111,7 +130,7 @@ class Checkpointer:
         self.wait()
         host = {k: _to_host(k, v)
                 for k, v in _flatten_with_paths(state).items()}
-        if blocking:
+        if blocking or process_index_count()[1] > 1:
             self._write(step, host, extra or {})
         else:
             self._thread = threading.Thread(
@@ -127,10 +146,12 @@ class Checkpointer:
     def _write(self, step: int, flat: Dict[str, np.ndarray], extra: Dict):
         final = os.path.join(self.directory, f"step_{step:08d}")
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
         index, count = process_index_count()
+        if index == 0:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        _barrier()
         manifest = {
             "step": step,
             "keys": sorted(flat),
@@ -140,12 +161,15 @@ class Checkpointer:
             "process_count": count,
         }
         np.savez(os.path.join(tmp, f"shard_{index}.npz"), **flat)
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
-        self._gc()
+        _barrier()
+        if index == 0:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            self._gc()
+        _barrier()
 
     def _gc(self):
         steps = self.all_steps()
@@ -169,11 +193,10 @@ class Checkpointer:
                 shardings: Optional[PyTree] = None):
         """Restore into the structure of ``target``, a tree of tensors:
         each leaf comes back on its target's device in its dtype.
+        ``shardings``: an optional tree of NamedShardings
+        (``distributed.sharding``) — the elastic path (any mesh, any
+        plan); a DTensor target leaf without one comes back placed as it.
         Returns (state, extra)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a sharded layout waits on the sharding "
-                "slice of the port (ROADMAP A14.5); pass shardings=None")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -182,21 +205,35 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         index, _ = process_index_count()
-        data = np.load(os.path.join(d, f"shard_{index}.npz"))
+        path = os.path.join(d, f"shard_{index}.npz")
+        if not os.path.exists(path):
+            path = os.path.join(d, "shard_0.npz")
+        data = np.load(path)
 
         flat_target = _flatten_with_paths(target)
         missing = [k for k in flat_target if k not in data.files]
         if missing:
             raise KeyError(f"checkpoint {d} missing keys {missing[:5]}...")
+        flat_shard = _flatten_with_paths(shardings) if shardings else {}
 
         def build(key, like):
+            from torch.distributed.tensor import DTensor
+
+            from repro_torch.distributed.sharding import place
             arr = data[key]
             want_shape = tuple(like.shape)
             if tuple(arr.shape) != want_shape:
                 raise ValueError(
                     f"{key}: checkpoint shape {arr.shape} != {want_shape}")
-            return torch.from_numpy(arr).to(device=like.device,
-                                            dtype=like.dtype)
+            sh = flat_shard.get(key)
+            if isinstance(like, DTensor):
+                dev = like.to_local().device
+                if sh is None:
+                    sh = like
+            else:
+                dev = like.device
+            t = torch.from_numpy(arr).to(device=dev, dtype=like.dtype)
+            return t if sh is None else place(t, sh)
 
         restored = {k: build(k, v) for k, v in flat_target.items()}
         return _rebuild(target, restored), manifest.get("extra", {})

@@ -1,8 +1,8 @@
 """Symmetric int8 quantization (counterpart of ``repro.core.quantize``):
 the conv datapath, the QAT straight-through estimators, and w8a8 LM
 serving (``quantize_weights``, ``w8_einsum``), whose int8 GEMMs run on
-``matmul_ws``.  The error-feedback gradient compressor waits on the
-``distributed`` slice (ROADMAP A14.5).
+``matmul_ws``, and the error-feedback gradient compressor (``EFState``,
+``ef_compress``) of ``distributed.compression``.
 
 Every scale is a float32 tensor computed with the same f32 operations in
 the same order as the reference, so scales, int8 values and biases are
@@ -11,7 +11,7 @@ bit-equal to it given bit-equal inputs."""
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional, Sequence, Union
+from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -21,6 +21,9 @@ Axis = Optional[Union[int, Sequence[int]]]
 class Quantized(NamedTuple):
     values: torch.Tensor           # int8
     scale: torch.Tensor            # f32; per-tensor [] or keepdims per-channel
+
+    def dequantize(self) -> torch.Tensor:
+        return self.values.to(torch.float32) * self.scale
 
 
 def _amax_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -230,3 +233,29 @@ def w8_einsum(subscripts: str, x: torch.Tensor, w_q: torch.Tensor,
     out = (acc.reshape(*lead, *free).to(torch.float32) * xq.scale
            * w_s.reshape(-1).to(torch.float32))
     return out.to(torch_dtype(compute_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Error-feedback compressor (for gradient all-reduce compression)
+# ---------------------------------------------------------------------------
+
+
+class EFState(NamedTuple):
+    residual: torch.Tensor         # f32 carry of quantization error
+
+
+def ef_compress(g: torch.Tensor,
+                state: Optional[EFState]) -> Tuple[Quantized, EFState]:
+    """int8-compress a gradient with error feedback: the quantization error
+    is carried into the next step so compression noise is unbiased over
+    time (Seide et al. 1-bit SGD lineage)."""
+    gf = g.to(torch.float32)
+    if state is not None:
+        gf = gf + state.residual
+    q = quantize_symmetric(gf)
+    err = gf - q.dequantize()
+    return q, EFState(residual=err)
+
+
+def ef_decompress(q: Quantized) -> torch.Tensor:
+    return q.dequantize()

@@ -23,3 +23,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "default; pass device='cpu' to run the plain versions")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def is_dtensor(*tensors) -> bool:
+    """Whether any of ``tensors`` is a ``torch.distributed`` DTensor."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in tensors)

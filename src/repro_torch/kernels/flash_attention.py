@@ -141,8 +141,14 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
     autograd would record the call (grad mode on and an operand that
     requires grad) it raises ``RuntimeError`` on either device, rather
     than return a result that no gradient flows through."""
+    from repro_torch.device import is_dtensor
     from repro_torch.kernels.ops import _recorded
     del block_q, block_k
+    if is_dtensor(q, k, v):
+        raise TypeError(
+            "flash_attention takes plain tensors, not DTensors: the sharded "
+            "train step runs attn_impl=\"chunked\", and the decode step "
+            "does not call it")
     if _recorded(q, k, v):
         raise RuntimeError(
             "flash_attention has no backward (the reference's Pallas kernel "

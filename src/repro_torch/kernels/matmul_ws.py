@@ -209,6 +209,12 @@ def matmul_ws(x, w, bias=None) -> torch.Tensor:
     else the operands' dtype (f32 or bf16).  A CUDA tensor launches the
     form ``mm_path`` names, a CPU tensor runs the plain version."""
     dt = _dtype(x, w)
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        raise TypeError(f"the matmul_ws kernel takes plain tensors, got "
+                        f"{type(x).__name__} @ {type(w).__name__}: call "
+                        f"kernels.ops.matmul_ws, which runs a DTensor's "
+                        f"local shards")
     if x.device.type == "cpu":
         return matmul_ws_plain(x, w, bias)
     if not x.is_cuda:

@@ -39,6 +39,30 @@ backward is the reference's custom VJP, on the same kernels:
 Each gradient is computed only where ``ctx.needs_input_grad`` asks for it
 (a network's first layer computes no input gradient).  Where autograd does
 not record the call, the fused kernel runs as before.
+
+``matmul_ws`` takes DTensors too (the sharded LM's GEMMs): the matrix
+product's sharding rule is applied by hand in the wrapper, mesh dim by
+mesh dim (``sharding._contract_plan``), and the kernel
+runs on the local shards, wrapped back with ``DTensor.from_local``:
+
+* x sharded on M (w replicated) → the output sharded on M;
+* w sharded on N (x replicated) → the output sharded on N;
+* K sharded on both operands → a ``Partial`` sum;
+* any other layout is redistributed to the nearest of these first (an
+  FSDP weight sharded on K under an M-sharded x is all-gathered).
+
+The bias is preloaded at K block 0, so under a K-sharded product it would
+be added once per rank: there the kernel runs without it and the bias is
+added after the reduction.  The local operands are taken with
+``to_local(grad_placements=)`` naming the layout their local gradients
+have (dw = xᵀ·g under an M-sharded x is a ``Partial`` sum over that dim,
+which FSDP's redistribute back onto the weight's layout reduce-scatters),
+so the same local autograd Function gives the backward on local shards: no
+DTensor reaches the kernel and none is gathered whole for it.  It is done
+by hand rather than with ``register_sharding`` on a ``torch.library`` op
+because the kernel's launch, counts and autograd Function stay as they
+are, and the rule needs the Partial-aware bias placement and the
+gradients' placements, which a strategy list does not carry.
 """
 
 from __future__ import annotations
@@ -48,6 +72,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv2d_ws import conv2d_ws
 from repro_torch.kernels.conv2d_ws_bwd import (conv2d_ws_input_grad,
@@ -106,13 +131,64 @@ class _MatmulWs(torch.autograd.Function):
                                   ctx.needs_input_grad)
 
 
-def matmul_ws(x, w, bias=None) -> torch.Tensor:
-    """x: [M,K] @ w: [K,N] (+bias [N]) → [M,N] on ``matmul_ws``: int32 for
-    int8 operands, else the operands' dtype; differentiable for float
-    operands (``matmul_ws_backward``)."""
+def _matmul_ws_local(x, w, bias=None) -> torch.Tensor:
     if _recorded(x, w, bias):
         return _MatmulWs.apply(x, w, bias)
     return _matmul_kernel(x, w, bias)
+
+
+def matmul_ws(x, w, bias=None) -> torch.Tensor:
+    """x: [M,K] @ w: [K,N] (+bias [N]) → [M,N] on ``matmul_ws``: int32 for
+    int8 operands, else the operands' dtype; differentiable for float
+    operands (``matmul_ws_backward``).  DTensor operands run the sharding
+    rule on their local shards (see the module note)."""
+    if is_dtensor(x, w, bias):
+        return _matmul_ws_dtensor(x, w, bias)
+    return _matmul_ws_local(x, w, bias)
+
+
+def _matmul_ws_dtensor(x, w, bias):
+    """``matmul_ws`` on the local shards of x @ w (+ bias) under the
+    matrix product's sharding rule (``sharding.contract_local``; see the
+    module note)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (_contract_plan,
+                                                  contract_local)
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"matmul_ws needs [M,K] @ [K,N], got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    def unbiased(a, b):
+        return _matmul_ws_local(a, b, None)
+    if bias is None:
+        return contract_local("mk,kn->mn", x, w, unbiased)
+    mesh = next(t for t in (x, w, bias)
+                if isinstance(t, DTensor)).device_mesh
+    if not isinstance(bias, DTensor):
+        bias = DTensor.from_local(bias, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    outs = [p[2] for p in _contract_plan(
+        "mk,kn->mn", _placements(x, mesh), _placements(w, mesh))]
+    if any(o.is_partial() for o in outs):
+        # a K-sharded product: the bias once, after the reduction
+        y = contract_local("mk,kn->mn", x, w, unbiased)
+        return y.redistribute(mesh, [Replicate() if o.is_partial() else o
+                                     for o in outs]) + bias
+    # each rank's block of columns takes its entries of the bias: sharded
+    # where the output's columns are, a partial gradient where its rows are
+    r = Replicate()
+    b_l = bias.redistribute(mesh, [
+        Shard(0) if o == Shard(1) else r for o in outs]).to_local(
+        grad_placements=[Shard(0) if o == Shard(1) else
+                         Partial() if o == Shard(0) else r for o in outs])
+    return contract_local("mk,kn->mn", x, w,
+                          lambda a, b: _matmul_ws_local(a, b, b_l))
+
+
+def _placements(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    return (t.placements if isinstance(t, DTensor)
+            else (Replicate(),) * mesh.ndim)
 
 
 # ---------------------------------------------------------------------------

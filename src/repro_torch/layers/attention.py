@@ -30,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.quantize import quantize_symmetric
-from repro_torch.layers.common import ParamSpec, cast, dense, lconstraint
+from repro_torch.layers.common import (ParamSpec, cast, dense, einsum,
+                                       lconstraint)
 from repro_torch.layers.norms import apply_norm, rmsnorm_specs
 from repro_torch.layers.rope import apply_rope
 
@@ -95,7 +96,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                 continue
             k_j = k[:, j * c:(j + 1) * c].float()
             v_j = v[:, j * c:(j + 1) * c].float()
-            scores = torch.einsum("bqhd,bkhd->bhqk", q_i, k_j)
+            scores = einsum("bqhd,bkhd->bhqk", q_i, k_j)
             if softcap:
                 scores = softcap * torch.tanh(scores / softcap)
             scores = scores.masked_fill(~_mask(qpos, kpos, causal, window),
@@ -104,8 +105,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
             alpha = torch.exp(m - m_new)
             p = torch.exp(scores - m_new[..., None])
             l = alpha * l + p.sum(dim=-1)
-            acc = alpha[..., None] * acc + torch.einsum("bhqk,bkhd->bhqd",
-                                                        p, v_j)
+            acc = alpha[..., None] * acc + einsum("bhqk,bkhd->bhqd", p,
+                                                  v_j)
             m = m_new
         out_i = acc / torch.clamp(l, min=1e-30)[..., None]         # [B,H,c,D]
         outs.append(out_i.transpose(1, 2))                         # [B,c,H,D]
@@ -118,14 +119,14 @@ def dense_attention(q, k, v, *, causal: bool, window: int = 0,
     Sq, D = q.shape[1], q.shape[3]
     Sk = k.shape[1]
     scale = 1.0 / math.sqrt(D)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    scores = einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     if softcap:
         scores = softcap * torch.tanh(scores / softcap)
     qpos = q_offset + torch.arange(Sq, device=q.device)
     kpos = torch.arange(Sk, device=q.device)
     scores = scores.masked_fill(~_mask(qpos, kpos, causal, window), NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
 class KVCache(NamedTuple):
@@ -155,6 +156,32 @@ def to_cache(t: torch.Tensor, dtype, kv_scale: float) -> torch.Tensor:
     return cast(t, dtype)
 
 
+def write_slots(cache: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``cache[bidx, slot] = new`` in place (cache [B, S, KV, D], new
+    [B, KV, D]).  A DTensor cache (batch and ``cache_seq`` sharded) is
+    written on its local shard: ``new`` placed as the cache is on its own
+    dims, and each rank writes the rows whose batch index and slot fall in
+    its block.  DTensor has no in-place ``index_put_`` that keeps a sharded
+    layout."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache, DTensor):
+        cache[bidx, slot] = new
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    shape, off = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    # the cache's dims (B, S, KV, D) are new's (B, -, KV, D)
+    new = new.redistribute(mesh, [
+        Replicate() if not p.is_shard() or p.dim == 1 else
+        Shard(p.dim - (p.dim > 1)) for p in cache.placements]).to_local()
+    b, s = bidx - off[0], slot - off[1]
+    mine = (b >= 0) & (b < shape[0]) & (s >= 0) & (s < shape[1])
+    cache.to_local()[b[mine], s[mine]] = new[b[mine]]
+
+
 def _int8_contract(subscripts: str, a: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
     """The int32 value of an einsum of two int8 operands, as f32.
@@ -174,8 +201,7 @@ def _int8_contract(subscripts: str, a: torch.Tensor,
         raise RuntimeError("the int8 KV cache's contractions are exact only "
                            "with TF32 off "
                            "(torch.backends.cuda.matmul.allow_tf32)")
-    return torch.einsum(subscripts, a.to(torch.float32),
-                        b.to(torch.float32))
+    return einsum(subscripts, a.to(torch.float32), b.to(torch.float32))
 
 
 def _project_qkv(params, x, cfg, positions):
@@ -195,6 +221,25 @@ def _project_qkv(params, x, cfg, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _reshape(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t.reshape(*shape)``; a DTensor keeps a dim's sharding only where
+    that dim and all before it are unchanged, and is replicated on the
+    other mesh dims first (DTensor cannot split or merge a sharded head
+    dim across uneven groups, e.g. 8 heads over 4 ranks into [2, 4])."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t.reshape(*shape)
+    same = 0
+    while (same < min(t.dim(), len(shape))
+           and t.shape[same] == shape[same]):
+        same += 1
+    keep = [p if not p.is_shard() or p.dim < same else Replicate()
+            for p in t.placements]
+    if keep != list(t.placements):
+        t = t.redistribute(t.device_mesh, keep)
+    return t.reshape(*shape)
 
 
 def _broadcast_kv(t, num_heads: int):
@@ -271,11 +316,11 @@ def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
         if cfg.use_rope:
             q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k_all, v_all = cross_kv
-        scores = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KV, G, D)
-                              .float(), k_all.float()) / math.sqrt(D)
+        scores = einsum("bkgd,bskd->bkgs", _reshape(q, B, KV, G, D).float(),
+                        k_all.float()) / math.sqrt(D)
         p = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgs,bskd->bkgd", p, v_all.float())
-        out = cast(out, cfg.compute_dtype).reshape(B, 1, cfg.num_heads, D)
+        out = einsum("bkgs,bskd->bkgd", p, v_all.float())
+        out = _reshape(cast(out, cfg.compute_dtype), B, 1, cfg.num_heads, D)
         return dense(params["wo"], out, "bshe,hed->bsd",
                      compute_dtype=cfg.compute_dtype), cache
 
@@ -287,17 +332,19 @@ def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
     bidx = torch.arange(B, device=x.device)
     int8_cache = cache.k.dtype == torch.int8
     kv_scale = cfg.kv_cache_scale
-    cache.k[bidx, slot] = to_cache(k_new[:, 0], cache.k.dtype, kv_scale)
-    cache.v[bidx, slot] = to_cache(v_new[:, 0], cache.v.dtype, kv_scale)
+    write_slots(cache.k, bidx, slot,
+                to_cache(k_new[:, 0], cache.k.dtype, kv_scale))
+    write_slots(cache.v, bidx, slot,
+                to_cache(v_new[:, 0], cache.v.dtype, kv_scale))
 
-    qg = q.reshape(B, KV, G, D)
+    qg = _reshape(q, B, KV, G, D)
     if int8_cache:
         qq = quantize_symmetric(qg)
         acc = _int8_contract("bkgd,bskd->bkgs", qq.values, cache.k)
         scores = acc * (qq.scale * kv_scale) / math.sqrt(D)
     else:
-        scores = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                              cache.k.float()) / math.sqrt(D)
+        scores = einsum("bkgd,bskd->bkgs", qg.float(),
+                        cache.k.float()) / math.sqrt(D)
     # a slot s holds absolute position p(s); valid if p(s) <= pos and
     # (window) p(s) > pos - window.  A ring filled past capacity is all
     # valid.
@@ -313,8 +360,8 @@ def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
         acc = _int8_contract("bkgs,bskd->bkgd", pq, cache.v)
         out = acc * (kv_scale / 127.0)
     else:
-        out = torch.einsum("bkgs,bskd->bkgd", p, cache.v.float())
-    out = cast(out, cfg.compute_dtype).reshape(B, 1, cfg.num_heads, D)
+        out = einsum("bkgs,bskd->bkgd", p, cache.v.float())
+    out = _reshape(cast(out, cfg.compute_dtype), B, 1, cfg.num_heads, D)
     y = dense(params["wo"], out, "bshe,hed->bsd",
               compute_dtype=cfg.compute_dtype)
     return y, cache

@@ -7,9 +7,15 @@ tensors drawn from a ``torch.Generator``.  The trees keep the reference's
 layout leaf for leaf, stacked ``stack`` dimension included, so weights carry
 across with ``convert.lm_params_to_torch``.
 
-Sharding is a later slice of the port: ``activate_rules`` and
-``lconstraint`` keep the reference's logical-axis annotations at the same
-points and do nothing.
+Sharding: ``activate_rules`` installs logical-axis → mesh-axis rules
+(``repro_torch.distributed.sharding``) and ``use_mesh`` an ambient
+``DeviceMesh``.  With both set, ``lconstraint`` places an activation on the
+resolved layout, as the reference's ``with_sharding_constraint`` does: a
+DTensor is redistributed, a plain tensor is distributed from its value
+(which every rank must hold, as a host value that ``jax.jit`` shards),
+and plain tensors that meet DTensors in an op are taken as replicated
+(DTensor's ``implicit_replication``).  Without rules or without a mesh it
+returns its input, so every single-device path is unchanged.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, is_dtensor, resolve_device
 
 PyTree = Any
 
@@ -131,23 +137,117 @@ def stack_specs(tree: PyTree, n: int) -> PyTree:
     return tree_map(f, tree)
 
 
-class activate_rules:
-    """Logical-axis → mesh-axis rules: a no-op until the sharding slice."""
+# ---------------------------------------------------------------------------
+# Logical sharding constraints (no-op outside an active rule context)
+# ---------------------------------------------------------------------------
 
-    def __init__(self, rules: Optional[dict]):
-        self.rules = rules
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec``: per tensor dim ``None``, a mesh-axis name,
+    or a tuple of names (the dim split over all of them, the first
+    outermost); a one-name tuple is that name, as JAX writes it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+_ACTIVE_RULES: Optional[dict] = None
+_ACTIVE_MESH = None
+
+
+class _Scoped:
+    """Sets a module global for the length of a ``with`` block."""
+    _name = ""
+
+    def __init__(self, value):
+        self.value = value
 
     def __enter__(self):
+        self._prev = globals()[self._name]
+        globals()[self._name] = self.value
+        self._implicit = None
+        if _ACTIVE_RULES is not None and _ACTIVE_MESH is not None:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            self._implicit = implicit_replication()
+            self._implicit.__enter__()
         return self
 
     def __exit__(self, *exc):
+        if self._implicit is not None:
+            self._implicit.__exit__(*exc)
+        globals()[self._name] = self._prev
         return False
 
 
+class activate_rules(_Scoped):
+    """Context manager installing logical-axis → mesh-axis rules; while
+    active under ``use_mesh``, :func:`lconstraint` places activations."""
+    _name = "_ACTIVE_RULES"
+
+    @property
+    def rules(self) -> Optional[dict]:
+        return self.value
+
+
+class use_mesh(_Scoped):
+    """Context manager making a ``torch.distributed`` ``DeviceMesh`` the
+    ambient mesh (``jax.set_mesh``'s counterpart)."""
+    _name = "_ACTIVE_MESH"
+
+
+def active_mesh():
+    """The ``DeviceMesh`` of the innermost ``use_mesh``, or None."""
+    return _ACTIVE_MESH
+
+
+def resolve_pspec(axes: Tuple[Optional[str], ...],
+                  rules: dict) -> PartitionSpec:
+    """Logical axes → PartitionSpec with first-come-first-served mesh-axis
+    conflict resolution (a mesh axis may shard at most one dimension)."""
+    used: set = set()
+    out = []
+    for name in axes:
+        mesh_axis = rules.get(name) if name else None
+        if mesh_axis is None:
+            out.append(None)
+            continue
+        flat = (mesh_axis,) if isinstance(mesh_axis, str) else tuple(
+            mesh_axis)
+        if not flat or any(a in used for a in flat):
+            out.append(None)
+            continue
+        used.update(flat)
+        out.append(mesh_axis if isinstance(mesh_axis, str) else flat)
+    return PartitionSpec(*out)
+
+
 def lconstraint(x: torch.Tensor, axes: Tuple[Optional[str], ...]):
-    """Logical sharding annotation: a no-op until the sharding slice."""
-    del axes
-    return x
+    """Constrain an activation's layout by logical axis names: under
+    rules and a mesh, a DTensor redistributed to the resolved placements,
+    a plain tensor distributed from its value; else ``x`` itself."""
+    if _ACTIVE_RULES is None or _ACTIVE_MESH is None:
+        return x
+    from repro_torch.distributed.sharding import NamedSharding, place
+    return place(x, NamedSharding(_ACTIVE_MESH,
+                                  resolve_pspec(axes, _ACTIVE_RULES)))
+
+
+def einsum(subscripts: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands; DTensors under ``use_mesh``
+    contract their local shards (``sharding.contract_local``) rather than
+    go through DTensor's decomposition of the einsum into views and a
+    ``bmm``, which redistributes more and plans each step on the host."""
+    if _ACTIVE_MESH is not None and is_dtensor(a, b):
+        from repro_torch.distributed.sharding import contract_local
+        return contract_local(subscripts, a, b,
+                              lambda x, y: torch.einsum(subscripts, x, y))
+    return torch.einsum(subscripts, a, b)
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -183,9 +283,14 @@ def dense(w, x: torch.Tensor, subscripts: str, *, backend: str = "xla",
     if backend == "pallas_ws" and w.dim() == 2:
         from repro_torch.kernels import ops as kops
         lead = x.shape[:-1]
+        if is_dtensor(x):
+            from repro_torch.distributed.sharding import (flatten_rows,
+                                                          unflatten_rows)
+            return unflatten_rows(kops.matmul_ws(flatten_rows(x), w,
+                                                 bias=bias), lead)
         y = kops.matmul_ws(x.reshape(-1, x.shape[-1]), w, bias=bias)
         return y.reshape(*lead, w.shape[-1])
-    y = torch.einsum(subscripts, x, w)
+    y = einsum(subscripts, x, w)
     if bias is not None:
         y = y + bias
     return y

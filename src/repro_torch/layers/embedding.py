@@ -6,7 +6,8 @@ import math
 
 import torch
 
-from repro_torch.layers.common import ParamSpec, cast, lconstraint
+from repro_torch.device import is_dtensor
+from repro_torch.layers.common import ParamSpec, cast, einsum, lconstraint
 
 
 def embedding_specs(cfg):
@@ -20,8 +21,15 @@ def embedding_specs(cfg):
 
 def embed_tokens(params, tokens: torch.Tensor, cfg):
     """Token ids must lie in [0, vocab): torch indexing raises where
-    ``jnp.take`` clamps."""
-    x = cast(params["embed"][tokens], cfg.compute_dtype)
+    ``jnp.take`` clamps.  A DTensor table is read on its local shards
+    (``sharding.gather_rows``)."""
+    table = params["embed"]
+    if is_dtensor(table):
+        from repro_torch.distributed.sharding import gather_rows
+        rows = gather_rows(table, tokens)
+    else:
+        rows = table[tokens]
+    x = cast(rows, cfg.compute_dtype)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     return lconstraint(x, ("batch", "seq_r", "embed"))
@@ -35,14 +43,14 @@ def logits(params, x: torch.Tensor, cfg):
     x = cast(x, cfg.compute_dtype).float()
     if cfg.tie_embeddings:
         w = cast(params["embed"], cfg.compute_dtype).float()
-        out = torch.einsum("bsd,vd->bsv", x, w)
+        out = einsum("bsd,vd->bsv", x, w)
     elif isinstance(params["unembed"], dict):   # w8 serving
         from repro_torch.core.quantize import w8_einsum
         out = w8_einsum("bsd,dv->bsv", x, params["unembed"]["q"],
                         params["unembed"]["s"], compute_dtype="float32")
     else:
         w = cast(params["unembed"], cfg.compute_dtype).float()
-        out = torch.einsum("bsd,dv->bsv", x, w)
+        out = einsum("bsd,dv->bsv", x, w)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         out = c * torch.tanh(out / c)

@@ -23,6 +23,14 @@ Two forms of the update share its per-leaf arithmetic (``_upd``):
 
 ``opt_state_specs`` gives the LM's m and v as f32 zero specs mirroring
 the parameter specs.
+
+Sharded state (DTensor leaves, ``distributed.sharding``): the global norm
+is taken by DTensor's ops, which reduce it over the mesh, and the update
+runs on each leaf's local shard, its gradient first placed as the
+parameter is (an FSDP weight's partial gradient is reduce-scattered
+there).  The update is elementwise, so a shard's values are the whole
+leaf's; on a one-rank mesh every local shard is the whole tensor and the
+update is bit-equal to the unsharded one.
 """
 
 from __future__ import annotations
@@ -140,6 +148,24 @@ def adamw_update(params: PyTree, grads: PyTree, opt_state: Dict[str, PyTree],
             {"lr": lr, "grad_norm": gnorm})
 
 
+def _local(t: torch.Tensor, like=None) -> torch.Tensor:
+    """A DTensor's local shard (placed as ``like`` first, where given); a
+    plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    if like is not None:
+        from repro_torch.distributed.sharding import place
+        t = place(t, like)
+    return t.to_local()
+
+
+def full_value(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 # the most elements ``adamw_update_`` updates at once: a layer's slice of
 # llama3.2-3b's stacked MLP weights (3072 × 8192) is one block
 UPDATE_ROWS = 1 << 25
@@ -160,16 +186,20 @@ def adamw_update_(params: PyTree, grads: PyTree,
                   hp: AdamWConfig) -> Dict[str, torch.Tensor]:
     """``adamw_update`` in place → {"lr", "grad_norm"}: the new params, m
     and v are written into ``params`` and ``opt_state``'s tensors and the
-    clip scales f32 ``grads`` in place (see the module note)."""
-    lr, c1, c2 = _schedule(step, hp)
+    clip scales f32 ``grads`` in place (see the module note); DTensor
+    leaves are updated on their local shards."""
+    lr, c1, c2 = _schedule(_local(step), hp)
     grads = tree_map(lambda g: g.to(torch.float32), grads)
-    gnorm = global_norm(grads)
+    gnorm = full_value(global_norm(grads))
+    leaves = [tree_leaves(t) for t in (params, grads, opt_state["m"],
+                                       opt_state["v"])]
+    local = [[_local(t, like) for t, like in zip(ts, leaves[0])]
+             for ts in leaves]
     if hp.grad_clip_norm > 0:
         scale = _clip_scale(gnorm, hp.grad_clip_norm)
-        for g in tree_leaves(grads):
+        for g in local[1]:
             g.mul_(scale)
-    for p, g, m, v in zip(*(tree_leaves(t) for t in (
-            params, grads, opt_state["m"], opt_state["v"]))):
+    for p, g, m, v in zip(*local):
         for blocks in zip(*(_row_blocks(t) for t in (p, g, m, v))):
             for dst, new in zip((blocks[0], blocks[2], blocks[3]),
                                 _upd(*blocks, lr, c1, c2, hp)):

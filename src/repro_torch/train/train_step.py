@@ -15,8 +15,13 @@ batch split along its leading axis, each microbatch's gradients added to
 f32 sums that start at zero, the sums and the losses scaled by
 1/accum_steps at the end.  The live activations are one microbatch's.
 
-``act_rules`` keeps the reference's signature; the logical-axis rules are
-a no-op until the sharding slice.
+Sharded: with ``act_rules`` (``ShardingPlan.acts``) under ``use_mesh``,
+the state's leaves are DTensors (``sharding.device_put`` on
+``ShardingPlan.param_shardings``), the batch is placed batch-sharded
+(``lconstraint``, as ``jax.jit``'s in_shardings place it), each gradient
+is placed as its parameter is (a reduce-scatter under FSDP), the update
+runs on local shards (``adamw_update_``) and the metrics come back as
+whole values on every rank.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.layers.common import activate_rules, tree_map
+from repro_torch.device import is_dtensor
+from repro_torch.layers.common import activate_rules, lconstraint, tree_map
 from repro_torch.models import lm
-from repro_torch.optim.adamw import (AdamWConfig, adamw_update_,
+from repro_torch.optim.adamw import (AdamWConfig, adamw_update_, full_value,
                                      opt_state_specs, tree_leaves)
 
 PyTree = Any
@@ -64,7 +70,16 @@ def _grads(params, batch, cfg: ArchConfig):
     total, (loss, aux) = _loss_fn(_unflatten(params, live), batch, cfg)
     grads = torch.autograd.grad(total, live, allow_unused=True,
                                 materialize_grads=True)
+    if is_dtensor(*grads):
+        # each gradient on its parameter's layout (FSDP: a reduce-scatter)
+        from repro_torch.distributed.sharding import place
+        grads = [place(g, p) for g, p in zip(grads, live)]
     return total.detach(), loss.detach(), aux.detach(), list(grads)
+
+
+def _constrain_batch(batch):
+    return {k: lconstraint(t, ("batch",) + (None,) * (t.dim() - 1))
+            for k, t in batch.items()}
 
 
 def make_train_step(cfg: ArchConfig, hp: AdamWConfig,
@@ -78,19 +93,19 @@ def make_train_step(cfg: ArchConfig, hp: AdamWConfig,
         params = state["params"]
         with activate_rules(act_rules):
             if accum_steps == 1:
-                total, loss, aux, grads = _grads(params, batch, cfg)
+                total, loss, aux, grads = _grads(
+                    params, _constrain_batch(batch), cfg)
             else:
                 mb = {k: t.reshape(accum_steps, t.shape[0] // accum_steps,
                                    *t.shape[1:]) for k, t in batch.items()}
-                grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
+                grads = [torch.zeros_like(p, dtype=torch.float32)
                          for p in tree_leaves(params)]
                 zero = torch.zeros((), dtype=torch.float32,
                                    device=state["step"].device)
                 total = loss = aux = zero
                 for i in range(accum_steps):
-                    tt, ll, aa, g = _grads(
-                        params, {k: t[i] for k, t in mb.items()}, cfg)
+                    tt, ll, aa, g = _grads(params, _constrain_batch(
+                        {k: t[i] for k, t in mb.items()}), cfg)
                     for acc, gi in zip(grads, g):
                         acc.add_(gi.to(torch.float32))
                     del g
@@ -101,7 +116,9 @@ def make_train_step(cfg: ArchConfig, hp: AdamWConfig,
                 total, loss, aux = total * scale, loss * scale, aux * scale
             om = adamw_update_(params, _unflatten(params, grads),
                                state["opt"], state["step"], hp)
-        metrics = {"loss": loss, "aux_loss": aux, "total_loss": total, **om}
+        metrics = {k: full_value(v) for k, v in (
+            ("loss", loss), ("aux_loss", aux), ("total_loss", total),
+            *om.items())}
         return ({"params": params, "opt": state["opt"],
                  "step": state["step"] + 1}, metrics)
 

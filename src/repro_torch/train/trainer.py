@@ -12,7 +12,10 @@ Each step is timed on the host's monotonic clock around the train step
 and the read of its metrics (which waits for the device), under the
 ``trainer.step`` span, into the ``trainer.step_us`` histogram of
 ``repro_torch.obs``.  ``to_device`` defaults to putting the numpy batch
-on the device of the state's ``step``.
+on the device of the state's ``step``.  ``state_shardings`` (a tree of
+``distributed.sharding.NamedSharding``s, for a sharded state) goes to
+``Checkpointer.restore``, so a restart places the restored state on the
+mesh again.
 """
 
 from __future__ import annotations

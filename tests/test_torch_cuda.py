@@ -1112,3 +1112,164 @@ def test_cuda_lm_train_step_equals_the_cpu(cuda, backend):
     # the helper runs the gradients once, then the step
     assert out["matmul_ws"] == (0 if backend == "xla" else
                                 2 * 3 * cfg.num_layers * (1 + 2))
+
+
+# ---------------------------------------------------------------------------
+# distribution: matmul_ws on DTensor shards; a one-rank sharded step
+# ---------------------------------------------------------------------------
+
+# llama3.2-3b's MLP GEMMs split over 2 ranks on N (up / gate) and on K
+# (down): at a 4-slot decode step (stream), a 512-token prefill (wgmma)
+# and in f32 (scalar): (split, m, k, n, dtype)
+DT_MM_CASES = [(split, m, k, n, dname)
+               for split, k, n in (("N", 3072, 8192), ("K", 8192, 3072))
+               for m, dname in ((4, "bfloat16"), (512, "bfloat16"),
+                                (512, "float32"))]
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_ws_dtensor_local_shards(cuda):
+    """``ops.matmul_ws`` on DTensors runs the kernel on each rank's local
+    shard (N/2 and K/2 of the MLP's GEMMs, every form), 2 ranks sharing
+    the card (gloo; no collective runs)."""
+    import torch_dist_checks as dc
+    out, backend = dc.spawn_ranks(dc.card_matmul_local, 2, DT_MM_CASES,
+                                  device="cuda", timeout_s=300)
+    assert backend == ("nccl" if torch.cuda.device_count() >= 2
+                       else "gloo")
+    forms = {case: path for case, path, _ in out}
+    assert len(forms) == len(DT_MM_CASES)
+    assert set(forms.values()) == {"stream", "wgmma", "scalar"}
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_sharded_step_is_bit_equal(cuda):
+    """Phase 11(a) at one full-width layer: llama3.2-3b (bf16 compute,
+    remat ``"minimal"``, ``pallas_ws``) on a one-rank NCCL mesh, one step
+    of 2 × 512 tokens in two microbatches, bit-equal to the unsharded
+    step (deterministic algorithms), ``matmul_ws`` calls by form equal."""
+    import collections
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import torch_dist_checks as dc
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import (ShardingPlan, device_put,
+                                                  use_mesh)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    from repro_torch.layers.common import tree_map
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(get_config("llama3p2_3b"), num_layers=1,
+                              remat_policy="minimal", attn_impl="chunked",
+                              gemm_backend="pallas_ws")
+    assert init_world(0, 1, f"tcp://localhost:{dc.free_port()}",
+                      device=cuda) == "nccl"
+    try:
+        mesh = make_debug_mesh(1, 1, device=cuda)
+        plan = ShardingPlan(mesh=mesh, fsdp=True, mode="train")
+        hp = AdamWConfig(**dc.STEP_HP)
+        state, specs = dc.draw_state(cfg, 3, cuda)
+        sharded = device_put(tree_map(torch.clone, state),
+                             dc.full_shardings(plan, specs))
+        batch = dc.draw_batch(cfg.vocab_size, 2, 512, 4, cuda)
+        kernel = kops._matmul_kernel
+        outs, forms = [], []
+        torch.use_deterministic_algorithms(True)
+        try:
+            for st, rules, scope in ((state, None, None),
+                                     (sharded, plan.acts, mesh)):
+                seen = collections.Counter()
+
+                def counted(x, w, b=None, _seen=seen):
+                    _seen[mm_path(x.shape[0], x.shape[1], w.shape[1],
+                                  x.dtype)] += 1
+                    return kernel(x, w, b)
+                kops._matmul_kernel = counted
+                fn = ts.make_train_step(cfg, hp, act_rules=rules,
+                                        accum_steps=2)
+                if scope is None:
+                    outs.append(dc.captured_step(fn, st, batch)[0])
+                else:
+                    with use_mesh(scope):
+                        outs.append(dc.captured_step(fn, st, batch)[0])
+                forms.append(dict(seen))
+        finally:
+            kops._matmul_kernel = kernel
+            torch.use_deterministic_algorithms(False)
+        assert dc.outputs_equal(outs[1], outs[0]) == []
+        assert forms[0] == forms[1] == {"wgmma": 12, "scalar": 12}
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_sharded_decode_is_bit_equal(cuda):
+    """Phase 11(a)'s decode at one full-width layer: a ``mode="decode"``
+    step (cache_seq over model) of 4 slots × 1024 positions after a
+    600-token prefill, two steps, logits and cache bit-equal to the
+    unsharded decode; ``matmul_ws`` on the stream form."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import torch_dist_checks as dc
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import ShardingPlan
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    from repro_torch.layers.common import materialize, tree_map
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = dataclasses.replace(get_config("llama3p2_3b"), num_layers=1,
+                              gemm_backend="pallas_ws")
+    assert init_world(0, 1, f"tcp://localhost:{dc.free_port()}",
+                      device=cuda) == "nccl"
+    try:
+        plan = ShardingPlan(mesh=make_debug_mesh(1, 1, device=cuda),
+                            fsdp=False, mode="decode")
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        params = lm.compute_params(materialize(lm.param_specs(cfg), gen,
+                                               device=cuda), cfg)
+        cache, tok, pos = dc.prefilled_cache(
+            params, dataclasses.replace(cfg, attn_impl="dense"), 4, 1024,
+            600)
+        before = matmul_ws.path_launches["stream"]
+        got = dc.sharded_decode(params, tree_map(torch.clone, cache), cfg,
+                                plan, lm.param_specs(cfg),
+                                lm.cache_specs(cfg, 4, 1024), tok, pos, 2)
+        assert matmul_ws.path_launches["stream"] == before + 2 * 3
+        want = dc.plain_decode(params, cache, cfg, tok, pos, 2)
+        for a, b in zip(got[0] + tree_leaves(got[1]),
+                        want[0] + tree_leaves(want[1])):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_four_rank_checks_on_nccl(cuda):
+    """Phase 11(b) with a card per rank: every check of
+    ``torch_dist_checks.card_scenarios`` at 4 ranks over NCCL, 2
+    full-width llama3.2-3b layers: ``compressed_psum`` bit-equal,
+    ``pipeline_apply`` against the sequential stack, the sharded f32
+    train step within its derived gradient bound (``card_train``) and the
+    sharded decode within phase 6's bf16 bound (``card_decode``)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards, one a rank: NCCL refuses two ranks on "
+                    "one card and gloo cannot all-gather DTensors there")
+    import torch_dist_checks as dc
+    out, backend = dc.spawn_ranks(dc.card_scenarios, 4,
+                                  tuple(dc.CARD_CHECKS), "llama3p2_3b", 8,
+                                  device="cuda", timeout_s=900)
+    print(out)
+    assert backend == "nccl"
+    assert set(out) == set(dc.CARD_CHECKS)
+    assert out["compressed_psum"]["equal"]
+    pp = out["pipeline_apply"]
+    assert pp["forward_equal"] and pp["grad_rel"] <= 1e-5
+    st = out["sharded_train_step"]
+    assert st["grad_rel"] <= st["bound"] < st["ctl"]
+    assert out["sharded_decode_step"]["rel"] <= \
+        out["sharded_decode_step"]["bound"]

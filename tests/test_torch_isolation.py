@@ -46,7 +46,11 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.data.pipeline", "repro_torch.train.train_step",
               "repro_torch.train.trainer",
               "repro_torch.checkpoint.checkpoint",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.compression",
+              "repro_torch.distributed.pipeline",
+              "repro_torch.launch.mesh"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -83,7 +87,9 @@ def test_train_launcher_help_runs_with_jax_blocked():
 
 
 def test_no_source_imports_jax_or_the_reference():
-    for path in sorted(PORT.rglob("*.py")) + [SMOKE]:
+    for path in sorted(PORT.rglob("*.py")) + [
+            SMOKE, ROOT / "tests" / "torch_dist_checks.py",
+            ROOT / "tools" / "collectives_probe.py"]:
         hits = BANNED.findall(path.read_text())
         assert not hits, (path, hits)
 
