@@ -243,7 +243,32 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    (``tools/collectives_probe.py``) decides first; where it does not
    (gloo with CUDA tensors aborts on it), the log names each check left
    for a machine with one card per rank;
-12. print the per-kernel JSON line and, last, the run's device line.  A
+12. the roofline of llama3.2-3b's steps and the dry run: (a) as
+   published (28 layers, bf16 compute) a prefill of 4096 tokens
+   (``attn_impl="flash"``), a decode step of 4 slots × 4096 positions and
+   phase 10(c)'s train step, each on ``xla`` and on ``pallas_ws``, run on
+   the card under ``roofline.counts.CostCounter``: each count equal to
+   the dry run's fake count of the same one-card cell
+   (``launch.dryrun.count_cell``, mesh ``"one"``: one and two layer
+   groups extrapolated to 28), FLOPs equal across the backends but for
+   the train step's recomputed ``matmul_ws`` GEMMs (remat ``"minimal"``
+   saves aten dots only), ``matmul_ws`` launches by form as ``mm_path``
+   predicts; per step the TFLOP by dtype, traffic, the three terms
+   against ``roofline.analysis.H100``, the bottleneck, the measured ms
+   (the prefill and decode timed here, the train step phase 10(c)'s
+   median) and bound ÷ measured, which must not pass 1.05; (b) ``python
+   -m repro_torch.launch.dryrun --arch llama3.2-3b --shape decode_32k
+   --mesh single`` in a subprocess (fake CUDA tensors over 256 fake
+   ranks): its cell has 256 chips, ``argument_bytes`` equal to the local
+   shards of the plan's specs, and a named bottleneck; (c) the host time
+   that the ``repro_torch::matmul_ws`` op adds to a call, at the decode
+   step's three MLP GEMMs (M = 4 slots): the public wrapper, the op
+   alone and the wrapper as it was before the op (the same checks, then
+   the launch called directly), each issuing back-to-back calls in
+   interleaved windows, outputs ``torch.equal``; printed as the median of
+   the windows' differences a call and times the ``pallas_ws`` decode
+   step's calls;
+13. print the per-kernel JSON line and, last, the run's device line.  A
    kernel timed over several shapes reports the sum of their times (each
    of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
    bounds; ``matmul_ws``'s ``library_ms`` sums ``torch.matmul`` over its
@@ -268,7 +293,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    GEMMs at llama3.2-3b's MLP shapes apart (``lm_bwd_ms``,
    ``lm_bwd_bound_ms``, ``lm_bwd_library_ms``: ``torch.matmul``, TF32 off),
    and its ``launches`` add phase 10's training steps and phase 11(a)'s
-   sharded and unsharded steps and decode steps.
+   sharded and unsharded steps and decode steps; ``matmul_ws``'s and
+   ``flash_attention``'s add phase 12's counted and timed steps.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
@@ -3163,22 +3189,32 @@ def main():
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
     act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        step_fn(vstate, xb, yb)
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    conv_evs = [e for e in evs if "conv_ws_kernel" in e.name]
-    mm_evs = [e for e in evs if "matmul_ws_kernel" in e.name]
-    conv_ids, mm_ids = {id(e) for e in conv_evs}, {id(e) for e in mm_evs}
     n_fwd = sum(sp.kind == "conv" for sp in vplan.layers)
     n_conv, forms = train_launches(vplan, BATCH)
-    if len(conv_evs) != n_conv or len(mm_evs) != sum(forms.values()):
-        raise AssertionError(
-            f"profiled step: {len(conv_evs)} conv and {len(mm_evs)} GEMM "
-            f"kernels, expected {n_conv} and {sum(forms.values())}; kernel "
-            f"names {sorted({e.name[:60] for e in evs})}")
+    # torch.profiler now and then loses device events (see
+    # device_ms): a window short of the step's launches,
+    # which the counters above hold exactly, is profiled again, up to
+    # three times, and said so
+    for window in range(3):
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            step_fn(vstate, xb, yb)
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        conv_evs = [e for e in evs if "conv_ws_kernel" in e.name]
+        mm_evs = [e for e in evs if "matmul_ws_kernel" in e.name]
+        if len(conv_evs) == n_conv and len(mm_evs) == sum(forms.values()):
+            break
+        msg = (f"profiled step: {len(conv_evs)} conv and {len(mm_evs)} "
+               f"GEMM kernels, expected {n_conv} and {sum(forms.values())}")
+        if window == 2:
+            raise AssertionError(
+                f"{msg} in each of 3 windows; kernel names "
+                f"{sorted({e.name[:60] for e in evs})}")
+        log(f"  torch.profiler window {window + 1} of 3: {msg}; profiled "
+            f"again")
+    conv_ids, mm_ids = {id(e) for e in conv_evs}, {id(e) for e in mm_evs}
     bwd0 = conv_evs[n_fwd].time_range.start
     last = max(e.time_range.end for e in conv_evs + mm_evs)
     split = dict.fromkeys(("forward convs", "input grads",
@@ -4241,7 +4277,332 @@ def main():
             "NCCL carries DTensor's all-gather: " + ", ".join(waiting))
     log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
 
-    # -- 12. results -------------------------------------------------------
+    # -- 12. the roofline of the LM's steps; the dry run ---------------------
+    log("phase 12: llama3.2-3b's steps counted on the card against the H100's "
+        "published peaks (roofline.counts, roofline.analysis.H100), and "
+        "the dry run (launch.dryrun)")
+    t_phase = time.perf_counter()
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import counts as rcounts
+    from repro_torch.roofline.analysis import H100, terms
+    from repro_torch.serving.serve_step import (make_decode_step,
+                                                make_prefill_step)
+
+    # (a) each step counted on the card (real tensors, full depth) and by
+    # the dry run on fake tensors of the same one-card cell (mesh "one";
+    # one and two layer groups, extrapolated to 28), on xla and pallas_ws
+    ROOF_STEPS = {
+        "prefill": (ShapeConfig("prefill_4096", seq, 1, "prefill"),
+                    {"attn_impl": "flash"}, 1),
+        "decode": (ShapeConfig("decode_4x4096", LM_MAX_SEQ, LM_SLOTS,
+                               "decode"), {}, 1),
+        # phase 10(c)'s step: 2 x 4096 tokens in two microbatches, remat
+        # "minimal", 2048-position attention chunks, f32 state
+        "train": (ShapeConfig("train_2x4096", seq, 2, "train"),
+                  {"remat_policy": "minimal", "attn_impl": "chunked",
+                   "attn_chunk": TRAIN_ATTN_CHUNK}, 2)}
+
+    def predicted_forms(c, kind, m):
+        """matmul_ws launches by form that a ``kind`` step of ``c`` makes
+        on ``pallas_ws`` (``mm_path`` of each MLP GEMM; M = ``m`` rows):
+        the bf16 forward; in a train step also its remat recompute and
+        the f32 dx and dw of each, a microbatch each."""
+        want = collections.Counter()
+        for k, n in layer_gemms(c):
+            want[mm_path(m, k, n, torch.bfloat16)] += c.num_layers
+            if kind == "train":
+                want[mm_path(m, k, n, torch.bfloat16)] += c.num_layers
+                want[mm_path(m, n, k, torch.float32)] += c.num_layers
+                want[mm_path(k, m, n, torch.float32)] += c.num_layers
+        if kind == "train":
+            want = collections.Counter({p: 2 * v for p, v in want.items()})
+        return {p: want.get(p, 0) for p in PATHS}
+
+    def real_step(kind, c, accum):
+        """(step, args) of the ``kind`` step of ``c`` on the card, its
+        inputs drawn from seed 12 (bf16 params for serving, phase 10's
+        f32 state for training); the args hold every tensor, so
+        deleting them frees the step's memory."""
+        gen = torch.Generator(device=dev).manual_seed(12)
+
+        def ints(high, shape, low=0):
+            return torch.randint(low, high, shape, generator=gen,
+                                 device=dev, dtype=torch.int32)
+        if kind == "train":
+            return ts.make_train_step(c, AdamWConfig(), accum_steps=accum), (
+                draw_state(c, seed=12),
+                {k: ints(c.vocab_size, (2, seq)) for k in ("tokens",
+                                                          "labels")})
+        params = materialize(lm.param_specs(c), gen, device=dev,
+                             dtype_override="bfloat16")
+        if kind == "prefill":
+            return torch.no_grad()(make_prefill_step(c)), (
+                params, {"tokens": ints(c.vocab_size, (1, seq))})
+        return torch.no_grad()(make_decode_step(c)), (
+            params, materialize(lm.cache_specs(c, LM_SLOTS, LM_MAX_SEQ),
+                                gen, device=dev, dtype_override="bfloat16"),
+            ints(c.vocab_size, (LM_SLOTS,)),
+            ints(LM_MAX_SEQ, (LM_SLOTS,), low=3000))
+
+    def median_ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times))
+
+    roof, roof_extra, fake_s = {}, {}, 0.0
+    reset_counts()
+    roof_mm, roof_flash = 0, 0
+    for kind, (shape, over, accum) in ROOF_STEPS.items():
+        for backend in ("xla", "pallas_ws"):
+            t0 = time.perf_counter()
+            fake, _, _, _, _, c, _, _, _ = dryrun.count_cell(
+                LM_ARCH, shape, "one", device=dev,
+                overrides={**over, "gemm_backend": backend},
+                accum_steps=accum)
+            fake_s += time.perf_counter() - t0
+            step, args = real_step(kind, c, accum)
+            before = dict(matmul_ws.path_launches)
+            flash0 = flash_attention.launches
+            _, card = rcounts.analyze(step, *args)
+            torch.cuda.synchronize()
+            forms = {p: matmul_ws.path_launches[p] - before[p]
+                     for p in PATHS}
+            flash_n = flash_attention.launches - flash0
+            diff = {k: (v, fake.as_dict()[k])
+                    for k, v in card.as_dict().items()
+                    if v != fake.as_dict()[k]}
+            if diff:
+                raise AssertionError(f"{kind} {backend}: the card's count "
+                                     f"differs from the dry run's: {diff}")
+            want = (predicted_forms(c, kind, LM_SLOTS if kind == "decode"
+                                    else seq)
+                    if backend == "pallas_ws" else dict.fromkeys(PATHS, 0))
+            n_ws = card.op_counts.get("repro_torch.matmul_ws", 0)
+            want_flash = c.num_layers if kind == "prefill" else 0
+            if forms != want or n_ws != sum(want.values()) \
+                    or flash_n != want_flash:
+                raise AssertionError(
+                    f"{kind} {backend}: matmul_ws launches {forms} (counted "
+                    f"ops {n_ws}), mm_path predicts {want}; flash_attention "
+                    f"{flash_n}, expected {want_flash}")
+            roof_mm += sum(forms.values())
+            roof_flash += flash_n
+            if kind == "train":
+                ms = lm_runs[backend][0]          # phase 10(c)'s median
+            else:
+                ms = median_ms(lambda: step(*args), 3 if kind == "prefill"
+                               else 20)
+                runs = 4 if kind == "prefill" else 21   # warm-up + timed
+                roof_mm += sum(want.values()) * runs
+                roof_flash += want_flash * runs
+            roof[kind, backend] = (card, ms)
+            del args, step
+            torch.cuda.empty_cache()
+        # the same work on both backends, except that remat "minimal"
+        # saves the dots on xla (aten mm / bmm) and recomputes the
+        # matmul_ws GEMMs in the train step's backward, as the
+        # reference's policy recomputes its pallas_call: their forward
+        # FLOPs once more a microbatch
+        a, b = roof[kind, "xla"][0], roof[kind, "pallas_ws"][0]
+        m = seq * 2 // accum
+        extra = (accum * c.num_layers * sum(2 * m * k * n for k, n in
+                                            layer_gemms(c))
+                 if kind == "train" else 0)
+        if b.flops - a.flops != extra:
+            raise AssertionError(f"{kind}: xla counts {a.flops} FLOPs, "
+                                 f"pallas_ws {b.flops}, the recompute "
+                                 f"{extra}")
+        roof_extra[kind] = extra
+    if matmul_ws.launches != roof_mm or flash_attention.launches != roof_flash:
+        raise AssertionError(f"phase 12 launches: matmul_ws "
+                             f"{matmul_ws.launches} (expected {roof_mm}), "
+                             f"flash_attention {flash_attention.launches} "
+                             f"(expected {roof_flash})")
+    stats["matmul_ws"]["launches"] += matmul_ws.launches
+    stats["flash_attention"]["launches"] += flash_attention.launches
+    log(f"  [{smi}]; peaks: bf16 {H100['peak_flops']['bfloat16'] / 1e12:.0f}"
+        f", f32 {H100['peak_flops']['float32'] / 1e12:.0f} TFLOP/s, HBM "
+        f"{H100['hbm_bw'] / 1e12:.2f} TB/s (published, 700 W); each count "
+        f"equal to the dry run's fake count of the same one-card cell "
+        f"(one and two layer groups extrapolated to {lm_full.num_layers}; "
+        f"{fake_s:.1f} s of host time for all six)")
+    worst = 0.0
+    for (kind, backend), (c, ms) in roof.items():
+        where = " (phase 10(c)'s median)" if kind == "train" else ""
+        t = terms(c, H100)
+        bound = max(t.values())
+        share = 1e3 * bound / ms
+        worst = max(worst, share)
+        by_dt = ", ".join(f"{dt} {f / 1e12:.4f}"
+                          for dt, f in sorted(c.flops_by_dtype.items()))
+        log(f"  {kind:7s} {backend:9s}: TFLOP {by_dt}; traffic "
+            f"{c.traffic / 1e9:.3f} GB; terms compute {1e3 * t['compute']:.3f}"
+            f" / memory {1e3 * t['memory']:.3f} / collective "
+            f"{1e3 * t['collective']:.3f} ms; bound by "
+            f"{max(t, key=t.get)}; measured {ms:.2f} ms{where}; bound / "
+            f"measured {share:.4f}")
+        if share > 1.05:
+            raise AssertionError(f"{kind} {backend}: roofline share "
+                                 f"{share:.3f} above 1.05: the counts or "
+                                 f"the peaks are wrong")
+    log(f"  FLOPs equal on both backends in the prefill and decode; the "
+        f"train step's pallas_ws count is xla's plus the recomputed MLP "
+        f"GEMMs, {roof_extra['train'] / 1e12:.4f} TFLOP (remat "
+        f"\"minimal\" saves aten dots, recomputes matmul_ws)")
+    log(f"  shares at most {worst:.4f} (gate 1.05); launches held: "
+        f"matmul_ws {matmul_ws.launches}, flash_attention "
+        f"{flash_attention.launches}")
+
+    # (b) the launcher: one production cell on fake CUDA tensors over a
+    # fake process group of 256 ranks, in a subprocess
+    out_dir = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama3.2-3b", "--shape", "decode_32k", "--mesh", "single",
+         "--out", str(out_dir)],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"dry run launcher: exit {run.returncode}: "
+                             f"{run.stderr[-3000:]}")
+    cell = json.loads((out_dir / "llama3p2_3b__decode_32k__single.json")
+                      .read_text())
+    shape = SHAPES["decode_32k"]
+    c = dataclasses.replace(lm_full, param_dtype="bfloat16")
+    plan = ShardingPlan(mesh=AbstractMesh((16, 16), ("data", "model")),
+                        fsdp=False, mode="decode")
+
+    def shard_bytes(specs, shardings, dtype=None):
+        """One rank's bytes of ``specs`` laid out by ``shardings``: each
+        sharded dim divided by its mesh axes' sizes."""
+        sizes, total = {"data": 16, "model": 16}, [0]
+
+        def one(s, sh):
+            n = 1
+            for i, d in enumerate(s.shape):
+                e = sh.spec[i] if i < len(sh.spec) else None
+                for a in (() if e is None else (e,) if isinstance(e, str)
+                          else e):
+                    d //= sizes[a]
+                n *= d
+            total[0] += n * torch_dtype(dtype or s.dtype).itemsize
+        tree_map(one, specs, shardings)
+        return total[0]
+    pspecs = lm.param_specs(c)
+    cspecs = lm.cache_specs(c, shape.global_batch, shape.seq_len)
+    # the token and position vectors go whole to every rank
+    want_args = (shard_bytes(pspecs, plan.param_shardings(pspecs),
+                             "bfloat16")
+                 + shard_bytes(cspecs, plan.cache_shardings(cspecs))
+                 + 2 * shape.global_batch * 4)
+    mem, rl = cell["memory_analysis"], cell["roofline"]
+    if (cell["chips"] != 256 or mem["argument_bytes"] != want_args
+            or rl["bottleneck"] not in ("compute", "memory", "collective")
+            or not cell["device"].startswith("cuda")):
+        raise AssertionError(f"dry run cell: chips {cell['chips']}, "
+                             f"argument_bytes {mem['argument_bytes']} "
+                             f"(the plan's shards {want_args}), bottleneck "
+                             f"{rl['bottleneck']}, device {cell['device']}")
+    log(f"  (b) python -m repro_torch.launch.dryrun --arch llama3.2-3b "
+        f"--shape decode_32k --mesh single: {cli_s:.1f} s, fake "
+        f"{cell['device']} tensors over 256 fake ranks; per rank argument "
+        f"{mem['argument_bytes'] / 1e9:.3f} GB (the plan's local shards), "
+        f"peak {mem['peak_bytes'] / 1e9:.3f} GB (extrapolated from "
+        f"{cell['depth']['counted_groups']} groups), terms compute "
+        f"{1e3 * rl['t_compute']:.4f} / memory {1e3 * rl['t_memory']:.4f} "
+        f"/ collective {1e3 * rl['t_collective']:.4f} ms, bound by "
+        f"{rl['bottleneck']}; collectives "
+        f"{cell['collective_counts']}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # (c) the host time the torch.library op adds to a matmul_ws call, at
+    # the decode step's MLP GEMMs.  Each window issues its calls back to
+    # back and is timed from the first call to the last one's return:
+    # fewer launches than the stream's queue holds, so the host never
+    # waits on the device and the time is the host's.  The launches here
+    # are not the main path's: the counts are put back afterwards.
+    mwm = sys.modules["repro_torch.kernels.matmul_ws"]
+
+    def before_op(x, w, bias=None):
+        """``matmul_ws`` as it was before the op: the same checks, then
+        the launch called directly."""
+        mwm._dtype(x, w)
+        from torch.distributed.tensor import DTensor
+        if isinstance(x, DTensor) or isinstance(w, DTensor):
+            raise TypeError("matmul_ws takes plain tensors")
+        if x.device.type == "cpu":
+            return mwm.matmul_ws_plain(x, w, bias)
+        if not x.is_cuda:
+            raise ValueError(f"matmul_ws runs on a CUDA or CPU tensor, "
+                             f"got {x.device}")
+        return mwm._cuda_impl(x, w, bias)
+
+    saved = matmul_ws.launches, dict(matmul_ws.path_launches)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    gemms = [(torch.randn(LM_SLOTS, k, generator=gen, device=dev,
+                          dtype=torch.bfloat16),
+              torch.randn(k, n, generator=gen, device=dev,
+                          dtype=torch.bfloat16) / k ** 0.5)
+             for k, n in layer_gemms(lm_full)]
+    routes = {"wrapper": matmul_ws, "op": mwm._OP, "before": before_op}
+    for x, w in gemms:
+        outs = [f(x, w) for f in routes.values()]
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"matmul_ws at [{x.shape[0]},{x.shape[1]}]"
+                                 f"@[{w.shape[0]},{w.shape[1]}]: the op, "
+                                 f"the wrapper and the direct launch differ")
+    reps, windows = 200, 20
+    calls = reps * len(gemms)
+    host = {r: [] for r in routes}
+    drain = []
+    names = list(routes)
+    for i in range(windows):
+        for r in names[i % 3:] + names[:i % 3]:
+            f = routes[r]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for x, w in gemms:
+                    f(x, w)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            drain.append(1e6 * (time.perf_counter() - t1))
+            host[r].append(1e6 * (t1 - t0) / calls)
+    matmul_ws.launches, matmul_ws.path_launches = saved
+    host = {r: np.array(v) for r, v in host.items()}
+    d_wrap = float(np.median(host["wrapper"] - host["before"]))
+    d_op = float(np.median(host["op"] - host["before"]))
+    n_dec = sum(predicted_forms(lm_full, "decode", LM_SLOTS).values())
+    dec_ms = roof["decode", "pallas_ws"][1]
+
+    def spread(v):
+        return (f"{np.median(v):.3f} ({v.min():.3f}-{v.max():.3f})")
+    shapes = ", ".join(f"[{LM_SLOTS},{k}]@[{k},{n}]"
+                       for k, n in layer_gemms(lm_full))
+    log(f"  (c) [{smi}] host us a matmul_ws call at the decode step's MLP "
+        f"GEMMs ({shapes} bf16), {windows} interleaved windows of "
+        f"{calls} calls each, "
+        f"median (min-max): wrapper {spread(host['wrapper'])}, op alone "
+        f"{spread(host['op'])}, before the op {spread(host['before'])}; "
+        f"median of the windows' differences: wrapper - before "
+        f"{d_wrap:+.3f} us, op - before {d_op:+.3f} us a call; x {n_dec} "
+        f"calls a pallas_ws decode step = {d_wrap * n_dec / 1e3:+.4f} ms "
+        f"of its {dec_ms:.2f} ms; the stream drained at most "
+        f"{max(drain):.0f} us after a window's last call")
+    log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 13. results -----------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         st = stats[name]

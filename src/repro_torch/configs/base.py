@@ -8,6 +8,9 @@ the hybrid recurrentgemma-9b, the attention-free rwkv6-1.6b, the MoE
 decoders deepseek-moe-16b and qwen3-moe-30b-a3b, the encoder-decoder
 seamless-m4t-medium and the VLM internvl2-26b.
 :func:`reduce_config` derives the CPU-sized variant the tests run.
+``SHAPES`` holds the dry run's four input shapes (``ShapeConfig``) and
+``shape_applicable`` says which (architecture × shape) cells run;
+``active_param_count`` and ``config_summary`` are the roofline's.
 """
 
 from __future__ import annotations
@@ -108,6 +111,13 @@ class ArchConfig:
                 else self.kv_cache_dtype)
 
     @property
+    def sub_quadratic(self) -> bool:
+        """True if no block attends to unbounded history (long_500k
+        eligible)."""
+        return all(b in (BLOCK_RGLRU, BLOCK_RWKV6, BLOCK_LOCAL)
+                   for b in self.layer_pattern)
+
+    @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
 
@@ -134,6 +144,31 @@ class ArchConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"{self.name}: {self.num_heads} heads do not "
                              f"group over {self.num_kv_heads} KV heads")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry run's (architecture × shape) cells."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell is runnable; returns (ok, reason)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, ("pure full-attention architecture: 500k-token decode "
+                       "is architecturally quadratic-history; skipped")
+    return True, ""
 
 
 ARCH_NAMES = (
@@ -173,6 +208,10 @@ def get_config(name: str) -> ArchConfig:
         f"repro_torch.configs.{mod_name}").CONFIG
     cfg.validate()
     return cfg
+
+
+def all_configs():
+    return {n: get_config(n) for n in ARCH_NAMES}
 
 
 def reduce_config(cfg: ArchConfig) -> ArchConfig:
@@ -250,3 +289,22 @@ def param_count(cfg: ArchConfig) -> int:
         total += cfg.frontend_dim * cfg.d_model
     total += cfg.d_model  # final norm
     return total
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Parameters touched per token (MoE: only routed top-k + shared)."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    m = cfg.moe
+    per_layer_all = (m.num_experts + m.num_shared) * 3 * cfg.d_model \
+        * m.expert_ff
+    per_layer_act = (m.top_k + m.num_shared) * 3 * cfg.d_model * m.expert_ff
+    n_moe_layers = sum(1 for k in cfg.block_kinds() if k != BLOCK_RWKV6)
+    return param_count(cfg) - n_moe_layers * (per_layer_all - per_layer_act)
+
+
+def config_summary(cfg: ArchConfig) -> str:
+    n = param_count(cfg)
+    return (f"{cfg.name}: {cfg.num_layers}L d={cfg.d_model} H={cfg.num_heads} "
+            f"kv={cfg.num_kv_heads} dh={cfg.head_dim} ff={cfg.d_ff} "
+            f"V={cfg.vocab_size} params={n/1e9:.2f}B")

@@ -33,8 +33,79 @@ from repro_torch.kernels.ref import (check_groups, conv_out_shape,
 
 SMEM_BYTES = 232_448     # Hopper: dynamic shared memory one block may use
 
-__all__ = ["SMEM_BYTES", "TilePlan", "plan_tiles", "divisor_banks",
-           "grouped_banks"]
+__all__ = ["SMEM_BYTES", "BankPlan", "TilePlan", "plan_banks",
+           "plan_tiles", "divisor_banks", "grouped_banks"]
+
+
+@dataclass(frozen=True)
+class BankPlan:
+    """A channel-bank-only plan of one conv layer (the whole map one
+    tile); :class:`TilePlan` supersedes it."""
+    cin_banks: int
+    kout_banks: int
+    image_block_bytes: int
+    weight_block_bytes: int
+    output_block_bytes: int           # epilogue output block (out dtype)
+    stride: int = 1
+    out_h: int = 0                    # conv output (pre-pool) spatial shape
+    out_w: int = 0
+    acc_block_bytes: int = 0          # accumulator (acc dtype)
+    budget: int = SMEM_BYTES          # the budget the plan was sized for
+
+    @property
+    def working_set_bytes(self) -> int:
+        # the ×2 is the ping-pong pair of a pipelined block; the
+        # accumulator is one persistent buffer
+        return (2 * (self.image_block_bytes + self.weight_block_bytes
+                     + self.output_block_bytes) + self.acc_block_bytes)
+
+    @property
+    def fits_smem(self) -> bool:
+        return self.working_set_bytes <= self.budget
+
+
+def plan_banks(h: int, w: int, c: int, k: int, kh: int = 3, kw: int = 3,
+               in_bytes: int = 1, acc_bytes: int = 4,
+               out_bytes: Optional[int] = None,
+               cin_banks: int = 4, kout_banks: int = 4,
+               stride: int = 1, padding="VALID",
+               vmem_budget: int = SMEM_BYTES) -> BankPlan:
+    """Channel-bank-only planner: start from the paper's 4×4 banking;
+    double bank counts until the working set fits ``vmem_budget`` (each
+    doubling halves the per-bank block).  The budget keeps the
+    reference's name; its default is a Hopper block's shared memory, not
+    the v5e's 128 MiB VMEM.  Given the same budget the plans are the
+    reference's, field for field.  ``plan_tiles`` supersedes this with
+    joint spatial/channel planning."""
+    if c % cin_banks or k % kout_banks:
+        raise ValueError(f"C={c}, K={k} must divide into {cin_banks} cin and "
+                         f"{kout_banks} kout banks (paper §4.1)")
+    out_bytes = acc_bytes if out_bytes is None else out_bytes
+    (pt, pb), (pl_, pr) = normalize_padding(padding, kh, kw, stride, h, w)
+    hp, wp = h + pt + pb, w + pl_ + pr
+    oh, ow = conv_out_shape(h, w, kh, kw, stride, padding)
+    while True:
+        cb, kb = c // cin_banks, k // kout_banks
+        plan = BankPlan(
+            cin_banks=cin_banks, kout_banks=kout_banks,
+            image_block_bytes=hp * wp * cb * in_bytes,
+            weight_block_bytes=kh * kw * cb * kb * in_bytes,
+            output_block_bytes=oh * ow * kb * out_bytes,
+            stride=stride, out_h=oh, out_w=ow,
+            acc_block_bytes=oh * ow * kb * acc_bytes,
+            budget=vmem_budget,
+        )
+        if plan.fits_smem or (cb == 1 and kb == 1):
+            return plan
+        if plan.image_block_bytes >= plan.acc_block_bytes and cb > 1 \
+                and c % (cin_banks * 2) == 0:
+            cin_banks *= 2
+        elif kb > 1 and k % (kout_banks * 2) == 0:
+            kout_banks *= 2
+        elif cb > 1 and c % (cin_banks * 2) == 0:
+            cin_banks *= 2
+        else:
+            return plan
 
 
 @dataclass(frozen=True)

@@ -105,6 +105,19 @@ def paper_reference_numbers():
     }
 
 
+def network_cycles(layer_psums: Sequence[int],
+                   cfg: IPCoreConfig = IPCoreConfig()) -> int:
+    """Whole-network cycle estimate: the IP core processes one layer at a
+    time (§4.2), so the network cost is the sum of per-layer passes (each
+    layer rounds up to full psum batches separately — the pipeline drains
+    between layer configurations).  This holds for DAG plans too: parallel
+    branches of a residual graph still serialize on the single core, so a
+    topological schedule's length is exactly this sum; merge nodes (add /
+    concat) contribute zero psums — the output-BRAM crossbar absorbs
+    them."""
+    return sum(cycles(p, cfg) for p in layer_psums if p)
+
+
 def tile_traffic(plan) -> dict:
     """DMA traffic of one layer pass under a ``banking.TilePlan``: every
     kout bank revisits every spatial tile."""

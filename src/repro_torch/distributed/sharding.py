@@ -51,7 +51,8 @@ P = PartitionSpec
 __all__ = ["AbstractMesh", "NamedSharding", "P", "PartitionSpec",
            "ShardingPlan", "act_rules", "active_mesh", "axes_to_pspec",
            "batch_sharding", "contract_local", "device_put",
-           "flatten_rows", "gather_rows", "input_shardings", "mesh_shape",
+           "flatten_rows", "gather_rows", "input_shardings", "local_block",
+           "mesh_shape",
            "param_rules", "place", "replicated", "spec_shardings",
            "unflatten_rows", "use_mesh"]
 
@@ -251,8 +252,8 @@ def place(x: torch.Tensor, sharding) -> torch.Tensor:
         return x.redistribute(mesh, placements)
     d = distribute_tensor(x, mesh, placements, src_data_rank=None)
     local = d.to_local()
-    if local.numel() < x.numel() and (local.untyped_storage().data_ptr()
-                                      == x.untyped_storage().data_ptr()):
+    if local.numel() < x.numel() and (local.untyped_storage()._cdata
+                                      == x.untyped_storage()._cdata):
         # a shard that is a view of the whole would keep the whole alive
         d = DTensor.from_local(local.clone(), mesh, placements,
                                run_check=False, shape=d.shape,
@@ -351,6 +352,19 @@ def unflatten_rows(y, lead):
                               shape=shape, stride=_stride(shape))
 
 
+def local_block(t):
+    """(shape, global offset) of this rank's local shard of DTensor
+    ``t``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    # DTensor computes the offset from a host tensor that it reads back,
+    # which a fake tensor (the dry run's) cannot give
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(t.shape, t.device_mesh,
+                                                     t.placements)
+
+
 def gather_rows(table, ids):
     """``table[ids]`` for a DTensor table [V, D] on local shards, mesh dim
     by mesh dim: a dim that shards V looks each id up in its own block of
@@ -361,8 +375,6 @@ def gather_rows(table, ids):
     DTensor's own index rule fails in the backward on some versions
     (``aten.index_put`` under torch 2.11)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     mesh = table.device_mesh
     if not isinstance(ids, DTensor):
         ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
@@ -379,7 +391,7 @@ def gather_rows(table, ids):
         else:
             tp.append(r), ip.append(r), op.append(r), gp.append(r)
     table = table.redistribute(mesh, tp)
-    shape, off = compute_local_shape_and_global_offset(table.shape, mesh, tp)
+    shape, off = local_block(table)
     t_l = table.to_local(grad_placements=gp)
     i_l = ids.redistribute(mesh, ip).to_local().long()
     if any(p.is_shard(0) for p in tp):

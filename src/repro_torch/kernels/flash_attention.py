@@ -33,10 +33,13 @@ No head dim is refused.
 the TPU's 512-row blocks do not fit a Hopper block's shared memory, so the
 tiles are the kernel's own.
 
-On a CUDA tensor ``flash_attention`` launches the kernel and counts the
-launch in ``flash_attention.launches``; on a CPU tensor it runs
-``flash_attention_plain``.  Under autograd it raises on both (no
-backward).
+``flash_attention`` calls the ``torch.library`` op
+``repro_torch::flash_attention``, which a dispatch mode (the roofline's
+counter, a fake tensor) sees as one op.  On a CUDA tensor the op launches
+the kernel and counts the launch in ``flash_attention.launches``; on a
+CPU tensor it runs ``flash_attention_plain``; on a fake tensor it makes
+the output's shape and dtype and launches nothing.  Under autograd
+``flash_attention`` raises on both devices (no backward).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import ctypes
 import math
 
 import torch
+import torch.utils.flop_counter
 
 from repro_torch.kernels import _build
 
@@ -155,14 +159,41 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
             "has no VJP either): train with attn_impl=\"chunked\" or "
             "\"dense\", or call it under torch.no_grad()")
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
-    if not q.is_cuda:
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on a CUDA or CPU tensor, "
                          f"got {q.device}")
+    return _OP(q, k, v, causal)
+
+
+flash_attention.launches = 0
+
+
+def _cuda_impl(q, k, v, causal):
     out = _launch(q, k, v, causal)
     flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0
+def _plain_impl(q, k, v, causal):
+    return flash_attention_plain(q, k, v, causal=causal)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal) "
+            "-> Tensor")
+_LIB.impl("flash_attention", _plain_impl, "CPU")
+_LIB.impl("flash_attention", _cuda_impl, "CUDA")
+torch.library.register_fake("repro_torch::flash_attention",
+                            lambda q, k, v, causal: torch.empty_like(q),
+                            lib=_LIB)
+_OP = torch.ops.repro_torch.flash_attention.default
+
+
+@torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    """4·D flops (q·k and p·v) for each (query, key) pair the mask keeps:
+    S(S+1)/2 pairs a head when causal, S² when not."""
+    b, s, h, d = q_shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * h * d * pairs

@@ -20,9 +20,14 @@ another:
   and bf16 whose rows are not 16-byte multiples (K or N not a multiple of
   8), which TMA cannot address.
 
-On a CUDA tensor ``matmul_ws`` launches the kernel and counts the launch in
-``matmul_ws.launches`` and, by form, in ``matmul_ws.path_launches``; on a CPU
-tensor it runs ``matmul_ws_plain``.
+``matmul_ws`` calls the ``torch.library`` op ``repro_torch::matmul_ws``,
+so a dispatch mode (the roofline's counter, a fake tensor, a selective
+checkpoint's policy) sees one op where the kernel runs.  On a CUDA tensor
+the op launches the kernel and counts the launch in ``matmul_ws.launches``
+and, by form, in ``matmul_ws.path_launches``; on a CPU tensor it runs
+``matmul_ws_plain``; on a fake tensor it makes the output's shape and
+dtype and launches nothing.  A CPU call that autograd records runs
+``matmul_ws_plain`` directly, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.utils.flop_counter
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_ws import SMS
@@ -204,11 +210,42 @@ def _launch(x, w, bias, path: str) -> torch.Tensor:
     return out
 
 
+def _out_dtype(dt: torch.dtype) -> torch.dtype:
+    return torch.int32 if dt == torch.int8 else dt
+
+
+def _cuda_impl(x, w, bias=None):
+    path = mm_path(x.shape[0], x.shape[1], w.shape[1], x.dtype)
+    out = _launch(x, w, bias, path)
+    matmul_ws.launches += 1
+    matmul_ws.path_launches[path] += 1
+    return out
+
+
+def _fake_impl(x, w, bias=None):
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=_out_dtype(x.dtype))
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("matmul_ws(Tensor x, Tensor w, Tensor? bias=None) -> Tensor")
+_LIB.impl("matmul_ws", matmul_ws_plain, "CPU")
+_LIB.impl("matmul_ws", _cuda_impl, "CUDA")
+torch.library.register_fake("repro_torch::matmul_ws", _fake_impl, lib=_LIB)
+_OP = torch.ops.repro_torch.matmul_ws.default
+
+
+@torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro_torch.matmul_ws)
+def _flops(x_shape, w_shape, *args, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * w_shape[1]
+
+
 def matmul_ws(x, w, bias=None) -> torch.Tensor:
     """x: [M,K] @ w: [K,N] (+bias [N]) → [M,N]: int32 for int8 operands,
     else the operands' dtype (f32 or bf16).  A CUDA tensor launches the
-    form ``mm_path`` names, a CPU tensor runs the plain version."""
-    dt = _dtype(x, w)
+    form ``mm_path`` names, a CPU tensor runs the plain version (see the
+    module note)."""
+    _dtype(x, w)
     from torch.distributed.tensor import DTensor
     if isinstance(x, DTensor) or isinstance(w, DTensor):
         raise TypeError(f"the matmul_ws kernel takes plain tensors, got "
@@ -216,15 +253,13 @@ def matmul_ws(x, w, bias=None) -> torch.Tensor:
                         f"kernels.ops.matmul_ws, which runs a DTensor's "
                         f"local shards")
     if x.device.type == "cpu":
-        return matmul_ws_plain(x, w, bias)
-    if not x.is_cuda:
+        from repro_torch.kernels.ops import _recorded
+        if _recorded(x, w, bias):
+            return matmul_ws_plain(x, w, bias)
+    elif not x.is_cuda:
         raise ValueError(f"matmul_ws runs on a CUDA or CPU tensor, "
                          f"got {x.device}")
-    path = mm_path(x.shape[0], x.shape[1], w.shape[1], dt)
-    out = _launch(x, w, bias, path)
-    matmul_ws.launches += 1
-    matmul_ws.path_launches[path] += 1
-    return out
+    return _OP(x, w, bias)
 
 
 matmul_ws.launches = 0

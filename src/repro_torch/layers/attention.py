@@ -156,30 +156,34 @@ def to_cache(t: torch.Tensor, dtype, kv_scale: float) -> torch.Tensor:
     return cast(t, dtype)
 
 
-def write_slots(cache: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
+def write_slots(cache: torch.Tensor, slot: torch.Tensor,
                 new: torch.Tensor) -> None:
-    """``cache[bidx, slot] = new`` in place (cache [B, S, KV, D], new
-    [B, KV, D]).  A DTensor cache (batch and ``cache_seq`` sharded) is
-    written on its local shard: ``new`` placed as the cache is on its own
-    dims, and each rank writes the rows whose batch index and slot fall in
-    its block.  DTensor has no in-place ``index_put_`` that keeps a sharded
-    layout."""
+    """``cache[b, slot[b]] = new[b]`` in place for every row b (cache
+    [B, S, KV, D], new [B, KV, D], slot [B]).  A DTensor cache (batch and
+    ``cache_seq`` sharded) is written on its local shard: ``new`` placed
+    as the cache is on its own dims, and each rank writes its block's
+    batch rows, the new row where the slot falls in its block of
+    positions and the row's own old value elsewhere (no mask selects the
+    rows, so no shape depends on the data: the dry run's fake tensors
+    take it).  DTensor has no in-place ``index_put_`` that keeps a
+    sharded layout."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(cache, DTensor):
-        cache[bidx, slot] = new
+        cache[torch.arange(slot.shape[0], device=slot.device), slot] = new
         return
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
+    from repro_torch.distributed.sharding import local_block
     mesh = cache.device_mesh
-    shape, off = compute_local_shape_and_global_offset(
-        cache.shape, mesh, cache.placements)
+    shape, off = local_block(cache)
     # the cache's dims (B, S, KV, D) are new's (B, -, KV, D)
     new = new.redistribute(mesh, [
         Replicate() if not p.is_shard() or p.dim == 1 else
         Shard(p.dim - (p.dim > 1)) for p in cache.placements]).to_local()
-    b, s = bidx - off[0], slot - off[1]
-    mine = (b >= 0) & (b < shape[0]) & (s >= 0) & (s < shape[1])
-    cache.to_local()[b[mine], s[mine]] = new[b[mine]]
+    b = torch.arange(shape[0], device=slot.device)
+    s = slot[off[0]:off[0] + shape[0]] - off[1]
+    mine = (s >= 0) & (s < shape[1])
+    s = s.clamp(0, shape[1] - 1)
+    local = cache.to_local()
+    local[b, s] = torch.where(mine[:, None, None], new, local[b, s])
 
 
 def _int8_contract(subscripts: str, a: torch.Tensor,
@@ -329,12 +333,11 @@ def decode_attention_layer(params, x, cfg, *, cache: KVCache, pos,
     # ring-buffer slot (== pos when the cache is not a ring); torch's % on
     # integers floors like jnp's, so negative operands below wrap the same
     slot = pos % S_cache                                          # [B]
-    bidx = torch.arange(B, device=x.device)
     int8_cache = cache.k.dtype == torch.int8
     kv_scale = cfg.kv_cache_scale
-    write_slots(cache.k, bidx, slot,
+    write_slots(cache.k, slot,
                 to_cache(k_new[:, 0], cache.k.dtype, kv_scale))
-    write_slots(cache.v, bidx, slot,
+    write_slots(cache.v, slot,
                 to_cache(v_new[:, 0], cache.v.dtype, kv_scale))
 
     qg = _reshape(q, B, KV, G, D)

@@ -3,9 +3,11 @@ of ``repro.layers.common``).
 
 A model is described once as a tree (nested dicts, with ``KVCache`` named
 tuples for caches) of :class:`ParamSpec`; :func:`materialize` turns it into
-tensors drawn from a ``torch.Generator``.  The trees keep the reference's
-layout leaf for leaf, stacked ``stack`` dimension included, so weights carry
-across with ``convert.lm_params_to_torch``.
+tensors drawn from a ``torch.Generator``, :func:`shape_structs` into
+``meta`` stand-ins that hold no storage (the dry run's inputs).  The
+trees keep the reference's layout leaf for leaf, stacked ``stack``
+dimension included, so weights carry across with
+``convert.lm_params_to_torch``.
 
 Sharding: ``activate_rules`` installs logical-axis → mesh-axis rules
 (``repro_torch.distributed.sharding``) and ``use_mesh`` an ambient
@@ -31,7 +33,7 @@ from repro_torch.device import DeviceLike, is_dtensor, resolve_device
 PyTree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "int8": torch.int8}
+           "int8": torch.int8, "int32": torch.int32}
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -75,6 +77,35 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 def spec_map(fn: Callable[[ParamSpec], Any], tree: PyTree) -> PyTree:
     """``fn`` over the :class:`ParamSpec` leaves of ``tree``."""
     return tree_map(fn, tree)
+
+
+def shape_structs(tree: PyTree,
+                  dtype_override: Optional[str] = None) -> PyTree:
+    """Stand-ins with each spec's shape and dtype and no storage: ``meta``
+    tensors (the reference's ``jax.ShapeDtypeStruct``), which the dry run
+    turns into fake tensors on its device."""
+    return spec_map(lambda s: torch.empty(
+        s.shape, dtype=torch_dtype(dtype_override or s.dtype),
+        device="meta"), tree)
+
+
+def axes_tree(tree: PyTree) -> PyTree:
+    return spec_map(lambda s: s.axes, tree)
+
+
+def _leaves(tree: PyTree):
+    out = []
+    spec_map(out.append, tree)
+    return out
+
+
+def param_bytes(tree: PyTree) -> int:
+    return sum(math.prod(s.shape) * torch_dtype(s.dtype).itemsize
+               for s in _leaves(tree))
+
+
+def param_count_tree(tree: PyTree) -> int:
+    return sum(math.prod(s.shape) for s in _leaves(tree))
 
 
 # a leaf with more elements than this is drawn one index of its leading

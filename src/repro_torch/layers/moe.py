@@ -22,7 +22,17 @@ Dataflow, step for step the reference's:
 Ties in the router's top-k go to the lower expert index, as
 ``jax.lax.top_k`` breaks them: a stable descending sort, where
 ``torch.topk`` promises no order.  ``lconstraint`` keeps the reference's
-annotations and does nothing (see ``layers.common``).
+annotations (see ``layers.common``).
+
+Sharded (``x`` a DTensor under ``use_mesh``), forward only: each rank
+routes its own groups (the batch rows it holds; routing is per group)
+against the whole router, dispatches to the experts it holds (the expert
+weights' ``experts`` dim sharded over ``model``, the expert parallelism
+of the reference's rules) and combines their outputs into a partial sum
+that one all-reduce over the expert-holding mesh dims completes.  The
+dispatch map is data-dependent (``scatter_reduce_``), which DTensor has
+no rule for, so it runs on local tensors.  Under autograd it raises:
+the sharded backward is not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.layers.common import (ParamSpec, cast, lconstraint,
-                                       torch_dtype)
+                                       torch_dtype, use_mesh)
 from repro_torch.layers.mlp import _act, apply_mlp, mlp_specs
 
 
@@ -118,6 +128,9 @@ def apply_moe(params, x: torch.Tensor, cfg, *, train: bool = False,
     """x: [B, S, D] → (out [B, S, D] in the compute dtype, aux_loss f32
     scalar).  ``rng`` draws the router jitter, which only a training call
     (``train=True``) with ``router_jitter`` set adds."""
+    from repro_torch.device import is_dtensor
+    if is_dtensor(x):
+        return _apply_moe_sharded(params, x, cfg)
     m = cfg.moe
     B, S, D = x.shape
     G = m.num_groups or B
@@ -129,24 +142,46 @@ def apply_moe(params, x: torch.Tensor, cfg, *, train: bool = False,
     xg = lconstraint(x.reshape(G, Tg, D), ("batch", None, "embed"))
     r = route(params["router"], xg, m, C, train=train, rng=rng)
 
+    y = _dispatch_experts(params, xg, r, cfg, C, 0, E)
+    y = cast(y, dt).reshape(B, S, D)
+
+    if m.num_shared:                                # always-on experts
+        y = y + apply_mlp(params["shared"], x, cfg)
+    return lconstraint(y, ("batch", "seq_r", "embed")), r.aux
+
+
+def _dispatch_experts(params, xg, r: Routing, cfg, C: int, e0: int,
+                      n_local: int) -> torch.Tensor:
+    """The routed experts' output [G, Tg, D] in f32 for tokens ``xg``
+    [G, Tg, D] under routing ``r``, from experts ``e0 .. e0 + n_local``
+    (their weights the leading ``n_local`` of ``params``'s expert dim):
+    every expert's on one device, a rank's own under a mesh, where the
+    other experts' choices add zero."""
+    m = cfg.moe
+    G, Tg, D = xg.shape
+    E, K = m.num_experts, m.top_k
+    dt = cfg.compute_dtype
     # dispatch: scatter only the int index map; the activations move by
     # gathers (the reference's design for sharding, kept for parity)
     TK = Tg * K
     sentinel = TK                                   # → the zero pad row
-    rows = torch.where(r.keep, torch.arange(TK, device=x.device)[None, :],
+    rows = torch.where(r.keep, torch.arange(TK, device=xg.device)[None, :],
                        sentinel)
     slot_to_row = torch.full((G, E * C), sentinel, dtype=rows.dtype,
-                             device=x.device)
+                             device=xg.device)
     slot_to_row.scatter_reduce_(1, r.slot, rows, reduce="amin",
                                 include_self=True)
     token_of_slot = torch.where(slot_to_row < sentinel,
                                 torch.div(slot_to_row, K,
                                           rounding_mode="floor"), Tg)
+    if n_local < E:
+        token_of_slot = token_of_slot[:, e0 * C:(e0 + n_local) * C]
     xpad = torch.cat([cast(xg, dt), xg.new_zeros((G, 1, D),
                                                  dtype=torch_dtype(dt))],
                      dim=1)
-    buf = torch.gather(xpad, 1, token_of_slot[..., None].expand(G, E * C, D))
-    buf = lconstraint(buf.reshape(G, E, C, D),
+    buf = torch.gather(xpad, 1, token_of_slot[..., None].expand(
+        G, n_local * C, D))
+    buf = lconstraint(buf.reshape(G, n_local, C, D),
                       ("batch", "experts", None, "embed"))
 
     # the expert GEMMs (expert parallel in the reference's sharding)
@@ -156,13 +191,70 @@ def apply_moe(params, x: torch.Tensor, cfg, *, train: bool = False,
     h = lconstraint(h, ("batch", "experts", None, "mlp"))
     yb = torch.einsum("gecf,efd->gecd", h, wo)                  # [G,E,C,D]
 
-    # combine: gather back, drop the overflow, gate-weighted sum over K
-    yfl = yb.reshape(G, E * C, D)
-    got = torch.gather(yfl, 1, r.slot[..., None].expand(G, TK, D))
-    got = torch.where(r.keep[..., None], got, 0).reshape(G, Tg, K, D)
-    y = torch.einsum("gtkd,gtk->gtd", got.float(), r.gate_vals.float())
-    y = cast(y, dt).reshape(B, S, D)
+    # combine: gather back, drop the overflow and other ranks' experts,
+    # gate-weighted sum over K
+    yfl = yb.reshape(G, n_local * C, D)
+    slot, keep = r.slot, r.keep
+    if n_local < E:
+        mine = (slot >= e0 * C) & (slot < (e0 + n_local) * C)
+        slot, keep = torch.where(mine, slot - e0 * C, 0), keep & mine
+    got = torch.gather(yfl, 1, slot[..., None].expand(G, TK, D))
+    got = torch.where(keep[..., None], got, 0).reshape(G, Tg, K, D)
+    return torch.einsum("gtkd,gtk->gtd", got.float(), r.gate_vals.float())
 
-    if m.num_shared:                                # always-on experts
+
+def _apply_moe_sharded(params, x, cfg):
+    """``apply_moe`` of a DTensor ``x`` on local shards (see the module
+    note) → (out, aux) as DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import local_block
+    from repro_torch.kernels.ops import _recorded
+    m = cfg.moe
+    if _recorded(x, *(params[k] for k in ("router", "wi_gate", "wi_up",
+                                          "wo"))):
+        raise NotImplementedError(
+            "the sharded MoE layer runs forward only (serving): its "
+            "backward on local shards is not ported; train the MoE "
+            "families unsharded")
+    B, S, D = x.shape
+    if m.num_groups not in (0, B):
+        raise NotImplementedError(
+            f"sharded MoE routes by batch row; num_groups={m.num_groups} "
+            f"groups rows across ranks")
+    mesh = x.device_mesh
+    r = Replicate()
+    # the batch rows stay where they are; every other dim is gathered
+    tok = [p if p.is_shard(0) else r for p in x.placements]
+    x_l = x.redistribute(mesh, tok).to_local()
+    weights = {}
+    for k in ("wi_gate", "wi_up", "wo"):
+        w = params[k]
+        if not isinstance(w, DTensor):
+            w = DTensor.from_local(w, mesh, [r] * mesh.ndim,
+                                   run_check=False)
+        weights[k] = w.redistribute(mesh, [p if p.is_shard(0) else r
+                                           for p in w.placements])
+    wg = weights["wi_gate"]
+    (n_local, *_), (e0, *_) = local_block(wg)
+    router = params["router"]
+    if isinstance(router, DTensor):
+        router = router.full_tensor()
+    C = _capacity(S, m)
+    with use_mesh(None):                    # plain tensors from here on
+        rt = route(router, x_l, m, C)
+        y = _dispatch_experts({k: w.to_local() for k, w in weights.items()},
+                              x_l, rt, cfg, C, e0, n_local)
+    # partial over the dims that split the experts; the batch rows kept
+    y_place = [p if p.is_shard(0) else Partial() if q.is_shard(0) else r
+               for p, q in zip(tok, wg.placements)]
+    y = DTensor.from_local(cast(y, cfg.compute_dtype), mesh, y_place,
+                           run_check=False, shape=x.shape,
+                           stride=x.stride())
+    y = y.redistribute(mesh, [p if p.is_shard(0) else r for p in y_place])
+    aux = DTensor.from_local(rt.aux, mesh, [
+        Partial("avg") if p.is_shard(0) else r for p in tok],
+        run_check=False).redistribute(mesh, [r] * mesh.ndim)
+    if m.num_shared:
         y = y + apply_mlp(params["shared"], x, cfg)
-    return lconstraint(y, ("batch", "seq_r", "embed")), r.aux
+    return lconstraint(y, ("batch", "seq_r", "embed")), aux

@@ -51,8 +51,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import BLOCK_ATTN, ArchConfig
-from repro_torch.layers.common import ParamSpec, cast, stack_specs, tree_map
+from repro_torch.configs.base import BLOCK_ATTN, ArchConfig, ShapeConfig
+from repro_torch.layers.common import (ParamSpec, cast, stack_specs,
+                                       torch_dtype, tree_map)
 from repro_torch.layers.embedding import embed_tokens, embedding_specs, logits
 from repro_torch.layers.norms import apply_norm, norm_specs
 from repro_torch.layers.rope import sinusoidal_positions
@@ -299,3 +300,34 @@ def decode_step(params, cfg: ArchConfig, *, token, pos, cache):
                                   pos=pos, cache=cache["tail"][f"b{i}"])
     x = apply_norm(params["final_norm"], x, cfg)
     return logits(params["embedding"], x, cfg)[:, 0], cache
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``meta`` stand-ins for every model input of this (arch × shape)
+    cell, with the reference's keys, shapes and dtypes (the dry run's
+    contract):
+
+    train:   {"tokens", "labels" [, "patches"/"frames"]}
+    prefill: {"tokens" [, "patches"/"frames"]}
+    decode:  {"token", "pos"}   (the cache comes from cache_specs)
+    """
+    B, S = shape.global_batch, shape.seq_len
+    cdt = torch_dtype(cfg.compute_dtype)
+
+    def sd(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": sd((B,)), "pos": sd((B,))}
+    specs: Dict[str, Any] = {}
+    text = S
+    if cfg.kind == "vlm":
+        P = min(cfg.frontend_tokens, S // 4)
+        specs["patches"] = sd((B, P, cfg.frontend_dim), cdt)
+        text = S - P
+    elif cfg.kind == "encdec":
+        specs["frames"] = sd((B, S, cfg.frontend_dim), cdt)
+    specs["tokens"] = sd((B, text))
+    if shape.kind == "train":
+        specs["labels"] = sd((B, text))
+    return specs

@@ -96,8 +96,12 @@ def make_train_step(cfg: ArchConfig, hp: AdamWConfig,
                 total, loss, aux, grads = _grads(
                     params, _constrain_batch(batch), cfg)
             else:
-                mb = {k: t.reshape(accum_steps, t.shape[0] // accum_steps,
-                                   *t.shape[1:]) for k, t in batch.items()}
+                # a batch-sharded DTensor is taken whole first: each
+                # microbatch is then placed over the batch axes by
+                # _constrain_batch, as jax.jit reshards the reshape
+                mb = {k: full_value(t).reshape(
+                    accum_steps, t.shape[0] // accum_steps, *t.shape[1:])
+                    for k, t in batch.items()}
                 grads = [torch.zeros_like(p, dtype=torch.float32)
                          for p in tree_leaves(params)]
                 zero = torch.zeros((), dtype=torch.float32,

@@ -171,6 +171,30 @@ def test_sharded_decode_matches_unsharded(world, backend):
         torch.testing.assert_close(a, w, rtol=1e-6, atol=1e-6)
 
 
+def test_sharded_moe_serving_matches_unsharded(world):
+    """The reduced deepseek_moe_16b served on the (2, 4) mesh, each rank
+    routing its batch rows to its 2 of the 8 experts and the partial
+    outputs summed over ``model``: the prefill's logits and two decode
+    steps equal the unsharded ones (up to the order of that sum); its
+    sharded train step is refused (the backward is not ported)."""
+    from repro_torch.models import lm
+    cfg = dc.reduced_cfg("xla", "deepseek_moe_16b")
+    params = dc.draw_state(cfg, 2, "cpu")[0]["params"]
+    with torch.no_grad():
+        want, _ = lm.prefill(params, {"tokens": dc.moe_prompt(cfg, 4, 16)},
+                             cfg)
+    torch.testing.assert_close(world["out"]["moe_prefill"], want,
+                               rtol=1e-5, atol=1e-5)
+    logits, cache = world["out"]["moe_decode"]
+    c0, tokens, pos = dc.prefilled_cache(params, cfg, BATCH, SEQ, 12)
+    want, want_cache = dc.plain_decode(params, c0, cfg, tokens, pos, 2)
+    for a, w in zip(logits, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    for a, w in zip(tree_leaves(cache), tree_leaves(want_cache)):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    assert "forward only" in world["out"]["moe_train"]
+
+
 def test_matmul_ws_bias_added_once_under_split_k(world):
     y, gx, gw, gb, x, w, b = world["out"]["bias_once"]
     xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))

@@ -86,6 +86,10 @@ def test_train_launcher_help_runs_with_jax_blocked():
     _launcher_help("train")
 
 
+def test_dryrun_help_runs_with_jax_blocked():
+    _launcher_help("dryrun")
+
+
 def test_no_source_imports_jax_or_the_reference():
     for path in sorted(PORT.rglob("*.py")) + [
             SMOKE, ROOT / "tests" / "torch_dist_checks.py",

@@ -554,12 +554,57 @@ def cpu_scenarios(rank, world, ckpt_dir, state, batch):
         out[f"decode_{backend}"] = sharded_decode(
             params, tree_map(torch.clone, cache), cfg, plan, pspecs,
             lm.cache_specs(cfg, 4, 32), tokens, pos, 2)
+    out.update(moe_checks(mesh, state, batch, hp))
     out["bias_once"] = bias_once_check(mesh, 16, 32, 24, 3, "cpu")
     out["psum"] = {axis: compressed_psum_check(rank, mesh, axis, (64, 48),
                                                4, "cpu")
                    for axis in ("data", "model")}
     params, x = pipeline_inputs(4, 16, 32, 5, "cpu")
     out["pipeline"] = pipeline_check(mesh, "model", params, x, 8)
+    return out
+
+
+def moe_prompt(cfg, batch, prompt):
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen)
+
+
+def moe_checks(mesh, state, batch, hp):
+    """The reduced deepseek_moe_16b's sharded serving on ``mesh`` (each
+    rank routing its batch rows to the experts it holds): the prefill's
+    logits and 2 decode steps → {"moe_prefill", "moe_decode"}; and the
+    sharded train step refused ("moe_train": the error's text)."""
+    from repro_torch.distributed.sharding import (ShardingPlan, device_put,
+                                                  use_mesh)
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models import lm
+    from repro_torch.serving.serve_step import make_prefill_step
+    from repro_torch.train.train_step import init_state_specs
+    cfg = reduced_cfg("xla", "deepseek_moe_16b")
+    moe_state = draw_state(cfg, 2, "cpu")[0]
+    params, pspecs = moe_state["params"], lm.param_specs(cfg)
+    out = {}
+    plan = ShardingPlan(mesh=mesh, fsdp=False, mode="prefill")
+    toks = moe_prompt(cfg, 4, 16)
+    with use_mesh(mesh), torch.no_grad():
+        pd = device_put(params, plan.param_shardings(pspecs))
+        tb = device_put({"tokens": toks}, plan.input_shardings(
+            {"tokens": toks}))
+        logits, _ = make_prefill_step(cfg, act_rules=plan.acts)(pd, tb)
+        out["moe_prefill"] = _full(logits)
+    cache, tokens, pos = prefilled_cache(params, cfg, 4, 32, 12)
+    out["moe_decode"] = sharded_decode(
+        params, tree_map(torch.clone, cache), cfg,
+        ShardingPlan(mesh=mesh, fsdp=False, mode="decode"), pspecs,
+        lm.cache_specs(cfg, 4, 32), tokens, pos, 2)
+    try:
+        sharded_step(moe_state, {k: v[:, :16] for k, v in batch.items()},
+                     cfg, hp, ShardingPlan(mesh=mesh, fsdp=True,
+                                           mode="train"),
+                     init_state_specs(cfg))
+        out["moe_train"] = ""
+    except NotImplementedError as e:
+        out["moe_train"] = str(e)
     return out
 
 
