@@ -172,7 +172,9 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    steps of ``vgg_imagenet`` as the repo defines it (QAT per channel,
    batch 8, 1000 classes) with the launches a step held to what the plan
    gives (11 ``conv2d_ws``, 57 ``matmul_ws``, all scalar), ms a step, one
-   more step under ``torch.profiler`` split by part, and the trained net
+   more step under ``torch.profiler`` split by part (the first of 3
+   marker-separated steps a window whose every launch reached the
+   trace), and the trained net
    quantized on 8 training images and served bit-equal to the plain
    backend; the ``lenet`` QAT round trip at the reference test's settings
    (float accuracy ≥ 0.9, int8 within 0.02); 3 steps of ``unet_small`` at
@@ -232,7 +234,15 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    share; a ``mode="decode"`` step of 4 slots × 4096 positions after a
    3000-token prefill against the unsharded decode within phase 6's bf16
    bound; the sharded params restored from a checkpoint onto the
-   unsharded tree and back, bit for bit.  (b) 4 ranks spawned on the
+   unsharded tree and back, bit for bit; deepseek-moe-16b at full width
+   with 2 layers, one train step of 2 × 2048 tokens on the FSDP plan
+   (``pallas_ws``: the MoE layer's routed experts and router on local
+   shards, its 2 shared experts on ``matmul_ws``) against the unsharded
+   step, as llama's, its ``matmul_ws`` calls by form those the shared
+   experts' GEMMs predict, both steps timed; rwkv6-1.6b at full width
+   and depth, a sharded prefill of 4 × 1024 tokens (the wkv core on local
+   rows and heads) and 2 decode steps against the unsharded ones within
+   phase 6's bf16 bound, the state bit for bit.  (b) 4 ranks spawned on the
    card (gloo where they share it, NCCL with a card each):
    ``compressed_psum`` of a full-width gradient leaf ([3072, 8192] f32)
    bit-equal to the sum of the ranks' own quantized shards, and
@@ -260,7 +270,10 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    -m repro_torch.launch.dryrun --arch llama3.2-3b --shape decode_32k
    --mesh single`` in a subprocess (fake CUDA tensors over 256 fake
    ranks): its cell has 256 chips, ``argument_bytes`` equal to the local
-   shards of the plan's specs, and a named bottleneck; (c) the host time
+   shards of the plan's specs, and a named bottleneck; then the
+   ``train_4k`` cells on ``single`` of deepseek-moe-16b, rwkv6-1.6b and
+   seamless-m4t-medium side by side, each cell's terms, peak and host
+   seconds printed; (c) the host time
    that the ``repro_torch::matmul_ws`` op adds to a call, at the decode
    step's three MLP GEMMs (M = 4 slots): the public wrapper, the op
    alone and the wrapper as it was before the op (the same checks, then
@@ -293,7 +306,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    GEMMs at llama3.2-3b's MLP shapes apart (``lm_bwd_ms``,
    ``lm_bwd_bound_ms``, ``lm_bwd_library_ms``: ``torch.matmul``, TF32 off),
    and its ``launches`` add phase 10's training steps and phase 11(a)'s
-   sharded and unsharded steps and decode steps; ``matmul_ws``'s and
+   sharded and unsharded steps and decode steps (llama3.2-3b's and
+   deepseek-moe-16b's); ``matmul_ws``'s and
    ``flash_attention``'s add phase 12's counted and timed steps.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
@@ -333,6 +347,7 @@ FLASH_SEQS = (512, 777, 2048, 3000)   # bf16 [1, S, 24, 128] checks
 FLASH_ROW_SEQ = 2048                  # the S of the JSON row's numbers
 FLASH_SMALL_DIMS = (16, 32, 64)       # bf16 head dims besides 128
 MARK_CYCLES = 1000                    # device_ms's marker between calls
+PROFILED_STEPS = 3                    # phase 8's profiled QAT steps a window
 # head dims the kernels take padded, at D = 256 or on f32 copies:
 # (B, S, H, D, dtype, variant); the bf16 ones at S = 2048 with H·D = 3072,
 # llama3.2-3b's attention width, so their work is comparable to its
@@ -380,12 +395,21 @@ RG_CONV_SEQ = 4096                    # phase 3's conv1d_depthwise: [1, S, W]
 RG_CHECK_PROMPT, RG_CHECK_STEPS = 2560, 3   # the 5-layer f32 ring check
 RG_CHECK_TOL = 2e-3                   # tests/test_models_decode.py's own
 RWKV_CHECK_SEQ = 2048                 # wkv6 chunked against recurrent
+RWKV_SHARD_SEQ = 1024                 # phase 11(a)'s sharded rwkv6 prefill
 # phase 6d: the MoE, VLM and encoder-decoder families, as published
 DS_ARCH, QWEN_ARCH = "deepseek_moe_16b", "qwen3_moe_30b_a3b"
 VLM_ARCH, ENCDEC_ARCH = "internvl2_26b", "seamless_m4t_medium"
 VLM_TOKENS = 3072                     # after the 1024 patches: 4096 positions
 ENCDEC_SEQ = 2048                     # frames and tokens of one length
 LM_DIRECT_STEPS = 8                   # decode steps after a direct prefill
+# phase 11(a)'s sharded MoE train step: deepseek-moe-16b at full width
+# with 2 layers (two f32 train states with AdamW moments, ~37 GB)
+DS_TRAIN_LAYERS, DS_TRAIN_SEQ = 2, 2048
+# phase 12(b)'s dry-run cells beside llama3.2-3b's decode cell: the
+# train_4k cells on single that the sharded MoE backward, rwkv6 on local
+# shards and seamless's frontend projection on local shards made run
+REPAIRED_TRAIN_CELLS = ("deepseek_moe_16b", "rwkv6_1p6b",
+                        "seamless_m4t_medium")
 # phase 3's flash_attention at the new families' shapes: (B, S, H, D,
 # causal); seamless-m4t-medium's full (encoder, cross) and causal
 # attention, 16 heads of 64, and full attention at D = 128
@@ -397,8 +421,10 @@ LM_FLASH = ((1, ENCDEC_SEQ, 16, 64, False), (1, ENCDEC_SEQ, 16, 64, True),
 # 80GB HBM3 at 700 W); at 2048 it runs 3 pairs of [24, 2048, 2048] f32
 # scores (the same function, summed in fewer online-softmax rescalings).
 # The config's own chunk, which the launcher and ``Trainer`` take, is
-# timed for one step beside it; the repair of the chunk loop's host cost
-# belongs in the attention layer
+# timed for one step beside it.  Since the layer takes its chunk pairs
+# one key chunk at a time (all query chunks that see it batched), a
+# causal 4096-token layer runs 8 key-chunk iterations at 512, not 36
+# pairs
 TRAIN_ATTN_CHUNK = 2048
 GEMMA_W8_PROMPTS = (64, 512, 1024, 2048)
 YI_PROMPTS = (64, 512, 1024)
@@ -3191,29 +3217,50 @@ def main():
     act = torch.profiler.ProfilerActivity
     n_fwd = sum(sp.kind == "conv" for sp in vplan.layers)
     n_conv, forms = train_launches(vplan, BATCH)
-    # torch.profiler now and then loses device events (see
-    # device_ms): a window short of the step's launches,
-    # which the counters above hold exactly, is profiled again, up to
-    # three times, and said so
+    # torch.profiler now and then loses device events (see device_ms;
+    # once a conv event in every one of three one-step windows): each
+    # window profiles PROFILED_STEPS steps, a spin_kernel marker before
+    # each and after the last, and the first step whose launches all
+    # reached the trace (the counters above hold them exactly) is split;
+    # a window with none is profiled again, up to three times, and said so
     for window in range(3):
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            step_fn(vstate, xb, yb)
+            for _ in range(PROFILED_STEPS):
+                torch.cuda._sleep(MARK_CYCLES)
+                step_fn(vstate, xb, yb)
+            torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        conv_evs = [e for e in evs if "conv_ws_kernel" in e.name]
-        mm_evs = [e for e in evs if "matmul_ws_kernel" in e.name]
-        if len(conv_evs) == n_conv and len(mm_evs) == sum(forms.values()):
-            break
-        msg = (f"profiled step: {len(conv_evs)} conv and {len(mm_evs)} "
-               f"GEMM kernels, expected {n_conv} and {sum(forms.values())}")
-        if window == 2:
-            raise AssertionError(
-                f"{msg} in each of 3 windows; kernel names "
-                f"{sorted({e.name[:60] for e in evs})}")
-        log(f"  torch.profiler window {window + 1} of 3: {msg}; profiled "
-            f"again")
+        steps_evs, cur = [], None
+        for e in sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start):
+            if "spin_kernel" in e.name:
+                if cur is not None:
+                    steps_evs.append(cur)
+                cur = []
+            elif cur is not None:
+                cur.append(e)
+        found = []
+        for evs in steps_evs:
+            conv_evs = [e for e in evs if "conv_ws_kernel" in e.name]
+            mm_evs = [e for e in evs if "matmul_ws_kernel" in e.name]
+            found.append((len(conv_evs), len(mm_evs)))
+            if len(conv_evs) == n_conv and len(mm_evs) == sum(
+                    forms.values()):
+                break
+        else:
+            msg = (f"profiled steps: (conv, GEMM) kernels {found} between "
+                   f"{len(steps_evs) + 1 if steps_evs else 0} markers, "
+                   f"expected ({n_conv}, {sum(forms.values())}) a step")
+            if window == 2:
+                raise AssertionError(f"{msg} in each of 3 windows")
+            log(f"  torch.profiler window {window + 1} of 3: {msg}; "
+                f"profiled again")
+            continue
+        if len(found) > 1:
+            log(f"  torch.profiler: step {len(found)} of the window whole, "
+                f"the ones before short: (conv, GEMM) kernels {found}")
+        break
     conv_ids, mm_ids = {id(e) for e in conv_evs}, {id(e) for e in mm_evs}
     bwd0 = conv_evs[n_fwd].time_range.start
     last = max(e.time_range.end for e in conv_evs + mm_evs)
@@ -4218,6 +4265,152 @@ def main():
         f"matmul_ws_plain")
     del params_d, cache_d, runs_d
     torch.cuda.empty_cache()
+
+    # (a) the MoE layer's sharded backward at full width: deepseek-moe-16b
+    # (64 routed experts of 1408, 2 shared) at DS_TRAIN_LAYERS layers, 2 x
+    # DS_TRAIN_SEQ tokens, the FSDP plan on pallas_ws: the routed experts'
+    # einsums and the router on local shards, the shared experts on
+    # matmul_ws, every call held to matmul_ws_plain
+    cfg_m = dataclasses.replace(get_config(DS_ARCH),
+                                num_layers=DS_TRAIN_LAYERS,
+                                gemm_backend="pallas_ws")
+    specs_m = ts.init_state_specs(cfg_m)
+    plan_m = ShardingPlan(mesh=mesh1, fsdp=True, mode="train")
+    data_m = SyntheticLM(DataConfig(vocab_size=cfg_m.vocab_size,
+                                    seq_len=DS_TRAIN_SEQ, global_batch=2,
+                                    seed=13))
+    states_m = {"unsharded": draw_state(cfg_m, seed=13)}
+    states_m["sharded"] = device_put(tree_map(torch.clone,
+                                              states_m["unsharded"]),
+                                     dc.full_shardings(plan_m, specs_m))
+    fns_m = {"unsharded": ts.make_train_step(cfg_m, hp_a),
+             "sharded": ts.make_train_step(cfg_m, hp_a,
+                                           act_rules=plan_m.acts)}
+    worst_a.update(plain=0.0, ws=0.0, lib=0.0)
+    outs_m, forms_m = {}, {}
+    batch_m = on_card(data_m.batch_at(0))
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ("unsharded", "sharded"):
+            forms_m[name] = collections.Counter()
+            kops._matmul_kernel = recorder(forms_m[name])
+            try:
+                with scoped(name):
+                    outs_m[name], states_m[name] = dc.captured_step(
+                        fns_m[name], states_m[name], batch_m)
+            finally:
+                kops._matmul_kernel = matmul_ws
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the shared experts' three GEMMs a layer: forward and the remat's
+    # recompute in bf16 (wgmma), dx and dw in f32 (scalar)
+    n_shared = 3 * cfg_m.num_layers
+    want_m = {"wgmma": 2 * n_shared, "scalar": 2 * n_shared}
+    if not (dict(forms_m["sharded"]) == dict(forms_m["unsharded"])
+            == want_m):
+        raise AssertionError(f"(a) MoE: matmul_ws calls by form {forms_m},"
+                             f" expected {want_m} each")
+    per_call_m = max(worst_a["ws"], worst_a["lib"])
+    bound_m = 2 * 2 * n_shared * per_call_m
+    differ_m = dc.outputs_equal(outs_m["sharded"], outs_m["unsharded"])
+    held_m = None
+    if differ_m:
+        held_m = dc.hold_step(outs_m["sharded"], outs_m["unsharded"],
+                              grad_rel=bound_m)
+    m_m, n_grads_m = outs_m["sharded"][0], len(outs_m["sharded"][1])
+    if not (np.isfinite(m_m["loss"]) and m_m["aux_loss"] > 0):
+        raise AssertionError(f"(a) MoE step metrics {m_m}")
+    del outs_m
+
+    def timed_m(name, k):
+        b = on_card(data_m.batch_at(k))
+        with scoped(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states_m[name], mm = fns_m[name](states_m[name], b)
+            loss = float(mm["loss"])
+            torch.cuda.synchronize()
+        if not np.isfinite(loss):
+            raise AssertionError(f"(a) MoE {name} step {k}: loss {loss}")
+        return 1e3 * (time.perf_counter() - t0)
+    ms_m = collections.defaultdict(list)
+    for k, name in enumerate(("unsharded", "sharded", "sharded",
+                              "unsharded"), start=1):
+        ms_m[name].append(timed_m(name, k))
+    log(f"  (a) MoE sharded backward: {cfg_m.name} at full width (d_model "
+        f"{cfg_m.d_model}, {cfg_m.moe.num_experts} routed experts of "
+        f"{cfg_m.moe.expert_ff}, top {cfg_m.moe.top_k}, "
+        f"{cfg_m.moe.num_shared} shared) with {cfg_m.num_layers} layers "
+        f"({param_count(cfg_m) / 1e9:.3f} B params), 2 x {DS_TRAIN_SEQ} "
+        f"tokens, FSDP plan, pallas_ws, one rank: the sharded step "
+        + ("is bit-equal to" if not differ_m else
+           f"differs at {differ_m[:8]} and is held ({held_m}) to")
+        + f" the unsharded one ({n_grads_m} gradients, params, m, v and "
+        f"metrics; loss {m_m['loss']:.6f}, aux "
+        f"loss {m_m['aux_loss']:.6f}, grad norm {m_m['grad_norm']:.4f}); "
+        f"the gradient bound a differing leaf is held to, 2 x "
+        f"{2 * n_shared} x {per_call_m:.2e} = {bound_m:.2e}; matmul_ws "
+        f"calls by form, each held to matmul_ws_plain: "
+        f"{dict(forms_m['sharded'])} a step, as the shared experts' "
+        f"{n_shared} GEMMs predict; step ms unsharded "
+        f"{float(np.mean(ms_m['unsharded'])):.1f}, sharded "
+        f"{float(np.mean(ms_m['sharded'])):.1f} (after one warm-up each: "
+        f"{ms_m['unsharded'][0]:.1f} / {ms_m['sharded'][0]:.1f}) [{smi}]")
+    phase11["moe_ms"] = (float(np.mean(ms_m["unsharded"])),
+                         float(np.mean(ms_m["sharded"])))
+    del states_m, fns_m
+    torch.cuda.empty_cache()
+
+    # (a) rwkv6-1.6b at full width and depth on local shards: the sharded
+    # prefill (the wkv core on this rank's rows and heads) and 2 decode
+    # steps against the unsharded ones
+    cfg_r = get_config(RWKV_ARCH)
+    params_r = lm.compute_params(materialize(
+        lm.param_specs(cfg_r), torch.Generator(device=dev).manual_seed(14),
+        device=dev), cfg_r)
+    gen_r = torch.Generator(device="cpu").manual_seed(14)
+    toks_r = torch.randint(0, cfg_r.vocab_size, (LM_SLOTS, RWKV_SHARD_SEQ),
+                           generator=gen_r).to(dev)
+    t0 = time.perf_counter()
+    got_r, pcache_r = dc.family_prefill(params_r, cfg_r, ShardingPlan(
+        mesh=mesh1, fsdp=False, mode="prefill"), {"tokens": toks_r})
+    prefill_ms_r = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        want_r, cache_r = lm.prefill(params_r, {"tokens": toks_r}, cfg_r)
+    pstate_eq_r = all(torch.equal(a, b.cpu()) for a, b in zip(
+        tree_leaves(pcache_r), tree_leaves(cache_r)))
+    tok_r, pos_r = toks_r[:, -1], torch.full((LM_SLOTS,), RWKV_SHARD_SEQ,
+                                             device=dev)
+    dec_r = dc.sharded_decode(
+        params_r, tree_map(torch.clone, cache_r), cfg_r,
+        ShardingPlan(mesh=mesh1, fsdp=False, mode="decode"),
+        lm.param_specs(cfg_r), lm.cache_specs(cfg_r, LM_SLOTS,
+                                              RWKV_SHARD_SEQ),
+        tok_r, pos_r, 2)
+    plain_r = dc.plain_decode(params_r, cache_r, cfg_r, tok_r, pos_r, 2)
+    bound_r = cfg_r.num_layers * 2.0 ** -7
+    rel_r = [dc.rel_l2(got_r, want_r.cpu())] + [
+        dc.rel_l2(a, b) for a, b in zip(dec_r[0], plain_r[0])]
+    eq_r = torch.equal(got_r, want_r.cpu()) and all(
+        torch.equal(a, b) for a, b in zip(dec_r[0], plain_r[0]))
+    cache_eq_r = pstate_eq_r and all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(dec_r[1]), tree_leaves(plain_r[1])))
+    if max(rel_r) > bound_r or not cache_eq_r or not all(
+            bool(torch.isfinite(t).all()) for t in [got_r, *dec_r[0]]):
+        raise AssertionError(f"(a) rwkv6 sharded: logits rel L2 {rel_r} "
+                             f"(bound {bound_r}), state equal {cache_eq_r}")
+    log(f"  (a) {cfg_r.name} at full width and depth ({cfg_r.num_layers} "
+        f"layers, {cfg_r.d_model // cfg_r.rwkv_head_size} heads of "
+        f"{cfg_r.rwkv_head_size}), mode='prefill' then 'decode' on one "
+        f"rank: the sharded prefill of {LM_SLOTS} x {RWKV_SHARD_SEQ} "
+        f"tokens ({prefill_ms_r:.0f} ms, the wkv core on local rows and "
+        f"heads) and 2 decode steps "
+        f"{'bit-equal to' if eq_r else 'within'} the unsharded ones "
+        f"(logits rel L2 {max(rel_r):.2e}, bound {bound_r:.4g}); the "
+        f"state after the prefill and after them bit-equal")
+    del params_r, cache_r, pcache_r, dec_r, plain_r
+    torch.cuda.empty_cache()
     if flash_attention.launches:
         raise AssertionError("phase 11 launched flash_attention")
     log(f"  (a) matmul_ws launches: {matmul_ws.launches} (by form "
@@ -4524,6 +4717,50 @@ def main():
         f"/ collective {1e3 * rl['t_collective']:.4f} ms, bound by "
         f"{rl['bottleneck']}; collectives "
         f"{cell['collective_counts']}")
+
+    # (b) the train_4k cells on single that the distribution of every
+    # family repaired (the MoE layer's sharded backward, rwkv6 on local
+    # shards, seamless's frontend on local shards), one subprocess each,
+    # run side by side
+    env_b = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs_b = {}
+    t0 = time.perf_counter()
+    try:
+        for arch in REPAIRED_TRAIN_CELLS:
+            procs_b[arch] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", "train_4k", "--mesh", "single", "--out",
+                 str(out_dir)], env=env_b, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for arch, proc in procs_b.items():
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dry run {arch} train_4k single: exit "
+                                     f"{proc.returncode}: {err[-3000:]}")
+    finally:
+        for proc in procs_b.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cells_s = time.perf_counter() - t0
+    for arch in REPAIRED_TRAIN_CELLS:
+        cell = json.loads((out_dir / f"{arch}__train_4k__single.json")
+                          .read_text())
+        mem, rl = cell["memory_analysis"], cell["roofline"]
+        if (cell["chips"] != 256 or not cell["device"].startswith("cuda")
+                or not cell["cost_analysis"]["flops"] > 0
+                or not cell["collective_counts"]):
+            raise AssertionError(f"dry run cell {arch} train_4k: {cell}")
+        log(f"  (b) {arch} train_4k single: fake {cell['device']} tensors "
+            f"over 256 fake ranks, host {cell['run_s']:.1f} s "
+            f"({cell['depth']['counted_groups']} of "
+            f"{cell['depth']['groups']} groups counted); per rank terms "
+            f"compute {1e3 * rl['t_compute']:.1f} / memory "
+            f"{1e3 * rl['t_memory']:.1f} / collective "
+            f"{1e3 * rl['t_collective']:.1f} ms, bound by "
+            f"{rl['bottleneck']}; peak {mem['peak_bytes'] / 1e9:.2f} GB "
+            f"(fits 80 GB: {mem['fits_80GB']})")
+    log(f"  (b) the three train_4k cells side by side: {cells_s:.1f} s")
     shutil.rmtree(out_dir, ignore_errors=True)
 
     # (c) the host time the torch.library op adds to a matmul_ws call, at

@@ -51,9 +51,9 @@ P = PartitionSpec
 __all__ = ["AbstractMesh", "NamedSharding", "P", "PartitionSpec",
            "ShardingPlan", "act_rules", "active_mesh", "axes_to_pspec",
            "batch_sharding", "contract_local", "device_put",
-           "flatten_rows", "gather_rows", "input_shardings", "local_block",
-           "mesh_shape",
-           "param_rules", "place", "replicated", "spec_shardings",
+           "flatten_rows", "from_local", "gather_rows", "input_shardings",
+           "local_block", "mesh_shape", "param_rules", "place",
+           "replicated", "rule_placements", "spec_shardings",
            "unflatten_rows", "use_mesh"]
 
 
@@ -313,6 +313,26 @@ def _stride(shape) -> Tuple[int, ...]:
     return tuple(reversed(out))
 
 
+def from_local(local, mesh, placements, shape):
+    """A DTensor of global ``shape`` (contiguous) from this rank's
+    ``local`` shard on ``placements``, with no collective; its gradient
+    comes back on ``placements`` (a ``Partial`` one replicated)."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=_stride(shape))
+
+
+def rule_placements(mesh, shape, axes):
+    """The placements the active rules give a tensor of ``shape`` with
+    logical ``axes`` on ``mesh``, a dim that its mesh axes do not divide
+    left replicated (as ``spec_shardings`` lays out parameters and
+    caches); all replicated without rules."""
+    from repro_torch.layers.common import active_rules
+    spec = resolve_pspec(axes, active_rules() or {})
+    return NamedSharding(mesh, _fits(shape, spec, mesh)).placements
+
+
 def flatten_rows(x):
     """A DTensor [..., K] → [M, K] through its local shard: sharded on its
     leading dim (where that dim divides evenly, so its blocks of rows are
@@ -320,7 +340,7 @@ def flatten_rows(x):
     columns; any other sharded dim is replicated first.  DTensor's own
     view rule refuses a sharded leading dim of size 1 (one microbatch row
     on a one-rank mesh)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
     mesh, last = x.device_mesh, x.dim() - 1
     rows = 1
     for i, p in enumerate(x.placements):
@@ -332,24 +352,20 @@ def flatten_rows(x):
     post = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(last)
             else p for p in pre]
     local = x.redistribute(mesh, pre).to_local()
-    shape = torch.Size((math.prod(x.shape[:-1]), x.shape[-1]))
-    return DTensor.from_local(local.reshape(-1, local.shape[-1]), mesh, post,
-                              run_check=False, shape=shape,
-                              stride=_stride(shape))
+    return from_local(local.reshape(-1, local.shape[-1]), mesh, post,
+                      (math.prod(x.shape[:-1]), x.shape[-1]))
 
 
 def unflatten_rows(y, lead):
     """``flatten_rows`` undone on the product: a DTensor [M, N] →
     [*lead, N] through its local shard."""
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import Shard
     last = len(lead)
     post = [Shard(0) if p.is_shard(0) else Shard(last) if p.is_shard(1)
             else p for p in y.placements]
     local = y.to_local()
-    shape = torch.Size((*lead, y.shape[-1]))
-    return DTensor.from_local(local.reshape(-1, *lead[1:], local.shape[-1]),
-                              y.device_mesh, post, run_check=False,
-                              shape=shape, stride=_stride(shape))
+    return from_local(local.reshape(-1, *lead[1:], local.shape[-1]),
+                      y.device_mesh, post, (*lead, y.shape[-1]))
 
 
 def local_block(t):
@@ -400,9 +416,7 @@ def gather_rows(table, ids):
         rows = torch.where(mine[..., None], rows, 0)
     else:
         rows = t_l[i_l]
-    shape = torch.Size((*ids.shape, table.shape[1]))
-    return DTensor.from_local(rows, mesh, op, run_check=False, shape=shape,
-                              stride=_stride(shape))
+    return from_local(rows, mesh, op, (*ids.shape, table.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -474,7 +488,5 @@ def contract_local(subscripts: str, x, w, local):
     lhs, out = subscripts.replace(" ", "").split("->")
     sizes = dict(zip(lhs.split(",")[0], x.shape))
     sizes.update(zip(lhs.split(",")[1], w.shape))
-    shape = torch.Size(sizes[c] for c in out)
-    return DTensor.from_local(local(x_l, w_l), mesh, pick(2),
-                              run_check=False, shape=shape,
-                              stride=_stride(shape))
+    return from_local(local(x_l, w_l), mesh, pick(2),
+                      [sizes[c] for c in out])

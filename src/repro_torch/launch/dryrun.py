@@ -26,6 +26,11 @@ Depth: eager fake execution costs host time for every op, so a cell of
 more than two layer groups runs at one and at two groups and the counts
 of its G groups are ``counts.extrapolate``-d (exact: identical groups do
 identical work; the embedding, head, tail and encoder are in both runs).
+An encoder-decoder's encoder is counted at its full depth in both runs,
+so it enters the extrapolated counts once.  Its host cost is the chunked
+attention's: a 32k-position prefill's full (encoder, cross) attention
+meets 64 key chunks a layer, which ``layers.attention.chunked_attention``
+takes one key chunk at a time, on local shards (``_on_local_heads``).
 ``peak_bytes`` is extrapolated the same way and marked so
 (``depth.extrapolated``); ``argument_bytes`` is exact, from the local
 shards of the full-depth state.
@@ -34,8 +39,11 @@ The per-cell JSON keeps the reference's layout: ``memory_analysis`` is
 {argument_bytes, output_bytes, peak_bytes, fits_80GB} per rank,
 ``cost_analysis`` the counter's totals (there is no compiler estimate),
 ``collectives`` / ``collective_counts`` by kind, ``roofline`` the
-``RooflineReport`` against ``analysis.H100``.  ``--all`` runs one
-subprocess per cell and writes ``skips.json``.  The environment knobs are
+``RooflineReport`` against ``analysis.H100``.  ``--all`` builds every
+runnable cell of ``iter_cells`` (10 architectures × 4 shapes × 2 meshes:
+64 cells, and the reference's 16 skips, which it writes to
+``skips.json``), one subprocess per cell, and exits 1 if any cell
+failed.  The environment knobs are
 the reference's: ``REPRO_ACCUM``, ``REPRO_SEQ_SHARD``, ``REPRO_REMAT``,
 ``REPRO_W8``, ``REPRO_KV8``.
 """

@@ -6,7 +6,11 @@ one-token decode against a KV cache (counterpart of
 scores, "flash" runs the ``flash_attention`` kernel (windowed attention
 goes to the chunked path, as in the reference), and "chunked" is the
 reference's flash-style two-level loop in plain torch, skipping KV chunks
-that are wholly masked.  Cross attention (``kv=`` the encoder's output)
+that are wholly masked, run one key chunk at a time against all the
+query chunks that see it.  On DTensors (a sharded step) "dense" and
+"chunked" run on each rank's own batch rows and heads as plain tensors
+(``_on_local_heads``); ``flash_attention`` refuses a DTensor.  Cross
+attention (``kv=`` the encoder's output)
 is full attention from the decoder's queries to the source's keys; under
 "flash" it goes to the kernel too, as the reference's code routes it (its
 config note promises the chunked path), so it runs where source and
@@ -24,12 +28,14 @@ that the prefill wrote and writes nothing.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.quantize import quantize_symmetric
+from repro_torch.device import is_dtensor
 from repro_torch.layers.common import (ParamSpec, cast, dense, einsum,
                                        lconstraint)
 from repro_torch.layers.norms import apply_norm, rmsnorm_specs
@@ -54,13 +60,23 @@ def attention_specs(cfg, cross: bool = False):
 
 
 def _mask(qpos, kpos, causal: bool, window: int):
-    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+    """Which keys at ``kpos`` [Sk] queries at ``qpos`` [..., Sq] see →
+    bool [..., Sq, Sk]."""
+    q = qpos[..., :, None]
+    mask = torch.ones(q.shape[:-1] + kpos.shape, dtype=torch.bool,
                       device=qpos.device)
     if causal:
-        mask &= qpos[:, None] >= kpos[None, :]
+        mask &= q >= kpos
     if window > 0:
-        mask &= kpos[None, :] > qpos[:, None] - window
+        mask &= kpos > q - window
     return mask
+
+
+def _put(t, lo: int, hi: int, new):
+    """``t`` with query chunks ``lo:hi`` (dim 1) replaced by ``new``."""
+    if lo == 0 and hi == t.shape[1]:
+        return new
+    return torch.cat([t[:, :lo], new, t[:, hi:]], dim=1)
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
@@ -71,46 +87,57 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     Returns [B,Sq,H,D].  ``window`` > 0 restricts each query to the last
     ``window`` keys (inclusive of itself).  ``q_offset`` is the absolute
     position of q[0] relative to k[0].  The chunk is halved until it
-    divides both lengths, as in the reference."""
+    divides both lengths, as in the reference.
+
+    The reference's two-level loop (query chunks, then key chunks with an
+    online softmax, skipping wholly masked pairs), run key chunk by key
+    chunk: each key chunk meets every query chunk that sees any of it
+    (a contiguous run) in one batched contraction.  Each query chunk
+    still takes its key chunks in order with the same sums, and a layer
+    issues its ops once a key chunk rather than once a chunk pair."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     c = min(chunk, Sq, Sk)
     while Sq % c or Sk % c:
         c //= 2
+    n = Sq // c
     scale = 1.0 / math.sqrt(D)
-    outs = []
-    for i in range(Sq // c):
-        q_i = q[:, i * c:(i + 1) * c].float() * scale             # [B,c,H,D]
-        q_lo = q_offset + i * c
-        qpos = q_lo + torch.arange(c, device=q.device)
-        m = torch.full((B, H, c), NEG_INF, device=q.device)
-        l = torch.zeros((B, H, c), device=q.device)
-        acc = torch.zeros((B, H, c, D), device=q.device)
-        for j in range(Sk // c):
-            kpos = j * c + torch.arange(c, device=q.device)
-            # skip wholly masked chunks: future ones, and ones that fell
-            # out of the window
-            if causal and j * c > q_lo + c - 1:
-                continue
-            if window > 0 and (j + 1) * c - 1 < q_lo - (window - 1):
-                continue
-            k_j = k[:, j * c:(j + 1) * c].float()
-            v_j = v[:, j * c:(j + 1) * c].float()
-            scores = einsum("bqhd,bkhd->bhqk", q_i, k_j)
-            if softcap:
-                scores = softcap * torch.tanh(scores / softcap)
-            scores = scores.masked_fill(~_mask(qpos, kpos, causal, window),
-                                        NEG_INF)
-            m_new = torch.maximum(m, scores.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(scores - m_new[..., None])
-            l = alpha * l + p.sum(dim=-1)
-            acc = alpha[..., None] * acc + einsum("bhqk,bkhd->bhqd", p,
-                                                  v_j)
-            m = m_new
-        out_i = acc / torch.clamp(l, min=1e-30)[..., None]         # [B,H,c,D]
-        outs.append(out_i.transpose(1, 2))                         # [B,c,H,D]
-    return torch.cat(outs, dim=1).to(q.dtype)
+    qc = (q.float() * scale).reshape(B, n, c, H, D)
+    m = torch.full((B, n, H, c), NEG_INF, device=q.device)
+    l = torch.zeros((B, n, H, c), device=q.device)
+    acc = torch.zeros((B, n, H, c, D), device=q.device)
+    ar = torch.arange(c, device=q.device)
+    for j in range(Sk // c):
+        # the query chunks that see key chunk j: not wholly in its past
+        # (causal) nor wholly past the window
+        live = [i for i in range(n)
+                if not (causal and j * c > q_offset + i * c + c - 1)
+                and not (window > 0 and (j + 1) * c - 1
+                         < q_offset + i * c - (window - 1))]
+        if not live:
+            continue
+        lo, hi = live[0], live[-1] + 1
+        k_j = k[:, j * c:(j + 1) * c].float()
+        v_j = v[:, j * c:(j + 1) * c].float()
+        scores = einsum("bnqhd,bkhd->bnhqk", qc[:, lo:hi], k_j)
+        if softcap:
+            scores = softcap * torch.tanh(scores / softcap)
+        if causal or window > 0:
+            qpos = q_offset + lo * c + torch.arange(
+                (hi - lo) * c, device=q.device).reshape(hi - lo, c)
+            scores = scores.masked_fill(
+                ~_mask(qpos, j * c + ar, causal, window)[None, :, None],
+                NEG_INF)
+        m_old = m[:, lo:hi]
+        m_new = torch.maximum(m_old, scores.amax(dim=-1))
+        alpha = torch.exp(m_old - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = _put(l, lo, hi, alpha * l[:, lo:hi] + p.sum(dim=-1))
+        acc = _put(acc, lo, hi, alpha[..., None] * acc[:, lo:hi]
+                   + einsum("bnhqk,bkhd->bnhqd", p, v_j))
+        m = _put(m, lo, hi, m_new)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]         # [B,n,H,c,D]
+    return out.transpose(2, 3).reshape(B, Sq, H, D).to(q.dtype)
 
 
 def dense_attention(q, k, v, *, causal: bool, window: int = 0,
@@ -127,6 +154,26 @@ def dense_attention(q, k, v, *, causal: bool, window: int = 0,
     scores = scores.masked_fill(~_mask(qpos, kpos, causal, window), NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _on_local_heads(attend, q, k, v, **kw):
+    """``attend(q, k, v, **kw)`` (an attention over [B, S, H, D]) of
+    DTensors on each rank's own batch rows and heads as plain tensors:
+    attention is independent per (row, head), so no sum crosses ranks.
+    k and v take q's layout (its batch and head sharding, every other dim
+    gathered); the output and the three gradients keep it.  DTensor's
+    own rules would take each op of the chunk loop through sharding
+    propagation on the host: 4096 chunk pairs a layer at 32k positions
+    of full attention."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import from_local
+    mesh = q.device_mesh
+    lay = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+           for p in q.placements]
+    q_l, k_l, v_l = (t.redistribute(mesh, lay).to_local()
+                     for t in (q, k, v))
+    return from_local(attend(q_l, k_l, v_l, **kw), mesh, lay, q.shape)
 
 
 class KVCache(NamedTuple):
@@ -276,16 +323,17 @@ def attention_layer(params, x, cfg, *, positions, causal=True, window=0,
         causal = False
     kf = _broadcast_kv(k, cfg.num_heads)
     vf = _broadcast_kv(v, cfg.num_heads)
-    if cfg.attn_impl == "dense":
-        out = dense_attention(q, kf, vf, causal=causal, window=window)
-    elif cfg.attn_impl == "flash" and window == 0:
+    if cfg.attn_impl == "flash" and window == 0:
         from repro_torch.kernels import ops as kops
         out = kops.flash_attention(q, kf, vf, causal=causal,
                                    block_q=cfg.attn_chunk,
                                    block_k=cfg.attn_chunk)
     else:
-        out = chunked_attention(q, kf, vf, causal=causal, window=window,
-                                chunk=cfg.attn_chunk)
+        attend, kw = ((dense_attention, {}) if cfg.attn_impl == "dense"
+                      else (chunked_attention, {"chunk": cfg.attn_chunk}))
+        if is_dtensor(q):
+            attend = functools.partial(_on_local_heads, attend)
+        out = attend(q, kf, vf, causal=causal, window=window, **kw)
     out = lconstraint(out, ("batch", "seq", "heads", "head_dim"))
     y = dense(params["wo"], out, "bshe,hed->bsd",
               compute_dtype=cfg.compute_dtype)

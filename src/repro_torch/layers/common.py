@@ -237,6 +237,11 @@ def active_mesh():
     return _ACTIVE_MESH
 
 
+def active_rules() -> Optional[dict]:
+    """The rules of the innermost ``activate_rules``, or None."""
+    return _ACTIVE_RULES
+
+
 def resolve_pspec(axes: Tuple[Optional[str], ...],
                   rules: dict) -> PartitionSpec:
     """Logical axes → PartitionSpec with first-come-first-served mesh-axis

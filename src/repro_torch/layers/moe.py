@@ -24,19 +24,30 @@ Ties in the router's top-k go to the lower expert index, as
 ``torch.topk`` promises no order.  ``lconstraint`` keeps the reference's
 annotations (see ``layers.common``).
 
-Sharded (``x`` a DTensor under ``use_mesh``), forward only: each rank
-routes its own groups (the batch rows it holds; routing is per group)
-against the whole router, dispatches to the experts it holds (the expert
-weights' ``experts`` dim sharded over ``model``, the expert parallelism
-of the reference's rules) and combines their outputs into a partial sum
-that one all-reduce over the expert-holding mesh dims completes.  The
+Sharded (``x`` a DTensor under ``use_mesh``): each rank routes its own
+groups (the batch rows it holds; routing is per group) against the whole
+router, dispatches to the experts it holds (the expert weights'
+``experts`` dim sharded over ``model``, the expert parallelism of the
+reference's rules) and combines their outputs into a partial sum that
+one all-reduce over the expert-holding mesh dims completes.  The
 dispatch map is data-dependent (``scatter_reduce_``), which DTensor has
-no rule for, so it runs on local tensors.  Under autograd it raises:
-the sharded backward is not ported.
+no rule for, so the layer runs on local tensors, and autograd runs
+through them: each boundary names the placements of its gradient.  The
+rows' gradient is partial over the experts' dims (a rank's experts add
+their share), an expert's weight gradient sums this rank's rows and is
+partial over the rows' dims (the FSDP reduce-scatter completes it), and
+the router, taken whole, gets a gradient partial over both, which
+returns to its own placement.  The aux loss is each rank's mean over
+its rows as a share of the rows' ranks' sum; every rank holding the same
+rows computes the same value, so its gradient is scaled by one over the
+experts' ranks and counted once.  Routing, gates and drops are the
+unsharded layer's; a jitter draw is the unsharded one's, this rank's
+rows of it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -84,16 +95,20 @@ class Routing(NamedTuple):
 
 
 def route(router: torch.Tensor, xg: torch.Tensor, m, capacity: int, *,
-          train: bool = False,
-          rng: Optional[torch.Generator] = None) -> Routing:
-    """The router of ``apply_moe`` for tokens ``xg`` [G, Tg, D]."""
+          train: bool = False, rng: Optional[torch.Generator] = None,
+          noise: Optional[torch.Tensor] = None) -> Routing:
+    """The router of ``apply_moe`` for tokens ``xg`` [G, Tg, D]; the
+    jitter is drawn from ``rng`` (``train`` set), or given as ``noise``
+    [G, Tg, E] (the sharded layer's rows of the unsharded draw)."""
     E, K = m.num_experts, m.top_k
     G, Tg = xg.shape[:2]
     logits = torch.einsum("gtd,de->gte", cast(xg, torch.float32),
                           cast(router, torch.float32))
     if train and m.router_jitter and rng is not None:
-        logits = logits + m.router_jitter * torch.randn(
-            logits.shape, generator=rng, device=logits.device)
+        noise = torch.randn(logits.shape, generator=rng,
+                            device=logits.device)
+    if noise is not None:
+        logits = logits + m.router_jitter * noise
     probs = torch.softmax(logits, dim=-1)                       # [G,Tg,E]
     # top-k with ties to the lower index (jax.lax.top_k's order)
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
@@ -130,7 +145,7 @@ def apply_moe(params, x: torch.Tensor, cfg, *, train: bool = False,
     (``train=True``) with ``router_jitter`` set adds."""
     from repro_torch.device import is_dtensor
     if is_dtensor(x):
-        return _apply_moe_sharded(params, x, cfg)
+        return _apply_moe_sharded(params, x, cfg, train=train, rng=rng)
     m = cfg.moe
     B, S, D = x.shape
     G = m.num_groups or B
@@ -203,58 +218,84 @@ def _dispatch_experts(params, xg, r: Routing, cfg, C: int, e0: int,
     return torch.einsum("gtkd,gtk->gtd", got.float(), r.gate_vals.float())
 
 
-def _apply_moe_sharded(params, x, cfg):
+def _apply_moe_sharded(params, x, cfg, train: bool = False,
+                       rng: Optional[torch.Generator] = None):
     """``apply_moe`` of a DTensor ``x`` on local shards (see the module
-    note) → (out, aux) as DTensors."""
+    note) → (out, aux) as DTensors, differentiable: each boundary between
+    DTensors and local tensors names the placements of its gradient."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-    from repro_torch.distributed.sharding import local_block
-    from repro_torch.kernels.ops import _recorded
+    from repro_torch.distributed.sharding import from_local, local_block
     m = cfg.moe
-    if _recorded(x, *(params[k] for k in ("router", "wi_gate", "wi_up",
-                                          "wo"))):
-        raise NotImplementedError(
-            "the sharded MoE layer runs forward only (serving): its "
-            "backward on local shards is not ported; train the MoE "
-            "families unsharded")
     B, S, D = x.shape
     if m.num_groups not in (0, B):
         raise NotImplementedError(
             f"sharded MoE routes by batch row; num_groups={m.num_groups} "
             f"groups rows across ranks")
     mesh = x.device_mesh
-    r = Replicate()
+    r, nd = Replicate(), mesh.ndim
     # the batch rows stay where they are; every other dim is gathered
     tok = [p if p.is_shard(0) else r for p in x.placements]
-    x_l = x.redistribute(mesh, tok).to_local()
     weights = {}
     for k in ("wi_gate", "wi_up", "wo"):
         w = params[k]
         if not isinstance(w, DTensor):
-            w = DTensor.from_local(w, mesh, [r] * mesh.ndim,
-                                   run_check=False)
+            w = DTensor.from_local(w, mesh, [r] * nd, run_check=False)
         weights[k] = w.redistribute(mesh, [p if p.is_shard(0) else r
                                            for p in w.placements])
-    wg = weights["wi_gate"]
-    (n_local, *_), (e0, *_) = local_block(wg)
+    rows = [p.is_shard(0) for p in tok]
+    experts = [p.is_shard(0) for p in weights["wi_gate"].placements]
+    if any(experts != [p.is_shard(0) for p in w.placements]
+           for w in weights.values()) or any(a and b for a, b in
+                                             zip(rows, experts)):
+        raise NotImplementedError(
+            f"sharded MoE: the experts' placements "
+            f"{[w.placements for w in weights.values()]} against the rows' "
+            f"{tok}: each mesh dim must split the rows, the experts or "
+            f"neither")
+    # gradients: a rank's experts add a partial sum to its rows' gradient
+    # (and the router's); an expert's weight gradient sums this rank's
+    # rows, partial over the dims that split them
+    x_tok = x.redistribute(mesh, tok)
+    x_l = x_tok.to_local(grad_placements=[
+        p if p.is_shard(0) else Partial() if e else r
+        for p, e in zip(tok, experts)])
+    w_l = {k: w.to_local(grad_placements=[
+        Shard(0) if e else Partial() if b else r
+        for b, e in zip(rows, experts)]) for k, w in weights.items()}
+    (n_local, *_), (e0, *_) = local_block(weights["wi_gate"])
     router = params["router"]
-    if isinstance(router, DTensor):
-        router = router.full_tensor()
+    if not isinstance(router, DTensor):
+        router = DTensor.from_local(router, mesh, [r] * nd, run_check=False)
+    router_l = router.redistribute(mesh, [r] * nd).to_local(
+        grad_placements=[Partial() if b or e else r
+                         for b, e in zip(rows, experts)])
     C = _capacity(S, m)
+    noise = None
+    if train and m.router_jitter and rng is not None:
+        # the unsharded step's draw over every row; this rank's rows of it
+        (b_l, *_), (b0, *_) = local_block(x_tok)
+        noise = torch.randn((B, S, m.num_experts), generator=rng,
+                            device=x_l.device)[b0:b0 + b_l]
     with use_mesh(None):                    # plain tensors from here on
-        rt = route(router, x_l, m, C)
-        y = _dispatch_experts({k: w.to_local() for k, w in weights.items()},
-                              x_l, rt, cfg, C, e0, n_local)
+        rt = route(router_l, x_l, m, C, noise=noise)
+        y = _dispatch_experts(w_l, x_l, rt, cfg, C, e0, n_local)
+    n_rows = math.prod(mesh.size(i) for i in range(nd) if rows[i])
+    n_exp = math.prod(mesh.size(i) for i in range(nd) if experts[i])
     # partial over the dims that split the experts; the batch rows kept
-    y_place = [p if p.is_shard(0) else Partial() if q.is_shard(0) else r
-               for p, q in zip(tok, wg.placements)]
-    y = DTensor.from_local(cast(y, cfg.compute_dtype), mesh, y_place,
-                           run_check=False, shape=x.shape,
-                           stride=x.stride())
-    y = y.redistribute(mesh, [p if p.is_shard(0) else r for p in y_place])
-    aux = DTensor.from_local(rt.aux, mesh, [
-        Partial("avg") if p.is_shard(0) else r for p in tok],
-        run_check=False).redistribute(mesh, [r] * mesh.ndim)
+    y_place = [Shard(0) if b else Partial() if e else r
+               for b, e in zip(rows, experts)]
+    y = from_local(cast(y, cfg.compute_dtype), mesh, y_place, x.shape)
+    y = y.redistribute(mesh, [Shard(0) if b else r for b in rows])
+    # the aux loss: the mean over the rows' ranks as a sum of each rank's
+    # share; every rank that holds the same rows computes the same value,
+    # so its gradient, partial over the experts' dims with the rest, is
+    # counted once there
+    aux_l = rt.aux / n_rows
+    aux_l = aux_l.detach() + (aux_l - aux_l.detach()) / n_exp
+    aux = DTensor.from_local(aux_l, mesh, [Partial() if b else r
+                                           for b in rows],
+                             run_check=False).redistribute(mesh, [r] * nd)
     if m.num_shared:
         y = y + apply_mlp(params["shared"], x, cfg)
     return lconstraint(y, ("batch", "seq_r", "embed")), aux

@@ -21,7 +21,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.layers.common import ParamSpec, cast, dense, lconstraint
+from repro_torch.layers.common import (ParamSpec, cast, dense, einsum,
+                                       lconstraint)
 
 _C = 8.0  # RG-LRU sharpness constant (Griffin §2.4)
 
@@ -76,10 +77,21 @@ def causal_conv1d(u, conv_w, conv_b, prefix=None):
 
 
 def _gates(params, u):
-    """RG-LRU gate computation in f32.  u: [B,S,W] → (log_a, b_input)."""
+    """RG-LRU gate computation in f32.  u: [B,S,W] → (log_a, b_input).
+    On DTensors each gate's product contracts local shards
+    (``common.einsum``) and is placed as ``u`` is before its bias is
+    added: with ``rnn`` over ``model`` on both sides the product is a
+    partial sum, which DTensor would otherwise meet the sharded bias with
+    by a redistribute that some torch versions refuse (``Shard`` to
+    ``Partial``)."""
     uf = u.float()
-    r = torch.sigmoid(uf @ params["w_a"].float() + params["b_a"].float())
-    i = torch.sigmoid(uf @ params["w_x"].float() + params["b_x"].float())
+
+    def gate(w, b):
+        y = einsum("bsw,wv->bsv", uf, params[w].float())
+        y = lconstraint(y, ("batch", "seq", "rnn"))
+        return torch.sigmoid(y + params[b].float())
+    r = gate("w_a", "b_a")
+    i = gate("w_x", "b_x")
     log_a = -_C * F.softplus(params["lam"].float()) * r
     gated = i * uf
     # multiplier sqrt(1 - a^2) = sqrt(1 - exp(2 log_a)), computed stably

@@ -16,6 +16,17 @@ Every GEMM is a ``dense`` with no backend, as in the reference, so none
 runs a kernel.  The decode state (``S``, ``x_att``, ``x_ffn``) is written
 in place by ``models.blocks.apply_block_decode`` from what these functions
 return.
+
+Sharded (DTensor activations under ``use_mesh``): the ddlerp and LoRA
+einsums contract their local shards (``common.einsum``), so the mix's
+dim of 5 is never split; the mix and decay vectors meet the activations
+whole.  The wkv core and the group norm are independent per (batch row,
+head), so each rank runs its own rows (the mesh dims of "batch") and
+heads ("heads", over ``model`` where the head count divides) on plain
+tensors (``_wkv_sharded``): no sum crosses ranks there, r / k / v / the
+decay and the state keep their placements in the backward, and the
+gradients of ``u`` and the group norm's scale and bias are partial over
+the rows' dims.
 """
 
 from __future__ import annotations
@@ -25,7 +36,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.layers.common import ParamSpec, cast, dense, lconstraint
+from repro_torch.device import is_dtensor
+from repro_torch.layers.common import (ParamSpec, cast, dense, einsum,
+                                       lconstraint)
 from repro_torch.layers.norms import groupnorm_heads
 
 MIX_NAMES = ("w", "k", "v", "r", "g")
@@ -158,12 +171,84 @@ def _token_shift(x, x_prev_last=None):
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def _whole(t):
+    """A DTensor parameter replicated (differentiably: its gradient
+    returns to its own placements), a plain tensor as it is: the mix and
+    decay vectors meet the batch-sharded activations whole, so that the
+    activations keep their layout (FSDP shards the vectors' ``embed``
+    dim over the rows' mesh dims)."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _wkv_heads(r, k, v, logw, params, N: int, S0, core):
+    """The wkv core and the per-head group norm: r, k, v, logw [B,S,D]
+    (plain tensors) → (o [B,S,D] f32, S_fin [B,H,N,N])."""
+    B, S, D = r.shape
+    H = D // N
+
+    def heads(t):
+        return t.float().reshape(B, S, H, N)
+    o, S_fin = core(heads(r), heads(k), heads(v), heads(logw),
+                    params["u"].float(), S0=S0)
+    o = groupnorm_heads(o, params["gn_scale"], params["gn_bias"])
+    return o.reshape(B, S, D), S_fin
+
+
+def _wkv_sharded(r, k, v, logw, params, N: int, S0, core):
+    """``_wkv_heads`` of DTensors r, k, v, logw [B,S,D] (and a DTensor
+    state ``S0``) on local shards: the recurrence is independent per
+    (batch row, head), so each rank runs its rows (the mesh dims of the
+    active rules' "batch") and its heads ("heads", where the head count
+    divides) as plain tensors, which DTensor's einsum and view rules
+    would redistribute or refuse (a head dim split into a
+    ``_StridedShard``).  Nothing is summed across ranks: the outputs' and
+    the inputs' gradients keep their placements, and those of ``u`` and
+    the group norm's scale and bias are partial over the rows' dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (from_local,
+                                                  rule_placements)
+    B, S, D = r.shape
+    H = D // N
+    mesh = r.device_mesh
+    seq = rule_placements(mesh, (B, S, H), ("batch", None, "heads"))
+    rows = [p.is_shard(0) for p in seq]
+    cut = [p.is_shard(2) for p in seq]
+    rep = Replicate()
+    lay_seq = [Shard(0) if b else Shard(2) if h else rep
+               for b, h in zip(rows, cut)]
+    lay_state = [Shard(0) if b else Shard(1) if h else rep
+                 for b, h in zip(rows, cut)]
+    loc = [t.redistribute(mesh, lay_seq).to_local()
+           for t in (r, k, v, logw)]
+    if S0 is not None:
+        S0 = S0.redistribute(mesh, lay_state).to_local()
+    head_params = {}
+    for name in ("u", "gn_scale", "gn_bias"):
+        t = params[name]
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [rep] * mesh.ndim,
+                                   run_check=False)
+        head_params[name] = t.redistribute(mesh, [
+            Shard(0) if h else rep for h in cut]).to_local(grad_placements=[
+                Shard(0) if h else Partial() if b else rep
+                for b, h in zip(rows, cut)])
+    o, S_fin = _wkv_heads(*loc, head_params, N, S0, core)
+    return (from_local(o, mesh, lay_seq, (B, S, D)),
+            from_local(S_fin, mesh, lay_state, (B, H, N, N)))
+
+
 def apply_timemix(params, x, cfg, state: RWKVState | None = None,
                   chunked: bool = True):
-    """RWKV6 time mix.  x: [B,S,D] → (y, (S_fin, x_last))."""
+    """RWKV6 time mix.  x: [B,S,D] → (y, (S_fin, x_last)).  A DTensor
+    ``x`` contracts its ddlerp and LoRA einsums on local shards
+    (``common.einsum``: the mix's dim of 5 stays whole) and runs the wkv
+    core on this rank's rows and heads (``_wkv_sharded``)."""
     B, S, D = x.shape
     N = cfg.rwkv_head_size
-    H = D // N
 
     xf = x.float()
     xprev = _token_shift(x, state.x_att if state is not None else None
@@ -171,19 +256,24 @@ def apply_timemix(params, x, cfg, state: RWKVState | None = None,
     sx = xprev - xf
 
     # data-dependent lerp (ddlerp): 5 mixed inputs for w, k, v, r, g
-    z = xf + sx * params["mu_base"].float()
-    tan = torch.tanh(torch.einsum("bsd,dpr->bspr", z,
-                                  params["ddlerp_a"].float()))
-    dyn = torch.einsum("bspr,prd->bspd", tan,
-                       params["ddlerp_b"].float())                # [B,S,5,D]
-    mixed = xf[:, :, None] + sx[:, :, None] * (
-        params["mu"].float()[None, None] + dyn)                  # [B,S,5,D]
-    xw, xk, xv, xr, xg = mixed.unbind(dim=2)
+    z = xf + sx * _whole(params["mu_base"]).float()
+    tan = torch.tanh(einsum("bsd,dpr->bspr", z,
+                            params["ddlerp_a"].float()))
+    dyn = einsum("bspr,prd->bspd", tan,
+                 params["ddlerp_b"].float())                     # [B,S,5,D]
+    # each mixed input on its own [B,S,D], the same sums as a [B,S,5,D]
+    # mix: DTensor's pointwise rule may shard such a mix's dim of 5 (over
+    # ``model``, where the rows split unevenly), which unbind refuses
+    mu = _whole(params["mu"]).float()
+    xw, xk, xv, xr, xg = (xf + sx * (mu[i] + dyn[:, :, i])
+                          for i in range(len(MIX_NAMES)))
 
     # decay (per channel, data dependent): logw = -exp(w0 + lora_w(xw))
-    wlo = torch.tanh(xw @ params["w_lora_a"].float()) \
-        @ params["w_lora_b"].float()
-    logw = -torch.exp(torch.clamp(params["w0"].float() + wlo, -20.0, 8.0))
+    wlo = einsum("bsr,rd->bsd", torch.tanh(einsum(
+        "bsd,dr->bsr", xw, params["w_lora_a"].float())),
+        params["w_lora_b"].float())
+    logw = -torch.exp(torch.clamp(_whole(params["w0"]).float() + wlo,
+                                  -20.0, 8.0))
 
     cd = cfg.compute_dtype
     rr = dense(params["wr"], cast(xr, cd), "bsd,de->bse", compute_dtype=cd)
@@ -191,16 +281,12 @@ def apply_timemix(params, x, cfg, state: RWKVState | None = None,
     vv = dense(params["wv"], cast(xv, cd), "bsd,de->bse", compute_dtype=cd)
     gg = dense(params["wg"], cast(xg, cd), "bsd,de->bse", compute_dtype=cd)
 
-    def heads(t):
-        return t.float().reshape(B, S, H, N)
-
     S0 = state.S if state is not None else None
     core = wkv6_chunked if (chunked and S > 1) else wkv6_recurrent
-    o, S_fin = core(heads(rr), heads(kk), heads(vv), logw.reshape(B, S, H, N),
-                    params["u"].float(), S0=S0)
+    wkv = _wkv_sharded if is_dtensor(x) else _wkv_heads
+    o, S_fin = wkv(rr, kk, vv, logw, params, N, S0, core)
 
-    o = groupnorm_heads(o, params["gn_scale"], params["gn_bias"])
-    y = cast(o.reshape(B, S, D), cd) * F.silu(gg)
+    y = cast(o, cd) * F.silu(gg)
     y = dense(params["wo"], y, "bse,ed->bsd", compute_dtype=cd)
     return lconstraint(y, ("batch", "seq_r", "embed")), (S_fin, x[:, -1])
 

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_RGLRU,
                                       BLOCK_RWKV6)
+from repro_torch.device import is_dtensor
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import rglru as rglru_lib
 from repro_torch.layers import rwkv as rwkv_lib
@@ -133,12 +134,27 @@ def _prime_cache(t, seq_len: int, window: int, cache_len: Optional[int]):
                                *t.shape[2:]))
             kept = torch.cat([kept, pad], dim=1)
         if seq_len > ring:
-            kept = torch.roll(kept, seq_len % ring, dims=1)
+            kept = _roll_seq(kept, seq_len % ring)
         return kept
     if cache_len > seq_len:
         pad = t.new_zeros((t.shape[0], cache_len - seq_len, *t.shape[2:]))
         return torch.cat([t, pad], dim=1)
     return t
+
+
+def _roll_seq(t, shift: int):
+    """``torch.roll`` along dim 1.  A DTensor rolls its local shard, its
+    dim 1 gathered first where it is sharded: DTensor has no sharding rule
+    for ``aten.roll`` on some torch versions (2.11)."""
+    if not is_dtensor(t):
+        return torch.roll(t, shift, dims=1)
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import from_local
+    lay = [Replicate() if p.is_shard(1) else p for p in t.placements]
+    t = t.redistribute(t.device_mesh, lay)
+    return from_local(torch.roll(t.to_local(), shift, dims=1),
+                      t.device_mesh, lay, t.shape)
 
 
 def _to_cache(t, cfg):

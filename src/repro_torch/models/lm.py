@@ -52,8 +52,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import BLOCK_ATTN, ArchConfig, ShapeConfig
-from repro_torch.layers.common import (ParamSpec, cast, stack_specs,
-                                       torch_dtype, tree_map)
+from repro_torch.layers.common import (ParamSpec, cast, einsum,
+                                       stack_specs, torch_dtype, tree_map)
 from repro_torch.layers.embedding import embed_tokens, embedding_specs, logits
 from repro_torch.layers.norms import apply_norm, norm_specs
 from repro_torch.layers.rope import sinusoidal_positions
@@ -178,9 +178,10 @@ def compute_params(params: PyTree, cfg: ArchConfig) -> PyTree:
 
 def _frontend(params, t, cfg: ArchConfig):
     """Stub-frontend embeddings [B, S, frontend_dim] → [B, S, d_model],
-    in the compute dtype."""
-    return torch.einsum("bsf,fd->bsd", cast(t, cfg.compute_dtype),
-                        cast(params["frontend_proj"], cfg.compute_dtype))
+    in the compute dtype; DTensors contract their local shards
+    (``common.einsum``)."""
+    return einsum("bsf,fd->bsd", cast(t, cfg.compute_dtype),
+                  cast(params["frontend_proj"], cfg.compute_dtype))
 
 
 def _encoder_forward(params, frames, cfg: ArchConfig):

@@ -176,7 +176,8 @@ def test_sharded_moe_serving_matches_unsharded(world):
     routing its batch rows to its 2 of the 8 experts and the partial
     outputs summed over ``model``: the prefill's logits and two decode
     steps equal the unsharded ones (up to the order of that sum); its
-    sharded train step is refused (the backward is not ported)."""
+    FSDP train step, the experts' and the router's gradients partial sums
+    on local shards, holds to the unsharded step (``GRAD_REL``)."""
     from repro_torch.models import lm
     cfg = dc.reduced_cfg("xla", "deepseek_moe_16b")
     params = dc.draw_state(cfg, 2, "cpu")[0]["params"]
@@ -192,7 +193,12 @@ def test_sharded_moe_serving_matches_unsharded(world):
         torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
     for a, w in zip(tree_leaves(cache), tree_leaves(want_cache)):
         torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
-    assert "forward only" in world["out"]["moe_train"]
+    state = dc.draw_state(cfg, 2, "cpu")[0]
+    want = dc.plain_step(state, dc.moe_batch(world["batch"]), cfg,
+                         AdamWConfig(**dc.STEP_HP))
+    got = world["out"]["moe_train"]
+    print("moe train", dc.hold_step(got, want, grad_rel=GRAD_REL))
+    assert abs(got[0]["aux_loss"] - want[0]["aux_loss"]) <= 1e-6
 
 
 def test_matmul_ws_bias_added_once_under_split_k(world):

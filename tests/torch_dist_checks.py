@@ -570,10 +570,11 @@ def moe_prompt(cfg, batch, prompt):
 
 
 def moe_checks(mesh, state, batch, hp):
-    """The reduced deepseek_moe_16b's sharded serving on ``mesh`` (each
-    rank routing its batch rows to the experts it holds): the prefill's
-    logits and 2 decode steps → {"moe_prefill", "moe_decode"}; and the
-    sharded train step refused ("moe_train": the error's text)."""
+    """The reduced deepseek_moe_16b sharded on ``mesh`` (each rank
+    routing its batch rows to the experts it holds): the prefill's logits
+    and 2 decode steps → {"moe_prefill", "moe_decode"}; and its FSDP
+    train step on ``batch``'s first 16 positions ("moe_train": the
+    gradients and the step, as ``sharded_step`` reads them)."""
     from repro_torch.distributed.sharding import (ShardingPlan, device_put,
                                                   use_mesh)
     from repro_torch.layers.common import tree_map
@@ -597,15 +598,16 @@ def moe_checks(mesh, state, batch, hp):
         params, tree_map(torch.clone, cache), cfg,
         ShardingPlan(mesh=mesh, fsdp=False, mode="decode"), pspecs,
         lm.cache_specs(cfg, 4, 32), tokens, pos, 2)
-    try:
-        sharded_step(moe_state, {k: v[:, :16] for k, v in batch.items()},
-                     cfg, hp, ShardingPlan(mesh=mesh, fsdp=True,
-                                           mode="train"),
-                     init_state_specs(cfg))
-        out["moe_train"] = ""
-    except NotImplementedError as e:
-        out["moe_train"] = str(e)
+    out["moe_train"] = sharded_step(
+        tree_map(torch.clone, moe_state), moe_batch(batch), cfg, hp,
+        ShardingPlan(mesh=mesh, fsdp=True, mode="train"),
+        init_state_specs(cfg))[0]
     return out
+
+
+def moe_batch(batch):
+    """The MoE train check's batch: the first 16 positions."""
+    return {k: v[:, :16] for k, v in batch.items()}
 
 
 def prefilled_cache(params, cfg, batch, cache_len, prompt):
@@ -891,4 +893,180 @@ def card_matmul_local(rank, world, cases):
             raise AssertionError(f"{split} [{m},{k}]@[{k},{n}] {dname} "
                                  f"{path}: {float(err.max())}")
         out.append(((split, m, k, n, dname), path, float(err.max())))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# every LM family sharded (test_torch_distributed_families)
+# ---------------------------------------------------------------------------
+
+# the families beyond the dense decoders, each at its reduced size
+FAMILIES = ("recurrentgemma_9b", "rwkv6_1p6b", "deepseek_moe_16b",
+            "qwen3_moe_30b_a3b", "internvl2_26b", "seamless_m4t_medium")
+FAMILY_BATCH, FAMILY_SEQ = 4, 16
+# the VLM's patches before the tokens; the encoder-decoder's frames
+FAMILY_PATCHES, FAMILY_FRAMES = 8, 16
+# decode: a prefill of FAMILY_PROMPT tokens into a cache of FAMILY_CACHE
+# positions, then 2 steps
+FAMILY_PROMPT, FAMILY_CACHE = 12, 32
+
+
+def jitter_input(cfg):
+    """The MoE jitter check's activations [4, 16, d_model], seeded."""
+    return torch.randn((FAMILY_BATCH, FAMILY_SEQ, cfg.d_model),
+                       generator=torch.Generator().manual_seed(3))
+
+
+def family_cfg(arch: str, backend: str = "xla"):
+    """``arch`` reduced, on ``backend``; rwkv6's heads narrowed to 16 so
+    that its reduced d_model of 64 holds 4 heads, which the ``model``
+    dim of 4 splits (at the reduced head size of 64 it is one head); a
+    sliding window narrowed to 12, so that a 16-token prefill wraps its
+    ring cache."""
+    cfg = reduced_cfg(backend, arch)
+    if cfg.layer_pattern == ("rwkv6",):
+        cfg = dataclasses.replace(cfg, rwkv_head_size=16, num_heads=4,
+                                  num_kv_heads=4)
+    if cfg.attention_window:
+        cfg = dataclasses.replace(cfg, attention_window=12)
+    return cfg
+
+
+def family_plan(mesh, cfg, mode: str):
+    """The dry run's plan for ``cfg`` in ``mode``: FSDP for training,
+    the residual stream sequence-sharded where every block attends."""
+    from repro_torch.distributed.sharding import ShardingPlan
+    seq_shard = mode == "train" and all(
+        b in ("attn", "local_attn") for b in cfg.layer_pattern)
+    return ShardingPlan(mesh=mesh, fsdp=mode == "train", mode=mode,
+                        seq_shard=seq_shard)
+
+
+def family_batch(cfg, batch, seq, seed, labels=True, frames=None):
+    """Seeded tokens (and labels) of ``batch`` × ``seq``; a VLM's
+    ``FAMILY_PATCHES`` patches, an encoder-decoder's ``frames`` (default
+    ``FAMILY_FRAMES``) frames, drawn from the same seed."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=gen)}
+    if labels:
+        out["labels"] = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=gen)
+    if cfg.kind == "vlm":
+        out["patches"] = torch.randn((batch, FAMILY_PATCHES,
+                                      cfg.frontend_dim), generator=gen)
+    elif cfg.kind == "encdec":
+        out["frames"] = torch.randn((batch, frames or FAMILY_FRAMES,
+                                     cfg.frontend_dim), generator=gen)
+    return out
+
+
+def family_cache(params, cfg):
+    """The decode cache of ``FAMILY_BATCH`` slots × ``FAMILY_CACHE``
+    positions after a ``FAMILY_PROMPT``-token prefill (with the VLM's
+    patches; an encoder-decoder's cross cache over ``FAMILY_CACHE``
+    frames, the cache spec's length) → (cache, the next tokens, their
+    positions)."""
+    from repro_torch.models import lm
+    batch = family_batch(cfg, FAMILY_BATCH, FAMILY_PROMPT, 7, labels=False,
+                         frames=FAMILY_CACHE)
+    with torch.no_grad():
+        _, cache = lm.prefill(params, batch, cfg, cache_len=FAMILY_CACHE)
+    pos = FAMILY_PROMPT + (FAMILY_PATCHES if cfg.kind == "vlm" else 0)
+    return (cache, batch["tokens"][:, -1],
+            torch.full((FAMILY_BATCH,), pos))
+
+
+def family_prefill(params, cfg, plan, batch):
+    """The prefill of ``params`` and ``batch`` placed on ``plan`` (mode
+    "prefill") → (logits, cache), whole on the CPU."""
+    from repro_torch.distributed.sharding import device_put, use_mesh
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models import lm
+    from repro_torch.serving.serve_step import make_prefill_step
+    with use_mesh(plan.mesh), torch.no_grad():
+        pd = device_put(params, plan.param_shardings(lm.param_specs(cfg)))
+        bd = device_put(batch, plan.input_shardings(batch))
+        logits, cache = make_prefill_step(cfg, act_rules=plan.acts)(pd, bd)
+        return _full(logits), tree_map(_full, cache)
+
+
+def family_train(state, batch, cfg, hp, plan):
+    """One train step of ``state`` (CPU tensors) placed on ``plan`` (mode
+    "train") → step_outputs, the gradients those that reach the
+    update."""
+    from repro_torch.distributed.sharding import device_put, use_mesh
+    from repro_torch.train.train_step import (init_state_specs,
+                                              make_train_step)
+    with use_mesh(plan.mesh):
+        sd = device_put(state, full_shardings(plan, init_state_specs(cfg)))
+        return captured_step(make_train_step(cfg, hp, act_rules=plan.acts),
+                             sd, batch)[0]
+
+
+def moe_jitter(params, cfg, x, mesh=None, jitter=0.1):
+    """Layer 0's MoE layer of ``params`` on ``x`` [B, S, D] with a router
+    jitter of ``jitter`` drawn from seed 5 (``train=True``), no autograd →
+    (out, aux) whole; with ``mesh``, on the dry run's train plan there
+    (``x`` batch-sharded, the experts over ``model``)."""
+    from repro_torch.distributed.sharding import device_put, use_mesh
+    from repro_torch.layers.common import (activate_rules, lconstraint,
+                                           tree_map)
+    from repro_torch.layers.moe import apply_moe, moe_specs
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router_jitter=jitter))
+    p = tree_map(lambda t: t[0], params["blocks"]["b0"]["moe"])
+    rng = torch.Generator().manual_seed(5)
+    if mesh is None:
+        with torch.no_grad():
+            return apply_moe(p, x, cfg, train=True, rng=rng)
+    plan = family_plan(mesh, cfg, "train")
+    with use_mesh(mesh), activate_rules(plan.acts), torch.no_grad():
+        pd = device_put(p, plan.param_shardings(moe_specs(cfg)))
+        y, aux = apply_moe(pd, lconstraint(x, ("batch", None, "embed")), cfg,
+                           train=True, rng=rng)
+        return _full(y), _full(aux)
+
+
+def family_scenarios(rank, world, archs):
+    """Each family of ``archs`` sharded on a (2, 4) gloo mesh of CPU
+    ranks: the prefill's logits, 2 decode steps and their cache, one
+    train step on ``xla`` and on ``pallas_ws``, and an MoE family's layer
+    under router jitter (``moe_jitter``) → rank 0's readings {arch:
+    {check: result, or the traceback's text where it raised}}."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    mesh = make_debug_mesh(2, 4, device="cpu")
+    hp = AdamWConfig(**STEP_HP)
+    out = {}
+
+    def attempt(arch, name, fn):
+        try:
+            out[arch][name] = fn()
+        except Exception:  # noqa: BLE001 - the test reports it
+            out[arch][name] = traceback.format_exc()
+    for arch in archs:
+        out[arch] = {}
+        cfg = family_cfg(arch)
+        state = draw_state(cfg, 2, "cpu")[0]
+        params = state["params"]
+        attempt(arch, "prefill", lambda: family_prefill(
+            params, cfg, family_plan(mesh, cfg, "prefill"),
+            family_batch(cfg, FAMILY_BATCH, FAMILY_SEQ, 9, labels=False)))
+        cache, tokens, pos = family_cache(params, cfg)
+        attempt(arch, "decode", lambda: sharded_decode(
+            params, tree_map(torch.clone, cache), cfg,
+            family_plan(mesh, cfg, "decode"), lm.param_specs(cfg),
+            lm.cache_specs(cfg, FAMILY_BATCH, FAMILY_CACHE), tokens, pos, 2))
+        if cfg.moe is not None:
+            attempt(arch, "jitter", lambda: moe_jitter(
+                params, cfg, jitter_input(cfg), mesh))
+        batch = family_batch(cfg, FAMILY_BATCH, FAMILY_SEQ, 11)
+        for backend in ("xla", "pallas_ws"):
+            bcfg = family_cfg(arch, backend)
+            attempt(arch, f"train_{backend}", lambda: family_train(
+                tree_map(torch.clone, state), batch, bcfg, hp,
+                family_plan(mesh, bcfg, "train")))
     return out
