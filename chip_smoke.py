@@ -10,8 +10,9 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``nvcc`` each, all started together; print each instantiation's
    registers and spills (``-Xptxas -v``) and the tensor-core instructions
    in each tensor-core instantiation's SASS (``cuobjdump -sass``: ``IMMA``
-   in the conv kernels, ``HGMMA`` in ``matmul_ws``'s bf16 long-M form);
-   fail on a spill in either or in a ``flash_attention`` ``wgmma``
+   in the conv kernels and ``matmul_ws``'s int8 mma form, ``HGMMA`` in its
+   bf16 long-M form);
+   fail on a spill in any of them or in a ``flash_attention`` ``wgmma``
    instantiation (D = 256 included), a missing ``IMMA`` or ``HGMMA``, a
    missing compiler report or a missing ``cuobjdump``;
 3. hold every kernel against its plain PyTorch version on the card, at the
@@ -44,10 +45,11 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    bf16 GEMMs ``torch.matmul``, and the achieved TFLOP/s); print the
    ``vgg_imagenet`` per-layer table and ``matmul_ws``'s host cost a call;
    hold ``matmul_ws`` int8 at w8 serving's GEMM shapes (llama3.2-3b's,
-   yi-34b's and gemma-7b's, the scalar form at a prefill's M and the
+   yi-34b's and gemma-7b's, the mma form at a prefill's M and the
    stream form at a 4-slot decode's, each ``torch.equal``, form asserted;
    the long-M ones timed beside ``torch._int_mm`` with the weight stored
-   row-major and column-major) and the int8 KV cache's two decode
+   row-major and column-major, and beside the scalar form, the "before",
+   through ``_launch(..., "scalar")``); and the int8 KV cache's two decode
    contractions at 4 slots × 4096 positions (D = 128 and 256, random
    and worst-case operands) to the CPU's int64 sums; hold
    ``ops.conv1d_depthwise`` at recurrentgemma-9b's temporal conv ([1,
@@ -80,7 +82,7 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    run);
 6b. w8 serving with the int8 KV cache (``quantize_weights``, scale 0.25)
    on the same engine timing: llama3.2-3b with phase 6's weights and
-   requests (7 × 28 ``matmul_ws`` launches a forward, the scalar form at
+   requests (7 × 28 ``matmul_ws`` launches a forward, the mma form at
    the prefills and the stream form at the decode steps; prefill logits
    ``torch.equal`` to the same prefill with ``matmul_ws_plain`` in the
    kernel's place; admit and decode times beside phase 6's bf16 ones;
@@ -171,7 +173,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    likewise; then the main paths: 3 ``fit``
    steps of ``vgg_imagenet`` as the repo defines it (QAT per channel,
    batch 8, 1000 classes) with the launches a step held to what the plan
-   gives (11 ``conv2d_ws``, 57 ``matmul_ws``, all scalar), ms a step, one
+   gives (11 ``conv2d_ws`` on the scalar path, 57 ``matmul_ws`` on the simt
+   form), ms a step, one
    more step under ``torch.profiler`` split by part (the first of 3
    marker-separated steps a window whose every launch reached the
    trace), and the trained net
@@ -272,8 +275,9 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ranks): its cell has 256 chips, ``argument_bytes`` equal to the local
    shards of the plan's specs, and a named bottleneck; then the
    ``train_4k`` cells on ``single`` of deepseek-moe-16b, rwkv6-1.6b and
-   seamless-m4t-medium side by side, each cell's terms, peak and host
-   seconds printed; (c) the host time
+   seamless-m4t-medium, each cell's terms, peak and host seconds printed
+   (their subprocesses start in phase 1, niced, and run on the host
+   beside the card phases: rwkv6-1.6b's takes 195-231 s); (c) the host time
    that the ``repro_torch::matmul_ws`` op adds to a call, at the decode
    step's three MLP GEMMs (M = 4 slots): the public wrapper, the op
    alone and the wrapper as it was before the op (the same checks, then
@@ -292,10 +296,12 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``f32_bound_ms``, ``f32_library_ms``: the six forward convs beside
    ``F.conv2d``, the 54 weight-gradient taps beside ``torch.matmul``, each
    bound that of the whole function: x, the cotangent and dw moved once
-   for the weight gradient); ``matmul_ws``'s ``int8_ms``,
-   ``int8_device_ms``, ``int8_bound_ms`` and ``int8_library_ms`` sum its
-   twelve long-M int8 shapes of phase 3 (the library ``torch._int_mm``,
-   each shape's faster of its two weight layouts),
+   for the weight gradient; ``f32_scalar_ms``: the 54 taps on the scalar
+   form, the "before"); ``matmul_ws``'s ``int8_ms``,
+   ``int8_device_ms``, ``int8_bound_ms``, ``int8_library_ms`` and
+   ``int8_scalar_ms`` sum its twelve long-M int8 shapes of phase 3 (the
+   library ``torch._int_mm``, each shape's faster of its two weight
+   layouts; the scalar form, the "before"),
    and its and ``flash_attention``'s ``launches`` count every served
    run of phases 6, 6b, 6c and 6d (``serve_held``) and phase 6d's
    direct prefills and decode steps, and the
@@ -304,7 +310,11 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``conv1d_plain_ms``: ``conv1d_depthwise_ref``, ``conv1d_library_ms``:
    ``F.conv1d``); the ``matmul_ws`` row carries phase 10's f32 backward
    GEMMs at llama3.2-3b's MLP shapes apart (``lm_bwd_ms``,
-   ``lm_bwd_bound_ms``, ``lm_bwd_library_ms``: ``torch.matmul``, TF32 off),
+   ``lm_bwd_bound_ms``, ``lm_bwd_library_ms``: ``torch.matmul``, TF32 off,
+   ``lm_bwd_scalar_ms``: the scalar form, the "before"), its
+   ``form_launches`` count its launches by form over the runs whose
+   counts were read by form (phases 6–6d's served runs, 8's fits, 10, 11(a)
+   and 12),
    and its ``launches`` add phase 10's training steps and phase 11(a)'s
    sharded and unsharded steps and decode steps (llama3.2-3b's and
    deepseek-moe-16b's); ``matmul_ws``'s and
@@ -317,6 +327,7 @@ it.
 import collections
 import ctypes
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -366,10 +377,9 @@ MM_TIMED = (("vgg_imagenet head", 8, 256, 1000, "int8"),
             ("prefill wo", 3000, 8192, 3072, "bfloat16"),
             ("decode wi", 4, 3072, 8192, "bfloat16"),
             ("decode wo", 4, 8192, 3072, "bfloat16"))
-MM_BEFORE = (3000, 3072, 8192)        # the scalar kernel's f32 time, once
 # w8a8 serving's int8 GEMMs (K, N) in llama3.2-3b, yi-34b and gemma-7b: the
 # attention's q / k / v and output projections, the MLP's up and down
-# projections; each at a prefill M (the scalar form: the longest prompt
+# projections; each at a prefill M (the mma form: the longest prompt
 # each model is served with in phase 6b) and at the 4-slot decode M (the
 # stream form).  The long-M ones make the JSON row's int8_* sums
 W8_MM = (("llama3.2-3b", 3000, ((3072, 3072), (3072, 1024), (3072, 8192),
@@ -407,9 +417,13 @@ LM_DIRECT_STEPS = 8                   # decode steps after a direct prefill
 DS_TRAIN_LAYERS, DS_TRAIN_SEQ = 2, 2048
 # phase 12(b)'s dry-run cells beside llama3.2-3b's decode cell: the
 # train_4k cells on single that the sharded MoE backward, rwkv6 on local
-# shards and seamless's frontend projection on local shards made run
+# shards and seamless's frontend projection on local shards made run.
+# They take host time only (rwkv6-1.6b's 195-231 s), so their
+# subprocesses start in phase 1 and are collected in phase 12
 REPAIRED_TRAIN_CELLS = ("deepseek_moe_16b", "rwkv6_1p6b",
                         "seamless_m4t_medium")
+TRAIN_CELLS_DIR = ROOT / "build" / "dryrun_torch_train"
+CHILDREN = []           # the subprocesses started early, stopped at exit
 # phase 3's flash_attention at the new families' shapes: (B, S, H, D,
 # causal); seamless-m4t-medium's full (encoder, cross) and causal
 # attention, 16 heads of 64, and full attention at D = 128
@@ -438,10 +452,40 @@ KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:80"),
 }
+# matmul_ws's device kernels by name: one of the first five a launch, and
+# the reduce kernel after it where the stream or simt form splits K
+MM_KERNEL_NAMES = ("matmul_ws_kernel", "mm_stream_kernel", "mm_wgmma_kernel",
+                   "mm_simt_kernel", "mm_imma_kernel", "mm_split_reduce")
+
+
+def is_mm_kernel(name):
+    return any(t in name for t in MM_KERNEL_NAMES)
 
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def start_train_cells():
+    """Start ``launch.dryrun``'s ``train_4k`` cell on ``single`` of each
+    of ``REPAIRED_TRAIN_CELLS``, a subprocess each, niced so that the card
+    phases' host work comes first; each writes its output to a log beside
+    its cell → {arch: Popen}."""
+    shutil.rmtree(TRAIN_CELLS_DIR, ignore_errors=True)
+    TRAIN_CELLS_DIR.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    nice = ["nice", "-n", "10"] if shutil.which("nice") else []
+    for arch in REPAIRED_TRAIN_CELLS:
+        with open(TRAIN_CELLS_DIR / f"{arch}.log", "w") as out:
+            procs[arch] = subprocess.Popen(
+                nice + [sys.executable, "-m",
+                 "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 "train_4k", "--mesh", "single", "--out",
+                 str(TRAIN_CELLS_DIR)],
+                env=env, stdout=out, stderr=subprocess.STDOUT)
+        CHILDREN.append(procs[arch])
+    return procs
 
 
 # mangled template arguments; in these sources the only argument that
@@ -524,6 +568,8 @@ def main():
                                                      kernel_variant)
     from repro_torch.kernels.matmul_ws import (PATHS, matmul_ws,
                                                matmul_ws_plain, mm_path)
+    from repro_torch.kernels.matmul_ws import _launch as mm_launch
+    from repro_torch.kernels.matmul_ws import simt_plan
     from repro_torch.core.quantize import (quantize_weight_specs,
                                            quantize_weights)
     from repro_torch.layers.attention import _int8_contract as int8_contract
@@ -570,6 +616,25 @@ def main():
                      library_ms=None, ops_per_s=INT8_OPS_PER_S)
              for k in KERNELS}
     stats["flash_attention"]["ops_per_s"] = BF16_OPS_PER_S
+    stats["matmul_ws"]["forms"] = dict.fromkeys(PATHS, 0)
+
+    def mem_note(where):
+        """Log the caching allocator's state: bytes live, bytes reserved,
+        and of the reserved the free blocks split off segments that also
+        hold live ones (what a request larger than each cannot use)."""
+        ms_ = torch.cuda.memory_stats()
+        log(f"  memory at {where}: allocated "
+            f"{ms_['allocated_bytes.all.current'] / 1e9:.2f} GB, reserved "
+            f"{ms_['reserved_bytes.all.current'] / 1e9:.2f} GB, of it free "
+            f"but split {ms_['inactive_split_bytes.all.current'] / 1e9:.2f} "
+            f"GB (allocator {os.environ.get('PYTORCH_CUDA_ALLOC_CONF')})")
+
+    def credit_forms():
+        """Add ``matmul_ws.path_launches`` (the counts since the last
+        reset, read where a run's launches are credited) to the row's
+        launches by form."""
+        for p_, v in matmul_ws.path_launches.items():
+            stats["matmul_ws"]["forms"][p_] += v
 
     # -- 1. the card -------------------------------------------------------
     smi = subprocess.run(
@@ -579,6 +644,10 @@ def main():
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    train_cells = start_train_cells()
+    t_cells = time.perf_counter()
+    log(f"  phase 12(b)'s train_4k cells ({', '.join(train_cells)}) "
+        f"started on the host, one niced subprocess each")
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -602,6 +671,7 @@ def main():
                 log(f"  {name} {entry}: {line.strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line) and (
                         "tc_kernel" in entry or "wgmma_kernel" in entry
+                        or "imma_kernel" in entry
                         or "flash_bf16_kernel" in entry):
                     spilled.append(entry)
     if spilled:
@@ -621,6 +691,12 @@ def main():
     if len(hg) != 2 or not all(hg.values()):
         raise AssertionError(f"matmul_ws: a bf16 long-M instantiation holds "
                              f"no HGMMA: {hg}")
+    im = {k: v for k, v in sorted(ops.items()) if "imma_kernel" in k}
+    log("  matmul_ws SASS, IMMA instructions per int8 mma-form "
+        "instantiation: " + ", ".join(f"{k} {v}" for k, v in im.items()))
+    if len(im) != 2 or not all(im.values()):
+        raise AssertionError(f"matmul_ws: an int8 mma-form instantiation "
+                             f"holds no IMMA: {im}")
 
     def elapsed_ms(fn, reps, warmup=2):
         for _ in range(warmup):
@@ -840,9 +916,8 @@ def main():
         return path, err, got
 
     def check_matmuls():
-        """Every form at its edge shapes, then the timed main-path shapes,
-        the scalar kernel's f32 time before this form, and the wrapper's
-        host cost → {timed label: device ms}."""
+        """Every form at its edge shapes, then the timed main-path shapes
+        and the wrapper's host cost → {timed label: device ms}."""
         forms = dict.fromkeys(PATHS, 0)
         dev_times = {}
         line = []
@@ -909,13 +984,6 @@ def main():
                 f"({ops / dev_ms / 1e9:.1f} TFLOP/s, "
                 f"{nbytes / dev_ms / 1e6:.0f} GB/s), bound {bound:.5f} ms "
                 f"({side}), plain {plain:.3f} ms, torch.matmul {lib_txt}")
-        m, k, n = MM_BEFORE
-        xf, wf, _ = mm_operands(m, k, n, torch.float32, bias=False)
-        path, _, _ = check_mm(xf, wf, None)
-        before = elapsed_ms(lambda: matmul_ws(xf, wf), reps=2, warmup=1)
-        log(f"  matmul_ws [{m},{k}]@[{k},{n}] f32, {path} form (the first "
-            f"port's kernel, the only form before this one): {before:.3f} "
-            f"ms a call")
 
         def host_us(fn, reps):
             """Host time of one call of ``fn``, over ``reps`` calls
@@ -954,11 +1022,13 @@ def main():
     def check_w8_matmuls():
         """``matmul_ws`` int8 at w8 serving's GEMM shapes, each equal to
         its plain version on the form ``mm_path`` names; the long-M ones
-        (the scalar form) timed beside ``torch._int_mm`` and their bound
-        at the int8 tensor-core peak, into the JSON row's int8_* sums."""
+        (the mma form) timed beside ``torch._int_mm``, the scalar form and
+        their bound at the int8 tensor-core peak, into the JSON row's
+        int8_* sums."""
         st = stats["matmul_ws"]
         st["int8"] = dict.fromkeys(("int8_ms", "int8_device_ms",
-                                    "int8_bound_ms", "int8_library_ms"), 0.0)
+                                    "int8_bound_ms", "int8_library_ms",
+                                    "int8_scalar_ms"), 0.0)
         st["int8_library_layouts"] = dict.fromkeys(("row-major",
                                                     "column-major"), 0)
         for model, m_long, shapes in W8_MM:
@@ -966,7 +1036,7 @@ def main():
                 for m in (m_long, LM_SLOTS):
                     x, w, _ = mm_operands(m, k, n, torch.int8, bias=False)
                     path, _, _ = check_mm(x, w, None)
-                    want = "scalar" if m > 16 else "stream"
+                    want = "mma" if m > 16 else "stream"
                     if path != want:
                         raise AssertionError(f"matmul_ws int8 [{m},{k}]@"
                                              f"[{k},{n}] ran the {path} "
@@ -991,12 +1061,17 @@ def main():
                                             ("column-major", w_col))}
                         fast = min(lib_ms, key=lib_ms.get)
                         st["int8_library_layouts"][fast] += 1
+                        # the scalar form, the "before", on the same
+                        # operands
+                        old = elapsed_ms(lambda: mm_launch(
+                            x, w, None, "scalar"), reps=1, warmup=1)
                         for key, v in zip(st["int8"], (ms, dev_ms, bound,
-                                                       lib_ms[fast])):
+                                                       lib_ms[fast], old)):
                             st["int8"][key] += v
                         lib = (", torch._int_mm " + ", ".join(
                             f"{v:.4f} ms {lay}" for lay, v in lib_ms.items())
-                            + f" ({ms / lib_ms[fast]:.1f}x the faster)")
+                            + f" ({ms / lib_ms[fast]:.2f}x the faster), "
+                            f"scalar form {old:.3f} ms")
                     log(f"  matmul_ws int8 {model} [{m},{k}]@[{k},{n}], "
                         f"{path} form, equal: {ms:.4f} ms a call, "
                         f"{dev_ms:.4f} ms on the device "
@@ -1600,6 +1675,7 @@ def main():
         check_served(name, c, reqs)
         for k in ("matmul_ws", "flash_attention"):
             stats[k]["launches"] += seen[k]
+        credit_forms()
         log(f"  {name}: launches {seen}, matmul_ws forms {forms} over "
             f"{len(reqs)} prefills and {steps} decode steps; {len(reqs)} "
             f"requests × {reqs[0].max_new_tokens} tokens, all in range")
@@ -1829,17 +1905,18 @@ def main():
         return dataclasses.replace(c, kv_cache_dtype="int8",
                                    kv_cache_scale=W8_KV_SCALE)
 
-    W8_PARTS = ("matmul_ws scalar", "matmul_ws stream", "flash_attention",
-                "cuBLAS", "the rest")
+    W8_PARTS = ("matmul_ws mma", "matmul_ws stream", "matmul_ws scalar",
+                "flash_attention", "cuBLAS", "the rest")
 
     def w8_part(kernel, *_):
         """The label of a device event in a w8 admit or decode step:
-        matmul_ws's scalar and stream forms, flash_attention, cuBLAS (the
-        einsums: bf16 GEMMs and logits, the decode attention's f32
+        matmul_ws's mma, stream and scalar forms, flash_attention, cuBLAS
+        (the einsums: bf16 GEMMs and logits, the decode attention's f32
         contractions; by kernel-name fragments, ``nvjet`` among them) and
         the rest (the int8 cache's f32 upcasts, quantization, norms,
         elementwise)."""
-        return ("matmul_ws scalar" if "matmul_ws_kernel" in kernel else
+        return ("matmul_ws mma" if "mm_imma_kernel" in kernel else
+                "matmul_ws scalar" if "matmul_ws_kernel" in kernel else
                 "matmul_ws stream" if "mm_stream" in kernel
                 or "mm_split_reduce" in kernel else
                 "flash_attention" if "flash_" in kernel else
@@ -2073,6 +2150,7 @@ def main():
     log("phase 6c: recurrentgemma-9b (RG-LRU + local attention) and "
         "rwkv6-1.6b at full width")
     t_phase = time.perf_counter()
+    mem_note("phase 6c's entry")
 
     RG_PARTS = ("bf16 GEMMs", "f32 gate GEMMs", "RG-LRU scan",
                 "chunked attention", "logits (f32)", "the rest",
@@ -2279,6 +2357,7 @@ def main():
     log("phase 6d: deepseek-moe-16b, qwen3-moe-30b-a3b, internvl2-26b and "
         "seamless-m4t-medium at full width")
     t_phase = time.perf_counter()
+    mem_note("phase 6d's entry")
 
     def draw_bf16(c, seed):
         """``c``'s weights drawn in bf16 on the card from ``seed`` (the
@@ -2360,8 +2439,7 @@ def main():
         logits, the other GEMMs (projections) and the rest."""
         if "flash_" in kernel:
             return "flash_attention"
-        if any(t in kernel for t in ("matmul_ws_kernel", "mm_stream",
-                                     "mm_split_reduce", "mm_wgmma")):
+        if is_mm_kernel(kernel):
             return "matmul_ws"
         if op is None:
             return "linked to no op"
@@ -2498,6 +2576,7 @@ def main():
                                  f"{want}, or logits not finite")
         for k in ("matmul_ws", "flash_attention"):
             stats[k]["launches"] += seen[k]
+        credit_forms()
         wall, busy, n = device_busy(lambda: batch_logits(params, c, batch))
         share = ("device time not measured (no device events in the trace)"
                  if busy is None else f"device busy {busy:.1f} ms = "
@@ -2992,8 +3071,10 @@ def main():
 
     # -- 8. training -------------------------------------------------------
     log("phase 8: training through the kernels' backward (f32, TF32 off)")
+    mem_note("phase 8's entry")
     f32 = {k: 0.0 for k in ("conv_ms", "pipe_ms", "conv_lib_ms",
-                            "conv_bound", "mm_ms", "mm_lib_ms", "mm_bound")}
+                            "conv_bound", "mm_ms", "mm_lib_ms", "mm_bound",
+                            "mm_scalar_ms")}
     log("  vgg_imagenet f32 at batch 8, whole map, per layer (ms: CUDA "
         "events around back-to-back calls; F.conv2d and torch.matmul on "
         "the same operands, TF32 off; bounds at 3.35 TB/s and 67 TFLOP/s "
@@ -3002,7 +3083,8 @@ def main():
         f"{GRAD_REL_L2:g} relative L2 and its TF32 control outside it):")
     log("    layer  GFLOP    fwd ms (pipe)      F.conv2d ms  bound ms  "
         "tiles   dx ms   dx bound  dw ms    taps on matmul_ws ms  "
-        "torch.matmul ms  dw bound  max err y / dx / dw / db")
+        "torch.matmul ms  dw bound  taps on the scalar form ms  "
+        "max err y / dx / dw / db")
     for i in range(6):
         x, w, b, kw = vgg_f32_layer(i)
         geo = {k: v for k, v in kw.items() if k not in ("relu", "pool")}
@@ -3064,6 +3146,19 @@ def main():
                            warmup=1)
         mm_lib = elapsed_ms(lambda: [torch.matmul(t, gm) for t in xts],
                             reps=3)
+        # the scalar form (the first port's kernel), the "before"
+        mm_old = elapsed_ms(lambda: [mm_launch(t, gm, None, "scalar")
+                                     for t in xts], reps=1, warmup=0)
+        if i == 1:      # split K, added in slice order: the same bits
+            twice = [matmul_ws(xts[4], gm) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not torch.equal(*twice):
+                raise AssertionError("matmul_ws f32 at a conv 1 tap: two "
+                                     "calls differ")
+            log(f"    conv1 tap [{c},{m}]@[{m},{k}] on the "
+                f"{mm_path(c, m, k, torch.float32)} form, plan "
+                f"{simt_plan(c, m, k)}: two calls bit-identical")
+            del twice
         dx_bound = bound_ms(4 * (dacc.numel() + w.numel() + x.numel()),
                             flop, F32_OPS_PER_S)
         dw_bound = bound_ms(4 * (x.numel() + dacc.numel() + w.numel()),
@@ -3075,12 +3170,14 @@ def main():
         f32["mm_ms"] += mm_ms
         f32["mm_lib_ms"] += mm_lib
         f32["mm_bound"] += dw_bound
+        f32["mm_scalar_ms"] += mm_old
         log(f"    conv{i}  {flop / 1e9:7.3f}  {fwd_ms:8.3f} ({pipe_ms:8.3f})"
             f"  {lib_ms:9.3f}"
             f"    {fwd_bound:7.4f}  {tiles.th}x{tiles.tw}/{tiles.kb}  "
             f"{dx_ms:7.3f}  "
             f"{dx_bound:7.4f}   {dw_ms:8.3f} {mm_ms:8.3f}              "
-            f"{mm_lib:7.3f}          {dw_bound:7.4f}   {errs['y']:.2e} / "
+            f"{mm_lib:7.3f}          {dw_bound:7.4f}   {mm_old:9.3f}"
+            f"                   {errs['y']:.2e} / "
             f"{errs.get('dx', 0.0):.2e} / {errs['dw']:.2e} / "
             f"{errs['db']:.2e}")
         log("           rel L2 (TF32 control) " + ", ".join(
@@ -3096,7 +3193,8 @@ def main():
         f"conv2d_ws_pipe {f32['pipe_ms']:.3f} ms, F.conv2d "
         f"{f32['conv_lib_ms']:.3f} ms, bound {f32['conv_bound']:.4f} ms; "
         f"weight-grad taps on matmul_ws {f32['mm_ms']:.3f} ms, torch.matmul "
-        f"{f32['mm_lib_ms']:.3f} ms, bound {f32['mm_bound']:.4f} ms")
+        f"{f32['mm_lib_ms']:.3f} ms, bound {f32['mm_bound']:.4f} ms, the "
+        f"scalar form {f32['mm_scalar_ms']:.3f} ms")
     hx, hw, hb = mm_operands(BATCH, 256, 1000, torch.float32)
     herr = check_matmul_vjp(hx.requires_grad_(), hw.requires_grad_(),
                             hb.requires_grad_(),
@@ -3180,6 +3278,7 @@ def main():
                 f"{want} on the scalar path, forms x{steps} {forms}")
         for k in wrappers:
             stats[k]["launches"] += seen[k]
+        credit_forms()
         if not all(np.isfinite(hh["loss"]) and np.isfinite(hh["grad_norm"])
                    for hh in hist):
             raise AssertionError(f"{label}: non-finite metrics {hist}")
@@ -3243,10 +3342,11 @@ def main():
         found = []
         for evs in steps_evs:
             conv_evs = [e for e in evs if "conv_ws_kernel" in e.name]
-            mm_evs = [e for e in evs if "matmul_ws_kernel" in e.name]
-            found.append((len(conv_evs), len(mm_evs)))
-            if len(conv_evs) == n_conv and len(mm_evs) == sum(
-                    forms.values()):
+            # a launch's GEMM kernel, and its split-K reduce kernel apart
+            mm_evs = [e for e in evs if is_mm_kernel(e.name)]
+            n_mm = sum("mm_split_reduce" not in e.name for e in mm_evs)
+            found.append((len(conv_evs), n_mm))
+            if len(conv_evs) == n_conv and n_mm == sum(forms.values()):
                 break
         else:
             msg = (f"profiled steps: (conv, GEMM) kernels {found} between "
@@ -3333,6 +3433,7 @@ def main():
                                       f32["conv_lib_ms"])
     stats["matmul_ws"]["f32"] = (f32["mm_ms"], f32["mm_bound"],
                                  f32["mm_lib_ms"])
+    stats["matmul_ws"]["f32_scalar_ms"] = f32["mm_scalar_ms"]
 
     # -- 9. the calibrated cost model, the autotuner, routing ---------------
     log("phase 9: a calibration table fitted on the card; the calibrated "
@@ -3558,6 +3659,7 @@ def main():
     log("phase 10: LM training (train step, trainer, checkpointer, launcher; "
         "TF32 off)")
     t_phase = time.perf_counter()
+    mem_note("phase 10's entry")
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train as train_launcher
     from repro_torch.optim.adamw import (UPDATE_ROWS, AdamWConfig,
@@ -3597,10 +3699,10 @@ def main():
         return sum(t.numel() * t.element_size() for t in tree_leaves(state))
 
     # matmul_ws's f32 VJP at the LM's backward shapes, and its time there
-    # beside torch.matmul (the f32 dx and dw GEMMs of a layer's MLP at a
-    # 4096-token microbatch)
+    # beside torch.matmul and the scalar form, the "before" (the f32 dx and
+    # dw GEMMs of a layer's MLP at a 4096-token microbatch)
     lm_bwd = dict.fromkeys(("lm_bwd_ms", "lm_bwd_bound_ms",
-                            "lm_bwd_library_ms"), 0.0)
+                            "lm_bwd_library_ms", "lm_bwd_scalar_ms"), 0.0)
     for m_, k_, n_ in LM_BWD_SHAPES:
         x, w, b, g = lm_bwd_inputs(m_, k_, n_, dev)
         errs = check_matmul_vjp(x, w, b, g)
@@ -3609,16 +3711,21 @@ def main():
                            ("dw", x.t().contiguous(), g)):
             mm_ms = elapsed_ms(lambda: matmul_ws(a, c), 3)
             lib_ms = elapsed_ms(lambda: torch.matmul(a, c), 3)
+            old_ms = elapsed_ms(lambda: mm_launch(a, c, None, "scalar"), 1,
+                                warmup=1)
             (m2, k2), n2 = a.shape, c.shape[1]
             bd = bound_ms(4 * (m2 * k2 + k2 * n2 + m2 * n2),
                           2 * m2 * k2 * n2, F32_OPS_PER_S)
             lm_bwd["lm_bwd_ms"] += mm_ms
             lm_bwd["lm_bwd_library_ms"] += lib_ms
             lm_bwd["lm_bwd_bound_ms"] += bd
+            lm_bwd["lm_bwd_scalar_ms"] += old_ms
             log(f"  matmul_ws f32 {name} [{m2},{k2}]@[{k2},{n2}] (VJP of "
                 f"[{m_},{k_}]@[{k_},{n_}]): {mm_ms:.3f} ms "
-                f"({2e-9 * m2 * k2 * n2 / mm_ms:.1f} TFLOP/s), torch.matmul "
-                f"{lib_ms:.3f} ms, bound {bd:.3f} ms (operations); max err "
+                f"({2e-9 * m2 * k2 * n2 / mm_ms:.1f} TFLOP/s) on the "
+                f"{mm_path(m2, k2, n2, torch.float32)} form, torch.matmul "
+                f"{lib_ms:.3f} ms, the scalar form {old_ms:.3f} ms, bound "
+                f"{bd:.3f} ms (operations); max err "
                 f"{errs[name][0]:.2e}, rel L2 {errs[name][1]:.2e} (TF32 "
                 f"control {errs[name][2]:.2e})")
         del x, w, b, g
@@ -3642,7 +3749,7 @@ def main():
         """One ``matmul_ws`` call of a training step held to
         ``matmul_ws_plain`` on its own operands → (form, max abs err,
         output): bf16 through ``check_mm`` (the form ``mm_path`` names,
-        within ``bf16_gemm_bound``), f32 on one scalar launch within
+        within ``bf16_gemm_bound``), f32 on one simt launch within
         ``f32_sum_bound`` elementwise.  Its callers run it outside the
         dispatch modes of the remat's selective checkpoint, which would
         keep the checks' own GEMM outputs (it saves every ``mm``'s) and
@@ -3654,9 +3761,9 @@ def main():
         before = matmul_ws.path_launches[path]
         got = matmul_ws(x, w, bias)
         torch.cuda.synchronize()
-        if path != "scalar" or matmul_ws.path_launches[path] != before + 1:
+        if path != "simt" or matmul_ws.path_launches[path] != before + 1:
             raise AssertionError(f"matmul_ws f32 [{m_},{k_}]@[{k_},{n_}]: "
-                                 f"{path}, not one scalar launch")
+                                 f"{path}, not one simt launch")
         s = x.abs() @ w.abs()
         if bias is not None:
             s = s + bias.abs()
@@ -3718,7 +3825,7 @@ def main():
     g_rel = max(rel_l2(a, b.double()) for a, b in zip(
         grads["pallas_ws"][1], grads["xla"][1]) if float(b.norm()) > 0)
     log(f"  full width, 2 layers, f32, one step at {seq} tokens: "
-        f"{dict(held)} matmul_ws calls held (scalar form; max err from "
+        f"{dict(held)} matmul_ws calls held (simt form; max err from "
         f"matmul_ws_plain {worst['plain']:.2e}, worst rel L2 from float64 "
         f"{worst['ws']:.2e} <= {GRAD_REL_L2:g}, torch.matmul's "
         f"{worst['lib']:.2e}, the TF32 control's at least "
@@ -3766,6 +3873,7 @@ def main():
     cfg = dataclasses.replace(cfg, attn_chunk=TRAIN_ATTN_CHUNK)
     batch_size, accum = 2, 2
     tokens = batch_size * seq
+    mem_note("phase 10(c)'s entry")
     state = draw_state(cfg)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch_size, seed=0))
@@ -3796,8 +3904,8 @@ def main():
         forward, attention, logits + cross entropy or the rest; in the
         backward, a block run again is the remat recompute, else the
         range its node's forward op ran in names attention or logits,
-        else ``matmul_ws`` kernels are its f32 backward, cuBLAS GEMMs
-        the backward GEMMs."""
+        else ``matmul_ws`` kernels (the simt form) are its f32 backward,
+        cuBLAS GEMMs the backward GEMMs."""
         if scope == "adamw":
             return "AdamW update"
         if fwd is None:
@@ -3806,7 +3914,7 @@ def main():
             return "remat recompute"
         if fwd in FWD_PARTS:
             return FWD_PARTS[fwd]
-        if "matmul_ws_kernel" in kernel:
+        if is_mm_kernel(kernel):
             return "matmul_ws f32 backward"
         if any(t in kernel.lower() for t in ("gemm", "cutlass", "xmma",
                                              "nvjet")):
@@ -3882,10 +3990,10 @@ def main():
         peak = torch.cuda.max_memory_allocated() / 1e9
         want = {p: recorded.get(p, 0) for p in PATHS}
         # pallas_ws: each MLP GEMM runs wgmma forward and in the recompute,
-        # two scalar launches backward
+        # two simt launches backward
         expect = dict.fromkeys(PATHS, 0)
         if backend == "pallas_ws":
-            expect.update(wgmma=2 * n_gemm, scalar=2 * n_gemm)
+            expect.update(wgmma=2 * n_gemm, simt=2 * n_gemm)
         if want != expect or any(f != want for f in forms):
             raise AssertionError(f"{backend}: matmul_ws launches a step "
                                  f"{forms}, the recording run {want}, "
@@ -3898,7 +4006,12 @@ def main():
         if busy is None or set(parts) - set(TRAIN_PARTS):
             raise AssertionError(f"{backend}: device ms {busy}, parts "
                                  f"{sorted(parts or ())}")
-        # one step at the config's own attention chunk
+        # one step at the config's own attention chunk, whose blocks
+        # differ in size from the cached ones: it starts, as the timed
+        # steps do, from an empty cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem_note(f"{backend}'s step at attn_chunk {cfg_chunk}")
         state, m, cfg_ms = timed_step(ts.make_train_step(
             dataclasses.replace(cfg, gemm_backend=backend,
                                 attn_chunk=cfg_chunk), hp,
@@ -3925,6 +4038,7 @@ def main():
                              f"launches, the recorded steps give "
                              f"{lm_launches}")
     stats["matmul_ws"]["launches"] += matmul_ws.launches
+    credit_forms()
     del state
     torch.cuda.empty_cache()
 
@@ -4008,6 +4122,7 @@ def main():
     # -- 11. distribution ----------------------------------------------------
     log("phase 11: distribution on torch.distributed (DTensor; TF32 off)")
     t_phase = time.perf_counter()
+    mem_note("phase 11's entry")
     import contextlib
 
     import torch.distributed as dist
@@ -4067,7 +4182,7 @@ def main():
                 raise AssertionError("a DTensor reached the matmul_ws "
                                      "kernel")
             if x.dtype == torch.float32:
-                forms["scalar"] += 1
+                forms["simt"] += 1
                 return hold_f32(x, w, bias, worst=worst_a,
                                 held=collections.Counter(), control=False)
             with _disable_current_modes():
@@ -4092,7 +4207,7 @@ def main():
             torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
-    want_forms = {"wgmma": 2 * n_gemm_a, "scalar": 2 * n_gemm_a}
+    want_forms = {"wgmma": 2 * n_gemm_a, "simt": 2 * n_gemm_a}
     if not (dict(forms_a["sharded"]) == dict(forms_a["unsharded"])
             == want_forms):
         raise AssertionError(f"matmul_ws calls by form: {forms_a}, "
@@ -4304,9 +4419,9 @@ def main():
     finally:
         torch.use_deterministic_algorithms(False)
     # the shared experts' three GEMMs a layer: forward and the remat's
-    # recompute in bf16 (wgmma), dx and dw in f32 (scalar)
+    # recompute in bf16 (wgmma), dx and dw in f32 (simt)
     n_shared = 3 * cfg_m.num_layers
-    want_m = {"wgmma": 2 * n_shared, "scalar": 2 * n_shared}
+    want_m = {"wgmma": 2 * n_shared, "simt": 2 * n_shared}
     if not (dict(forms_m["sharded"]) == dict(forms_m["unsharded"])
             == want_m):
         raise AssertionError(f"(a) MoE: matmul_ws calls by form {forms_m},"
@@ -4416,6 +4531,7 @@ def main():
     log(f"  (a) matmul_ws launches: {matmul_ws.launches} (by form "
         f"{matmul_ws.path_launches})")
     stats["matmul_ws"]["launches"] += matmul_ws.launches
+    credit_forms()
     dist.destroy_process_group()
 
     # (b) 4 ranks on the card
@@ -4475,6 +4591,7 @@ def main():
         "published peaks (roofline.counts, roofline.analysis.H100), and "
         "the dry run (launch.dryrun)")
     t_phase = time.perf_counter()
+    mem_note("phase 12's entry")
     from repro_torch.configs.base import SHAPES, ShapeConfig
     from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.launch import dryrun
@@ -4561,6 +4678,13 @@ def main():
                 overrides={**over, "gemm_backend": backend},
                 accum_steps=accum)
             fake_s += time.perf_counter() - t0
+            # the train step peaks at ~73 GB of the card's 80: what the
+            # earlier phases left in the allocator's cache goes first
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"  {kind} {backend}: {torch.cuda.memory_allocated() / 1e9:.2f}"
+                f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+                f"reserved before the step's inputs are drawn")
             step, args = real_step(kind, c, accum)
             before = dict(matmul_ws.path_launches)
             flash0 = flash_attention.launches
@@ -4620,6 +4744,7 @@ def main():
                              f"flash_attention {flash_attention.launches} "
                              f"(expected {roof_flash})")
     stats["matmul_ws"]["launches"] += matmul_ws.launches
+    credit_forms()
     stats["flash_attention"]["launches"] += flash_attention.launches
     log(f"  [{smi}]; peaks: bf16 {H100['peak_flops']['bfloat16'] / 1e12:.0f}"
         f", f32 {H100['peak_flops']['float32'] / 1e12:.0f} TFLOP/s, HBM "
@@ -4720,32 +4845,19 @@ def main():
 
     # (b) the train_4k cells on single that the distribution of every
     # family repaired (the MoE layer's sharded backward, rwkv6 on local
-    # shards, seamless's frontend on local shards), one subprocess each,
-    # run side by side
-    env_b = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    procs_b = {}
+    # shards, seamless's frontend on local shards), started in phase 1
     t0 = time.perf_counter()
-    try:
-        for arch in REPAIRED_TRAIN_CELLS:
-            procs_b[arch] = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", "train_4k", "--mesh", "single", "--out",
-                 str(out_dir)], env=env_b, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)
-        for arch, proc in procs_b.items():
-            _, err = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"dry run {arch} train_4k single: exit "
-                                     f"{proc.returncode}: {err[-3000:]}")
-    finally:
-        for proc in procs_b.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    cells_s = time.perf_counter() - t0
+    for arch, proc in train_cells.items():
+        proc.wait(timeout=600)
+        if proc.returncode != 0:
+            err = (TRAIN_CELLS_DIR / f"{arch}.log").read_text()
+            raise AssertionError(f"dry run {arch} train_4k single: exit "
+                                 f"{proc.returncode}: {err[-3000:]}")
+    wait_s = time.perf_counter() - t0
+    cells_s = time.perf_counter() - t_cells
     for arch in REPAIRED_TRAIN_CELLS:
-        cell = json.loads((out_dir / f"{arch}__train_4k__single.json")
-                          .read_text())
+        cell = json.loads((TRAIN_CELLS_DIR
+                           / f"{arch}__train_4k__single.json").read_text())
         mem, rl = cell["memory_analysis"], cell["roofline"]
         if (cell["chips"] != 256 or not cell["device"].startswith("cuda")
                 or not cell["cost_analysis"]["flops"] > 0
@@ -4760,8 +4872,11 @@ def main():
             f"{1e3 * rl['t_collective']:.1f} ms, bound by "
             f"{rl['bottleneck']}; peak {mem['peak_bytes'] / 1e9:.2f} GB "
             f"(fits 80 GB: {mem['fits_80GB']})")
-    log(f"  (b) the three train_4k cells side by side: {cells_s:.1f} s")
+    log(f"  (b) the train_4k cells side by side on the host: done within "
+        f"{cells_s:.1f} s of their start in phase 1; phase 12 waited "
+        f"{wait_s:.1f} s for them")
     shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(TRAIN_CELLS_DIR, ignore_errors=True)
 
     # (c) the host time the torch.library op adds to a matmul_ws call, at
     # the decode step's MLP GEMMs.  Each window issues its calls back to
@@ -4853,6 +4968,10 @@ def main():
         if "f32" in st:     # the training path's f32 shapes, apart
             rows[-1].update(zip(("f32_ms", "f32_bound_ms", "f32_library_ms"),
                                 st["f32"]))
+        if "f32_scalar_ms" in st:   # the taps on the scalar form, apart
+            rows[-1]["f32_scalar_ms"] = st["f32_scalar_ms"]
+        if "forms" in st:   # launches by form (the runs read by form)
+            rows[-1]["form_launches"] = dict(st["forms"])
         if "int8" in st:    # w8 serving's long-M int8 GEMMs, apart
             rows[-1].update(st["int8"], int8_library_layouts=st[
                 "int8_library_layouts"])
@@ -4868,4 +4987,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

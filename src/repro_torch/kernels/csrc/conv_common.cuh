@@ -54,6 +54,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hopper_common.cuh"
+
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::cp_async_wait_pending;
+using hopper::cp_async_zfill;
+using hopper::mma_s8;
+
 // Field order must match repro_torch/kernels/conv2d_ws.py:_GEOM_FIELDS.
 struct ConvParams {
   int n, h, w, c, k;        // input map [N,H,W,C], K output channels
@@ -194,49 +202,9 @@ __device__ void epilogue(const Tacc* acc, const float* scale, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// cp.async (both kernels on the tensor-core path, conv2d_ws_pipe on both)
+// cp.async (both kernels on the tensor-core path, conv2d_ws_pipe on both):
+// hopper_common.cuh's cp_async_zfill / cp_async_commit / cp_async_wait
 // ---------------------------------------------------------------------------
-
-// Copy `bytes` (16, 8 or 4) from global to shared memory asynchronously;
-// only `src_bytes` of them are read, the rest are zero-filled (0 = a zero
-// chunk, for padding and the map's edges).
-__device__ inline void cp_async_zfill(void* dst, const void* src, int bytes,
-                                      int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  switch (bytes) {
-    case 16:
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                   ::"r"(d), "l"(src), "r"(src_bytes));
-      break;
-    case 8:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                   ::"r"(d), "l"(src), "r"(src_bytes));
-      break;
-    default:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                   ::"r"(d), "l"(src), "r"(src_bytes));
-      break;
-  }
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Wait until at most `n` (0..3) committed groups are still in flight.
-__device__ inline void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    default: cp_async_wait<3>(); break;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The int8 tensor-core path
@@ -398,15 +366,6 @@ __device__ inline uint32_t gather_u32(const int8_t* row, const int (&o)[4]) {
     if (o[q] >= 0)
       v |= static_cast<uint32_t>(static_cast<uint8_t>(row[o[q]])) << (8 * q);
   return v;
-}
-
-// acc += A (16x32, row) * B (32x8, col), signed int8 in, int32 accumulate.
-__device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                              const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // One K-chunk from a slot: ksp/32 steps of 2 x NT mma per warp.  Fragment

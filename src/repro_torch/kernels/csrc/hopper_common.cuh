@@ -1,7 +1,9 @@
-// Hopper device helpers shared by the tensor-core kernels (flash_attention.cu,
-// matmul_ws.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
-// and instructions, and the host-side tensor-map encoder.  Everything here
-// needs sm_90a (wgmma does not exist on plain sm_90).
+// Hopper device helpers shared by the kernels (flash_attention.cu,
+// matmul_ws.cu, and through conv_common.cuh conv2d_ws.cu and
+// conv2d_ws_pipe.cu): cp.async copies, the int8 mma.sync, mbarriers, TMA
+// tile loads, wgmma shared-memory descriptors and instructions, and the
+// host-side tensor-map encoder.  Everything here builds for sm_90a (wgmma
+// does not exist on plain sm_90).
 #pragma once
 
 #include <cstdint>
@@ -12,6 +14,65 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------------------
+// cp.async
+
+// Copy `bytes` (16, 8 or 4) from global to shared memory asynchronously;
+// only `src_bytes` of them are read, the rest are zero-filled (0 = a zero
+// chunk, for padding and the edges of a map or a matrix).
+__device__ inline void cp_async_zfill(void* dst, const void* src, int bytes,
+                                      int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  switch (bytes) {
+    case 16:
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   ::"r"(d), "l"(src), "r"(src_bytes));
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                   ::"r"(d), "l"(src), "r"(src_bytes));
+      break;
+    default:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   ::"r"(d), "l"(src), "r"(src_bytes));
+      break;
+  }
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most `n` (0..3) committed groups are still in flight.
+__device__ inline void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// ------------------------------------------------------------------------
+// int8 tensor cores, mma.sync
+
+// acc += A (16x32, row) * B (32x8, col), signed int8 in, int32 accumulate.
+// Fragments (g = lane / 4, t = lane % 4): a0 row g, k 4t..4t+3; a1 row
+// g + 8; a2 / a3 the same rows at k 16 + 4t; b0 column g, k 4t..4t+3; b1
+// k 16 + 4t; c0 / c1 row g, columns 2t and 2t + 1; c2 / c3 row g + 8.
+__device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ------------------------------------------------------------------------

@@ -4,21 +4,34 @@ Replaces the Pallas TPU kernel ``repro.kernels.matmul_ws.matmul_ws``:
 ``[M,K] @ [K,N] + bias`` with int8 × int8 → int32, f32 → f32 (no TF32), or
 bf16 × bf16 → bf16 (f32 products and sums plus an f32 bias, rounded once:
 what the reference's ``ops.matmul_ws`` returns).  The CUDA source,
-``csrc/matmul_ws.cu``, holds three forms (its note says what bounds each on
-the H100); ``mm_path`` picks one by geometry alone, and none falls back to
-another:
+``csrc/matmul_ws.cu``, holds five forms (its note gives each one's design);
+``mm_path`` picks one by geometry alone, and none falls back to another:
 
 * ``"wgmma"`` — bf16 at M > ``SHORT_M``, K and N multiples of 8: the
   prefill GEMMs.  128 × 128 or 128 × 256 output tiles (``wgmma_bn``) on the
   bf16 tensor cores, fed by TMA through a 4-stage ring; bound by
-  operations.
+  operations (989 TFLOP/s).
 * ``"stream"`` — bf16 or int8 at M ≤ ``SHORT_M``, N a multiple of 8 (and K
   too for bf16): decode and the dense heads.  w is read once in wide
   vectors, with K split over blocks where the columns alone would not fill
-  the card (``stream_plan``); bound by the bytes of w.
-* ``"scalar"`` — the first port's 64×64-tile kernel: f32, int8 at long M,
-  and bf16 whose rows are not 16-byte multiples (K or N not a multiple of
-  8), which TMA cannot address.
+  the card (``stream_plan``); bound by the bytes of w (3.35 TB/s).
+* ``"simt"`` — every f32 GEMM: register-tiled FFMA (no TF32), 128 × 128
+  tiles of 8 × 8 outputs a thread, or smaller tiles where M or N is small,
+  fed by ``cp.async`` through a 3-stage ring, with K split over blocks and
+  the slices' partials added in slice order where the tiles alone would
+  not fill the card (``simt_plan``).  LM training's backward GEMMs are
+  bound by operations (67 TFLOP/s of f32 FMA), the conv weight-gradient
+  taps ([C, N·OH·OW] @ [N·OH·OW, K]) mostly by their operands' bytes.
+* ``"mma"`` — int8 at M > ``SHORT_M`` (or N not a multiple of 8), K and N
+  multiples of 4: w8 prefill.  ``mma.sync`` m16n8k32 s8 on 128 × 128
+  tiles, the w tile transposed to K-major in shared memory; bound by
+  operations (1,979 TOP/s of int8).
+* ``"scalar"`` — the first port's 64×64-tile kernel: bf16 whose rows are
+  not 16-byte multiples (K or N not a multiple of 8), which TMA cannot
+  address, and int8 whose rows are not 4-byte multiples (K or N not a
+  multiple of 4), which ``cp.async`` cannot copy.  Its f32 and int8
+  instantiations stay callable through ``_launch(..., "scalar")`` as the
+  "before" of the simt and mma forms.
 
 ``matmul_ws`` calls the ``torch.library`` op ``repro_torch::matmul_ws``,
 so a dispatch mode (the roofline's counter, a fake tensor, a selective
@@ -32,6 +45,7 @@ dtype and launches nothing.  A CPU call that autograd records runs
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Tuple
@@ -49,7 +63,17 @@ STREAM_BLOCKS = 4 * SMS   # stream blocks wanted in flight
 STREAM_MIN_KC = 256       # K rows a stream block takes at least ...
 STREAM_MAX_KC = 512       # ... and at most (its x slice in shared memory)
 STREAM_WARPS = 8          # warps a stream block, each every 8th row of K
-PATHS = ("wgmma", "stream", "scalar")
+SimtTile = collections.namedtuple("SimtTile", "bm bn tm tn groups")
+# the simt form's tiles (csrc: simt::T128, T64, T32, T8): BM x BN outputs a
+# block of 256 threads, TM x TN a thread, in `groups` groups that each take
+# every groups-th K row of a stage
+SIMT_TILES = (SimtTile(128, 128, 8, 8, 1), SimtTile(64, 64, 8, 8, 4),
+              SimtTile(32, 32, 4, 4, 4), SimtTile(8, 32, 4, 4, 16))
+SIMT_BK = 16              # K rows a simt stage (csrc: simt::BK)
+SIMT_SPLIT_BELOW = 2 * SMS  # output tiles under which K splits: two waves
+SIMT_BLOCKS = 4 * SMS     # blocks a split aims for
+SIMT_MIN_KC = 64          # K rows a slice takes at least
+PATHS = ("wgmma", "stream", "simt", "mma", "scalar")
 _DTYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
@@ -66,16 +90,18 @@ def _dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
 @functools.lru_cache(maxsize=None)
 def mm_path(m: int, k: int, n: int, dtype: torch.dtype) -> str:
     """The form that runs ``[m,k] @ [k,n]`` in ``dtype`` on the card:
-    "wgmma", "stream" or "scalar" (see the module note)."""
+    "wgmma", "stream", "simt", "mma" or "scalar" (see the module note)."""
     if dtype not in _DTYPES:
         raise TypeError(f"matmul_ws has no kernel for {dtype}")
     if dtype == torch.float32:
-        return "scalar"
+        return "simt"
     if dtype == torch.bfloat16:
         if k % 8 or n % 8:            # rows of x or w not 16-byte multiples
             return "scalar"
         return "stream" if m <= SHORT_M else "wgmma"
-    return "stream" if m <= SHORT_M and n % 8 == 0 else "scalar"
+    if m <= SHORT_M and n % 8 == 0:
+        return "stream"
+    return "scalar" if k % 4 or n % 4 else "mma"
 
 
 def wgmma_bn(m: int, n: int) -> int:
@@ -100,6 +126,52 @@ def stream_plan(m: int, k: int, n: int) -> Tuple[int, int]:
     rows = -(-k // split)
     kc = -(-rows // 32) * 32
     return -(-k // kc), kc
+
+
+@functools.lru_cache(maxsize=None)
+def simt_plan(m: int, k: int, n: int) -> Tuple[SimtTile, int, int]:
+    """(tile, split, kc) of the simt form, by geometry alone.  The tile: 8
+    × 32 where M ≤ 8, 32 × 32 where M or N ≤ 32, 64 × 64 where M or N ≤ 64,
+    else 128 × 128.  Where its output tiles number under
+    ``SIMT_SPLIT_BELOW``, K goes in ``split`` slices of ``kc`` rows (a
+    multiple of ``SIMT_BK``), as many as bring ``SIMT_BLOCKS`` blocks
+    without a slice under ``SIMT_MIN_KC`` rows."""
+    if m <= 8:
+        tile = SIMT_TILES[3]
+    elif m <= 32 or n <= 32:
+        tile = SIMT_TILES[2]
+    elif m <= 64 or n <= 64:
+        tile = SIMT_TILES[1]
+    else:
+        tile = SIMT_TILES[0]
+    tiles = -(-m // tile.bm) * -(-n // tile.bn)
+    split = 1
+    if tiles < SIMT_SPLIT_BELOW:
+        split = max(1, min(-(-SIMT_BLOCKS // tiles), k // SIMT_MIN_KC))
+    rows = -(-k // split)
+    kc = -(-rows // SIMT_BK) * SIMT_BK
+    return tile, -(-k // kc), kc
+
+
+def matmul_ws_simt_emulate(x, w, bias=None) -> torch.Tensor:
+    """The simt form's order of sums, replayed in PyTorch on any device: K
+    in ``simt_plan``'s slices of ``kc`` rows, each slice's partial product
+    in f32, then the bias and the partials added in slice order (the
+    reduce kernel's order; without a split, the bias preloaded and the one
+    slice added).  Within a slice the kernel sums in its own order (FFMA
+    over its thread groups), which this does not replay."""
+    dt = _dtype(x, w)
+    (m, k), n = x.shape, w.shape[1]
+    if mm_path(m, k, n, dt) != "simt":
+        raise ValueError(f"[{m},{k}]@[{k},{n}] {dt} runs the "
+                         f"{mm_path(m, k, n, dt)} form, not the simt form")
+    _, split, kc = simt_plan(m, k, n)
+    out = (x.new_zeros((m, n)) if bias is None
+           else bias.to(device=x.device, dtype=torch.float32)
+           .expand(m, n).clone())
+    for s in range(split):
+        out += x[:, s * kc:(s + 1) * kc] @ w[s * kc:(s + 1) * kc]
+    return out
 
 
 def matmul_ws_stream_emulate(x, w, bias=None) -> torch.Tensor:
@@ -165,15 +237,18 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, args in ((lib.matmul_ws_scalar, [ptr] * 4 + [i32] * 4),
                      (lib.matmul_ws_stream, [ptr] * 5 + [i32] * 6),
-                     (lib.matmul_ws_wgmma, [ptr] * 4 + [i32] * 4)):
+                     (lib.matmul_ws_wgmma, [ptr] * 4 + [i32] * 4),
+                     (lib.matmul_ws_simt, [ptr] * 5 + [i32] * 6),
+                     (lib.matmul_ws_mma, [ptr] * 4 + [i32] * 3)):
         fn.argtypes = args + [ptr]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous with a 16-byte aligned start (TMA and the stream
-    form's vector loads); copies only where it is not."""
+    """``t`` contiguous with a 16-byte aligned start (TMA, the stream
+    form's vector loads, the simt and mma forms' 16-byte ``cp.async``);
+    copies only where it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -204,6 +279,15 @@ def _launch(x, w, bias, path: str) -> torch.Tensor:
         code = lib.matmul_ws_stream(
             *args, None if part is None else part.data_ptr(), m, n, k,
             kc, split, _DTYPES[dt], stream)
+    elif path == "simt":
+        tile, split, kc = simt_plan(m, k, n)
+        part = (torch.empty((split, m, n), dtype=torch.float32,
+                            device=x.device) if split > 1 else None)
+        code = lib.matmul_ws_simt(
+            *args, None if part is None else part.data_ptr(), m, n, k, kc,
+            split, tile.bm, stream)
+    elif path == "mma":
+        code = lib.matmul_ws_mma(*args, m, n, k, stream)
     else:
         code = lib.matmul_ws_scalar(*args, m, n, k, _DTYPES[dt], stream)
     _build.check("matmul_ws", code)

@@ -25,7 +25,10 @@ f32 sums taken in another order, agree within one bf16 ulp; bf16 GEMMs
 within one bf16 ulp plus their f32 sums' rounding (``bf16_gemm_bound``).
 ``MM_CASES`` hold each ``matmul_ws`` form (``mm_path``) at its edges: M
 from 1 to 3000 across the stream / wgmma boundary at 16, K and N off the
-tiles, the head's N = 1000, and rows that are not 16-byte multiples;
+tiles, the head's N = 1000, and rows that are not 16-byte multiples; the
+simt form (f32) at tap-like shapes that split K, at an LM backward shape
+and at K = 27; the mma form (int8, M > 16) at a w8 prefill shape and off
+its tiles (``MM_FORMS`` names each new case's form);
 ``RG_MLP_CASES`` hold the stream and wgmma forms at recurrentgemma-9b's
 gated-MLP shapes, where K reaches 12,288, and ``LM_MLP_CASES`` at
 deepseek-moe-16b's shared experts', internvl2-26b's (K to 16,384) and
@@ -299,8 +302,33 @@ MM_CASES = ([(m, 200, 264, "bfloat16", m != 64)
                (4096, 8192, 3072, "bfloat16", False),
                (3, 70, 33, "bfloat16", True), (65, 70, 264, "bfloat16", True),
                (3, 70, 33, "float32", True), (8, 512, 64, "int8", True),
-               (8, 64, 10, "int8", True)]
+               (8, 64, 10, "int8", True),
+               # the simt form: tap-like shapes (K split), an LM backward
+               # GEMM, K = 27 and the f32 head
+               (4, 100352, 32, "float32", True),
+               (32, 25088, 64, "float32", False),
+               (256, 1568, 256, "float32", True),
+               (4096, 3072, 8192, "float32", False),
+               (65, 27, 1000, "float32", True),
+               (8, 256, 1000, "float32", True),
+               # the mma form and its geometry's edge
+               (17, 200, 264, "int8", False), (65, 70, 264, "int8", True),
+               (3000, 3072, 8192, "int8", False)]
             + RG_MLP_CASES + LM_MLP_CASES)
+# the form of each f32 case and of each int8 case at M > 16 (mm_path, by
+# geometry alone)
+MM_FORMS = {(m, k, n, d): f for m, k, n, d, f in (
+    (3, 70, 33, "float32", "simt"), (4, 100352, 32, "float32", "simt"),
+    (32, 25088, 64, "float32", "simt"), (256, 1568, 256, "float32", "simt"),
+    (4096, 3072, 8192, "float32", "simt"), (65, 27, 1000, "float32", "simt"),
+    (8, 256, 1000, "float32", "simt"), (17, 200, 264, "int8", "mma"),
+    (65, 200, 264, "int8", "mma"), (65, 70, 264, "int8", "scalar"),
+    (3000, 3072, 8192, "int8", "mma"))}
+
+
+def mm_form(m, k, n, dtype):
+    """``MM_FORMS``' form of a case, or None where it names none."""
+    return MM_FORMS.get((m, k, n, dtype))
 
 
 def mm_case_inputs(m, k, n, dtype, bias):
@@ -326,6 +354,7 @@ def test_cuda_matmul_forms_equal_plain(cuda, m, k, n, dtype, bias):
                for t in mm_case_inputs(m, k, n, dtype, bias))
     dt = x.dtype
     path = mm_path(m, k, n, dt)
+    assert mm_form(m, k, n, dtype) in (None, path)
     before = dict(matmul_ws.path_launches)
     got = matmul_ws(x, w, b)
     torch.cuda.synchronize()
@@ -336,6 +365,15 @@ def test_cuda_matmul_forms_equal_plain(cuda, m, k, n, dtype, bias):
         assert torch.equal(got, want)
     elif dt == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        x64, w64 = x.double(), w.double()
+        s = x64.abs() @ w64.abs()
+        if b is not None:
+            s = s + b.double().abs()
+        want64 = x64 @ w64 + (0 if b is None else b.double())
+        err = (got.double() - want64).abs()
+        assert bool((err <= f32_sum_bound(k + 1, s)).all()), \
+            float(err.max())
+        assert torch.equal(got, matmul_ws(x, w, b))    # same bits again
     else:
         err = (got.float() - want.float()).abs()
         assert bool((err <= bf16_gemm_bound(x, w, b, got, want)).all()), \
@@ -433,9 +471,9 @@ W8_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
 @pytest.mark.parametrize("k,n", W8_SHAPES)
 def test_cuda_w8_gemm_shapes_equal_plain(cuda, k, n):
     """int8 ``matmul_ws`` at the w8 GEMM shapes: the stream form at a
-    4-slot decode's M, the scalar form at a prefill's, each equal to the
+    4-slot decode's M, the mma form at a prefill's, each equal to the
     plain version."""
-    for m, form in ((4, "stream"), (300, "scalar")):
+    for m, form in ((4, "stream"), (300, "mma")):
         x, w, _ = (t.to(cuda) for t in mm_case_inputs(m, k, n, "int8", True))
         assert mm_path(m, k, n, torch.int8) == form
         before = dict(matmul_ws.path_launches)
@@ -506,7 +544,7 @@ def test_cuda_w8_engine_tokens_equal_the_cpu(cuda, arch):
 
 
 # ---------------------------------------------------------------------------
-# training: the scalar path's own tiles and the backward on the kernels
+# training: the scalar conv path's own tiles and the backward on the kernels
 # ---------------------------------------------------------------------------
 
 
@@ -599,7 +637,7 @@ def check_conv_vjp(x, w, b, g, kw, transpose=False):
     Function routed through those masks (near a tie another subgradient
     is as right), and each gradient passes ``check_grad``.  Asserts the
     backward's launches: one ``conv2d_ws`` for dx where x needs a
-    gradient, KH·KW·groups scalar ``matmul_ws`` GEMMs for dw → {"y", "dx",
+    gradient, KH·KW·groups simt ``matmul_ws`` GEMMs for dw → {"y", "dx",
     "dw", "db": max abs err, "rel": {name: (rel L2, TF32 control's)},
     "near": positions within rounding of a mask's decision}."""
     from repro_torch.kernels import ops
@@ -617,7 +655,7 @@ def check_conv_vjp(x, w, b, g, kw, transpose=False):
     *_, relu_mask, pool_idx = node.saved_tensors
     dacc = ops.epilogue_backward(g, relu_mask, pool_idx, node.acc_shape)
     before = (conv2d_ws.launches, conv2d_ws.tc_launches,
-              matmul_ws.launches, matmul_ws.path_launches["scalar"])
+              matmul_ws.launches, matmul_ws.path_launches["simt"])
     wants = [t for t in (x, w, b) if t is not None and t.requires_grad]
     grads = dict(zip([id(t) for t in wants],
                      torch.autograd.grad(y, wants, g)))
@@ -626,7 +664,7 @@ def check_conv_vjp(x, w, b, g, kw, transpose=False):
     if x.is_cuda:           # a CPU tensor runs the plain versions
         torch.cuda.synchronize()
         assert (conv2d_ws.launches, conv2d_ws.tc_launches,
-                matmul_ws.launches, matmul_ws.path_launches["scalar"]) == (
+                matmul_ws.launches, matmul_ws.path_launches["simt"]) == (
             before[0] + x.requires_grad, before[1], before[2] + taps,
             before[3] + taps)
     geo = dict(stride=cfg.stride, padding=cfg.padding, groups=groups,
@@ -696,16 +734,16 @@ def check_conv_vjp(x, w, b, g, kw, transpose=False):
 
 def check_matmul_vjp(x, w, b, g):
     """``ops.matmul_ws`` differentiated on the card: dx, dw and db against
-    the float64 products, each through ``check_grad``, two scalar
+    the float64 products, each through ``check_grad``, two simt
     ``matmul_ws`` launches → {name: (max abs err, rel L2, TF32 control's
     rel L2)}."""
     from repro_torch.kernels import ops
     y = ops.matmul_ws(x, w, b)
-    before = matmul_ws.path_launches["scalar"]
+    before = matmul_ws.path_launches["simt"]
     dx, dw, db = torch.autograd.grad(y, (x, w, b), g)
     if x.is_cuda:
         torch.cuda.synchronize()
-        assert matmul_ws.path_launches["scalar"] == before + 2
+        assert matmul_ws.path_launches["simt"] == before + 2
     gd, xd, wd = g.double(), x.detach().double(), w.detach().double()
     gt, xt, wt = (tf32_round(t.detach()).double() for t in (g, x, w))
     return {name: check_grad(name, got, want, s, terms, ctl)
@@ -781,21 +819,22 @@ def test_cuda_backward_pieces_within_the_bound(cuda):
 def test_cuda_lenet_fit_step_launches(cuda):
     """One ``fit`` step of ``lenet`` on the card: 3 forward convs, 2 input
     gradients (none for the input layer), 27 weight-gradient taps and the
-    two dense layers' 2 + 4 GEMMs, all on the scalar path and form."""
+    two dense layers' 2 + 4 GEMMs: every conv on the scalar path, every
+    GEMM on the simt form."""
     from repro_torch.core import network, training
     plan = network.lenet(input_shape=(12, 12, 1))
     x, y = training.synthetic_digits(np.random.default_rng(0), 64,
                                      device=cuda)
     counts = (conv2d_ws.launches, conv2d_ws.tc_launches,
               conv2d_ws_pipe.launches, matmul_ws.launches,
-              matmul_ws.path_launches["scalar"])
+              matmul_ws.path_launches["simt"])
     state, hist = training.fit(plan, x, y, steps=1, batch=32,
                                cfg=training.TrainConfig(qat=True))
     assert state.step.device.type == "cuda" and np.isfinite(hist[0]["loss"])
     assert (conv2d_ws.launches - counts[0], conv2d_ws.tc_launches - counts[1],
             conv2d_ws_pipe.launches - counts[2],
             matmul_ws.launches - counts[3],
-            matmul_ws.path_launches["scalar"] - counts[4]) == (5, 0, 0, 33, 33)
+            matmul_ws.path_launches["simt"] - counts[4]) == (5, 0, 0, 33, 33)
 
 
 # ---------------------------------------------------------------------------
@@ -1120,7 +1159,7 @@ def test_cuda_lm_train_step_equals_the_cpu(cuda, backend):
 
 # llama3.2-3b's MLP GEMMs split over 2 ranks on N (up / gate) and on K
 # (down): at a 4-slot decode step (stream), a 512-token prefill (wgmma)
-# and in f32 (scalar): (split, m, k, n, dtype)
+# and in f32 (simt): (split, m, k, n, dtype)
 DT_MM_CASES = [(split, m, k, n, dname)
                for split, k, n in (("N", 3072, 8192), ("K", 8192, 3072))
                for m, dname in ((4, "bfloat16"), (512, "bfloat16"),
@@ -1139,7 +1178,7 @@ def test_cuda_matmul_ws_dtensor_local_shards(cuda):
                        else "gloo")
     forms = {case: path for case, path, _ in out}
     assert len(forms) == len(DT_MM_CASES)
-    assert set(forms.values()) == {"stream", "wgmma", "scalar"}
+    assert set(forms.values()) == {"stream", "wgmma", "simt"}
 
 
 @pytest.mark.cuda
@@ -1200,7 +1239,7 @@ def test_cuda_one_rank_sharded_step_is_bit_equal(cuda):
             kops._matmul_kernel = kernel
             torch.use_deterministic_algorithms(False)
         assert dc.outputs_equal(outs[1], outs[0]) == []
-        assert forms[0] == forms[1] == {"wgmma": 12, "scalar": 12}
+        assert forms[0] == forms[1] == {"wgmma": 12, "simt": 12}
     finally:
         dist.destroy_process_group()
 
