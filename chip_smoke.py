@@ -11,15 +11,21 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    registers and spills (``-Xptxas -v``) and the tensor-core instructions
    in each tensor-core instantiation's SASS (``cuobjdump -sass``: ``IMMA``
    in the conv kernels and ``matmul_ws``'s int8 mma form, ``HGMMA`` in its
-   bf16 long-M form);
-   fail on a spill in any of them or in a ``flash_attention`` ``wgmma``
-   instantiation (D = 256 included), a missing ``IMMA`` or ``HGMMA``, a
-   missing compiler report or a missing ``cuobjdump``;
+   bf16 long-M form, none in the conv kernels' six f32 simt instantiations
+   each);
+   fail on a spill in any of them, in a simt instantiation or in a
+   ``flash_attention`` ``wgmma`` instantiation (D = 256 included), a
+   missing ``IMMA`` or ``HGMMA``, a tensor-core instruction in a simt
+   instantiation, a missing compiler report or a missing ``cuobjdump``;
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (``vgg_imagenet``'s six convs at
    224×224, the ``lenet`` convs, the §5.2 layer, depthwise / stride-2 /
    dilation-2 / per-channel-requant layers, the tensor-core path's edge
-   geometries (``TC_CASES`` of ``tests/test_torch_cuda.py``), the dense
+   geometries (``TC_CASES`` of ``tests/test_torch_cuda.py``) in int8 and,
+   with ``CASES``, in f32 (the simt path, or the scalar kernel where the
+   groups are narrower than 8: each simt result also within
+   ``f32_sum_bound`` of ``conv2d_ws_simt_emulate``, the two kernels and
+   a second call bit-equal), the dense
    heads; every ``matmul_ws`` form at its edge shapes (M from 1 to 3000,
    K and N off the tiles, the head's N = 1000) and at the LM's MLP
    shapes (llama3.2-3b's, and recurrentgemma-9b's at M = 4 on the stream
@@ -48,8 +54,7 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    yi-34b's and gemma-7b's, the mma form at a prefill's M and the
    stream form at a 4-slot decode's, each ``torch.equal``, form asserted;
    the long-M ones timed beside ``torch._int_mm`` with the weight stored
-   row-major and column-major, and beside the scalar form, the "before",
-   through ``_launch(..., "scalar")``); and the int8 KV cache's two decode
+   row-major and column-major); and the int8 KV cache's two decode
    contractions at 4 slots × 4096 positions (D = 128 and 256, random
    and worst-case operands) to the CPU's int64 sums; hold
    ``ops.conv1d_depthwise`` at recurrentgemma-9b's temporal conv ([1,
@@ -159,8 +164,13 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    synchronous submit;
 8. training through the kernels' backward, f32 with TF32 off: at each of
    ``vgg_imagenet``'s six layer shapes (batch 8) a whole-map f32 conv on
-   both kernels (the scalar path picks its own tiles) ``torch.equal`` to
-   the same call with 8×16 tiles and within 1e-4 of its plain version,
+   both kernels' simt path (its blocks sized by geometry alone)
+   ``torch.equal`` to the same call with 8×16 tiles, within 1e-4 of its
+   plain version and within ``f32_sum_bound`` of
+   ``conv2d_ws_simt_emulate``, the two kernels bit-equal, timed beside
+   the scalar kernel (the "before", through ``launch_conv`` with the path
+   forced) and ``F.conv2d``; each of the five input-gradient convs timed
+   beside ``torch.nn.grad.conv2d_input`` and its bound;
    and its VJP through autograd (``check_conv_vjp`` of
    ``tests/test_torch_cuda.py``: the saved ReLU / pool masks equal the
    float64 accumulator's except within rounding of 0 or of a tie, dx, dw
@@ -173,7 +183,7 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    likewise; then the main paths: 3 ``fit``
    steps of ``vgg_imagenet`` as the repo defines it (QAT per channel,
    batch 8, 1000 classes) with the launches a step held to what the plan
-   gives (11 ``conv2d_ws`` on the scalar path, 57 ``matmul_ws`` on the simt
+   gives (11 ``conv2d_ws`` on the simt path, 57 ``matmul_ws`` on the simt
    form), ms a step, one
    more step under ``torch.profiler`` split by part (the first of 3
    marker-separated steps a window whose every launch reached the
@@ -296,12 +306,16 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``f32_bound_ms``, ``f32_library_ms``: the six forward convs beside
    ``F.conv2d``, the 54 weight-gradient taps beside ``torch.matmul``, each
    bound that of the whole function: x, the cotangent and dw moved once
-   for the weight gradient; ``f32_scalar_ms``: the 54 taps on the scalar
-   form, the "before"); ``matmul_ws``'s ``int8_ms``,
-   ``int8_device_ms``, ``int8_bound_ms``, ``int8_library_ms`` and
-   ``int8_scalar_ms`` sum its twelve long-M int8 shapes of phase 3 (the
+   for the weight gradient); the convs' rows carry their simt path apart
+   (``simt_launches`` on phase 8's training runs, ``simt_max_abs_err``,
+   ``f32_plain_ms``, ``f32_bound_by``, ``f32_scalar_ms``: the six forward
+   convs on the scalar kernel, the "before"; on ``conv2d_ws``
+   ``f32_dx_ms``, ``f32_dx_bound_ms`` and ``f32_dx_library_ms``: the five
+   input-gradient convs beside ``torch.nn.grad.conv2d_input``);
+   ``matmul_ws``'s ``int8_ms``, ``int8_device_ms``, ``int8_bound_ms`` and
+   ``int8_library_ms`` sum its twelve long-M int8 shapes of phase 3 (the
    library ``torch._int_mm``, each shape's faster of its two weight
-   layouts; the scalar form, the "before"),
+   layouts),
    and its and ``flash_attention``'s ``launches`` count every served
    run of phases 6, 6b, 6c and 6d (``serve_held``) and phase 6d's
    direct prefills and decode steps, and the
@@ -310,8 +324,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``conv1d_plain_ms``: ``conv1d_depthwise_ref``, ``conv1d_library_ms``:
    ``F.conv1d``); the ``matmul_ws`` row carries phase 10's f32 backward
    GEMMs at llama3.2-3b's MLP shapes apart (``lm_bwd_ms``,
-   ``lm_bwd_bound_ms``, ``lm_bwd_library_ms``: ``torch.matmul``, TF32 off,
-   ``lm_bwd_scalar_ms``: the scalar form, the "before"), its
+   ``lm_bwd_bound_ms``, ``lm_bwd_library_ms``: ``torch.matmul``, TF32
+   off), its
    ``form_launches`` count its launches by form over the runs whose
    counts were read by form (phases 6–6d's served runs, 8's fits, 10, 11(a)
    and 12),
@@ -344,6 +358,11 @@ ROOT = Path(__file__).resolve().parent
 # cuBLAS reads this when CUDA starts; phase 10 turns deterministic
 # algorithms on, which need it
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the caching allocator grows its segments in place: phases 10(c) and 12
+# run llama3.2-3b's train step at 73 GB of 80 after steps and checks of
+# other shapes, and with fixed-size segments such a step has run out of
+# memory with 12 GB reserved but split among them (PERF.md §6)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))     # the card tests' conv cases
 
@@ -458,8 +477,20 @@ MM_KERNEL_NAMES = ("matmul_ws_kernel", "mm_stream_kernel", "mm_wgmma_kernel",
                    "mm_simt_kernel", "mm_imma_kernel", "mm_split_reduce")
 
 
+# the conv kernels' device kernels by name: the scalar and simt kernels of
+# both sources (the tensor-core ones are "conv_ws_tc_kernel" and
+# "conv_ws_pipe_tc_kernel"), and the simt path's split-K reduce
+CONV_F32_KERNEL_NAMES = ("conv_ws_kernel", "conv_ws_pipe_kernel",
+                         "conv_ws_simt_kernel", "conv_ws_pipe_simt_kernel",
+                         "conv_simt_reduce_kernel")
+
+
 def is_mm_kernel(name):
     return any(t in name for t in MM_KERNEL_NAMES)
+
+
+def is_conv_kernel(name):
+    return any(t in name for t in CONV_F32_KERNEL_NAMES)
 
 
 def log(*parts):
@@ -522,8 +553,8 @@ def kernel_name(mangled):
 
 
 def sass_tensor_ops(lib_path):
-    """{kernel name: count of IMMA / HGMMA-family instructions} in a
-    library's SASS (``cuobjdump``, which comes with ``nvcc``)."""
+    """{kernel name: count of IMMA / HMMA / HGMMA-family instructions} in
+    a library's SASS (``cuobjdump``, which comes with ``nvcc``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         raise FileNotFoundError("cuobjdump is not installed beside nvcc: "
@@ -536,7 +567,7 @@ def sass_tensor_ops(lib_path):
         if found:
             name = kernel_name(found.group(1))
             counts[name] = 0
-        elif name and re.search(r"\b(IMMA|[HIQ]GMMA)\b", line):
+        elif name and re.search(r"\b(IMMA|HMMA|[HIQ]GMMA)\b", line):
             counts[name] += 1
     return counts
 
@@ -568,7 +599,6 @@ def main():
                                                      kernel_variant)
     from repro_torch.kernels.matmul_ws import (PATHS, matmul_ws,
                                                matmul_ws_plain, mm_path)
-    from repro_torch.kernels.matmul_ws import _launch as mm_launch
     from repro_torch.kernels.matmul_ws import simt_plan
     from repro_torch.core.quantize import (quantize_weight_specs,
                                            quantize_weights)
@@ -592,13 +622,14 @@ def main():
     from repro_torch.core.calibration import (CalibrationTable,
                                               fit_calibration)
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.conv2d_ws import scalar_tiles
+    from repro_torch.kernels.conv2d_ws import launch_conv, scalar_tiles
+    from repro_torch.kernels.conv2d_ws import simt_plan as simt_plan_conv
     from repro_torch.kernels.conv2d_ws_bwd import (conv2d_ws_input_grad,
                                                    conv2d_ws_weight_grad)
-    from test_torch_cuda import (MM_CASES, TC_CASES, bf16_gemm_bound,
-                                 GRAD_REL_L2, LM_MLP_CASES, RG_MLP_CASES,
-                                 bf16_ulp,
-                                 check_conv_vjp, check_matmul_vjp,
+    from test_torch_cuda import (F32_CASES, MM_CASES, TC_CASES,
+                                 bf16_gemm_bound, GRAD_REL_L2, LM_MLP_CASES,
+                                 RG_MLP_CASES, bf16_ulp, check_simt,
+                                 check_conv_vjp, check_matmul_vjp, f32_case,
                                  mm_case_inputs, tc_case_inputs,
                                  vgg_f32_layer)
 
@@ -617,6 +648,12 @@ def main():
              for k in KERNELS}
     stats["flash_attention"]["ops_per_s"] = BF16_OPS_PER_S
     stats["matmul_ws"]["forms"] = dict.fromkeys(PATHS, 0)
+    # each conv kernel's f32 simt path, keys of its row: its launches on
+    # the training main paths (phase 8), its max error against the plain
+    # version, and phase 8's forward (and, for conv2d_ws, dx) sums
+    for k in ("conv2d_ws", "conv2d_ws_pipe"):
+        stats[k]["simt"] = dict(launches=0, max_abs_err=0.0,
+                                bound_by={"bytes": 0.0, "operations": 0.0})
 
     def mem_note(where):
         """Log the caching allocator's state: bytes live, bytes reserved,
@@ -670,12 +707,14 @@ def main():
                                          or "flash_bf16_kernel" in entry)):
                 log(f"  {name} {entry}: {line.strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line) and (
-                        "tc_kernel" in entry or "wgmma_kernel" in entry
+                        "tc_kernel" in entry or "simt_kernel" in entry
+                        or "wgmma_kernel" in entry
                         or "imma_kernel" in entry
                         or "flash_bf16_kernel" in entry):
                     spilled.append(entry)
     if spilled:
-        raise AssertionError(f"tensor-core kernels spill: {spilled}")
+        raise AssertionError(f"tensor-core or simt kernels spill: "
+                             f"{spilled}")
     for name in ("conv2d_ws", "conv2d_ws_pipe"):
         ops = sass_tensor_ops(_build.library_path(name))
         tc = {k: v for k, v in sorted(ops.items()) if "tc_kernel" in k}
@@ -684,6 +723,13 @@ def main():
         if len(tc) != 4 or not all(tc.values()):
             raise AssertionError(f"{name}: an int8 tensor-core instantiation "
                                  f"holds no IMMA: {tc}")
+        simt = {k: v for k, v in sorted(ops.items()) if "simt_kernel" in k}
+        log(f"  {name} SASS, tensor-core instructions per f32 simt "
+            f"instantiation (FFMA only: none): "
+            + ", ".join(f"{k} {v}" for k, v in simt.items()))
+        if len(simt) != 6 or any(simt.values()):
+            raise AssertionError(f"{name}: the f32 simt instantiations are "
+                                 f"not six FFMA-only kernels: {simt}")
     ops = sass_tensor_ops(_build.library_path("matmul_ws"))
     hg = {k: v for k, v in sorted(ops.items()) if "wgmma_kernel" in k}
     log("  matmul_ws SASS, HGMMA instructions per bf16 long-M "
@@ -813,7 +859,10 @@ def main():
         """Both conv kernels against ``conv2d_ws_plain``, each launch on the
         path ``conv_path`` rules; ``scale`` is "scalar" / "per_k" (derived
         from the plain accumulator so the int8 outputs span the grid), a
-        given scale, or None (int32 / f32 out)."""
+        given scale, or None (int32 / f32 out).  An f32 result on the simt
+        path is also held within ``f32_sum_bound`` of
+        ``conv2d_ws_simt_emulate``, and the two kernels' results and a
+        second call to each other bit for bit (``check_simt``)."""
         if isinstance(scale, str):
             acc = conv2d_ws_plain(x, w, b, None, **kw).double().abs()
             if scale == "per_k":
@@ -828,22 +877,29 @@ def main():
             requant=scale is not None, int_path=x.dtype == torch.int8,
             **geo))
         torch.cuda.synchronize()
-        row = {}
+        row, outs = {}, []
         for name in ("conv2d_ws", "conv2d_ws_pipe"):
             fn = wrappers[name]
-            before = (fn.launches, fn.tc_launches)
+            before = (fn.launches, fn.tc_launches, fn.simt_launches)
             got = fn(x, w, b, scale, **kw)
             torch.cuda.synchronize()
-            if (fn.launches, fn.tc_launches) != (
-                    before[0] + 1, before[1] + (path == "tc")):
+            if (fn.launches, fn.tc_launches, fn.simt_launches) != (
+                    before[0] + 1, before[1] + (path == "tc"),
+                    before[2] + (path == "simt")):
                 raise AssertionError(f"{label}: {name} did not launch once "
                                      f"on the {path} path")
-            compare(name, got, want)
+            err = compare(name, got, want)
+            if path == "simt":
+                sim = stats[name]["simt"]
+                sim["max_abs_err"] = max(sim["max_abs_err"], err)
+            outs.append(got)
             if timed:
                 call = lambda: fn(x, w, b, scale, **kw)   # noqa: E731
                 row[name] = (elapsed_ms(call, reps=10), device_ms(call, 20))
                 stats[name]["ms"] += row[name][0]
                 stats[name]["device_ms"] += row[name][1]
+        if path == "simt":      # the emulation's bound, both kernels' bits
+            check_simt([x, w, b, scale], kw, outs)
         if timed:
             n, h, wd, c = x.shape
             kh, kwd, cg, k = w.shape
@@ -1022,13 +1078,12 @@ def main():
     def check_w8_matmuls():
         """``matmul_ws`` int8 at w8 serving's GEMM shapes, each equal to
         its plain version on the form ``mm_path`` names; the long-M ones
-        (the mma form) timed beside ``torch._int_mm``, the scalar form and
-        their bound at the int8 tensor-core peak, into the JSON row's
-        int8_* sums."""
+        (the mma form) timed beside ``torch._int_mm`` and their bound at
+        the int8 tensor-core peak, into the JSON row's int8_* sums."""
         st = stats["matmul_ws"]
         st["int8"] = dict.fromkeys(("int8_ms", "int8_device_ms",
-                                    "int8_bound_ms", "int8_library_ms",
-                                    "int8_scalar_ms"), 0.0)
+                                    "int8_bound_ms", "int8_library_ms"),
+                                   0.0)
         st["int8_library_layouts"] = dict.fromkeys(("row-major",
                                                     "column-major"), 0)
         for model, m_long, shapes in W8_MM:
@@ -1061,17 +1116,12 @@ def main():
                                             ("column-major", w_col))}
                         fast = min(lib_ms, key=lib_ms.get)
                         st["int8_library_layouts"][fast] += 1
-                        # the scalar form, the "before", on the same
-                        # operands
-                        old = elapsed_ms(lambda: mm_launch(
-                            x, w, None, "scalar"), reps=1, warmup=1)
                         for key, v in zip(st["int8"], (ms, dev_ms, bound,
-                                                       lib_ms[fast], old)):
+                                                       lib_ms[fast])):
                             st["int8"][key] += v
                         lib = (", torch._int_mm " + ", ".join(
                             f"{v:.4f} ms {lay}" for lay, v in lib_ms.items())
-                            + f" ({ms / lib_ms[fast]:.2f}x the faster), "
-                            f"scalar form {old:.3f} ms")
+                            + f" ({ms / lib_ms[fast]:.2f}x the faster)")
                     log(f"  matmul_ws int8 {model} [{m},{k}]@[{k},{n}], "
                         f"{path} form, equal: {ms:.4f} ms a call, "
                         f"{dev_ms:.4f} ms on the device "
@@ -1194,6 +1244,10 @@ def main():
     check_conv("f32", xf, wf, torch.randn(64, generator=gen, device=dev),
                None, dict(padding="SAME", relu=True, pool=True, h_tile=8,
                           w_tile=10))
+    for label in F32_CASES:     # the conv edges in f32: simt or scalar
+        x, w, b, kw = f32_case(label)
+        check_conv(f"{label} f32", *(torch.as_tensor(np.array(a), device=dev)
+                                     for a in (x, w, b)), None, kw)
     mm_device_ms = check_matmuls()
     check_w8_matmuls()
     check_int8_decode()
@@ -1359,6 +1413,7 @@ def main():
             fn.launches = 0
         for k in convs:
             wrappers[k].tc_launches = 0
+            wrappers[k].simt_launches = 0
         matmul_ws.path_launches = dict.fromkeys(PATHS, 0)
 
     def counts():
@@ -3072,35 +3127,57 @@ def main():
     # -- 8. training -------------------------------------------------------
     log("phase 8: training through the kernels' backward (f32, TF32 off)")
     mem_note("phase 8's entry")
-    f32 = {k: 0.0 for k in ("conv_ms", "pipe_ms", "conv_lib_ms",
-                            "conv_bound", "mm_ms", "mm_lib_ms", "mm_bound",
-                            "mm_scalar_ms")}
+    f32 = {k: 0.0 for k in ("conv_ms", "pipe_ms", "conv_scalar_ms",
+                            "conv_lib_ms", "conv_plain_ms", "conv_bound",
+                            "dx_ms", "dx_lib_ms", "dx_bound", "mm_ms",
+                            "mm_lib_ms", "mm_bound")}
     log("  vgg_imagenet f32 at batch 8, whole map, per layer (ms: CUDA "
-        "events around back-to-back calls; F.conv2d and torch.matmul on "
-        "the same operands, TF32 off; bounds at 3.35 TB/s and 67 TFLOP/s "
-        "f32; grad errors against the plain oracles in float64, each "
-        "element within f32_sum_bound, each gradient within GRAD_REL_L2 = "
+        "events around back-to-back calls; the forward on the simt path of "
+        "conv2d_ws and conv2d_ws_pipe and on the scalar kernel, the "
+        "'before', through the launcher with its path forced; "
+        "F.conv2d, torch.nn.grad.conv2d_input and torch.matmul on the same "
+        "operands, TF32 off; bounds at 3.35 TB/s and 67 TFLOP/s f32; grad "
+        "errors against the plain oracles in float64, each element within "
+        "f32_sum_bound, each gradient within GRAD_REL_L2 = "
         f"{GRAD_REL_L2:g} relative L2 and its TF32 control outside it):")
-    log("    layer  GFLOP    fwd ms (pipe)      F.conv2d ms  bound ms  "
-        "tiles   dx ms   dx bound  dw ms    taps on matmul_ws ms  "
-        "torch.matmul ms  dw bound  taps on the scalar form ms  "
+    log("    layer  GFLOP    fwd ms (pipe)      scalar ms  F.conv2d ms  "
+        "bound ms  simt plan            dx ms   conv2d_input ms  dx bound  "
+        "dw ms    taps on matmul_ws ms  torch.matmul ms  dw bound  "
         "max err y / dx / dw / db")
     for i in range(6):
         x, w, b, kw = vgg_f32_layer(i)
         geo = {k: v for k, v in kw.items() if k not in ("relu", "pool")}
         want = conv2d_ws_plain(x, w, b, **kw)
-        for name in convs:              # the scalar path picks its tiles
+        outs = []
+        for name in convs:      # simt: the TilePlan's tiles shape no block
             fn = wrappers[name]
+            before = fn.simt_launches
             whole = fn(x, w, b, **kw)
             tiled = fn(x, w, b, **{**kw, "h_tile": 8, "w_tile": 16})
             torch.cuda.synchronize()
+            if fn.simt_launches != before + 2:
+                raise AssertionError(f"vgg_imagenet conv{i} f32: {name} did "
+                                     f"not launch the simt path")
             if not torch.equal(whole, tiled):
                 raise AssertionError(f"vgg_imagenet conv{i} f32: {name} "
                                      f"whole map differs from 8x16 tiles")
-            compare(name, whole, want)
-        tiles = scalar_tiles(setup_conv(
-            tuple(x.shape), tuple(w.shape), pool=kw["pool"], int_path=False,
-            **geo), 1)
+            sim = stats[name]["simt"]
+            sim["max_abs_err"] = max(sim["max_abs_err"],
+                                     compare(name, whole, want))
+            outs.append(whole)
+        # within f32_sum_bound of the emulation; the kernels bit-equal
+        check_simt([x, w, b, None], kw, outs)
+        g = setup_conv(tuple(x.shape), tuple(w.shape), pool=kw["pool"],
+                       int_path=False, **geo)
+        plan = simt_plan_conv(g, kw["relu"])
+        # the scalar kernel, the "before": the same launcher, its path
+        # forced, on the tiles it picks for itself
+        old_g = scalar_tiles(g, 1)
+
+        def old_call():
+            return launch_conv("conv2d_ws", False, x, w, b, None, old_g,
+                               None, kw["relu"], kw["pool"])[0]
+        compare("conv2d_ws", old_call(), want)
         n, h, wd, c = x.shape
         kh, kwd, _, k = w.shape
         oh, ow = ref.conv_out_shape(h, wd, kh, kwd, kw["stride"],
@@ -3108,6 +3185,8 @@ def main():
         flop = 2 * n * oh * ow * k * kh * kwd * c
         fwd_ms = elapsed_ms(lambda: conv2d_ws(x, w, b, **kw), reps=3)
         pipe_ms = elapsed_ms(lambda: conv2d_ws_pipe(x, w, b, **kw), reps=3)
+        old_ms = elapsed_ms(old_call, reps=1, warmup=1)
+        plain_ms = elapsed_ms(lambda: conv2d_ws_plain(x, w, b, **kw), reps=3)
         pad = ref.normalize_padding(kw["padding"], kh, kwd, kw["stride"], h,
                                     wd)
         assert pad[0][0] == pad[0][1] and pad[1][0] == pad[1][1], pad
@@ -3117,8 +3196,12 @@ def main():
         lib_ms = elapsed_ms(lambda: F.conv2d(
             xc, wc, b, stride=kw["stride"], padding=(pad[0][0], pad[1][0])),
             reps=3)
-        fwd_bound = bound_ms(4 * (x.numel() + w.numel() + k + want.numel()),
-                             flop, F32_OPS_PER_S)
+        fwd_bytes = 4 * (x.numel() + w.numel() + k + want.numel())
+        fwd_bound = bound_ms(fwd_bytes, flop, F32_OPS_PER_S)
+        side = ("bytes" if fwd_bytes / HBM_BYTES_PER_S >= flop / F32_OPS_PER_S
+                else "operations")
+        for name in convs:
+            stats[name]["simt"]["bound_by"][side] += fwd_bound
         # the VJP through autograd, then its two pieces timed alone
         xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
         xr.requires_grad_(i > 0)        # the network's input needs none
@@ -3130,8 +3213,26 @@ def main():
         _, relu_mask, pool_idx = kops.epilogue_masks(acc, kw["relu"],
                                                     kw["pool"])
         dacc = kops.epilogue_backward(gy, relu_mask, pool_idx, acc.shape)
-        dx_ms = elapsed_ms(lambda: conv2d_ws_input_grad(
-            dacc, w, tuple(x.shape), **geo), reps=2, warmup=1)
+        dx_ms = dx_lib = dx_bound = 0.0
+        if i > 0:                   # the network's input takes no gradient
+            dx_ms = elapsed_ms(lambda: conv2d_ws_input_grad(
+                dacc, w, tuple(x.shape), **geo), reps=3)
+            dc = dacc.permute(0, 3, 1, 2)           # NHWC: channels_last
+            dx_want = torch.nn.grad.conv2d_input(
+                xc.shape, wc, dc, stride=kw["stride"],
+                padding=(pad[0][0], pad[1][0]))
+            dx = conv2d_ws_input_grad(dacc, w, tuple(x.shape), **geo)
+            if not torch.allclose(dx_want.permute(0, 2, 3, 1), dx,
+                                  rtol=F32_TOL, atol=F32_TOL):
+                raise AssertionError(f"vgg_imagenet conv{i}: "
+                                     f"torch.nn.grad.conv2d_input computes "
+                                     f"another dx")
+            dx_lib = elapsed_ms(lambda: torch.nn.grad.conv2d_input(
+                xc.shape, wc, dc, stride=kw["stride"],
+                padding=(pad[0][0], pad[1][0])), reps=3)
+            dx_bound = bound_ms(4 * (dacc.numel() + w.numel() + x.numel()),
+                                flop, F32_OPS_PER_S)
+            del dx, dx_want
         dw_ms = elapsed_ms(lambda: conv2d_ws_weight_grad(
             x, dacc, kh, kwd, stride=kw["stride"], padding=kw["padding"]),
             reps=1, warmup=1)
@@ -3146,9 +3247,6 @@ def main():
                            warmup=1)
         mm_lib = elapsed_ms(lambda: [torch.matmul(t, gm) for t in xts],
                             reps=3)
-        # the scalar form (the first port's kernel), the "before"
-        mm_old = elapsed_ms(lambda: [mm_launch(t, gm, None, "scalar")
-                                     for t in xts], reps=1, warmup=0)
         if i == 1:      # split K, added in slice order: the same bits
             twice = [matmul_ws(xts[4], gm) for _ in range(2)]
             torch.cuda.synchronize()
@@ -3159,25 +3257,22 @@ def main():
                 f"{mm_path(c, m, k, torch.float32)} form, plan "
                 f"{simt_plan(c, m, k)}: two calls bit-identical")
             del twice
-        dx_bound = bound_ms(4 * (dacc.numel() + w.numel() + x.numel()),
-                            flop, F32_OPS_PER_S)
         dw_bound = bound_ms(4 * (x.numel() + dacc.numel() + w.numel()),
                             2 * kh * kwd * c * m * k, F32_OPS_PER_S)
-        f32["conv_ms"] += fwd_ms
-        f32["pipe_ms"] += pipe_ms
-        f32["conv_lib_ms"] += lib_ms
-        f32["conv_bound"] += fwd_bound
-        f32["mm_ms"] += mm_ms
-        f32["mm_lib_ms"] += mm_lib
-        f32["mm_bound"] += dw_bound
-        f32["mm_scalar_ms"] += mm_old
+        for key, v in (("conv_ms", fwd_ms), ("pipe_ms", pipe_ms),
+                       ("conv_scalar_ms", old_ms), ("conv_lib_ms", lib_ms),
+                       ("conv_plain_ms", plain_ms), ("conv_bound", fwd_bound),
+                       ("dx_ms", dx_ms), ("dx_lib_ms", dx_lib),
+                       ("dx_bound", dx_bound), ("mm_ms", mm_ms),
+                       ("mm_lib_ms", mm_lib), ("mm_bound", dw_bound)):
+            f32[key] += v
+        shape = (f"{plan.rh}x{plan.rw}/{plan.bn} cs{plan.cs} "
+                 f"split{plan.split}")
         log(f"    conv{i}  {flop / 1e9:7.3f}  {fwd_ms:8.3f} ({pipe_ms:8.3f})"
-            f"  {lib_ms:9.3f}"
-            f"    {fwd_bound:7.4f}  {tiles.th}x{tiles.tw}/{tiles.kb}  "
-            f"{dx_ms:7.3f}  "
+            f"  {old_ms:9.3f}  {lib_ms:9.3f}    {fwd_bound:7.4f}  "
+            f"{shape:19s}  {dx_ms:7.3f}  {dx_lib:9.3f}        "
             f"{dx_bound:7.4f}   {dw_ms:8.3f} {mm_ms:8.3f}              "
-            f"{mm_lib:7.3f}          {dw_bound:7.4f}   {mm_old:9.3f}"
-            f"                   {errs['y']:.2e} / "
+            f"{mm_lib:7.3f}          {dw_bound:7.4f}   {errs['y']:.2e} / "
             f"{errs.get('dx', 0.0):.2e} / {errs['dw']:.2e} / "
             f"{errs['db']:.2e}")
         log("           rel L2 (TF32 control) " + ", ".join(
@@ -3189,12 +3284,15 @@ def main():
                 + ", ".join(f"{g_} {r_:.2e}" for g_, (r_, _) in
                             perrs["rel"].items()))
         del xts, xr, wr, br, dacc, acc
-    log(f"    sum: forward conv2d_ws {f32['conv_ms']:.3f} ms, "
-        f"conv2d_ws_pipe {f32['pipe_ms']:.3f} ms, F.conv2d "
-        f"{f32['conv_lib_ms']:.3f} ms, bound {f32['conv_bound']:.4f} ms; "
+    log(f"    sum: forward conv2d_ws {f32['conv_ms']:.3f} ms (simt), "
+        f"conv2d_ws_pipe {f32['pipe_ms']:.3f} ms (simt), the scalar kernel "
+        f"{f32['conv_scalar_ms']:.3f} ms, F.conv2d "
+        f"{f32['conv_lib_ms']:.3f} ms, plain {f32['conv_plain_ms']:.3f} ms, "
+        f"bound {f32['conv_bound']:.4f} ms; the five dx convs on conv2d_ws "
+        f"{f32['dx_ms']:.3f} ms (simt), torch.nn.grad.conv2d_input "
+        f"{f32['dx_lib_ms']:.3f} ms, bound {f32['dx_bound']:.4f} ms; "
         f"weight-grad taps on matmul_ws {f32['mm_ms']:.3f} ms, torch.matmul "
-        f"{f32['mm_lib_ms']:.3f} ms, bound {f32['mm_bound']:.4f} ms, the "
-        f"scalar form {f32['mm_scalar_ms']:.3f} ms")
+        f"{f32['mm_lib_ms']:.3f} ms, bound {f32['mm_bound']:.4f} ms")
     hx, hw, hb = mm_operands(BATCH, 256, 1000, torch.float32)
     herr = check_matmul_vjp(hx.requires_grad_(), hw.requires_grad_(),
                             hb.requires_grad_(),
@@ -3216,15 +3314,18 @@ def main():
             f"stride 2 at 224: {uerr}")
 
     def train_launches(plan, batch):
-        """(conv2d_ws launches, matmul_ws launches by form) of one training
-        step of ``plan``: each conv or transposed conv runs one forward
-        launch, one input-gradient launch where its input needs a gradient
-        (not the network's input) and KH·KW·groups weight-gradient GEMMs;
-        each dense layer a forward GEMM, its weight-gradient GEMM and an
-        input-gradient GEMM where its input needs one."""
+        """(conv2d_ws launches, of them on the simt path, matmul_ws
+        launches by form) of one training step of ``plan``: each conv or
+        transposed conv runs one forward launch, one input-gradient launch
+        where its input needs a gradient (not the network's input) and
+        KH·KW·groups weight-gradient GEMMs; each dense layer a forward
+        GEMM, its weight-gradient GEMM and an input-gradient GEMM where its
+        input needs one.  A conv launch is simt where its output groups
+        are 8 or more channels wide (the forward's K/g, the input
+        gradient's C/g), else scalar: the path rule on f32."""
         ins, acts = plan.resolved_inputs(), plan.activation_shapes()
         shapes, geoms = plan.param_shapes(), plan.conv_geometries()
-        needs, n_conv = [], 0
+        needs, n_conv, n_simt = [], 0, 0
         forms = dict.fromkeys(PATHS, 0)
         for i, sp in enumerate(plan.layers):
             src_need = any(j >= 0 and needs[j] for j in ins[i])
@@ -3240,6 +3341,7 @@ def main():
                 kh, kwd, cg, k = shapes[i]["w"]
                 groups = geoms[i][1]
                 n_conv += 1 + src_need
+                n_simt += (k // groups >= 8) + (src_need and cg >= 8)
                 if sp.kind == "conv":
                     oh, ow = ref.conv_out_shape(s0[0], s0[1], kh, kwd,
                                                 sp.stride, sp.padding,
@@ -3250,18 +3352,19 @@ def main():
                 gemms = [gemm] * (kh * kwd * groups)
             for mm, kk, nn in gemms:
                 forms[mm_path(mm, kk, nn, torch.float32)] += 1
-        return n_conv, forms
+        return n_conv, n_simt, forms
 
     def train_main_path(label, plan, x, y, steps, batch, cfg, seed):
         """``fit`` ``steps`` steps on the card with the counts reset just
         before and read just after: launches equal to ``train_launches``,
-        every conv on the scalar path, finite metrics, every parametric
-        weight moved → (final state, history, histogram summary)."""
+        by path (no tensor-core launch, the simt ones counted by
+        ``simt_launches``), finite metrics, every parametric weight moved
+        → (final state, history, histogram summary)."""
         state0 = training.init_train_state(plan, np.random.default_rng(0),
                                            device=dev)
         hist_us = obs.metrics.histogram(f"train.step_us.{plan.name}")
         hist_us.reset()
-        n_conv, forms = train_launches(plan, batch)
+        n_conv, n_simt, forms = train_launches(plan, batch)
         reset_counts()
         state, hist = training.fit(plan, x, y, steps=steps, batch=batch,
                                    cfg=cfg, seed=seed, state=state0)
@@ -3270,14 +3373,17 @@ def main():
         want = {k: 0 for k in wrappers}
         want["conv2d_ws"] = steps * n_conv
         want["matmul_ws"] = steps * sum(forms.values())
-        if seen != want or conv2d_ws.tc_launches or pf != {
+        if seen != want or conv2d_ws.tc_launches or (
+                conv2d_ws.simt_launches != steps * n_simt) or pf != {
                 k: steps * v for k, v in forms.items()}:
             raise AssertionError(
                 f"{label}: launches {seen} (tensor-core "
-                f"{conv2d_ws.tc_launches}), matmul_ws forms {pf}; expected "
-                f"{want} on the scalar path, forms x{steps} {forms}")
+                f"{conv2d_ws.tc_launches}, simt {conv2d_ws.simt_launches}), "
+                f"matmul_ws forms {pf}; expected {want}, {steps * n_simt} "
+                f"on the simt path, forms x{steps} {forms}")
         for k in wrappers:
             stats[k]["launches"] += seen[k]
+        stats["conv2d_ws"]["simt"]["launches"] += conv2d_ws.simt_launches
         credit_forms()
         if not all(np.isfinite(hh["loss"]) and np.isfinite(hh["grad_norm"])
                    for hh in hist):
@@ -3288,9 +3394,9 @@ def main():
                                      f"move")
         summ = hist_us.summary()
         log(f"  {label}: {steps} fit steps of batch {batch}, launches "
-            f"{seen} a run = {n_conv} conv2d_ws and "
-            f"{sum(forms.values())} matmul_ws a step ({forms}), no "
-            f"tensor-core launch; loss {[round(hh['loss'], 4) for hh in hist]}"
+            f"{seen} a run = {n_conv} conv2d_ws ({n_simt} on the simt path, "
+            f"the rest scalar) and {sum(forms.values())} matmul_ws a step "
+            f"({forms}), no tensor-core launch; loss {[round(hh['loss'], 4) for hh in hist]}"
             f", grad norm {[round(hh['grad_norm'], 3) for hh in hist]}; "
             f"ms a step (host clock, train.step_us) min "
             f"{summ['min'] / 1e3:.2f}, mean {summ['mean'] / 1e3:.2f}, max "
@@ -3315,7 +3421,7 @@ def main():
     wall = 1e3 * (time.perf_counter() - t0)
     act = torch.profiler.ProfilerActivity
     n_fwd = sum(sp.kind == "conv" for sp in vplan.layers)
-    n_conv, forms = train_launches(vplan, BATCH)
+    n_conv, _, forms = train_launches(vplan, BATCH)
     # torch.profiler now and then loses device events (see device_ms;
     # once a conv event in every one of three one-step windows): each
     # window profiles PROFILED_STEPS steps, a spin_kernel marker before
@@ -3341,7 +3447,11 @@ def main():
                 cur.append(e)
         found = []
         for evs in steps_evs:
-            conv_evs = [e for e in evs if "conv_ws_kernel" in e.name]
+            # a conv launch's kernel (simt here, every layer of the
+            # network), and its split-K reduce kernel apart
+            conv_all = [e for e in evs if is_conv_kernel(e.name)]
+            conv_evs = [e for e in conv_all
+                        if "conv_simt_reduce" not in e.name]
             # a launch's GEMM kernel, and its split-K reduce kernel apart
             mm_evs = [e for e in evs if is_mm_kernel(e.name)]
             n_mm = sum("mm_split_reduce" not in e.name for e in mm_evs)
@@ -3361,7 +3471,7 @@ def main():
             log(f"  torch.profiler: step {len(found)} of the window whole, "
                 f"the ones before short: (conv, GEMM) kernels {found}")
         break
-    conv_ids, mm_ids = {id(e) for e in conv_evs}, {id(e) for e in mm_evs}
+    conv_ids, mm_ids = {id(e) for e in conv_all}, {id(e) for e in mm_evs}
     bwd0 = conv_evs[n_fwd].time_range.start
     last = max(e.time_range.end for e in conv_evs + mm_evs)
     split = dict.fromkeys(("forward convs", "input grads",
@@ -3413,6 +3523,7 @@ def main():
         seen = counts()
         for k in wrappers:
             stats[k]["launches"] += seen[k]
+        stats["conv2d_ws"]["simt"]["launches"] += conv2d_ws.simt_launches
         if float_acc < 0.9 or abs(float_acc - int8_acc) > 0.02:
             raise AssertionError(f"lenet QAT per_channel={per_channel}: "
                                  f"float {float_acc}, int8 {int8_acc}")
@@ -3433,7 +3544,13 @@ def main():
                                       f32["conv_lib_ms"])
     stats["matmul_ws"]["f32"] = (f32["mm_ms"], f32["mm_bound"],
                                  f32["mm_lib_ms"])
-    stats["matmul_ws"]["f32_scalar_ms"] = f32["mm_scalar_ms"]
+    # the simt path of each conv kernel, keys of its row in the JSON line
+    for name in convs:
+        stats[name]["simt"].update(plain_ms=f32["conv_plain_ms"],
+                                   scalar_ms=f32["conv_scalar_ms"])
+    stats["conv2d_ws"]["simt"].update(
+        dx_ms=f32["dx_ms"], dx_bound_ms=f32["dx_bound"],
+        dx_library_ms=f32["dx_lib_ms"])
 
     # -- 9. the calibrated cost model, the autotuner, routing ---------------
     log("phase 9: a calibration table fitted on the card; the calibrated "
@@ -3699,10 +3816,10 @@ def main():
         return sum(t.numel() * t.element_size() for t in tree_leaves(state))
 
     # matmul_ws's f32 VJP at the LM's backward shapes, and its time there
-    # beside torch.matmul and the scalar form, the "before" (the f32 dx and
-    # dw GEMMs of a layer's MLP at a 4096-token microbatch)
+    # beside torch.matmul (the f32 dx and dw GEMMs of a layer's MLP at a
+    # 4096-token microbatch)
     lm_bwd = dict.fromkeys(("lm_bwd_ms", "lm_bwd_bound_ms",
-                            "lm_bwd_library_ms", "lm_bwd_scalar_ms"), 0.0)
+                            "lm_bwd_library_ms"), 0.0)
     for m_, k_, n_ in LM_BWD_SHAPES:
         x, w, b, g = lm_bwd_inputs(m_, k_, n_, dev)
         errs = check_matmul_vjp(x, w, b, g)
@@ -3711,20 +3828,17 @@ def main():
                            ("dw", x.t().contiguous(), g)):
             mm_ms = elapsed_ms(lambda: matmul_ws(a, c), 3)
             lib_ms = elapsed_ms(lambda: torch.matmul(a, c), 3)
-            old_ms = elapsed_ms(lambda: mm_launch(a, c, None, "scalar"), 1,
-                                warmup=1)
             (m2, k2), n2 = a.shape, c.shape[1]
             bd = bound_ms(4 * (m2 * k2 + k2 * n2 + m2 * n2),
                           2 * m2 * k2 * n2, F32_OPS_PER_S)
             lm_bwd["lm_bwd_ms"] += mm_ms
             lm_bwd["lm_bwd_library_ms"] += lib_ms
             lm_bwd["lm_bwd_bound_ms"] += bd
-            lm_bwd["lm_bwd_scalar_ms"] += old_ms
             log(f"  matmul_ws f32 {name} [{m2},{k2}]@[{k2},{n2}] (VJP of "
                 f"[{m_},{k_}]@[{k_},{n_}]): {mm_ms:.3f} ms "
                 f"({2e-9 * m2 * k2 * n2 / mm_ms:.1f} TFLOP/s) on the "
                 f"{mm_path(m2, k2, n2, torch.float32)} form, torch.matmul "
-                f"{lib_ms:.3f} ms, the scalar form {old_ms:.3f} ms, bound "
+                f"{lib_ms:.3f} ms, bound "
                 f"{bd:.3f} ms (operations); max err "
                 f"{errs[name][0]:.2e}, rel L2 {errs[name][1]:.2e} (TF32 "
                 f"control {errs[name][2]:.2e})")
@@ -4968,8 +5082,6 @@ def main():
         if "f32" in st:     # the training path's f32 shapes, apart
             rows[-1].update(zip(("f32_ms", "f32_bound_ms", "f32_library_ms"),
                                 st["f32"]))
-        if "f32_scalar_ms" in st:   # the taps on the scalar form, apart
-            rows[-1]["f32_scalar_ms"] = st["f32_scalar_ms"]
         if "forms" in st:   # launches by form (the runs read by form)
             rows[-1]["form_launches"] = dict(st["forms"])
         if "int8" in st:    # w8 serving's long-M int8 GEMMs, apart
@@ -4979,6 +5091,16 @@ def main():
             rows[-1].update(st["conv1d"])
         if "lm_bwd" in st:  # LM training's f32 backward GEMMs, apart
             rows[-1].update(st["lm_bwd"])
+        if "simt" in st:    # the f32 simt path (phase 8's sums), apart
+            sim = st["simt"]
+            rows[-1].update(
+                simt_launches=sim["launches"],
+                simt_max_abs_err=sim["max_abs_err"],
+                f32_plain_ms=sim["plain_ms"],
+                f32_bound_by=max(sim["bound_by"], key=sim["bound_by"].get),
+                f32_scalar_ms=sim["scalar_ms"],
+                **{f"f32_{k}": v for k, v in sim.items()
+                   if k.startswith("dx_")})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

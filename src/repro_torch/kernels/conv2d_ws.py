@@ -10,19 +10,22 @@ this module holds
 * ``setup_conv`` / ``ConvGeom`` — the host-side geometry both conv kernels
   share (banking legality, halo math, tile extents, epilogue shapes): the
   contract with the planner, validated on every call;
-* ``conv_path`` — the path rule: int8 layers whose per-group output width
-  K/groups is at least 8 run the int8 tensor-core implicit GEMM ("tc");
-  f32 layers and narrower int8 groups (depthwise) run the scalar kernel
-  ("scalar");
+* ``conv_path`` — the path rule: layers whose per-group output width
+  K/groups is at least 8 run an implicit GEMM, int8 on the tensor cores
+  ("tc"), f32 on register-tiled FFMA ("simt"); narrower groups (depthwise)
+  run the scalar kernel ("scalar"), in int8 and in f32;
 * ``tc_plan`` / ``pack_weights`` — the tensor-core path's launch plan (block
   rectangles, N-tile, K-chunks, shared-memory layout) and its K-major
   weights; ``conv2d_ws_tc_emulate`` replays that plan in plain PyTorch, block
   by block, for the CPU tests;
+* ``simt_plan`` — the f32 path's launch plan (block rectangles, N-tile,
+  K-chunks, K split, ring depth); ``conv2d_ws_simt_emulate`` replays its
+  order of sums in plain PyTorch for the CPU tests;
 * ``conv2d_ws_plain`` — the plain PyTorch version of the same function;
 * ``conv2d_ws`` — the wrapper: on a CUDA tensor it launches the kernel (and
   counts the launch in ``conv2d_ws.launches``, and in
-  ``conv2d_ws.tc_launches`` when it took the tensor-core path), on a CPU
-  tensor it takes the plain version.
+  ``conv2d_ws.tc_launches`` or ``conv2d_ws.simt_launches`` by path), on a
+  CPU tensor it takes the plain version.
 
 Zero padding and the trailing blocks' zero extension happen inside the
 kernel (exact for the symmetric zero-point-0 int8 scheme), so the padded
@@ -51,7 +54,8 @@ SM_SMEM = 233_472         # shared memory of one SM; 1 KB of it per block
 # blocks of the tensor-core kernels one SM's registers hold, by N-tile
 # width (csrc: __launch_bounds__(256, NT == 2 ? 4 : 2))
 TC_BLOCKS_PER_SM = {32: 4, 64: 2}
-TC_MIN_KGRP = 8           # narrowest group output width on the tensor cores
+GEMM_MIN_KGRP = 8         # narrowest group output width of the implicit
+                          # GEMMs (tc, simt); narrower groups run scalar
 TC_BM = 128               # output pixels per tensor-core block (kTcBM)
 TC_MAX_STAGES = 4         # deepest conv2d_ws_pipe ring
 
@@ -461,7 +465,7 @@ def tc_plan(g: ConvGeom, relu: bool = False,
 
     So the two wrappers' plans are None together: a ring never needs more
     shared memory than the SM gives ``conv2d_ws``'s block."""
-    if not g.int_path or g.k // (g.c // g.cgrp) < TC_MIN_KGRP:
+    if not g.int_path or g.k // (g.c // g.cgrp) < GEMM_MIN_KGRP:
         return None
     for bn in (None, 32):
         plan = _tc_plan(g, relu, pipelined, bn)
@@ -471,11 +475,15 @@ def tc_plan(g: ConvGeom, relu: bool = False,
 
 
 def conv_path(g: ConvGeom) -> str:
-    """The path rule: "tc" — int8 operands, K/groups ≥ 8 and one K-chunk's
-    window and weight slab within a block's shared memory — runs the int8
-    tensor-core implicit GEMM; anything else ("scalar": f32, depthwise and
-    other groups narrower than 8 outputs) runs PR 11's scalar kernel."""
-    return "tc" if tc_plan(g) is not None else "scalar"
+    """The path rule, by geometry alone: K/groups ≥ 8 with one K-chunk's
+    window and weight slab within a block's shared memory runs an implicit
+    GEMM — "tc" for int8 operands (``tc_plan``), "simt" for f32
+    (``simt_plan``); anything else ("scalar": depthwise and other groups
+    narrower than 8 outputs, int8 or f32) runs the first port's scalar
+    kernel."""
+    if tc_plan(g) is not None:
+        return "tc"
+    return "simt" if simt_plan(g) is not None else "scalar"
 
 
 # (id(weights), what was derived) → (weak reference to the weights, their
@@ -634,12 +642,319 @@ def conv2d_ws_tc_emulate(x, w, bias=None, out_scale=None, *,
     return out[:, :p.poh, :p.pow_].contiguous()
 
 
+# ---------------------------------------------------------------------------
+# The f32 simt path (csrc/conv_common.cuh: SimtParams and the simt_* device
+# functions).  Its blocks are sized for the card by geometry alone: the
+# TilePlan's banks and tiles are validated by ``setup_conv`` and shape
+# nothing here, so the order of each output's f32 sum depends on the shape
+# only (a whole-map and a tiled call, and the two kernels, give the same
+# bits).
+# ---------------------------------------------------------------------------
+
+SIMT_TM = SIMT_TN = 8     # outputs a thread: pixels × channels (kSimtTM/TN)
+SIMT_MAX_KC = 72          # K rows (tap, channel) of a chunk at most
+SIMT_MAX_STAGES = 4       # deepest conv2d_ws_pipe ring
+SIMT_BLOCKS_PER_SM = 2    # csrc: __launch_bounds__(256, 2), 128 registers
+SIMT_TILE_PAD = 4         # epilogue tile row: BN + 4 floats (kSimtTilePad)
+SIMT_WIDTHS = (4, 8, 16, 32, 64)    # rectangle widths a plan considers
+
+# Field order of ``SimtParams`` in csrc/conv_common.cuh.
+SIMT_FIELDS = ("n", "h", "w", "c", "k", "kh", "kw", "stride", "dil", "pt",
+               "pl", "cgrp", "kgrp", "oh", "ow", "poh", "pow_", "relu",
+               "pool", "rh", "rw", "n_ry", "n_rx", "bn", "n_nt", "cs",
+               "n_chunks", "split", "kcs", "taps", "win_h", "win_w", "ps",
+               "win_floats", "slot_floats", "stages", "slots", "smem",
+               "wvec")
+
+
+class SimtPlan(NamedTuple):
+    """One simt launch: every ``SimtParams`` field but the weight copy
+    width, which depends on the weights' address (``simt_params``)."""
+    n: int
+    h: int
+    w: int
+    c: int
+    k: int
+    kh: int
+    kw: int
+    stride: int
+    dil: int
+    pt: int
+    pl: int
+    cgrp: int                 # input channels per group
+    kgrp: int                 # output channels per group
+    oh: int                   # conv-output extents (pool-trimmed)
+    ow: int
+    poh: int                  # epilogue output extents
+    pow_: int
+    relu: int
+    pool: int
+    rh: int                   # block rectangle of conv-output pixels:
+    rw: int                   # rh·rw = 256·8·8 / bn, pool-aligned
+    n_ry: int                 # rectangles per image, down and across
+    n_rx: int
+    bn: int                   # N-tile: output channels per block
+    n_nt: int                 # N-tiles per group
+    cs: int                   # input channels per K-chunk
+    n_chunks: int             # K-chunks: cgrp // cs
+    split: int                # K slices over blockIdx.z (1: none)
+    kcs: int                  # chunks per slice
+    taps: int                 # kh·kw
+    win_h: int                # halo'd input window of one rectangle
+    win_w: int
+    ps: int                   # floats a window pixel: cs rounded up to odd
+    win_floats: int           # window slab, rounded up to 4 floats
+    slot_floats: int          # one slot: window | weight slab [taps·cs][bn]
+    stages: int               # ring depth (1 for conv2d_ws)
+    slots: int                # ring slots in shared memory
+    smem: int                 # dynamic shared memory of one block
+
+
+def simt_blocks_per_sm(smem: int) -> int:
+    """simt blocks of ``smem`` bytes of shared memory that one SM holds:
+    two (the registers' limit), fewer where shared memory runs out."""
+    return min(SIMT_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))
+
+
+def _simt_rect(bm: int, lanes: int, oh: int, ow: int, g: ConvGeom):
+    """(rh, rw) of a ``bm``-pixel block rectangle: the width (a power of two
+    at least ``lanes``, so that a warp's pixels of one load lie in one row)
+    whose rectangles pad the map least, then whose halo'd windows are
+    smallest, then the widest."""
+    best = None
+    for rw in SIMT_WIDTHS:
+        rh = bm // rw
+        if rw < lanes or rh < 2:
+            continue
+        area = -(-oh // rh) * rh * -(-ow // rw) * rw
+        win = (halo_window(rh, g.stride, g.kh, g.dilation)
+               * halo_window(rw, g.stride, g.kw, g.dilation))
+        key = (area, win, -rw)
+        if best is None or key < best[0]:
+            best = (key, rh, rw)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=512)
+def _simt_plan(g: ConvGeom, relu: bool, pipelined: bool
+               ) -> Optional[SimtPlan]:
+    pool = _pooled(g)
+    groups = g.c // g.cgrp
+    kgrp = g.k // groups
+    oh, ow = (2 * g.poh, 2 * g.pow_) if pool else (g.poh, g.pow_)
+    bn = 128 if kgrp >= 128 else 64 if kgrp >= 64 else 32
+    ct = bn // SIMT_TN                          # threads across the N-tile
+    bm = (THREADS // ct) * SIMT_TM
+    rh, rw = _simt_rect(bm, 32 // ct, oh, ow, g)
+    n_ry, n_rx = -(-oh // rh), -(-ow // rw)
+    taps = g.kh * g.kw
+    win_h = halo_window(rh, g.stride, g.kh, g.dilation)
+    win_w = halo_window(rw, g.stride, g.kw, g.dilation)
+    tile = bm * (bn + SIMT_TILE_PAD)            # the epilogue's f32 tile
+
+    def layout(cs):
+        ps = cs | 1
+        win_floats = _round_up(win_h * win_w * ps, 4)
+        return ps, win_floats, win_floats + taps * cs * bn
+
+    fits = [d for d in range(g.cgrp, 0, -1) if g.cgrp % d == 0
+            and (taps * d <= SIMT_MAX_KC or d == 1)
+            and 4 * max(layout(d)[2], tile) <= SMEM_BYTES]
+    if not fits:
+        return None
+    cs = fits[0]
+    ps, win_floats, slot_floats = layout(cs)
+    n_chunks = g.cgrp // cs
+    n_nt = -(-kgrp // bn)
+    blocks = g.n * n_ry * n_rx * groups * n_nt
+    split = 1
+    if blocks < SMS:            # under one block an SM: split K to ~two
+        split = max(1, min(n_chunks, 2 * SMS // blocks))
+    kcs = -(-n_chunks // split)
+    split = -(-n_chunks // kcs)
+
+    def smem(slots):
+        return 4 * max(slots * slot_floats, tile)
+
+    stages = slots = 1
+    if pipelined:       # as deep as the SM still holds conv2d_ws's blocks
+        held = simt_blocks_per_sm(smem(1))
+        deep = [s for s in range(2, SIMT_MAX_STAGES + 1)
+                if smem(min(s, kcs)) <= SMEM_BYTES
+                and simt_blocks_per_sm(smem(min(s, kcs))) >= held]
+        stages = max(deep, default=1)
+        slots = min(stages, kcs)
+    return SimtPlan(
+        n=g.n, h=g.h, w=g.w, c=g.c, k=g.k, kh=g.kh, kw=g.kw,
+        stride=g.stride, dil=g.dilation, pt=g.pt, pl=g.pl, cgrp=g.cgrp,
+        kgrp=kgrp, oh=oh, ow=ow, poh=g.poh, pow_=g.pow_, relu=int(relu),
+        pool=int(pool), rh=rh, rw=rw, n_ry=n_ry, n_rx=n_rx, bn=bn,
+        n_nt=n_nt, cs=cs, n_chunks=n_chunks, split=split, kcs=kcs,
+        taps=taps, win_h=win_h, win_w=win_w, ps=ps, win_floats=win_floats,
+        slot_floats=slot_floats, stages=stages, slots=slots,
+        smem=smem(slots))
+
+
+def simt_plan(g: ConvGeom, relu: bool = False,
+              pipelined: bool = False) -> Optional[SimtPlan]:
+    """The f32 simt launch plan of ``g``, or None where ``conv_path`` sends
+    it elsewhere (int8 operands; K/groups under 8; no K-chunk of one
+    channel fits a block).  Deterministic in the geometry, whatever the
+    caller's banks and tiles:
+
+    * a block of 256 threads computes a pool-aligned rectangle of
+      conv-output pixels of one image for an N-tile of ``bn`` output
+      channels of one group (``bn`` 128 where the group has 128 or more,
+      64 where 64 or more, else 32; the rectangle 256·64 / ``bn`` pixels,
+      ``_simt_rect``'s shape), each thread 8 pixels × 8 channels in
+      registers; the grid is (images × rectangles, groups × N-tiles, K
+      slices);
+    * the K loop runs over chunks of ``cs`` input channels × every tap
+      (the largest divisor of the group's channels with at most
+      ``SIMT_MAX_KC`` K rows a chunk that fits shared memory);
+      ``conv2d_ws`` loads each chunk and then computes it, and
+      ``conv2d_ws_pipe`` keeps up to 4 chunks in flight in a ring, as deep
+      as the SM still holds as many blocks as it holds of ``conv2d_ws``'s;
+    * where the output tiles number under one block an SM, K goes in
+      ``split`` slices of ``kcs`` chunks, as many as bring about two
+      blocks an SM, and a reduce adds bias and partials in slice order.
+
+    The two wrappers' plans differ in ``stages``, ``slots`` and ``smem``
+    only, so both kernels sum in one order."""
+    if g.int_path or g.k // (g.c // g.cgrp) < GEMM_MIN_KGRP:
+        return None
+    return _simt_plan(g, bool(relu), bool(pipelined))
+
+
+def simt_params(plan: SimtPlan, w: torch.Tensor) -> ctypes.Array:
+    """The ``SimtParams`` record of one launch, as a C int array: the plan
+    and the weight copy width (4 floats through 16-byte ``cp.async`` where
+    the group's and the map's output widths come in fours and w is
+    16-byte aligned, else one)."""
+    wvec = 4 if _chunk(plan.kgrp * 4, plan.k * 4, w.data_ptr()) == 16 else 1
+    return _simt_record(plan, wvec)
+
+
+@functools.lru_cache(maxsize=512)
+def _simt_record(plan: SimtPlan, wvec: int) -> ctypes.Array:
+    vals = [int(v) for v in plan] + [wvec]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def simt_windows(plan: SimtPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's input-window address arithmetic, in floats: (pixel
+    bases [BM], tap offsets [taps]).  Pixel m of a block is (m // rw,
+    m % rw) of its rectangle; its window origin sits ``bases[m]`` floats
+    into the window slab (pixel-major, ``ps`` floats a pixel, ``win_w``
+    pixels a row), and tap (dy, dx) adds ``taps[dy·kw + dx]``, channel c
+    of the chunk c more.  Built in the kernel by ``simt_row_bases`` and
+    ``simt_chunk``."""
+    m = torch.arange(plan.rh * plan.rw)
+    bases = ((m // plan.rw) * plan.stride * plan.win_w
+             + (m % plan.rw) * plan.stride) * plan.ps
+    t = torch.arange(plan.taps)
+    offs = ((t // plan.kw) * plan.dil * plan.win_w
+            + (t % plan.kw) * plan.dil) * plan.ps
+    return bases, offs
+
+
+def conv2d_ws_simt_emulate(x, w, bias=None, out_scale=None, *,
+                           pipelined: bool = False, stride: int = 1,
+                           padding="VALID", groups: int = 1,
+                           cin_banks: int = 4, kout_banks: int = 4,
+                           h_tile: int = 0, w_tile: int = 0,
+                           relu: bool = False, pool: bool = False,
+                           dilation: int = 1) -> torch.Tensor:
+    """The simt kernels' order of sums replayed in plain PyTorch, block by
+    block, from the same ``simt_plan``: each chunk's halo'd window slab
+    laid out with ``ps`` floats a pixel and read through ``simt_windows``,
+    its weight slab [taps·cs, bn] cut from w's rows, f32 sums that start at
+    the bias (without a split) and add the K-chunks in order; with a split,
+    each slice's chunks summed from 0 and the reduce's bias + partials in
+    slice order; then the epilogue (ReLU → 2×2 max-pool inside the
+    rectangle → requantize) with the ragged edge masked.  Within a chunk
+    the kernel sums product by product (FFMA), which this does not replay.
+    On any device; for the tests and ``chip_smoke.py`` only: the wrappers
+    never call it."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError("the simt path takes float32 operands")
+    g = setup_conv(tuple(x.shape), tuple(w.shape), stride=stride,
+                   padding=padding, groups=groups, cin_banks=cin_banks,
+                   kout_banks=kout_banks, h_tile=h_tile, w_tile=w_tile,
+                   pool=pool, requant=out_scale is not None,
+                   dilation=dilation, int_path=False)
+    p = simt_plan(g, relu, pipelined)
+    if p is None:
+        raise ValueError(f"this geometry takes the {conv_path(g)} path "
+                         f"(conv_path)")
+    bias, scale, out_dtype = _operands(x, w, bias, out_scale, g)
+    dev = x.device
+    bases, offs = (t.to(dev) for t in simt_windows(p))
+    sy, sx = p.rh * p.stride, p.rw * p.stride
+    hp = (p.n_ry - 1) * sy + p.win_h
+    wpx = (p.n_rx - 1) * sx + p.win_w
+    xp = x.new_zeros((p.n, max(hp, p.pt + p.h), max(wpx, p.pl + p.w), p.c))
+    xp[:, p.pt:p.pt + p.h, p.pl:p.pl + p.w] = x
+    win = xp.unfold(1, p.win_h, sy).unfold(2, p.win_w, sx)[:, :p.n_ry,
+                                                            :p.n_rx]
+    win = win.permute(0, 1, 2, 4, 5, 3)        # [N, ry, rx, wh, ww, C]
+    nrect, bm = p.n * p.n_ry * p.n_rx, p.rh * p.rw
+    chan = torch.arange(p.cs, device=dev)
+    # K column (tap, c) of pixel m: window float bases[m] + offs[tap] + c
+    gather = (bases[:, None, None] + offs[None, :, None]
+              + chan).reshape(-1)
+    wrows = w.reshape(p.taps * p.cgrp, p.k)
+    ph, pw = (p.rh // 2, p.rw // 2) if p.pool else (p.rh, p.rw)
+    out = torch.zeros((p.n, p.n_ry * ph, p.n_rx * pw, p.k), dtype=out_dtype,
+                      device=dev)
+    for grp in range(groups):
+        for nt in range(p.n_nt):
+            cols = torch.arange(nt * p.bn, (nt + 1) * p.bn, device=dev)
+            valid = cols < p.kgrp
+            kidx = grp * p.kgrp + cols.clamp(max=p.kgrp - 1)
+            b = torch.where(valid, bias[kidx], 0.0)
+            parts = []
+            for sl in range(p.split):
+                acc = (b.expand(nrect, bm, p.bn).clone() if p.split == 1
+                       else x.new_zeros((nrect, bm, p.bn)))
+                for s in range(sl * p.kcs, min(p.n_chunks,
+                                               (sl + 1) * p.kcs)):
+                    c0 = grp * p.cgrp + s * p.cs
+                    slab = x.new_zeros((nrect, p.win_h * p.win_w, p.ps))
+                    slab[..., :p.cs] = win[..., c0:c0 + p.cs].reshape(
+                        nrect, p.win_h * p.win_w, p.cs)
+                    a = slab.reshape(nrect, -1)[:, gather].reshape(
+                        nrect, bm, p.taps * p.cs)
+                    rows = (torch.arange(p.taps, device=dev)[:, None]
+                            * p.cgrp + s * p.cs + chan).reshape(-1)
+                    slab_w = wrows[rows][:, kidx] * valid
+                    acc = acc + a @ slab_w
+                parts.append(acc)
+            acc = parts[0]
+            if p.split > 1:             # the reduce: bias, then the slices
+                acc = b.expand(nrect, bm, p.bn).clone()
+                for part in parts:
+                    acc = acc + part
+            acc = acc.reshape(p.n, p.n_ry, p.n_rx, p.rh, p.rw, p.bn)
+            if p.relu:
+                acc = acc.clamp(min=0)
+            if p.pool:
+                acc = acc.reshape(p.n, p.n_ry, p.n_rx, ph, 2, pw, 2, p.bn)
+                acc = acc.amax(dim=(4, 6))
+            if out_scale is not None:
+                acc = ref.requantize_ref(acc, scale[kidx])
+            tile = acc.permute(0, 1, 3, 2, 4, 5).reshape(
+                p.n, p.n_ry * ph, p.n_rx * pw, p.bn)
+            out[..., kidx[valid]] = tile[..., valid]
+    return out[:, :p.poh, :p.pow_].contiguous()
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(lib_name: str, suffix: str):
+def _entry(lib_name: str, suffix: str, pointers: int = 5):
     fn = getattr(_build.load(lib_name), f"{lib_name}{suffix}")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int),
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * pointers + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -653,30 +968,44 @@ def _frozen(v):
 @functools.lru_cache(maxsize=512)
 def _launch_setup(x_shape, w_shape, int_path: bool, requant: bool,
                   relu: bool, pool: bool, pipelined: bool, geo: tuple):
-    """(ConvGeom, TcPlan or None) of one launch, cached per call signature:
-    the served network asks for the same few every batch.  The validation
-    is ``setup_conv``'s; a geometry it refuses raises on every call.  On
-    the scalar path the geometry carries the tiles ``scalar_tiles`` fits
-    into a block's shared memory."""
+    """(ConvGeom, TcPlan, SimtPlan or None) of one launch, cached per call
+    signature: the served network asks for the same few every batch.  The
+    validation is ``setup_conv``'s; a geometry it refuses raises on every
+    call.  On the scalar path (plan None) the geometry carries the tiles
+    ``scalar_tiles`` fits into a block's shared memory."""
     g = setup_conv(x_shape, w_shape, pool=pool, requant=requant,
                    int_path=int_path, **dict(geo))
-    plan = tc_plan(g, relu, pipelined)
+    plan = (tc_plan if int_path else simt_plan)(g, relu, pipelined)
     if plan is None:
         g = scalar_tiles(g, 2 if pipelined else 1)
     return g, plan
 
 
 def launch_conv(lib_name: str, pipelined: bool, x, w, bias, out_scale,
-                g: ConvGeom, plan: Optional[TcPlan], relu: bool, pool: bool
+                g: ConvGeom, plan, relu: bool, pool: bool
                 ) -> Tuple[torch.Tensor, str]:
-    """Launch one of the two conv kernels on PyTorch's current stream, on
-    the tensor-core path where ``plan`` is given (``tc_plan``), else on the
-    scalar path, whose ``g`` fits a block's shared memory (``scalar_tiles``)
-    → (result, "tc" or "scalar")."""
+    """Launch one of the two conv kernels on PyTorch's current stream: on
+    the tensor-core path where ``plan`` is a ``TcPlan``, on the simt path
+    where it is a ``SimtPlan`` (with the K slices' partial sums in a
+    scratch tensor where it splits K), else on the scalar path, whose
+    ``g`` fits a block's shared memory (``scalar_tiles``) → (result,
+    "tc", "simt" or "scalar")."""
     x = x.contiguous()
     bias, scale, out_dtype = _operands(x, w, bias, out_scale, g)
     out = torch.empty((g.n, g.poh, g.pow_, g.k), dtype=out_dtype,
                       device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if isinstance(plan, SimtPlan):
+        w = w.contiguous()
+        part = (torch.empty((plan.split, plan.n, plan.oh, plan.ow, plan.k),
+                            dtype=torch.float32, device=x.device)
+                if plan.split > 1 else None)
+        params = simt_params(plan, w)
+        _build.check(lib_name, _entry(lib_name, "_simt_launch", 6)(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            params, len(params), _mode(g), stream))
+        return out, "simt"
     if plan is None:
         w = w.contiguous()
         fn, params = _entry(lib_name, "_launch"), conv_params(g, x, w, relu,
@@ -684,7 +1013,6 @@ def launch_conv(lib_name: str, pipelined: bool, x, w, bias, out_scale,
     else:
         w = pack_weights(w)
         fn, params = _entry(lib_name, "_tc_launch"), tc_params(plan, x, w)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(lib_name, fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                               scale.data_ptr(), out.data_ptr(), params,
                               len(params), _mode(g), stream))
@@ -715,7 +1043,7 @@ def run_conv(lib_name: str, pipelined: bool, plain, x, w, bias, out_scale,
              ) -> Tuple[torch.Tensor, Optional[str]]:
     """Shared body of the two conv wrappers → (result, path): the plain
     version for a CPU tensor (path None), the kernel for a CUDA tensor
-    (path "tc" or "scalar", as ``conv_path`` rules)."""
+    (path "tc", "simt" or "scalar", as ``conv_path`` rules)."""
     if x.device.type == "cpu":
         return plain(x, w, bias, out_scale, relu=relu, pool=pool, **geo), None
     if not x.is_cuda:
@@ -731,10 +1059,12 @@ def run_conv(lib_name: str, pipelined: bool, plain, x, w, bias, out_scale,
 
 def count_launch(fn, path: Optional[str]) -> None:
     """Count a launch on the wrapper ``fn``: ``launches`` every one,
-    ``tc_launches`` those of the tensor-core path."""
+    ``tc_launches`` / ``simt_launches`` those of the tensor-core / simt
+    path."""
     if path is not None:
         fn.launches += 1
         fn.tc_launches += path == "tc"
+        fn.simt_launches += path == "simt"
 
 
 def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
@@ -749,7 +1079,8 @@ def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
     are conv-output tile extents (0 = whole map; pool-aligned when pooling):
     validated, and followed by the scalar kernel where they fit a block's
     shared memory (else it picks its own, ``scalar_tiles``, with the same
-    values); the tensor-core path sizes its blocks for the card.
+    values); the tensor-core and simt paths size their blocks for the
+    card.
 
     On a CUDA tensor this launches ``csrc/conv2d_ws.cu``; on a CPU tensor it
     runs ``conv2d_ws_plain``."""
@@ -764,3 +1095,4 @@ def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
 
 conv2d_ws.launches = 0
 conv2d_ws.tc_launches = 0
+conv2d_ws.simt_launches = 0

@@ -7,8 +7,9 @@ input is zero-inserted by the (output-growth) stride, the kernel is
 flipped spatially, and the "full" padding of the equivalence
 (``ref.conv_transpose_eq_params``) frames the zero-inserted map.  This is
 host lowering only: the lowered problem runs on ``conv2d_ws`` or
-``conv2d_ws_pipe`` with their whole contract (tensor-core or scalar path,
-grouped banking, fused ReLU → pool → requantize epilogue, int8 datapath).
+``conv2d_ws_pipe`` with their whole contract (tensor-core, simt or scalar
+path, grouped banking, fused ReLU → pool → requantize epilogue, int8
+datapath).
 Negative equivalence pads (forward padding beyond the kernel extent)
 become crops of the zero-inserted map, because the kernels only pad.
 

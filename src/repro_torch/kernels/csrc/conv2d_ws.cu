@@ -6,11 +6,14 @@
 // w [KH,KW,C/groups,K], bias preloaded into the accumulator, stride / zero
 // padding / dilation / groups, then ReLU -> 2x2 max-pool -> requantize.
 //
-// What bounds each layer on the H100 (conv_common.cuh's note has the table):
-// at batch 8, vgg_imagenet's conv 0 and 1 by bytes (4.31 and 4.80 us at
-// 3.35 TB/s), conv 2-5 by int8 operations (1.87, 1.87, 1.87 and 0.93 us at
-// 1,979 TOP/s).  That note also gives the design of both paths and the rule
-// that picks one.
+// What bounds each layer on the H100 (conv_common.cuh's note has the tables):
+// at batch 8, vgg_imagenet's conv 0 and 1 in int8 by bytes (4.31 and 4.80
+// us at 3.35 TB/s), conv 2-5 by int8 operations (1.87, 1.87, 1.87 and 0.93
+// us at 1,979 TOP/s); in f32 conv 0 by bytes (17.26 us) and conv 1-5 by
+// FFMA (110.43, 55.21, 55.21, 55.21, 27.61 us at 67 TFLOP/s).  That note
+// also gives the design of the three paths and the rule that picks one:
+// K/groups >= 8 runs an implicit GEMM (int8 "tc", f32 "simt"), narrower
+// groups the scalar kernel.
 //
 // Tensor-core path (int8, K/groups >= 8): conv_ws_tc_kernel, an implicit
 // GEMM on mma.sync m16n8k32 s8 with register accumulators, one block per
@@ -21,15 +24,23 @@
 // block's loads and its tensor-core work take turns (other resident blocks
 // fill the gaps).  conv2d_ws_pipe.cu streams the same chunks through a ring.
 //
-// Scalar path (f32; depthwise and other groups narrower than 8 outputs):
-// conv_ws_kernel, PR 11's form.  One block per (image, output tile of the
-// TilePlan, kout bank); the TPU's sequential cin grid axis becomes a loop
-// over the cin banks of the bank's group (channel base (ko / bpg) * cgrp).
-// Each cin bank's halo'd input window [in_th, in_tw, cb] and weight block
-// [KH, KW, cb, kb] are staged in shared memory with ordinary loads (zero
-// padding written in place), then every accumulator entry adds its taps;
-// the accumulator [th, tw, kb] lives in shared memory like the TPU's VMEM
-// scratch and starts as the bias.
+// Simt path (f32, K/groups >= 8): conv_ws_simt_kernel, an implicit GEMM on
+// register-tiled FFMA (8 x 8 outputs a thread), one block per (rectangle
+// of an image, 32/64/128-channel N-tile of a group, K slice), sized by
+// geometry alone; the K split's reduce is conv_simt_reduce_kernel.  Like
+// the tensor-core kernel, it loads each chunk, waits for it and then
+// computes it; conv2d_ws_pipe.cu runs the same device functions through a
+// ring, so the two are bit-equal.
+//
+// Scalar path (depthwise and other groups narrower than 8 outputs, int8 or
+// f32): conv_ws_kernel, the first port's form.  One block per (image,
+// output tile of the TilePlan, kout bank); the TPU's sequential cin grid
+// axis becomes a loop over the cin banks of the bank's group (channel base
+// (ko / bpg) * cgrp).  Each cin bank's halo'd input window [in_th, in_tw,
+// cb] and weight block [KH, KW, cb, kb] are staged in shared memory with
+// ordinary loads (zero padding written in place), then every accumulator
+// entry adds its taps; the accumulator [th, tw, kb] lives in shared memory
+// like the TPU's VMEM scratch and starts as the bias.
 #include "conv_common.cuh"
 
 namespace {
@@ -144,6 +155,53 @@ int launch_tc(const void* x, const void* w, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Two 8 x 8 register tiles of 256 threads fit 128 registers a thread, so two
+// blocks share an SM
+template <int BN, bool REQUANT>
+__global__ void __launch_bounds__(kConvThreads, 2)
+conv_ws_simt_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ scale, void* __restrict__ out,
+                    float* __restrict__ part, SimtParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* win = reinterpret_cast<float*>(smem);
+  float* wsl = win + p.win_floats;
+  const SimtBlock bc(p);
+
+  float acc[kSimtTM][kSimtTN];
+  simt_init_acc<BN>(acc, bias, p, bc);
+  int rb[kSimtTM];
+  simt_row_bases<BN>(rb, p);
+  const int s0 = bc.slice * p.kcs, s1 = min(p.n_chunks, s0 + p.kcs);
+  for (int s = s0; s < s1; ++s) {
+    __syncthreads();  // the previous chunk's FMAs are done with the slot
+    simt_issue_chunk(win, wsl, x, w, p, bc, s);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    simt_chunk<BN>(acc, win, wsl, rb, p);
+  }
+  __syncthreads();
+  simt_finish<BN, REQUANT>(acc, reinterpret_cast<float*>(smem), scale, out,
+                           part, p, bc);
+}
+
+template <int BN, bool REQUANT>
+int launch_simt(const void* x, const void* w, const void* bias,
+                const float* scale, void* out, void* part,
+                const SimtParams& p, cudaStream_t stream) {
+  auto kernel = conv_ws_simt_kernel<BN, REQUANT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.n * p.n_ry * p.n_rx, (p.k / p.kgrp) * p.n_nt, p.split);
+  kernel<<<grid, kConvThreads, p.smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), scale, out, static_cast<float*>(part),
+      p);
+  return simt_reduce<REQUANT>(part, bias, scale, out, p, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -166,6 +224,19 @@ int conv2d_ws_tc_launch(const void* x, const void* w, const void* bias,
   TcParams p = *reinterpret_cast<const TcParams*>(geom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TC_DISPATCH(mode, p.bn, launch_tc, x, w, bias, scale, out, p, s)
+}
+
+int conv2d_ws_simt_launch(const void* x, const void* w, const void* bias,
+                          const float* scale, void* out, void* part,
+                          const int* geom, int n_fields, int mode,
+                          void* stream) {
+  if (n_fields != kSimtParamsFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SimtParams p = *reinterpret_cast<const SimtParams*>(geom);
+  if (p.split > 1 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SIMT_DISPATCH(mode, p.bn, launch_simt, x, w, bias, scale, out, part, p, s)
 }
 
 const char* error_string(int code) {

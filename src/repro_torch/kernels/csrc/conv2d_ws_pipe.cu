@@ -3,12 +3,14 @@
 // Replaces the Pallas TPU kernel repro.kernels.conv2d_ws_pipe.conv2d_ws_pipe
 // (_pipe_kernel), which writes the conv2d_ws data movement out by hand with a
 // 2-slot ping-pong of the input window and weight bank.  Same function as
-// conv2d_ws.cu, the same two paths and the same path rule (conv_common.cuh's
-// note), and the same compute and epilogue device functions, so the result
-// is bit-equal to conv2d_ws.cu on every path; only the data motion differs.
-// What bounds each layer on the H100 is as there: at batch 8,
-// vgg_imagenet's conv 0 and 1 by bytes (4.31 and 4.80 us), conv 2-5 by int8
-// operations (1.87 us each for 2-4, 0.93 us for 5).
+// conv2d_ws.cu, the same three paths and the same path rule
+// (conv_common.cuh's note), and the same compute and epilogue device
+// functions, so the result is bit-equal to conv2d_ws.cu on every path; only
+// the data motion differs.  What bounds each layer on the H100 is as there:
+// at batch 8, vgg_imagenet's conv 0 and 1 in int8 by bytes (4.31 and 4.80
+// us), conv 2-5 by int8 operations (1.87 us each for 2-4, 0.93 us for 5);
+// in f32 conv 0 by bytes (17.26 us), conv 1-5 by FFMA (110.43, 55.21 x 3,
+// 27.61 us).
 //
 // Tensor-core path (int8, K/groups >= 8): conv_ws_pipe_tc_kernel.  Blocks
 // as in conv2d_ws.cu (128-pixel rectangles x 32/64-channel N-tiles, sized
@@ -23,17 +25,23 @@
 // does; so does a layer whose second slot would cost the SM a block
 // (stages = 1: each chunk is loaded, waited for and computed in turn).
 //
-// Scalar path (f32; depthwise and other groups narrower than 8 outputs):
-// conv_ws_pipe_kernel, PR 11's form.  The same block decomposition as
-// conv2d_ws.cu's scalar kernel (one block per image, TilePlan tile and kout
-// bank; a loop over the group's cin banks), with cin-bank slabs streamed
-// into a 2-stage shared-memory ring with cp.async, so slab g+1 is in flight
-// while slab g computes (commit_group / wait_group 1; an empty group is
-// committed after the last slab so the wait count stays uniform).  cp.async
-// copies only 4, 8 or 16 aligned bytes: the wrapper picks the widest chunk
-// that divides the slab rows and their offsets (xvec / wvec); rows no chunk
-// fits (depthwise cgrp = 1) use ordinary loads into the same ring, and zero
-// padding is stored in place.
+// Simt path (f32, K/groups >= 8): conv_ws_pipe_simt_kernel.  Blocks, K
+// chunks, K split and reduce as conv2d_ws.cu's simt kernel; the chunks of
+// a block's K slice stream through the same kind of ring, 2 to 4 deep
+// (conv2d_ws.py: simt_plan, simt_blocks_per_sm; the epilogue's f32 tile,
+// which aliases the ring, often leaves room for it at no cost in blocks).
+//
+// Scalar path (depthwise and other groups narrower than 8 outputs, int8 or
+// f32): conv_ws_pipe_kernel, the first port's form.  The same block
+// decomposition as conv2d_ws.cu's scalar kernel (one block per image,
+// TilePlan tile and kout bank; a loop over the group's cin banks), with
+// cin-bank slabs streamed into a 2-stage shared-memory ring with cp.async,
+// so slab g+1 is in flight while slab g computes (commit_group / wait_group
+// 1; an empty group is committed after the last slab so the wait count
+// stays uniform).  cp.async copies only 4, 8 or 16 aligned bytes: the
+// wrapper picks the widest chunk that divides the slab rows and their
+// offsets (xvec / wvec); rows no chunk fits (depthwise cgrp = 1) use
+// ordinary loads into the same ring, and zero padding is stored in place.
 #include "conv_common.cuh"
 
 namespace {
@@ -210,6 +218,71 @@ int launch_tc(const void* x, const void* w, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN, bool REQUANT>
+__global__ void __launch_bounds__(kConvThreads, 2)
+conv_ws_pipe_simt_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ scale,
+                         void* __restrict__ out, float* __restrict__ part,
+                         SimtParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto win = [&](int slot) {
+    return reinterpret_cast<float*>(smem) + slot * p.slot_floats;
+  };
+  auto wsl = [&](int slot) { return win(slot) + p.win_floats; };
+  const SimtBlock bc(p);
+  const int s0 = bc.slice * p.kcs;
+  const int ns = min(p.n_chunks - s0, p.kcs), S = p.stages;
+
+  for (int q = 0; q < min(S, ns); ++q) {  // fill the ring
+    simt_issue_chunk(win(q), wsl(q), x, w, p, bc, s0 + q);
+    cp_async_commit();
+  }
+  float acc[kSimtTM][kSimtTN];
+  simt_init_acc<BN>(acc, bias, p, bc);
+  int rb[kSimtTM];
+  simt_row_bases<BN>(rb, p);
+  for (int s = 0; s < ns; ++s) {
+    if (S == 1 && s >= 1) {  // one slot: refill it once chunk s-1 is read
+      __syncthreads();
+      simt_issue_chunk(win(0), wsl(0), x, w, p, bc, s0 + s);
+      cp_async_commit();
+    }
+    // groups committed so far end at chunk min(ns-1, S-1+max(s-1, 0)); chunk
+    // s has landed once no more than the ones after it are pending
+    cp_async_wait_pending(S == 1   ? 0
+                          : s == 0 ? min(ns - 1, S - 1)
+                                   : min(ns - 1 - s, S - 2));
+    __syncthreads();  // chunk s visible to all; chunk s-1's slot is free
+    if (S >= 2 && s >= 1 && s - 1 + S < ns) {
+      const int slot = (s - 1) % S;
+      simt_issue_chunk(win(slot), wsl(slot), x, w, p, bc, s0 + s - 1 + S);
+      cp_async_commit();
+    }
+    simt_chunk<BN>(acc, win(s % S), wsl(s % S), rb, p);
+  }
+  __syncthreads();  // every copy has landed (the last wait was for all)
+  simt_finish<BN, REQUANT>(acc, reinterpret_cast<float*>(smem), scale, out,
+                           part, p, bc);
+}
+
+template <int BN, bool REQUANT>
+int launch_simt(const void* x, const void* w, const void* bias,
+                const float* scale, void* out, void* part,
+                const SimtParams& p, cudaStream_t stream) {
+  auto kernel = conv_ws_pipe_simt_kernel<BN, REQUANT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.n * p.n_ry * p.n_rx, (p.k / p.kgrp) * p.n_nt, p.split);
+  kernel<<<grid, kConvThreads, p.smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), scale, out, static_cast<float*>(part),
+      p);
+  return simt_reduce<REQUANT>(part, bias, scale, out, p, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -232,6 +305,19 @@ int conv2d_ws_pipe_tc_launch(const void* x, const void* w, const void* bias,
   TcParams p = *reinterpret_cast<const TcParams*>(geom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TC_DISPATCH(mode, p.bn, launch_tc, x, w, bias, scale, out, p, s)
+}
+
+int conv2d_ws_pipe_simt_launch(const void* x, const void* w, const void* bias,
+                               const float* scale, void* out, void* part,
+                               const int* geom, int n_fields, int mode,
+                               void* stream) {
+  if (n_fields != kSimtParamsFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SimtParams p = *reinterpret_cast<const SimtParams*>(geom);
+  if (p.split > 1 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SIMT_DISPATCH(mode, p.bn, launch_simt, x, w, bias, scale, out, part, p, s)
 }
 
 const char* error_string(int code) {

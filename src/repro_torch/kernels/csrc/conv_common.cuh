@@ -19,9 +19,23 @@
 //   5     14^2, 256->256       1.850   1.39  0.93      operations
 //
 // so conv 0 and 1 are bound by their bytes (every byte read and written
-// once) and conv 2-5 by the int8 tensor-core rate.
+// once) and conv 2-5 by the int8 tensor-core rate.  In f32 (the QAT step's
+// forward convs, and its input gradients: stride-1 convs of the cotangent
+// with channel-swapped, flipped weights) there is no tensor-core rate that
+// keeps f32 operands (TF32 rounds them, which the gradients' parity
+// forbids), so the bound is 67 TFLOP/s of FFMA:
 //
-// Two paths, chosen on the host by geometry (conv2d_ws.py: conv_path):
+//   conv  map, C->K            GFLOP  MB     bound us  by    dx bound us
+//   0     224^2, 4->32         0.925  57.81  17.26     bytes  (none)
+//   1     224^2, 32->32 +pool  7.399  64.26  110.43    FFMA   110.43
+//   2     112^2, 32->64 +pool  3.699  19.34  55.21     FFMA   55.21
+//   3     56^2, 64->128 +pool  3.699   9.93  55.21     FFMA   55.21
+//   4     28^2, 128->256 +pool 3.699   6.00  55.21     FFMA   55.21
+//   5     14^2, 256->256       1.850   5.57  27.61     FFMA   27.61
+//
+// Three paths, chosen on the host by geometry (conv2d_ws.py: conv_path):
+// K/groups >= 8 runs an implicit GEMM, "tc" for int8 and "simt" for f32;
+// narrower groups (depthwise) run "scalar", in int8 and in f32.
 //
 // * Tensor cores ("tc": int8 operands, K/groups >= 8, one K-chunk fits a
 //   block).  An implicit GEMM: M = the conv-output pixels of a block, N =
@@ -45,9 +59,32 @@
 //   read 0 in A and are 0 in B.  The epilogue stages the int32 tile through
 //   shared memory and runs ReLU -> 2x2 max-pool -> rint(v * scale[k])
 //   clipped to int8 (or the raw int32), masking the ragged edge.
-// * Scalar (f32 operands; int8 groups narrower than 8 outputs, i.e.
-//   depthwise).  PR 11's form, one block per (image, TilePlan tile, kout
-//   bank) with a loop over cin banks, int32 or f32 multiply-adds from
+// * FFMA ("simt": f32 operands, K/groups >= 8).  The same implicit GEMM
+//   shape on register-tiled FFMA, no tensor cores: 256 threads a block,
+//   each 8 pixels x 8 channels of f32 accumulators in registers that start
+//   at the bias; a BN-wide N-tile (128, 64 or 32 channels of one group,
+//   BN/8 threads across) times a pool-aligned rectangle of 256*64/BN
+//   pixels of one image (16x32 at BN 32, 16x16 at 64, 8x16 or 4x32 at 128;
+//   the plan's shape pads the map least).  Blocks are sized by geometry
+//   alone, so each output's order of sums depends on the shape only: a
+//   whole-map and a tiled call, and the two kernels, give the same bits.
+//   K runs over chunks of `cs` channels x all taps (at most 72 K rows); a
+//   chunk's halo'd window lands pixel-major in shared memory, `ps` = cs
+//   rounded up to odd floats a pixel (four-byte cp.async, zero-filled at
+//   padding and map edges), so that a warp's pixels of one load (32/CT
+//   consecutive pixels of one rectangle row, CT = BN/8) sit on distinct
+//   banks at stride 1, 2 and 4 and under dilation; the weight slab
+//   [taps*cs][BN] is copied from w's rows as they lie (contiguous in K,
+//   16-byte cp.async where K/g and K come in fours).  Each K step a thread
+//   reads 8 window floats and two float4 of weights and issues 64 FFMAs.
+//   Where the tiles number under one block an SM, K is split over
+//   blockIdx.z (conv2d_ws.py: simt_plan) and a reduce kernel adds bias and
+//   the slices' partials in slice order before the epilogue: no atomics.
+//   The epilogue stages the f32 tile through shared memory and runs ReLU
+//   -> 2x2 max-pool -> requantize (or the raw f32), as the others do.
+// * Scalar (depthwise and other groups narrower than 8 outputs, int8 or
+//   f32).  The first port's form, one block per (image, TilePlan tile,
+//   kout bank) with a loop over cin banks, int32 or f32 multiply-adds from
 //   shared memory into a shared accumulator.
 #pragma once
 
@@ -543,6 +580,322 @@ __device__ inline void tc_epilogue(const int (&acc)[2][NT][4], int* tile,
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// The f32 simt path
+// ---------------------------------------------------------------------------
+
+// Field order must match repro_torch/kernels/conv2d_ws.py:SIMT_FIELDS; the
+// host computes every field (conv2d_ws.py:simt_plan, simt_params).
+struct SimtParams {
+  int n, h, w, c, k;              // input map [N,H,W,C], K output channels
+  int kh, kw, stride, dil;        // kernel extent, stride, tap dilation
+  int pt, pl;                     // top / left zero padding
+  int cgrp, kgrp;                 // input / output channels per group
+  int oh, ow, poh, pow_;          // conv-output (pool-trimmed) and epilogue
+                                  // output extents
+  int relu, pool;                 // fused epilogue stages
+  int rh, rw, n_ry, n_rx;         // block rectangle, rectangles per image
+  int bn, n_nt;                   // N-tile width (32/64/128), N-tiles a group
+  int cs, n_chunks;               // channels per K-chunk, K-chunks a group
+  int split, kcs;                 // K slices (blockIdx.z), chunks a slice
+  int taps, win_h, win_w, ps;     // kh*kw, window extents, floats a pixel
+  int win_floats, slot_floats;    // one slot: window | weight slab
+  int stages, slots, smem;        // ring depth, slots, shared bytes
+  int wvec;                       // weight copy width in floats (4 or 1)
+};
+
+constexpr int kSimtParamsFields = sizeof(SimtParams) / sizeof(int);
+constexpr int kSimtTM = 8, kSimtTN = 8;  // outputs a thread: pixels x channels
+constexpr int kSimtTilePad = 4;          // epilogue tile row: BN + 4 floats
+
+// The thread layout of a BN-wide block: CT = BN/8 threads across the
+// N-tile (tx = tid % CT), RT = 256/CT down the pixels (ty = tid / CT).
+// Thread (ty, tx) owns pixels ty + RT*i (i < 8) of the rectangle and
+// channels tx*4 + u and 4*CT + tx*4 + u (u < 4) of the N-tile, so a warp's
+// 32/CT pixels of one load are consecutive in one rectangle row (the plan
+// keeps rw >= 32/CT) and its weight reads are one contiguous run.
+template <int BN>
+struct SimtLayout {
+  static constexpr int CT = BN / kSimtTN;
+  static constexpr int RT = kConvThreads / CT;
+  static constexpr int BM = RT * kSimtTM;
+  static constexpr int TS = BN + kSimtTilePad;  // epilogue tile row stride
+};
+
+template <int BN>
+__device__ __forceinline__ int simt_col(int tx, int j) {
+  return (j / 4) * 4 * SimtLayout<BN>::CT + tx * 4 + (j % 4);
+}
+
+// blockIdx.x = (image, rectangle row, rectangle column), blockIdx.y =
+// (group, N-tile), blockIdx.z = K slice.
+struct SimtBlock {
+  int img, ry, rx, grp, nt, slice;
+  __device__ explicit SimtBlock(const SimtParams& p) {
+    const int per = p.n_ry * p.n_rx;
+    img = blockIdx.x / per;
+    const int r = blockIdx.x - img * per;
+    ry = r / p.n_rx;
+    rx = r - ry * p.n_rx;
+    grp = blockIdx.y / p.n_nt;
+    nt = blockIdx.y - grp * p.n_nt;
+    slice = blockIdx.z;
+  }
+};
+
+// Window offsets (floats) of the thread's 8 pixels: pixel m of the
+// rectangle is (m / rw, m % rw), and its window origin sits
+// ((m / rw) * stride * win_w + (m % rw) * stride) * ps floats into the
+// pixel-major window slab (conv2d_ws.py: simt_windows).
+template <int BN>
+__device__ inline void simt_row_bases(int (&rb)[kSimtTM], const SimtParams& p) {
+  using L = SimtLayout<BN>;
+  const int ty = threadIdx.x / L::CT;
+#pragma unroll
+  for (int i = 0; i < kSimtTM; ++i) {
+    const int m = ty + L::RT * i;
+    rb[i] = ((m / p.rw) * p.stride * p.win_w + (m % p.rw) * p.stride) * p.ps;
+  }
+}
+
+// M5 bias preload: every accumulator starts at its kernel's bias (0 for the
+// columns past the group's width, and for every column of a K slice, whose
+// partial sums the reduce adds to the bias).
+template <int BN>
+__device__ inline void simt_init_acc(float (&acc)[kSimtTM][kSimtTN],
+                                     const float* bias, const SimtParams& p,
+                                     const SimtBlock& bc) {
+  const int tx = threadIdx.x % SimtLayout<BN>::CT;
+#pragma unroll
+  for (int j = 0; j < kSimtTN; ++j) {
+    const int n = bc.nt * BN + simt_col<BN>(tx, j);
+    const float b =
+        p.split == 1 && n < p.kgrp ? bias[bc.grp * p.kgrp + n] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSimtTM; ++i) acc[i][j] = b;
+  }
+}
+
+// Issue the copies of K-chunk `s` (input channels grp*cgrp + s*cs ...) into
+// one slot, not committed or waited here: the rectangle's halo'd window,
+// pixel-major with `ps` floats a pixel (four-byte copies; an odd `ps` puts
+// a warp's pixels of one load on distinct banks at stride 1, 2 and 4), and
+// the weight slab [taps*cs][BN], row (tap, c) copied from w's row
+// tap*cgrp + s*cs + c, which is contiguous in K (16-byte copies where
+// wvec is 4).  Padding, map edges and columns past the group's width are
+// zero-filled by the copy.
+__device__ inline void simt_issue_chunk(float* win, float* wsl, const float* x,
+                                        const float* w, const SimtParams& p,
+                                        const SimtBlock& bc, int s) {
+  const int c0 = bc.grp * p.cgrp + s * p.cs;
+  const int iy0 = bc.ry * p.rh * p.stride - p.pt;
+  const int ix0 = bc.rx * p.rw * p.stride - p.pl;
+  const long long img = static_cast<long long>(bc.img) * p.h;
+  const int npix = p.win_h * p.win_w;
+  for (int i = threadIdx.x; i < npix * p.cs; i += blockDim.x) {
+    const int pix = i / p.cs, ch = i - pix * p.cs;
+    const int wy = pix / p.win_w;
+    const int iy = iy0 + wy, ix = ix0 + pix - wy * p.win_w;
+    const bool in = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w;
+    const float* src = in ? x + ((img + iy) * p.w + ix) * p.c + c0 + ch : x;
+    cp_async_zfill(win + pix * p.ps + ch, src, 4, in ? 4 : 0);
+  }
+  const int vecs = p.bn / p.wvec;
+  const int rows = p.taps * p.cs;
+  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
+    const int r = i / vecs, v = i - r * vecs;
+    const int tap = r / p.cs, ch = r - tap * p.cs;
+    const int col = bc.nt * p.bn + v * p.wvec;
+    const bool ok = col < p.kgrp;
+    const float* src =
+        ok ? w + (static_cast<long long>(tap) * p.cgrp + s * p.cs + ch) * p.k +
+                 bc.grp * p.kgrp + col
+           : w;
+    cp_async_zfill(wsl + r * p.bn + v * p.wvec, src, 4 * p.wvec,
+                   ok ? 4 * p.wvec : 0);
+  }
+}
+
+// One K-chunk from a slot: taps x cs steps, in (tap, channel) order, of
+// 8 window reads (one float per pixel, the warp's distinct pixels on
+// distinct banks), two float4 weight reads and 64 FFMAs per thread.
+template <int BN>
+__device__ inline void simt_chunk(float (&acc)[kSimtTM][kSimtTN],
+                                  const float* win, const float* wsl,
+                                  const int (&rb)[kSimtTM],
+                                  const SimtParams& p) {
+  using L = SimtLayout<BN>;
+  const float* wcol = wsl + (threadIdx.x % L::CT) * 4;
+  for (int dy = 0; dy < p.kh; ++dy) {
+    for (int dx = 0; dx < p.kw; ++dx) {
+      const float* xt = win + (dy * p.dil * p.win_w + dx * p.dil) * p.ps;
+      const float* wt = wcol + (dy * p.kw + dx) * p.cs * BN;
+#pragma unroll 2
+      for (int c = 0; c < p.cs; ++c) {
+        float a[kSimtTM], b[kSimtTN];
+#pragma unroll
+        for (int i = 0; i < kSimtTM; ++i) a[i] = xt[rb[i] + c];
+        const float4 b0 = *reinterpret_cast<const float4*>(wt + c * BN);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(wt + c * BN + 4 * L::CT);
+        b[0] = b0.x, b[1] = b0.y, b[2] = b0.z, b[3] = b0.w;
+        b[4] = b1.x, b[5] = b1.y, b[6] = b1.z, b[7] = b1.w;
+#pragma unroll
+        for (int i = 0; i < kSimtTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kSimtTN; ++j)
+            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// One output value: f32, or rint(v * scale[k]) clipped to int8.
+template <bool REQUANT>
+__device__ __forceinline__ void simt_store(void* out, long long oidx, float v,
+                                           const float* scale, int k) {
+  if (REQUANT) {
+    float y = rintf(__fmul_rn(v, scale[k]));
+    y = fminf(fmaxf(y, -128.0f), 127.0f);
+    static_cast<int8_t*>(out)[oidx] = static_cast<int8_t>(y);
+  } else {
+    static_cast<float*>(out)[oidx] = v;
+  }
+}
+
+// The block's end: the f32 tile goes through shared memory ([BM][BN + 4],
+// aliasing the ring: the caller has waited for every copy and
+// synchronised), then either the epilogue (ReLU -> 2x2 max-pool inside the
+// rectangle -> requantize, the ragged edge masked) or, where K is split,
+// the slice's partial sums of the valid pixels and columns into
+// part[slice][n][oh][ow][k] for the reduce.
+template <int BN, bool REQUANT>
+__device__ inline void simt_finish(const float (&acc)[kSimtTM][kSimtTN],
+                                   float* tile, const float* scale, void* out,
+                                   float* part, const SimtParams& p,
+                                   const SimtBlock& bc) {
+  using L = SimtLayout<BN>;
+  const int ty = threadIdx.x / L::CT, tx = threadIdx.x % L::CT;
+#pragma unroll
+  for (int i = 0; i < kSimtTM; ++i) {
+    float* row = tile + (ty + L::RT * i) * L::TS + tx * 4;
+    *reinterpret_cast<float4*>(row) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + 4 * L::CT) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  __syncthreads();
+  if (p.split > 1) {
+    const long long base = static_cast<long long>(bc.slice) * p.n + bc.img;
+    for (int e = threadIdx.x; e < L::BM * BN; e += blockDim.x) {
+      const int m = e / BN, nn = e % BN;
+      const int oy = bc.ry * p.rh + m / p.rw, ox = bc.rx * p.rw + m % p.rw;
+      const int col = bc.nt * BN + nn;
+      if (oy >= p.oh || ox >= p.ow || col >= p.kgrp) continue;
+      part[((base * p.oh + oy) * p.ow + ox) * p.k + bc.grp * p.kgrp + col] =
+          tile[m * L::TS + nn];
+    }
+    return;
+  }
+  const int ph = p.pool ? p.rh / 2 : p.rh, pw = p.pool ? p.rw / 2 : p.rw;
+  const long long img = static_cast<long long>(bc.img) * p.poh;
+  for (int e = threadIdx.x; e < ph * pw * BN; e += blockDim.x) {
+    const int kk = e % BN, pp = e / BN;
+    const int ly = pp / pw, lx = pp - ly * pw;
+    const int gy = bc.ry * ph + ly, gx = bc.rx * pw + lx;
+    const int n = bc.nt * BN + kk;
+    if (gy >= p.poh || gx >= p.pow_ || n >= p.kgrp) continue;
+    float v;
+    if (p.pool) {
+      const int r0 = (2 * ly) * p.rw + 2 * lx, r1 = r0 + p.rw;
+      v = relu_if(tile[r0 * L::TS + kk], p.relu);
+      const float v1 = relu_if(tile[(r0 + 1) * L::TS + kk], p.relu);
+      const float v2 = relu_if(tile[r1 * L::TS + kk], p.relu);
+      const float v3 = relu_if(tile[(r1 + 1) * L::TS + kk], p.relu);
+      v = v1 > v ? v1 : v;
+      v = v2 > v ? v2 : v;
+      v = v3 > v ? v3 : v;
+    } else {
+      v = relu_if(tile[(ly * p.rw + lx) * L::TS + kk], p.relu);
+    }
+    const int k = bc.grp * p.kgrp + n;
+    simt_store<REQUANT>(out, ((img + gy) * p.pow_ + gx) * p.k + k, v, scale,
+                        k);
+  }
+}
+
+// The K split's second kernel: each output (image, y, x, k) of the epilogue
+// adds bias and the slices' partial sums in slice order at each conv-output
+// pixel of its pool window, then ReLU -> 2x2 max-pool -> requantize as
+// simt_finish does.  No atomics, so a call gives the same bits every run.
+template <bool REQUANT>
+__global__ void __launch_bounds__(256)
+conv_simt_reduce_kernel(const float* __restrict__ part,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ scale,
+                        void* __restrict__ out, SimtParams p) {
+  const long long total = static_cast<long long>(p.n) * p.poh * p.pow_ * p.k;
+  const long long e = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= total) return;
+  const int k = static_cast<int>(e % p.k);
+  long long r = e / p.k;
+  const int gx = static_cast<int>(r % p.pow_);
+  r /= p.pow_;
+  const int gy = static_cast<int>(r % p.poh);
+  const long long img = r / p.poh;
+  const long long slice = static_cast<long long>(p.n) * p.oh * p.ow * p.k;
+  auto acc_at = [&](int oy, int ox) {
+    const long long i = ((img * p.oh + oy) * p.ow + ox) * p.k + k;
+    float v = bias[k];
+    for (int s = 0; s < p.split; ++s) v += part[s * slice + i];
+    return relu_if(v, p.relu);
+  };
+  float v;
+  if (p.pool) {
+    v = acc_at(2 * gy, 2 * gx);
+    const float v1 = acc_at(2 * gy, 2 * gx + 1);
+    const float v2 = acc_at(2 * gy + 1, 2 * gx);
+    const float v3 = acc_at(2 * gy + 1, 2 * gx + 1);
+    v = v1 > v ? v1 : v;
+    v = v2 > v ? v2 : v;
+    v = v3 > v ? v3 : v;
+  } else {
+    v = acc_at(gy, gx);
+  }
+  simt_store<REQUANT>(out, e, v, scale, k);
+}
+
+// After a simt launch: the launch's error, then, where K is split, the
+// reduce on the same stream.
+template <bool REQUANT>
+inline int simt_reduce(const void* part, const void* bias, const float* scale,
+                       void* out, const SimtParams& p, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.split == 1) return static_cast<int>(err);
+  const long long total = static_cast<long long>(p.n) * p.poh * p.pow_ * p.k;
+  conv_simt_reduce_kernel<REQUANT>
+      <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+          static_cast<const float*>(part), static_cast<const float*>(bias),
+          scale, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dispatch the simt kernels on (N-tile width, requantize): mode 2 f32 ->
+// f32, 3 f32 -> int8; bn 32, 64 or 128.
+#define SIMT_DISPATCH(MODE, BN, LAUNCH, ...)                                 \
+  if ((MODE) != 2 && (MODE) != 3)                                            \
+    return static_cast<int>(cudaErrorInvalidValue);                          \
+  if ((BN) == 32)                                                            \
+    return (MODE) == 3 ? LAUNCH<32, true>(__VA_ARGS__)                       \
+                       : LAUNCH<32, false>(__VA_ARGS__);                     \
+  if ((BN) == 64)                                                            \
+    return (MODE) == 3 ? LAUNCH<64, true>(__VA_ARGS__)                       \
+                       : LAUNCH<64, false>(__VA_ARGS__);                     \
+  if ((BN) == 128)                                                           \
+    return (MODE) == 3 ? LAUNCH<128, true>(__VA_ARGS__)                      \
+                       : LAUNCH<128, false>(__VA_ARGS__);                    \
+  return static_cast<int>(cudaErrorInvalidValue);
 
 // Dispatch the tensor-core kernels on (N-tile width, requantize): mode 0
 // int8 -> int32, 1 int8 -> int8; bn 32 or 64 (NT = bn / 16 n8-tiles a warp).

@@ -92,8 +92,8 @@
 //   cannot copy).  The first port's kernel: one block per 64x64
 //   output tile, 32-deep slices of x and w staged in shared memory, a 4x4
 //   register tile of outputs a thread, scalar FMAs (no tensor cores).  Its
-//   f32 and int8 instantiations stay callable as the "before" of the simt
-//   and mma forms.
+//   int8 and bf16 instantiations are the only ones: every f32 GEMM runs
+//   simt.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1004,17 +1004,14 @@ extern "C" {
 // in the accumulator type (int32, or f32 for f32 and bf16), or null for
 // none.  dtype 0: int8 -> int32; 1: f32 -> f32; 2: bf16 -> bf16.
 
-// the first port's 64x64-tile kernel, any shape, dtype 0, 1 or 2 (the form
-// mm_path picks for ragged bf16 and int8; its f32 and int8 instantiations
-// are the simt and mma forms' "before")
+// the first port's 64x64-tile kernel, any shape, dtype 0 or 2 (the form
+// mm_path picks for ragged int8 and bf16; every f32 GEMM runs simt)
 int matmul_ws_scalar(const void* x, const void* w, const void* bias,
                      void* out, int M, int N, int K, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return scalar::launch<int8_t, int32_t, int32_t>(x, w, bias, out, M, N, K, s);
-  if (dtype == 1)
-    return scalar::launch<float, float, float>(x, w, bias, out, M, N, K, s);
   if (dtype == 2)
     return scalar::launch<bf16, float, bf16>(x, w, bias, out, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);

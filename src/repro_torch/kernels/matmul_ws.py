@@ -29,9 +29,8 @@ what the reference's ``ops.matmul_ws`` returns).  The CUDA source,
 * ``"scalar"`` — the first port's 64×64-tile kernel: bf16 whose rows are
   not 16-byte multiples (K or N not a multiple of 8), which TMA cannot
   address, and int8 whose rows are not 4-byte multiples (K or N not a
-  multiple of 4), which ``cp.async`` cannot copy.  Its f32 and int8
-  instantiations stay callable through ``_launch(..., "scalar")`` as the
-  "before" of the simt and mma forms.
+  multiple of 4), which ``cp.async`` cannot copy.  It has no f32
+  instantiation: every f32 GEMM runs simt.
 
 ``matmul_ws`` calls the ``torch.library`` op ``repro_torch::matmul_ws``,
 so a dispatch mode (the roofline's counter, a fake tensor, a selective

@@ -141,14 +141,14 @@ def test_paper_layer_int32_bit_equal_to_jax_oracle():
     (torch.int8, 32, 32, 4, "tc"),          # K/g = 8
     (torch.int8, 32, 32, 8, "scalar"),      # K/g = 4
     (torch.int8, 32, 32, 32, "scalar"),     # depthwise
-    (torch.float32, 32, 64, 1, "scalar"),   # f32 keeps the scalar kernel
+    (torch.float32, 32, 64, 1, "simt"),     # f32 runs the FFMA GEMM
 ])
 def test_path_rule(dtype, c, k, groups, expect):
     g = setup_conv((2, 12, 12, c), (3, 3, c // groups, k), padding="SAME",
                    groups=groups, cin_banks=1, kout_banks=groups,
                    int_path=dtype == torch.int8)
     assert conv_path(g) == expect
-    assert (tc_plan(g) is None) == (expect == "scalar")
+    assert (tc_plan(g) is None) == (expect != "tc")
 
 
 def test_tc_params_record_matches_cuda_struct():

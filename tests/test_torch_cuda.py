@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain versions, on the card, and the LM
 serving path on the card against the same path on the CPU.
 
-The conv kernels take the int8 tensor-core path or the scalar path by
-geometry (``conv2d_ws.conv_path``); every conv case asserts which one
-launched.  ``TC_CASES`` are the tensor-core path's edges: narrow channel
+The conv kernels take the int8 tensor-core path, the f32 simt path or the
+scalar path by geometry (``conv2d_ws.conv_path``); every conv case asserts
+which one launched.  The f32 cases on the simt path are also held to
+``conv2d_ws_simt_emulate`` within ``f32_sum_bound``, ``conv2d_ws`` to
+``conv2d_ws_pipe`` and each call to the next bit for bit.  ``TC_CASES``
+are the tensor-core path's edges (and, in f32, the simt path's): narrow channel
 counts (C = 1, 4, 8, 12; byte-gathered C = 6), eight outputs a group,
 output widths that are not a multiple of the N-tile or of four (the
 epilogue's one-channel form), partial rectangles at stride 2, several
@@ -46,7 +49,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_plain,
-                                           conv_path, setup_conv)
+                                           conv2d_ws_simt_emulate, conv_path,
+                                           setup_conv)
 from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -188,17 +192,50 @@ def cuda():
 
 def launch_both(args, kw, want, path):
     """Both conv kernels on ``args``: one launch each, on ``path``, and
-    equal to ``want``."""
+    equal to ``want`` (f32 within 1e-4) → the two outputs."""
+    outs = []
     for fn in (conv2d_ws, conv2d_ws_pipe):
-        before = (fn.launches, fn.tc_launches)
+        before = (fn.launches, fn.tc_launches, fn.simt_launches)
         got = fn(*args, **kw)
         torch.cuda.synchronize()
-        assert (fn.launches, fn.tc_launches) == (
-            before[0] + 1, before[1] + (path == "tc")), (fn.__name__, path)
+        assert (fn.launches, fn.tc_launches, fn.simt_launches) == (
+            before[0] + 1, before[1] + (path == "tc"),
+            before[2] + (path == "simt")), (fn.__name__, path)
         if want.is_floating_point():
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         else:
             assert torch.equal(got, want), fn.__name__
+        outs.append(got)
+    return outs
+
+
+def f32_path(w, kw):
+    """The path an f32 layer takes: simt where its groups are 8 or more
+    outputs wide, else the scalar kernel."""
+    return "simt" if w.shape[3] // kw.get("groups", 1) >= 8 else "scalar"
+
+
+def check_simt(args, kw, outs):
+    """Both kernels' outputs of one simt launch each: within
+    ``f32_sum_bound`` of ``conv2d_ws_simt_emulate`` before the epilogue
+    (ReLU and the 2×2 max move no value by more than they take in),
+    bit-equal to each other and to a second call."""
+    x, w, b = args[:3]
+    emu = conv2d_ws_simt_emulate(*args, **kw)
+    geo = {k: kw[k] for k in ("stride", "padding", "groups", "dilation")
+           if k in kw}
+    s = ref.conv2d_ref(x.double().abs(), w.double().abs(),
+                       None if b is None else b.double().abs(),
+                       dtype=torch.float64, **geo)
+    bound = f32_sum_bound(w.shape[0] * w.shape[1] * w.shape[2] + 1, s)
+    if kw.get("pool"):
+        bound = torch.nn.functional.max_pool2d(
+            bound[:, :2 * emu.shape[1], :2 * emu.shape[2]].permute(0, 3, 1, 2),
+            2).permute(0, 2, 3, 1)
+    err = (outs[0].double() - emu.double()).abs()
+    assert bool((err <= bound).all()), float(err.max())
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], conv2d_ws(*args, **kw))
 
 
 @pytest.mark.cuda
@@ -212,7 +249,7 @@ def test_cuda_conv_kernels_equal_plain(cuda, name):
     launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
     fx, fw, fb, _, _ = case_inputs(name, f32=True)
     args = as_torch(fx, fw, fb, None, device=cuda)
-    launch_both(args, kw, conv2d_ws_plain(*args, **kw), "scalar")
+    launch_both(args, kw, conv2d_ws_plain(*args, **kw), f32_path(fw, kw))
 
 
 @pytest.mark.cuda
@@ -222,6 +259,99 @@ def test_cuda_conv_tensor_core_edges_equal_plain(cuda, name):
     args = as_torch(x, w, b, s, device=cuda)
     assert expected_path(args[0], args[1], s, kw) == "tc"
     launch_both(args, kw, conv2d_ws_plain(*args, **kw), "tc")
+
+
+def f32_case(name):
+    """A ``CASES`` or ``TC_CASES`` entry in f32: the int8 operands scaled
+    as ``case_inputs(f32=True)`` scales them (products and their sums
+    exact in f32) → x, w, b, kwargs."""
+    if name in CASES:
+        x, w, b, _, kw = legal_banks(*case_inputs(name, f32=True))
+        return x, w, b, kw
+    x, w, b, _, kw = tc_case_inputs(name)
+    return (x.astype(np.float32) / 64, w.astype(np.float32) / 64,
+            b.astype(np.float32) / 100, kw)
+
+
+F32_CASES = sorted({*CASES, *TC_CASES})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", F32_CASES)
+def test_cuda_conv_simt_equals_emulation(cuda, name):
+    """Every f32 case on both kernels, f32 out and int8 out: on the path
+    the rule names, within 1e-4 of the plain version; on simt also within
+    ``f32_sum_bound`` of the emulation, bit-equal across the kernels and
+    call to call."""
+    x, w, b, kw = f32_case(name)
+    args = as_torch(x, w, b, None, device=cuda)
+    path = f32_path(w, kw)
+    assert expected_path(args[0], args[1], None, kw) == path
+    outs = launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
+    if path == "simt":
+        check_simt(args, kw, outs)
+        want = conv2d_ws_plain(*args, **kw)
+        scale = 100.0 / want.abs().reshape(-1, want.shape[-1]).amax(
+            0).clamp(min=1e-3)
+        args8 = args[:3] + [scale]
+        outs8 = [fn(*args8, **kw) for fn in (conv2d_ws, conv2d_ws_pipe)]
+        emu8 = conv2d_ws_simt_emulate(*args8, **kw)
+        # one f32 rounding apart at most: an int8 step only at a tie
+        assert int((outs8[0].int() - emu8.int()).abs().max()) <= 1
+        assert torch.equal(outs8[0], outs8[1])
+
+
+def layer_launches(plan, device, batch=2):
+    """Each f32 conv and transposed conv of ``plan`` through ``ops``
+    under autograd, forward and input gradient (every layer takes its
+    own random input): the ``conv2d_ws`` launches on each path that the
+    path rule predicts ("simt" where the forward's, or the gradient's,
+    groups are 8 or more outputs wide) → (predicted, counted)."""
+    from repro_torch.kernels import ops
+    acts, ins = plan.activation_shapes(), plan.resolved_inputs()
+    pshapes, geoms = plan.param_shapes(), plan.conv_geometries()
+    g = torch.Generator(device=device).manual_seed(0)
+    want = {"simt": 0, "scalar": 0}
+    before = (conv2d_ws.simt_launches, conv2d_ws.launches)
+    for i, sp in enumerate(plan.layers):
+        if sp.kind not in ("conv", "conv_transpose"):
+            continue
+        src = plan.input_shape if ins[i][0] < 0 else acts[ins[i][0]]
+        ws = pshapes[i]["w"]
+        groups = geoms[i][1]
+        x = torch.randn((batch, *src), generator=g, device=device)
+        x.requires_grad_(i > 0)
+        w = torch.randn(ws, generator=g, device=device) / 8
+        cb, kb = ref.grouped_banks(src[2], ws[3], groups)
+        fn = ops.conv2d if sp.kind == "conv" else ops.conv2d_transpose
+        y = fn(x, w, None, stride=sp.stride, padding=sp.padding,
+               groups=groups, cin_banks=cb, kout_banks=kb, relu=sp.relu,
+               pool=sp.pool, dilation=sp.dilation)
+        want["simt" if ws[3] // groups >= 8 else "scalar"] += 1
+        if i > 0:
+            torch.autograd.grad(y, x, torch.ones_like(y))
+            want["simt" if ws[2] >= 8 else "scalar"] += 1
+    torch.cuda.synchronize()
+    got = conv2d_ws.simt_launches - before[0]
+    return want, {"simt": got, "scalar": conv2d_ws.launches - before[1]
+                  - got}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["vgg_imagenet", "lenet", "unet_small"])
+def test_cuda_zoo_f32_convs_launch_simt(cuda, net):
+    """Every f32 conv of the zoo's trained networks, forward and input
+    gradient, launches the path the rule names, counted by
+    ``simt_launches``: ``vgg_imagenet``'s six forward and five dx convs
+    (at 64×64), ``lenet``'s and ``unet_small``'s all on simt but
+    ``unet_small``'s 3-class head."""
+    from repro_torch.core import network
+    kw = dict(input_shape=(64, 64, 4)) if net == "vgg_imagenet" else {}
+    want, got = layer_launches(getattr(network, net)(**kw), cuda)
+    assert got == want
+    assert want["scalar"] == (1 if net == "unet_small" else 0)
+    assert want["simt"] == {"vgg_imagenet": 11, "lenet": 5,
+                            "unet_small": 18}[net]
 
 
 @pytest.mark.cuda
@@ -544,7 +674,7 @@ def test_cuda_w8_engine_tokens_equal_the_cpu(cuda, arch):
 
 
 # ---------------------------------------------------------------------------
-# training: the scalar conv path's own tiles and the backward on the kernels
+# training: f32 convs on the simt path and the backward on the kernels
 # ---------------------------------------------------------------------------
 
 
@@ -780,17 +910,22 @@ def vgg_f32_layer(i, batch=8, device="cuda", seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layer", [1, 5])
 def test_cuda_whole_map_f32_conv_equals_tiled(cuda, layer):
-    """A whole-map f32 conv overflows a block's shared memory; the scalar
-    launch picks its own tiles and gives the value the same call with
-    explicit tiles gives, bit for bit."""
+    """A whole-map f32 conv and the same call with explicit tiles take
+    the same simt plan (the TilePlan's tiles shape no block), so they give
+    the same bits; ``conv2d_ws_pipe`` gives them too."""
     x, w, b, kw = vgg_f32_layer(layer)
     want = conv2d_ws_plain(x, w, b, **kw)
+    outs = []
     for fn in (conv2d_ws, conv2d_ws_pipe):
+        before = fn.simt_launches
         whole = fn(x, w, b, **kw)
         tiled = fn(x, w, b, h_tile=8, w_tile=16, **kw)
         torch.cuda.synchronize()
+        assert fn.simt_launches == before + 2, fn.__name__
         assert torch.equal(whole, tiled), fn.__name__
         torch.testing.assert_close(whole, want, rtol=1e-4, atol=1e-4)
+        outs.append(whole)
+    assert torch.equal(*outs)
 
 
 @pytest.mark.cuda
@@ -819,22 +954,24 @@ def test_cuda_backward_pieces_within_the_bound(cuda):
 def test_cuda_lenet_fit_step_launches(cuda):
     """One ``fit`` step of ``lenet`` on the card: 3 forward convs, 2 input
     gradients (none for the input layer), 27 weight-gradient taps and the
-    two dense layers' 2 + 4 GEMMs: every conv on the scalar path, every
+    two dense layers' 2 + 4 GEMMs: every conv on the simt path, every
     GEMM on the simt form."""
     from repro_torch.core import network, training
     plan = network.lenet(input_shape=(12, 12, 1))
     x, y = training.synthetic_digits(np.random.default_rng(0), 64,
                                      device=cuda)
     counts = (conv2d_ws.launches, conv2d_ws.tc_launches,
-              conv2d_ws_pipe.launches, matmul_ws.launches,
-              matmul_ws.path_launches["simt"])
+              conv2d_ws.simt_launches, conv2d_ws_pipe.launches,
+              matmul_ws.launches, matmul_ws.path_launches["simt"])
     state, hist = training.fit(plan, x, y, steps=1, batch=32,
                                cfg=training.TrainConfig(qat=True))
     assert state.step.device.type == "cuda" and np.isfinite(hist[0]["loss"])
     assert (conv2d_ws.launches - counts[0], conv2d_ws.tc_launches - counts[1],
-            conv2d_ws_pipe.launches - counts[2],
-            matmul_ws.launches - counts[3],
-            matmul_ws.path_launches["simt"] - counts[4]) == (5, 0, 0, 33, 33)
+            conv2d_ws.simt_launches - counts[2],
+            conv2d_ws_pipe.launches - counts[3],
+            matmul_ws.launches - counts[4],
+            matmul_ws.path_launches["simt"] - counts[5]) == (5, 0, 5, 0, 33,
+                                                              33)
 
 
 # ---------------------------------------------------------------------------
