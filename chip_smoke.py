@@ -13,7 +13,7 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    in the conv kernels and ``matmul_ws``'s int8 mma form, ``HGMMA`` in its
    bf16 long-M form, none in the conv kernels' six f32 simt instantiations
    each);
-   fail on a spill in any of them, in a simt instantiation or in a
+   fail on a spill in any of them, in a simt or dw instantiation or in a
    ``flash_attention`` ``wgmma`` instantiation (D = 256 included), a
    missing ``IMMA`` or ``HGMMA``, a tensor-core instruction in a simt
    instantiation, a missing compiler report or a missing ``cuobjdump``;
@@ -22,10 +22,14 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    224×224, the ``lenet`` convs, the §5.2 layer, depthwise / stride-2 /
    dilation-2 / per-channel-requant layers, the tensor-core path's edge
    geometries (``TC_CASES`` of ``tests/test_torch_cuda.py``) in int8 and,
-   with ``CASES``, in f32 (the simt path, or the scalar kernel where the
-   groups are narrower than 8: each simt result also within
-   ``f32_sum_bound`` of ``conv2d_ws_simt_emulate``, the two kernels and
-   a second call bit-equal), the dense
+   with ``CASES``, in f32 (the simt path, or where the groups are
+   narrower than 8 the dw path or the scalar kernel: each simt result
+   also within ``f32_sum_bound`` of ``conv2d_ws_simt_emulate``, the two
+   kernels and a second call bit-equal), the dw path's edges
+   (``DW_CASES``, with ``CASES``' depthwise layers) in int8 and f32, each
+   dw result equal to ``conv2d_ws_dw_emulate`` in int8 and within
+   ``f32_sum_bound`` of it in f32, the two kernels, a tiled call and a
+   second call bit-equal (``check_dw``), the dense
    heads; every ``matmul_ws`` form at its edge shapes (M from 1 to 3000,
    K and N off the tiles, the head's N = 1000) and at the LM's MLP
    shapes (llama3.2-3b's, and recurrentgemma-9b's at M = 4 on the stream
@@ -59,9 +63,12 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    and worst-case operands) to the CPU's int64 sums; hold
    ``ops.conv1d_depthwise`` at recurrentgemma-9b's temporal conv ([1,
    4096, 4096], K = 4, f32 with a bias: one ``conv2d_ws`` launch on the
-   scalar path, 4096 one-lane groups) within 1e-4 of
+   dw path, 4096 one-lane groups) within 1e-4 of
    ``conv1d_depthwise_ref`` and of the block's ``causal_conv1d``, timed
-   beside ``F.conv1d(groups=W)`` with its byte bound;
+   beside ``F.conv1d(groups=W)`` with its byte bound; and time
+   ``mobilenet_small``'s three depthwise convs at 224 and batch 8 on the
+   dw path of both kernels, in int8 as served and in f32, beside the plain
+   version, the byte bound and, in f32, ``F.conv2d(groups=C)``;
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
@@ -168,8 +175,7 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``torch.equal`` to the same call with 8×16 tiles, within 1e-4 of its
    plain version and within ``f32_sum_bound`` of
    ``conv2d_ws_simt_emulate``, the two kernels bit-equal, timed beside
-   the scalar kernel (the "before", through ``launch_conv`` with the path
-   forced) and ``F.conv2d``; each of the five input-gradient convs timed
+   ``F.conv2d``; each of the five input-gradient convs timed
    beside ``torch.nn.grad.conv2d_input`` and its bound;
    and its VJP through autograd (``check_conv_vjp`` of
    ``tests/test_torch_cuda.py``: the saved ReLU / pool masks equal the
@@ -308,10 +314,16 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    bound that of the whole function: x, the cotangent and dw moved once
    for the weight gradient); the convs' rows carry their simt path apart
    (``simt_launches`` on phase 8's training runs, ``simt_max_abs_err``,
-   ``f32_plain_ms``, ``f32_bound_by``, ``f32_scalar_ms``: the six forward
-   convs on the scalar kernel, the "before"; on ``conv2d_ws``
+   ``f32_plain_ms``, ``f32_bound_by``; on ``conv2d_ws``
    ``f32_dx_ms``, ``f32_dx_bound_ms`` and ``f32_dx_library_ms``: the five
-   input-gradient convs beside ``torch.nn.grad.conv2d_input``);
+   input-gradient convs beside ``torch.nn.grad.conv2d_input``) and their
+   dw path apart (``dw_launches`` and, for what is left on the first
+   port's kernel, ``scalar_launches`` over the main paths' serving and
+   training runs, ``dw_max_abs_err`` over phase 3's dw checks, and phase
+   3's
+   ``mobilenet_small`` depthwise sums: ``dw_int8_ms``,
+   ``dw_int8_device_ms``, ``dw_int8_plain_ms``, ``dw_int8_bound_ms``, the
+   same ``dw_f32_*`` and ``dw_f32_library_ms``, ``F.conv2d(groups=C)``);
    ``matmul_ws``'s ``int8_ms``, ``int8_device_ms``, ``int8_bound_ms`` and
    ``int8_library_ms`` sum its twelve long-M int8 shapes of phase 3 (the
    library ``torch._int_mm``, each shape's faster of its two weight
@@ -477,11 +489,12 @@ MM_KERNEL_NAMES = ("matmul_ws_kernel", "mm_stream_kernel", "mm_wgmma_kernel",
                    "mm_simt_kernel", "mm_imma_kernel", "mm_split_reduce")
 
 
-# the conv kernels' device kernels by name: the scalar and simt kernels of
-# both sources (the tensor-core ones are "conv_ws_tc_kernel" and
+# the conv kernels' device kernels by name: the scalar, simt and dw kernels
+# of both sources (the tensor-core ones are "conv_ws_tc_kernel" and
 # "conv_ws_pipe_tc_kernel"), and the simt path's split-K reduce
 CONV_F32_KERNEL_NAMES = ("conv_ws_kernel", "conv_ws_pipe_kernel",
                          "conv_ws_simt_kernel", "conv_ws_pipe_simt_kernel",
+                         "conv_ws_dw_kernel", "conv_ws_pipe_dw_kernel",
                          "conv_simt_reduce_kernel")
 
 
@@ -622,16 +635,20 @@ def main():
     from repro_torch.core.calibration import (CalibrationTable,
                                               fit_calibration)
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.conv2d_ws import launch_conv, scalar_tiles
     from repro_torch.kernels.conv2d_ws import simt_plan as simt_plan_conv
     from repro_torch.kernels.conv2d_ws_bwd import (conv2d_ws_input_grad,
                                                    conv2d_ws_weight_grad)
-    from test_torch_cuda import (F32_CASES, MM_CASES, TC_CASES,
+    from test_torch_cuda import (CASES, DW_CASES, F32_CASES, MM_CASES,
+                                 TC_CASES,
                                  bf16_gemm_bound, GRAD_REL_L2, LM_MLP_CASES,
-                                 RG_MLP_CASES, bf16_ulp, check_simt,
-                                 check_conv_vjp, check_matmul_vjp, f32_case,
-                                 mm_case_inputs, tc_case_inputs,
-                                 vgg_f32_layer)
+                                 RG_MLP_CASES, bf16_ulp, case_inputs,
+                                 check_dw, check_simt, check_conv_vjp,
+                                 check_matmul_vjp, f32_case, legal_banks,
+                                 mm_case_inputs, path_counts,
+                                 tc_case_inputs, vgg_f32_layer)
+    sys.path.insert(0, str(ROOT / "tools"))
+    from conv_dw_probe import (conv1d_library, conv2d_library, layer_bytes,
+                               mobilenet_layers)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -654,6 +671,11 @@ def main():
     for k in ("conv2d_ws", "conv2d_ws_pipe"):
         stats[k]["simt"] = dict(launches=0, max_abs_err=0.0,
                                 bound_by={"bytes": 0.0, "operations": 0.0})
+    # and its dw path: launches on the serving runs, max error against the
+    # plain version, phase 3's mobilenet_small depthwise sums
+    for k in ("conv2d_ws", "conv2d_ws_pipe"):
+        stats[k]["dw"] = dict(dw_launches=0, scalar_launches=0,
+                              max_abs_err=0.0)
 
     def mem_note(where):
         """Log the caching allocator's state: bytes live, bytes reserved,
@@ -708,12 +730,12 @@ def main():
                 log(f"  {name} {entry}: {line.strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line) and (
                         "tc_kernel" in entry or "simt_kernel" in entry
-                        or "wgmma_kernel" in entry
+                        or "dw_kernel" in entry or "wgmma_kernel" in entry
                         or "imma_kernel" in entry
                         or "flash_bf16_kernel" in entry):
                     spilled.append(entry)
     if spilled:
-        raise AssertionError(f"tensor-core or simt kernels spill: "
+        raise AssertionError(f"tensor-core, simt or dw kernels spill: "
                              f"{spilled}")
     for name in ("conv2d_ws", "conv2d_ws_pipe"):
         ops = sass_tensor_ops(_build.library_path(name))
@@ -862,7 +884,10 @@ def main():
         given scale, or None (int32 / f32 out).  An f32 result on the simt
         path is also held within ``f32_sum_bound`` of
         ``conv2d_ws_simt_emulate``, and the two kernels' results and a
-        second call to each other bit for bit (``check_simt``)."""
+        second call to each other bit for bit (``check_simt``); a result
+        on the dw path to ``conv2d_ws_dw_emulate`` (int8 equal, f32 within
+        ``f32_sum_bound``), and the two kernels, a second call and a tiled
+        call to each other (``check_dw``)."""
         if isinstance(scale, str):
             acc = conv2d_ws_plain(x, w, b, None, **kw).double().abs()
             if scale == "per_k":
@@ -880,18 +905,18 @@ def main():
         row, outs = {}, []
         for name in ("conv2d_ws", "conv2d_ws_pipe"):
             fn = wrappers[name]
-            before = (fn.launches, fn.tc_launches, fn.simt_launches)
+            before = path_counts(fn)
             got = fn(x, w, b, scale, **kw)
             torch.cuda.synchronize()
-            if (fn.launches, fn.tc_launches, fn.simt_launches) != (
+            if path_counts(fn) != (
                     before[0] + 1, before[1] + (path == "tc"),
-                    before[2] + (path == "simt")):
+                    before[2] + (path == "simt"), before[3] + (path == "dw")):
                 raise AssertionError(f"{label}: {name} did not launch once "
                                      f"on the {path} path")
             err = compare(name, got, want)
-            if path == "simt":
-                sim = stats[name]["simt"]
-                sim["max_abs_err"] = max(sim["max_abs_err"], err)
+            if path in ("simt", "dw"):
+                sub = stats[name][path]
+                sub["max_abs_err"] = max(sub["max_abs_err"], err)
             outs.append(got)
             if timed:
                 call = lambda: fn(x, w, b, scale, **kw)   # noqa: E731
@@ -900,6 +925,8 @@ def main():
                 stats[name]["device_ms"] += row[name][1]
         if path == "simt":      # the emulation's bound, both kernels' bits
             check_simt([x, w, b, scale], kw, outs)
+        if path == "dw":        # the emulation, both kernels' and tiles' bits
+            check_dw([x, w, b, scale], kw, outs)
         if timed:
             n, h, wd, c = x.shape
             kh, kwd, cg, k = w.shape
@@ -1244,10 +1271,20 @@ def main():
     check_conv("f32", xf, wf, torch.randn(64, generator=gen, device=dev),
                None, dict(padding="SAME", relu=True, pool=True, h_tile=8,
                           w_tile=10))
-    for label in F32_CASES:     # the conv edges in f32: simt or scalar
+    for label in F32_CASES:     # the conv edges in f32: simt, dw or scalar
         x, w, b, kw = f32_case(label)
         check_conv(f"{label} f32", *(torch.as_tensor(np.array(a), device=dev)
                                      for a in (x, w, b)), None, kw)
+    narrow = [(n, CASES) for n, (_, ws_, kw_, _) in CASES.items()
+              if ws_[2] == 1 and ws_[3] // kw_.get("groups", 1) < 8]
+    for label, table in narrow + [(n, DW_CASES) for n in DW_CASES]:
+        for f32_ in (False, True):      # every dw case, int8 and f32
+            x, w, b, s_, kw = legal_banks(*case_inputs(
+                label, f32=f32_, table=table))
+            check_conv(f"{label} {'f32' if f32_ else 'int8'}", *(
+                None if a is None else torch.as_tensor(np.array(a),
+                                                       device=dev)
+                for a in (x, w, b, s_)), kw)
     mm_device_ms = check_matmuls()
     check_w8_matmuls()
     check_int8_decode()
@@ -1255,7 +1292,7 @@ def main():
     def check_conv1d():
         """``ops.conv1d_depthwise`` at recurrentgemma-9b's temporal conv, [1,
         4096, 4096] with K = 4, f32 with a bias: one ``conv2d_ws`` launch on
-        the scalar path (4096 one-lane groups), within 1e-4 of
+        the dw path (4096 one-lane groups), within 1e-4 of
         ``ref.conv1d_depthwise_ref`` and of the block's ``causal_conv1d``;
         timed beside ``F.conv1d(groups=W)`` (cuDNN, TF32 off, on the
         channels-first [1, W, S + K − 1] layout it takes, laid out outside
@@ -1265,21 +1302,21 @@ def main():
         x = torch.randn(1, s_len, width, generator=gen, device=dev)
         w = torch.randn(k, width, generator=gen, device=dev) / k ** 0.5
         bias = torch.randn(width, generator=gen, device=dev)
-        before = (conv2d_ws.launches, conv2d_ws.tc_launches)
+        before = path_counts(conv2d_ws)
         got = kops.conv1d_depthwise(x, w, bias)
         torch.cuda.synchronize()
-        if (conv2d_ws.launches, conv2d_ws.tc_launches) != (before[0] + 1,
-                                                           before[1]):
+        if path_counts(conv2d_ws) != (before[0] + 1, before[1], before[2],
+                                      before[3] + 1):
             raise AssertionError("conv1d_depthwise: not one conv2d_ws launch "
-                                 "on the scalar path")
+                                 "on the dw path")
         err = compare("conv2d_ws", got, ref.conv1d_depthwise_ref(x, w, bias))
+        dw_err = stats["conv2d_ws"]["dw"]
+        dw_err["max_abs_err"] = max(dw_err["max_abs_err"], err)
         shifted = causal_conv1d(x, w, bias)
         if not torch.allclose(got, shifted, rtol=F32_TOL, atol=F32_TOL):
             raise AssertionError("conv1d_depthwise disagrees with the "
                                  "recurrent block's causal_conv1d")
-        xt = F.pad(x.transpose(1, 2), (k - 1, 0)).contiguous()
-        wt = w.t().contiguous()[:, None, :]                 # [W, 1, K]
-        lib_call = lambda: F.conv1d(xt, wt, bias, groups=width)  # noqa
+        lib_call = conv1d_library(x, w, bias)
         if not torch.allclose(lib_call().transpose(1, 2), got, rtol=F32_TOL,
                               atol=F32_TOL):
             raise AssertionError("F.conv1d(groups=W) computes another "
@@ -1290,7 +1327,7 @@ def main():
         plain = elapsed_ms(lambda: ref.conv1d_depthwise_ref(x, w, bias),
                            reps=5)
         lib = elapsed_ms(lib_call, reps=10)
-        nbytes = 4 * (2 * s_len * width + k * width + width)
+        nbytes = layer_bytes(x, w, False, s_len * width, 4)
         ops = 2 * s_len * width * k
         side = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
                 else "operations")
@@ -1299,7 +1336,7 @@ def main():
             conv1d_ms=ms, conv1d_device_ms=dev_ms, conv1d_bound_ms=bound,
             conv1d_plain_ms=plain, conv1d_library_ms=lib)
         log(f"  conv1d_depthwise [1,{s_len},{width}] K={k} f32 (recurrentgemma"
-            f"-9b's temporal conv) on conv2d_ws's scalar path: max abs err "
+            f"-9b's temporal conv) on conv2d_ws's dw path: max abs err "
             f"{err:.3g} against conv1d_depthwise_ref, within {F32_TOL} of "
             f"causal_conv1d; {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
             f"device ({nbytes / dev_ms / 1e6:.0f} GB/s), bound {bound:.4f} ms"
@@ -1307,6 +1344,95 @@ def main():
             f"{lib:.4f} ms")
 
     check_conv1d()
+
+    def time_dw_layers():
+        """``mobilenet_small``'s three depthwise convs at 224 and batch 8
+        on both kernels' dw path, in int8 as served (requantized to int8,
+        the network's default tile plan's banks and tiles) and in f32 (f32
+        out): each held to its plain version and the emulation
+        (``check_conv``), timed (``ms``: CUDA events around back-to-back
+        calls; ``device_ms``), beside the plain version, the byte bound
+        and, in f32, ``F.conv2d(groups=C)`` (cuDNN, TF32 off, on the same
+        values laid out channels-last NCHW and padded outside the timing)
+        → the conv rows' ``dw_*`` keys, summed over the three layers.  The
+        layers, their bytes and the library calls are
+        ``tools/conv_dw_probe.py``'s, which times them on any tree."""
+        layers = list(mobilenet_layers())
+        if len(layers) != 3:
+            raise AssertionError(f"mobilenet_small: {len(layers)} depthwise "
+                                 f"layers")
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms")
+        names = ("conv2d_ws", "conv2d_ws_pipe")
+        for name in names:
+            stats[name]["dw"].update(
+                {f"{t}_{k}": 0.0 for t in ("int8", "f32") for k in keys},
+                f32_library_ms=0.0)
+        log(f"  mobilenet_small's depthwise convs at 224, batch {BATCH}, "
+            f"on the dw path (us: CUDA events around back-to-back calls, "
+            f"host work included / device time under torch.profiler; bound "
+            f"at 3.35 TB/s; F.conv2d(groups=C) TF32 off):")
+        for i, (_, xs, ws, kw, _) in enumerate(layers):
+            n, h, wd, c = xs
+            oh, ow = ref.conv_out_shape(h, wd, ws[0], ws[1], kw["stride"],
+                                        kw["padding"], kw["dilation"])
+            geo = {k: v for k, v in kw.items() if k not in ("relu", "pool")}
+            for dtype in ("int8", "f32"):
+                if dtype == "int8":
+                    x, w, b = rand_i8(*xs), rand_i8(*ws), rand_bias(ws[3])
+                    acc = conv2d_ws_plain(x, w, b, None, **kw)
+                    scale = 100.0 / max(float(acc.abs().max()), 1.0)
+                    out_es, ops_per_s = 1, INT8_OPS_PER_S
+                else:
+                    x = torch.randn(xs, generator=gen, device=dev)
+                    w = torch.randn(ws, generator=gen, device=dev) / 3
+                    b = torch.randn((ws[3],), generator=gen, device=dev)
+                    scale, out_es, ops_per_s = None, 4, F32_OPS_PER_S
+                label = f"mobilenet_small d{i + 1} {dtype}"
+                path = conv_path(setup_conv(
+                    xs, ws, pool=kw["pool"], requant=scale is not None,
+                    int_path=dtype == "int8", **geo))
+                if path != "dw":
+                    raise AssertionError(f"{label}: the {path} path")
+                check_conv(label, x, w, b, scale, kw)
+                nbytes = layer_bytes(x, w, scale is not None,
+                                     n * oh * ow * ws[3], out_es)
+                bound = bound_ms(nbytes, 2 * n * oh * ow * ws[3] * ws[0]
+                                 * ws[1], ops_per_s)
+                plain = elapsed_ms(lambda: conv2d_ws_plain(
+                    x, w, b, scale, **kw), reps=3, warmup=1)
+                times = {}
+                for name in names:
+                    fn = wrappers[name]
+                    call = (lambda fn=fn: fn(x, w, b, scale, **kw))
+                    times[name] = (elapsed_ms(call, reps=20),
+                                   device_ms(call, 20))
+                    dw = stats[name]["dw"]
+                    for k, v in zip(keys, (*times[name], plain, bound)):
+                        dw[f"{dtype}_{k}"] += v
+                lib = ""
+                if dtype == "f32":
+                    lib_call = conv2d_library(x, w, b, kw)
+                    if not torch.allclose(
+                            lib_call().permute(0, 2, 3, 1),
+                            conv2d_ws(x, w, b, **geo), rtol=F32_TOL,
+                            atol=F32_TOL):
+                        raise AssertionError(f"{label}: F.conv2d(groups=C) "
+                                             f"computes another function")
+                    lib_ms = elapsed_ms(lib_call, reps=20)
+                    lib_dev = device_ms(lib_call, 20)
+                    for name in names:
+                        stats[name]["dw"]["f32_library_ms"] += lib_ms
+                    lib = (f", F.conv2d(groups={c}) {1e3 * lib_ms:.2f} / "
+                           f"{1e3 * lib_dev:.2f} us")
+                (sm, sd), (pm, pd) = times["conv2d_ws"], \
+                    times["conv2d_ws_pipe"]
+                log(f"    d{i + 1} {dtype:4s} x{tuple(xs)} stride "
+                    f"{kw['stride']}: conv2d_ws {1e3 * sm:.2f} / "
+                    f"{1e3 * sd:.2f} us, conv2d_ws_pipe {1e3 * pm:.2f} / "
+                    f"{1e3 * pd:.2f} us, bound {1e3 * bound:.2f} us "
+                    f"({nbytes / 1e6:.2f} MB), plain {plain:.3f} ms{lib}")
+
+    time_dw_layers()
 
     # bf16 attention: the kernel and the plain version each round an f32
     # result once, from sums taken in another order, so they may differ by
@@ -1414,10 +1540,30 @@ def main():
         for k in convs:
             wrappers[k].tc_launches = 0
             wrappers[k].simt_launches = 0
+            wrappers[k].dw_launches = 0
         matmul_ws.path_launches = dict.fromkeys(PATHS, 0)
 
     def counts():
         return {k: fn.launches for k, fn in wrappers.items()}
+
+    def conv_paths():
+        """Each conv kernel's launches on the tensor-core, dw and scalar
+        paths (the int8 ones: no simt launch is served)."""
+        out = {}
+        for k in convs:
+            fn = wrappers[k]
+            out[k] = {"tc": fn.tc_launches, "dw": fn.dw_launches,
+                      "scalar": fn.launches - fn.tc_launches
+                      - fn.simt_launches - fn.dw_launches}
+        return out
+
+    def credit_paths():
+        """Add the conv kernels' dw and scalar launches since the last
+        reset to their rows (read where a main-path run's launches are
+        credited)."""
+        for k, by in conv_paths().items():
+            for p_ in ("dw", "scalar"):
+                stats[k]["dw"][f"{p_}_launches"] += by[p_]
 
     def device_busy(fn, part=None, ranges=None, once=False):
         """(wall ms of ``fn`` unprofiled, device ms and device event count
@@ -1563,6 +1709,7 @@ def main():
             logits = engine.submit(images)
             seen, served = counts(), engine.stats
             tc = {k: wrappers[k].tc_launches for k in convs}
+            credit_paths()
             batches = -(-REQUESTS // BATCH)
             n_conv = sum(sp.kind == "conv" for sp in plan.layers)
             n_dense = sum(sp.kind == "dense" for sp in plan.layers)
@@ -2879,13 +3026,14 @@ def main():
             return self.inner.matmul(x, w, bias)
 
     def expected_launches(qnet, mode, cores, batches, tile_plans=None):
-        """(launches, tensor-core launches, matmul forms) that ``batches``
-        batches of ``qnet`` make under (mode, cores) and ``tile_plans``
-        (None: the default plans): one batch runs through the same
-        scheduler around ``Recorder`` and each recorded call becomes one
-        kernel launch, on the conv kernel its tile plan names and the path
-        ``conv_path`` gives its geometry (a transposed conv's: its
-        stride-1 lowering), or on the ``mm_path`` form."""
+        """(launches, conv launches by path, matmul forms) that
+        ``batches`` batches of ``qnet`` make under (mode, cores) and
+        ``tile_plans`` (None: the default plans): one batch runs through
+        the same scheduler around ``Recorder`` and each recorded call
+        becomes one kernel launch, on the conv kernel its tile plan names
+        and the path ``conv_path`` gives its geometry (a transposed conv's:
+        its stride-1 lowering; by path as ``conv_paths`` reads them), or
+        on the ``mm_path`` form."""
         rec = Recorder()
         register_backend(rec)
         sched = MultiCoreScheduler(SchedulerConfig(cores, mode))
@@ -2902,7 +3050,7 @@ def main():
         unregister_backend(name)
         unregister_backend(rec.name)
         want = {k: 0 for k in wrappers}
-        tc = {k: 0 for k in convs}
+        paths = {k: {"tc": 0, "dw": 0, "scalar": 0} for k in convs}
         forms = dict.fromkeys(PATHS, 0)
         for kind, xs, ws, kw in rec.calls:
             if kind == "matmul":
@@ -2923,8 +3071,8 @@ def main():
             plan = kw["plan"]
             k = "conv2d_ws_pipe" if plan and plan.pipelined else "conv2d_ws"
             want[k] += batches
-            tc[k] += batches * (conv_path(g) == "tc")
-        return want, tc, forms
+            paths[k][conv_path(g)] += batches
+        return want, paths, forms
 
     def cbe_serve(label, qnet, images, want_logits, mode="batch", cores=1,
                   reps=3):
@@ -2942,18 +3090,19 @@ def main():
                                        backend=backend, device=dev)
         eng.add_model(qnet)
         batches = -(-len(images) // BATCH)
-        want, want_tc, want_forms = expected_launches(qnet, mode, cores,
-                                                      batches)
+        want, want_paths, want_forms = expected_launches(qnet, mode, cores,
+                                                         batches)
         reset_counts()
         logits = eng.submit(images)
         seen = counts()
-        tc = {k: wrappers[k].tc_launches for k in convs}
+        paths = conv_paths()
         forms = dict(matmul_ws.path_launches)
-        if (seen, tc, forms) != (want, want_tc, want_forms):
+        if (seen, paths, forms) != (want, want_paths, want_forms):
             raise AssertionError(
-                f"{label} {mode}×{cores}: launches {seen}, tensor-core "
-                f"{tc}, matmul forms {forms}; expected {want}, {want_tc}, "
-                f"{want_forms}")
+                f"{label} {mode}×{cores}: launches {seen}, by path "
+                f"{paths}, matmul forms {forms}; expected {want}, "
+                f"{want_paths}, {want_forms}")
+        credit_paths()
         if logits.shape != want_logits.shape or not np.isfinite(
                 logits).all() or not np.array_equal(logits, want_logits):
             raise AssertionError(f"{label} {mode}×{cores}: logits differ "
@@ -2963,7 +3112,7 @@ def main():
             eng.submit(images)
         wall = (time.perf_counter() - t0) / reps
         log(f"  {label} {mode} × {cores} cores: launches {seen} "
-            f"(tensor-core {tc}, matmul_ws forms {forms}, as conv_path / "
+            f"(by path {paths}, matmul_ws forms {forms}, as conv_path / "
             f"mm_path give them); logits {logits.shape} bit-equal to the "
             f"plain backend; submit of {len(images)} in {1e3 * wall:.2f} ms "
             f"({len(images) / wall:.1f} images/s, mean of {reps}); "
@@ -3081,6 +3230,7 @@ def main():
                              f"no evict and rebuild")
     for k, v in counts().items():
         cbe_launches[k] += v
+    credit_paths()
     log(f"  one engine, 3 models, cache capacity 2, 4 submitter threads "
         f"(interactive and bulk): {n_req} requests in {wall:.3f} s "
         f"({n_req / wall:.1f} images/s), all bit-equal to the plain "
@@ -3127,20 +3277,19 @@ def main():
     # -- 8. training -------------------------------------------------------
     log("phase 8: training through the kernels' backward (f32, TF32 off)")
     mem_note("phase 8's entry")
-    f32 = {k: 0.0 for k in ("conv_ms", "pipe_ms", "conv_scalar_ms",
+    f32 = {k: 0.0 for k in ("conv_ms", "pipe_ms",
                             "conv_lib_ms", "conv_plain_ms", "conv_bound",
                             "dx_ms", "dx_lib_ms", "dx_bound", "mm_ms",
                             "mm_lib_ms", "mm_bound")}
     log("  vgg_imagenet f32 at batch 8, whole map, per layer (ms: CUDA "
         "events around back-to-back calls; the forward on the simt path of "
-        "conv2d_ws and conv2d_ws_pipe and on the scalar kernel, the "
-        "'before', through the launcher with its path forced; "
+        "conv2d_ws and conv2d_ws_pipe; "
         "F.conv2d, torch.nn.grad.conv2d_input and torch.matmul on the same "
         "operands, TF32 off; bounds at 3.35 TB/s and 67 TFLOP/s f32; grad "
         "errors against the plain oracles in float64, each element within "
         "f32_sum_bound, each gradient within GRAD_REL_L2 = "
         f"{GRAD_REL_L2:g} relative L2 and its TF32 control outside it):")
-    log("    layer  GFLOP    fwd ms (pipe)      scalar ms  F.conv2d ms  "
+    log("    layer  GFLOP    fwd ms (pipe)      F.conv2d ms  "
         "bound ms  simt plan            dx ms   conv2d_input ms  dx bound  "
         "dw ms    taps on matmul_ws ms  torch.matmul ms  dw bound  "
         "max err y / dx / dw / db")
@@ -3170,14 +3319,6 @@ def main():
         g = setup_conv(tuple(x.shape), tuple(w.shape), pool=kw["pool"],
                        int_path=False, **geo)
         plan = simt_plan_conv(g, kw["relu"])
-        # the scalar kernel, the "before": the same launcher, its path
-        # forced, on the tiles it picks for itself
-        old_g = scalar_tiles(g, 1)
-
-        def old_call():
-            return launch_conv("conv2d_ws", False, x, w, b, None, old_g,
-                               None, kw["relu"], kw["pool"])[0]
-        compare("conv2d_ws", old_call(), want)
         n, h, wd, c = x.shape
         kh, kwd, _, k = w.shape
         oh, ow = ref.conv_out_shape(h, wd, kh, kwd, kw["stride"],
@@ -3185,7 +3326,6 @@ def main():
         flop = 2 * n * oh * ow * k * kh * kwd * c
         fwd_ms = elapsed_ms(lambda: conv2d_ws(x, w, b, **kw), reps=3)
         pipe_ms = elapsed_ms(lambda: conv2d_ws_pipe(x, w, b, **kw), reps=3)
-        old_ms = elapsed_ms(old_call, reps=1, warmup=1)
         plain_ms = elapsed_ms(lambda: conv2d_ws_plain(x, w, b, **kw), reps=3)
         pad = ref.normalize_padding(kw["padding"], kh, kwd, kw["stride"], h,
                                     wd)
@@ -3260,7 +3400,7 @@ def main():
         dw_bound = bound_ms(4 * (x.numel() + dacc.numel() + w.numel()),
                             2 * kh * kwd * c * m * k, F32_OPS_PER_S)
         for key, v in (("conv_ms", fwd_ms), ("pipe_ms", pipe_ms),
-                       ("conv_scalar_ms", old_ms), ("conv_lib_ms", lib_ms),
+                       ("conv_lib_ms", lib_ms),
                        ("conv_plain_ms", plain_ms), ("conv_bound", fwd_bound),
                        ("dx_ms", dx_ms), ("dx_lib_ms", dx_lib),
                        ("dx_bound", dx_bound), ("mm_ms", mm_ms),
@@ -3269,7 +3409,7 @@ def main():
         shape = (f"{plan.rh}x{plan.rw}/{plan.bn} cs{plan.cs} "
                  f"split{plan.split}")
         log(f"    conv{i}  {flop / 1e9:7.3f}  {fwd_ms:8.3f} ({pipe_ms:8.3f})"
-            f"  {old_ms:9.3f}  {lib_ms:9.3f}    {fwd_bound:7.4f}  "
+            f"  {lib_ms:9.3f}    {fwd_bound:7.4f}  "
             f"{shape:19s}  {dx_ms:7.3f}  {dx_lib:9.3f}        "
             f"{dx_bound:7.4f}   {dw_ms:8.3f} {mm_ms:8.3f}              "
             f"{mm_lib:7.3f}          {dw_bound:7.4f}   {errs['y']:.2e} / "
@@ -3285,8 +3425,7 @@ def main():
                             perrs["rel"].items()))
         del xts, xr, wr, br, dacc, acc
     log(f"    sum: forward conv2d_ws {f32['conv_ms']:.3f} ms (simt), "
-        f"conv2d_ws_pipe {f32['pipe_ms']:.3f} ms (simt), the scalar kernel "
-        f"{f32['conv_scalar_ms']:.3f} ms, F.conv2d "
+        f"conv2d_ws_pipe {f32['pipe_ms']:.3f} ms (simt), F.conv2d "
         f"{f32['conv_lib_ms']:.3f} ms, plain {f32['conv_plain_ms']:.3f} ms, "
         f"bound {f32['conv_bound']:.4f} ms; the five dx convs on conv2d_ws "
         f"{f32['dx_ms']:.3f} ms (simt), torch.nn.grad.conv2d_input "
@@ -3322,7 +3461,7 @@ def main():
         GEMM, its weight-gradient GEMM and an input-gradient GEMM where its
         input needs one.  A conv launch is simt where its output groups
         are 8 or more channels wide (the forward's K/g, the input
-        gradient's C/g), else scalar: the path rule on f32."""
+        gradient's C/g), else dw or scalar: the path rule on f32."""
         ins, acts = plan.resolved_inputs(), plan.activation_shapes()
         shapes, geoms = plan.param_shapes(), plan.conv_geometries()
         needs, n_conv, n_simt = [], 0, 0
@@ -3384,6 +3523,7 @@ def main():
         for k in wrappers:
             stats[k]["launches"] += seen[k]
         stats["conv2d_ws"]["simt"]["launches"] += conv2d_ws.simt_launches
+        credit_paths()
         credit_forms()
         if not all(np.isfinite(hh["loss"]) and np.isfinite(hh["grad_norm"])
                    for hh in hist):
@@ -3395,7 +3535,7 @@ def main():
         summ = hist_us.summary()
         log(f"  {label}: {steps} fit steps of batch {batch}, launches "
             f"{seen} a run = {n_conv} conv2d_ws ({n_simt} on the simt path, "
-            f"the rest scalar) and {sum(forms.values())} matmul_ws a step "
+            f"the rest dw or scalar) and {sum(forms.values())} matmul_ws a step "
             f"({forms}), no tensor-core launch; loss {[round(hh['loss'], 4) for hh in hist]}"
             f", grad norm {[round(hh['grad_norm'], 3) for hh in hist]}; "
             f"ms a step (host clock, train.step_us) min "
@@ -3524,6 +3664,7 @@ def main():
         for k in wrappers:
             stats[k]["launches"] += seen[k]
         stats["conv2d_ws"]["simt"]["launches"] += conv2d_ws.simt_launches
+        credit_paths()
         if float_acc < 0.9 or abs(float_acc - int8_acc) > 0.02:
             raise AssertionError(f"lenet QAT per_channel={per_channel}: "
                                  f"float {float_acc}, int8 {int8_acc}")
@@ -3546,8 +3687,7 @@ def main():
                                  f32["mm_lib_ms"])
     # the simt path of each conv kernel, keys of its row in the JSON line
     for name in convs:
-        stats[name]["simt"].update(plain_ms=f32["conv_plain_ms"],
-                                   scalar_ms=f32["conv_scalar_ms"])
+        stats[name]["simt"].update(plain_ms=f32["conv_plain_ms"])
     stats["conv2d_ws"]["simt"].update(
         dx_ms=f32["dx_ms"], dx_bound_ms=f32["dx_bound"],
         dx_library_ms=f32["dx_lib_ms"])
@@ -3580,9 +3720,10 @@ def main():
             raise AssertionError(f"{smp.name}: launched {smp.meta}, the "
                                  f"path rule gives {rule}")
     paths = {p: sum(smp.meta["conv_path"] == p for smp in samples)
-             for p in ("tc", "scalar")}
+             for p in ("tc", "dw", "scalar")}
     log(f"  every sample launched on the path conv_path gives and with the "
-        f"TcPlan (bn, stages, slots) tc_plan gives: {paths}")
+        f"TcPlan (bn, stages, slots) tc_plan or the DwPlan (rectangle, "
+        f"run, slots) dw_plan gives: {paths}")
 
     measured = {smp.name: smp for smp in samples}
     device = {r[0]: r[3] for r in conv_rows}      # phase 3's device ms
@@ -3640,7 +3781,7 @@ def main():
             f"{tune.speedup:.4f} (calibrated cycles, greedy / tuned), mode "
             f"{tune.scheduler_mode} × {tune.n_cores} cores")
         batches = -(-len(images) // BATCH)
-        want, want_tc, want_forms = expected_launches(
+        want, want_paths, want_forms = expected_launches(
             q, tune.scheduler_mode, tune.n_cores, batches,
             tile_plans=tune.tile_plans)
         eng = ConvNetEngine(q, batch=BATCH, tune=tune, calib=table)
@@ -3650,13 +3791,20 @@ def main():
         logits = eng.submit(images)
         wall = time.perf_counter() - t0
         seen = counts()
-        tc = {k: wrappers[k].tc_launches for k in convs}
+        paths = conv_paths()
         forms = dict(matmul_ws.path_launches)
         eng.close()
-        if (seen, tc, forms) != (want, want_tc, want_forms):
+        if (seen, paths, forms) != (want, want_paths, want_forms):
             raise AssertionError(
-                f"tuned {name}: launches {seen}, tensor-core {tc}, forms "
-                f"{forms}; expected {want}, {want_tc}, {want_forms}")
+                f"tuned {name}: launches {seen}, by path {paths}, forms "
+                f"{forms}; expected {want}, {want_paths}, {want_forms}")
+        n_dw = sum(p_["dw"] for p_ in paths.values())
+        if (name == "mobilenet_small") != (n_dw >= 3 * batches > 0):
+            raise AssertionError(f"tuned {name}: {n_dw} dw launches (a "
+                                 f"batch of mobilenet_small's three "
+                                 f"depthwise layers makes 3 at least, one a "
+                                 f"shard)")
+        credit_paths()
         if logits.shape != want_logits.shape or not np.array_equal(
                 logits, want_logits):
             raise AssertionError(f"tuned {name}: logits differ from the "
@@ -3664,7 +3812,7 @@ def main():
         for k in wrappers:
             tuned_launches[k] += seen[k]
         log(f"    served {len(images)} requests through ConvNetEngine(tune=) "
-            f"in {1e3 * wall:.2f} ms: launches {seen} (tensor-core {tc}, "
+            f"in {1e3 * wall:.2f} ms: launches {seen} (by path {paths}, "
             f"matmul_ws forms {forms}, as conv_path / mm_path give them); "
             f"logits {logits.shape} bit-equal to the plain backend")
 
@@ -3674,7 +3822,7 @@ def main():
               for n in (1, BATCH)}
     n_single = 3
     want = {k: 0 for k in wrappers}
-    want_tc = {k: 0 for k in convs}
+    want_paths = {k: {"tc": 0, "dw": 0, "scalar": 0} for k in convs}
     want_forms = dict.fromkeys(PATHS, 0)
     # the first batch is profiled (one warm-up and one timed pass of the
     # routed program) before it runs
@@ -3682,9 +3830,12 @@ def main():
         mode, cores, _ = routes[n]
         w_, t_, f_ = expected_launches(vq, mode, cores, n_batches,
                                        tile_plans=vtune.tile_plans)
-        for d, add in ((want, w_), (want_tc, t_), (want_forms, f_)):
+        for d, add in ((want, w_), (want_forms, f_)):
             for k in d:
                 d[k] += add[k]
+        for k in convs:
+            for p_ in want_paths[k]:
+                want_paths[k][p_] += t_[k][p_]
     eng = ContinuousBatchingEngine(batch=BATCH, n_cores=4, route=True,
                                    calib=table, drift_band=(0.5, 2.0),
                                    device=dev)
@@ -3709,15 +3860,16 @@ def main():
     finally:
         obs.disable()
     seen = counts()
-    tc = {k: wrappers[k].tc_launches for k in convs}
+    paths = conv_paths()
     forms = dict(matmul_ws.path_launches)
     if not np.array_equal(got, vref):
         raise AssertionError("routed full batches: logits differ from the "
                              "plain backend")
-    if (seen, tc, forms) != (want, want_tc, want_forms):
+    if (seen, paths, forms) != (want, want_paths, want_forms):
         raise AssertionError(
-            f"routed vgg_imagenet: launches {seen}, tensor-core {tc}, forms "
-            f"{forms}; expected {want}, {want_tc}, {want_forms}")
+            f"routed vgg_imagenet: launches {seen}, by path {paths}, forms "
+            f"{forms}; expected {want}, {want_paths}, {want_forms}")
+    credit_paths()
     route_counts = {m: eng.metrics.counter(f"route.{m}").value
                     for m in ("batch", "kout", "spatial")}
     formed = eng.formation_counts()
@@ -3736,7 +3888,7 @@ def main():
         f"route=True, calib=, drift_band=(0.5, 2.0)), tune=): route_batch "
         f"at 4 cores gives batch 1 → {routes[1][:2]}, batch {BATCH} → "
         f"{routes[BATCH][:2]}; route counters {route_counts}; formation "
-        f"{formed}; launches {seen} (tensor-core {tc}, matmul_ws forms "
+        f"{formed}; launches {seen} (by path {paths}, matmul_ws forms "
         f"{forms}; the first batch's profile included); every logit "
         f"bit-equal to the plain backend")
     log(f"    single images released by the deadline: "
@@ -5098,9 +5250,11 @@ def main():
                 simt_max_abs_err=sim["max_abs_err"],
                 f32_plain_ms=sim["plain_ms"],
                 f32_bound_by=max(sim["bound_by"], key=sim["bound_by"].get),
-                f32_scalar_ms=sim["scalar_ms"],
                 **{f"f32_{k}": v for k, v in sim.items()
                    if k.startswith("dx_")})
+        if "dw" in st:      # the depthwise path (phase 3's sums), apart
+            rows[-1].update({k if k.endswith("_launches") else f"dw_{k}": v
+                             for k, v in st["dw"].items()})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ pattern (recurrent, recurrent, attention), MQA, window 2048.
 The one ported architecture with a real in-model convolution: the temporal
 conv1d (width 4) inside every recurrent block.  The block runs it as shifted
 multiply-adds (``layers.rglru.causal_conv1d``), as the reference does; its
-kernel route through the paper's dataflow is ``kernels.ops.conv1d_depthwise``.
+kernel route through the paper's dataflow is ``kernels.ops.conv1d_depthwise``
+(``conv2d_ws``'s depthwise direct conv, the dw path).
 """
 from repro_torch.configs.base import ArchConfig, BLOCK_RGLRU, BLOCK_LOCAL
 

@@ -22,9 +22,10 @@ model.  This module searches the reference's candidate space instead:
   run under (the continuous-batching engine's ``route=True``).
 
 On the H100 the tile plan of an int8 layer does not shape the
-tensor-core launch (``conv2d_ws.tc_plan`` sizes it from the geometry);
-the plan's tiles and banks change what the model prices and what the
-scalar path runs, and ``pipelined`` picks the kernel.
+tensor-core or depthwise launch (``conv2d_ws.tc_plan`` / ``dw_plan`` size
+it from the geometry); the plan's tiles and banks change what the model
+prices and what the scalar path runs, and ``pipelined`` picks the
+kernel.
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ this module holds
   contract with the planner, validated on every call;
 * ``conv_path`` — the path rule: layers whose per-group output width
   K/groups is at least 8 run an implicit GEMM, int8 on the tensor cores
-  ("tc"), f32 on register-tiled FFMA ("simt"); narrower groups (depthwise)
-  run the scalar kernel ("scalar"), in int8 and in f32;
+  ("tc"), f32 on register-tiled FFMA ("simt"); narrower groups of one
+  input channel (depthwise) run a channel-vectorised direct conv ("dw"),
+  in int8 and in f32; narrower groups of several input channels run the
+  scalar kernel ("scalar");
 * ``tc_plan`` / ``pack_weights`` — the tensor-core path's launch plan (block
   rectangles, N-tile, K-chunks, shared-memory layout) and its K-major
   weights; ``conv2d_ws_tc_emulate`` replays that plan in plain PyTorch, block
@@ -21,11 +23,15 @@ this module holds
 * ``simt_plan`` — the f32 path's launch plan (block rectangles, N-tile,
   K-chunks, K split, ring depth); ``conv2d_ws_simt_emulate`` replays its
   order of sums in plain PyTorch for the CPU tests;
+* ``dw_plan`` — the dw path's launch plan (block rectangles, channel
+  runs, padded row pitches); ``conv2d_ws_dw_emulate`` replays its order of
+  sums in plain PyTorch;
 * ``conv2d_ws_plain`` — the plain PyTorch version of the same function;
 * ``conv2d_ws`` — the wrapper: on a CUDA tensor it launches the kernel (and
   counts the launch in ``conv2d_ws.launches``, and in
-  ``conv2d_ws.tc_launches`` or ``conv2d_ws.simt_launches`` by path), on a
-  CPU tensor it takes the plain version.
+  ``conv2d_ws.tc_launches``, ``conv2d_ws.simt_launches`` or
+  ``conv2d_ws.dw_launches`` by path), on a CPU tensor it takes the plain
+  version.
 
 Zero padding and the trailing blocks' zero extension happen inside the
 kernel (exact for the symmetric zero-point-0 int8 scheme), so the padded
@@ -55,7 +61,8 @@ SM_SMEM = 233_472         # shared memory of one SM; 1 KB of it per block
 # width (csrc: __launch_bounds__(256, NT == 2 ? 4 : 2))
 TC_BLOCKS_PER_SM = {32: 4, 64: 2}
 GEMM_MIN_KGRP = 8         # narrowest group output width of the implicit
-                          # GEMMs (tc, simt); narrower groups run scalar
+                          # GEMMs (tc, simt); narrower groups run dw (one
+                          # input channel a group) or scalar
 TC_BM = 128               # output pixels per tensor-core block (kTcBM)
 TC_MAX_STAGES = 4         # deepest conv2d_ws_pipe ring
 
@@ -478,12 +485,16 @@ def conv_path(g: ConvGeom) -> str:
     """The path rule, by geometry alone: K/groups ≥ 8 with one K-chunk's
     window and weight slab within a block's shared memory runs an implicit
     GEMM — "tc" for int8 operands (``tc_plan``), "simt" for f32
-    (``simt_plan``); anything else ("scalar": depthwise and other groups
-    narrower than 8 outputs, int8 or f32) runs the first port's scalar
-    kernel."""
+    (``simt_plan``); one input channel a group with fewer than 8 outputs
+    (depthwise, a channel multiplier under 8, a one-channel map with under
+    8 outputs) runs the direct conv "dw" (``dw_plan``), int8 or f32;
+    anything else ("scalar": groups of several input channels and under 8
+    outputs) runs the first port's scalar kernel."""
     if tc_plan(g) is not None:
         return "tc"
-    return "simt" if simt_plan(g) is not None else "scalar"
+    if simt_plan(g) is not None:
+        return "simt"
+    return "dw" if dw_plan(g) is not None else "scalar"
 
 
 # (id(weights), what was derived) → (weak reference to the weights, their
@@ -949,6 +960,322 @@ def conv2d_ws_simt_emulate(x, w, bias=None, out_scale=None, *,
     return out[:, :p.poh, :p.pow_].contiguous()
 
 
+# ---------------------------------------------------------------------------
+# The depthwise path, "dw" (csrc/conv_common.cuh: DwParams and the dw_*
+# device functions): one input channel a group and fewer than 8 outputs,
+# int8 or f32.  A direct conv whose blocks are sized by geometry alone, so
+# each output's sum (bias, then the taps in (dy, dx) order) does not depend
+# on the caller's tiles or banks.
+# ---------------------------------------------------------------------------
+
+DW_V = 4                  # channels a thread's vector (csrc: kDwV)
+DW_SP = 4                 # conv-output pixels a thread's strip (kDwSP)
+DW_MAX_KC = {True: 64, False: 128}  # channels a run, int8 / f32
+
+# Field order of ``DwParams`` in csrc/conv_common.cuh.
+DW_FIELDS = ("n", "h", "w", "c", "k", "kh", "kw", "stride", "dil", "pt",
+             "pl", "mult", "oh", "ow", "poh", "pow_", "relu", "pool", "rh",
+             "rw", "n_ry", "n_rx", "kc", "n_kc", "cv", "win_h", "win_w",
+             "pitch", "tpitch", "win_bytes", "slot_bytes", "slots", "smem",
+             "n_rect", "xvec", "wvec", "ovec")
+
+
+class DwPlan(NamedTuple):
+    """One dw launch: every ``DwParams`` field but the three copy widths,
+    which depend on the operands' addresses (``dw_params``)."""
+    n: int
+    h: int
+    w: int
+    c: int
+    k: int
+    kh: int
+    kw: int
+    stride: int
+    dil: int
+    pt: int
+    pl: int
+    mult: int                 # K/groups: output channel k reads k // mult
+    oh: int                   # conv-output extents (pool-trimmed)
+    ow: int
+    poh: int                  # epilogue output extents
+    pow_: int
+    relu: int
+    pool: int
+    rh: int                   # block rectangle of conv-output pixels:
+    rw: int                   # rh·rw = active threads·DW_SP / cv, a
+                              # power of two, pool-aligned
+    n_ry: int                 # rectangles per image, down and across
+    n_rx: int
+    kc: int                   # output channels of a run (contiguous)
+    n_kc: int                 # runs: ⌈K / kc⌉
+    cv: int                   # channel vectors across a run: kc / 4
+    win_h: int                # halo'd input window of one rectangle
+    win_w: int
+    pitch: int                # elements a window row: win_w·kc + pad
+    tpitch: int               # accumulators a tile row: rw·kc + pad
+    win_bytes: int            # window, 16-byte aligned; the weights
+                              # [taps][kc] follow it
+    slot_bytes: int           # max(window + weights, accumulator tile)
+    slots: int                # 1 for conv2d_ws, 2 for conv2d_ws_pipe's ring
+    smem: int                 # dynamic shared memory of one block
+    n_rect: int               # blocks' work items: n · n_ry · n_rx · n_kc
+
+
+def dw_thread(t: int, cv: int, rh: int) -> Tuple[int, int, int]:
+    """Thread ``t``'s (channel vector, rectangle row, strip column) —
+    csrc ``DwThread``: vectors fastest, then rows, so a warp's strips lie
+    in consecutive rows of one strip column."""
+    u = t // cv
+    return t % cv, u % rh, u // rh
+
+
+def _ways(spans) -> int:
+    """Shared-memory wavefronts one access of ``spans`` (first word, words)
+    takes: the most distinct words that fall on one bank."""
+    banks: Dict[int, set] = {}
+    for start, count in spans:
+        for word in range(start, start + count):
+            banks.setdefault(word % 32, set()).add(word)
+    return max(len(v) for v in banks.values())
+
+
+def _warps(active: int):
+    """The thread numbers of each warp among a block's first ``active``
+    threads, those that own a strip."""
+    return [range(t, min(t + 32, active)) for t in range(0, active, 32)]
+
+
+@functools.lru_cache(maxsize=4096)
+def dw_read_ways(int_path: bool, cv: int, rh: int, stride: int, kc: int,
+                 pitch: int, active: int = THREADS) -> int:
+    """Wavefronts of a block's worst window read: a lane reads one channel
+    vector of its strip's pixel (4 floats, 16-byte loads in wavefronts of
+    8 lanes; 4 int8, one word in wavefronts of 32 lanes)."""
+    ways = 1
+    for warp in _warps(active):
+        lanes = [dw_thread(t, cv, rh) for t in warp]
+        if int_path:       # bytes → words
+            fronts = [[((r * stride * pitch + c * DW_SP * stride * kc
+                         + v * DW_V) // 4, 1) for v, r, c in lanes]]
+        else:
+            fronts = [[(r * stride * pitch + c * DW_SP * stride * kc
+                        + v * DW_V, 4) for v, r, c in lanes[q:q + 8]]
+                      for q in range(0, 32, 8)]
+        ways = max(ways, *map(_ways, fronts))
+    return ways
+
+
+@functools.lru_cache(maxsize=4096)
+def dw_write_ways(cv: int, rh: int, kc: int, tpitch: int,
+                  active: int = THREADS) -> int:
+    """Wavefronts of a block's worst accumulator-tile write: a lane stores
+    4 accumulators of one pixel (16-byte stores, wavefronts of 8)."""
+    ways = 1
+    for warp in _warps(active):
+        lanes = [dw_thread(t, cv, rh) for t in warp]
+        ways = max(ways, *(_ways([(r * tpitch + c * DW_SP * kc + v * DW_V, 4)
+                                  for v, r, c in lanes[q:q + 8]])
+                           for q in range(0, 32, 8)))
+    return ways
+
+
+def _least_ways(base: int, pads, ways) -> int:
+    """``base`` plus the first of ``pads`` whose ``ways`` is least."""
+    best = None
+    for p in pads:
+        n = ways(base + p)
+        if best is None or n < best[0]:
+            best = (n, base + p)
+        if n == 1:
+            break
+    return best[1]
+
+
+def _dw_layout(g: ConvGeom, kc: int, rh: int, rw: int):
+    """(win_h, win_w, pitch, tpitch, win_bytes, slot_bytes) of a block
+    rectangle: each row pitch padded by the least (16 bytes at a time, a
+    word for an int8 window) that makes the block's window reads and tile
+    writes the fewest wavefronts."""
+    es = 1 if g.int_path else 4
+    cv = kc // DW_V
+    active = rh * (rw // DW_SP) * cv
+    win_h = halo_window(rh, g.stride, g.kh, g.dilation)
+    win_w = halo_window(rw, g.stride, g.kw, g.dilation)
+    pitch = _least_ways(win_w * kc, range(0, 128 if g.int_path else 32, 4),
+                        lambda pt_: dw_read_ways(g.int_path, cv, rh,
+                                                 g.stride, kc, pt_, active))
+    tpitch = _least_ways(rw * kc, range(0, 32, 4),
+                         lambda tp: dw_write_ways(cv, rh, kc, tp, active))
+    win_bytes = _align16(win_h * pitch * es)
+    w_bytes = _align16(g.kh * g.kw * kc * es)
+    return (win_h, win_w, pitch, tpitch, win_bytes,
+            max(win_bytes + w_bytes, _align16(rh * tpitch * 4)))
+
+
+def _dw_rect(g: ConvGeom, pool: bool, oh: int, ow: int, kc: int,
+             strips: int):
+    """(rh, rw, layout) of the rectangle of ``strips`` strips whose window
+    fits twice in a block's shared memory and that pads the map least,
+    then whose halo'd window is smallest, then the widest; None where no
+    rectangle fits."""
+    best = None
+    for rh in (1 << a for a in range(9) if (1 << a) <= strips):
+        rw = DW_SP * strips // rh
+        if pool and rh % 2:
+            continue
+        lay = _dw_layout(g, kc, rh, rw)
+        if 2 * lay[5] > SMEM_BYTES:
+            continue
+        area = -(-oh // rh) * rh * -(-ow // rw) * rw
+        key = (area, lay[0] * lay[1], -rw)
+        if best is None or key < best[0]:
+            best = (key, rh, rw, lay)
+    return best and best[1:]
+
+
+@functools.lru_cache(maxsize=512)
+def _dw_plan(g: ConvGeom, relu: bool, pipelined: bool) -> DwPlan:
+    pool = _pooled(g)
+    groups = g.c // g.cgrp
+    oh, ow = (2 * g.poh, 2 * g.pow_) if pool else (g.poh, g.pow_)
+    runs = sorted((DW_V << a for a in range(8)
+                   if DW_V << a <= DW_MAX_KC[g.int_path]),
+                  key=lambda r: (-(-g.k // r) * r, -r))  # least padding
+    # every thread owning a strip, at the widest run whose window fits;
+    # only where none fits, half the threads, and so on
+    best = next(((kc, rect) for active in (THREADS >> a for a in range(9))
+                 for kc in runs if active >= kc // DW_V
+                 for rect in [_dw_rect(g, pool, oh, ow, kc,
+                                       active // (kc // DW_V))] if rect),
+                None)
+    if best is None:
+        raise ValueError(
+            f"no dw block rectangle of this layer fits a block's shared "
+            f"memory: [{g.n},{g.h},{g.w},{g.c}] ⊛ [{g.kh},{g.kw},1,{g.k}] "
+            f"(stride {g.stride}, dilation {g.dilation})")
+    kc, (rh, rw, (win_h, win_w, pitch, tpitch, win_bytes, slot_bytes)) = best
+    cv = kc // DW_V
+    slots = 2 if pipelined else 1
+    n_ry, n_rx, n_kc = -(-oh // rh), -(-ow // rw), -(-g.k // kc)
+    return DwPlan(
+        n=g.n, h=g.h, w=g.w, c=g.c, k=g.k, kh=g.kh, kw=g.kw,
+        stride=g.stride, dil=g.dilation, pt=g.pt, pl=g.pl,
+        mult=g.k // groups, oh=oh, ow=ow, poh=g.poh, pow_=g.pow_,
+        relu=int(relu), pool=int(pool), rh=rh, rw=rw, n_ry=n_ry, n_rx=n_rx,
+        kc=kc, n_kc=n_kc, cv=cv, win_h=win_h, win_w=win_w, pitch=pitch,
+        tpitch=tpitch, win_bytes=win_bytes, slot_bytes=slot_bytes,
+        slots=slots, smem=slots * slot_bytes,
+        n_rect=g.n * n_ry * n_rx * n_kc)
+
+
+def dw_plan(g: ConvGeom, relu: bool = False,
+            pipelined: bool = False) -> Optional[DwPlan]:
+    """The dw launch plan of ``g``, or None where ``conv_path`` sends it
+    elsewhere (a group of more than one input channel, or of 8 or more
+    outputs).  Deterministic in the geometry, whatever the caller's banks
+    and tiles:
+
+    * a block of 256 threads computes a pool-aligned rectangle of
+      conv-output pixels of one image for a run of ``kc`` output channels
+      that are contiguous in NHWC (4–128 in f32, 4–64 in int8: the power of
+      two times 4 that pads K least, the largest of those whose window
+      fits twice in a block's shared memory);
+    * a thread owns a vector of 4 channels and a strip of ``DW_SP`` pixels
+      along a rectangle row; the run's ``cv`` vectors lie across a warp, so
+      the rectangle has 256 / cv strips — the shape that pads the map
+      least, then whose halo'd window is smallest, then the widest.  Where
+      no run's window of that many strips fits (a wide stride in f32), the
+      first 128, 64, … threads own strips and the others only copy and
+      store;
+    * the window and the accumulator tile rows are padded so that a warp's
+      reads and writes of shared memory take the fewest wavefronts;
+    * ``conv2d_ws`` runs one block a rectangle (``n_rect`` blocks);
+      ``conv2d_ws_pipe`` persistent blocks that walk the rectangles and
+      prefetch the next one's window into a second slot.
+
+    The two wrappers' plans differ in ``slots`` and ``smem`` only.  Raises
+    where even two windows of one strip overflow a block's shared
+    memory."""
+    if g.cgrp != 1 or g.k // g.c >= GEMM_MIN_KGRP:
+        return None
+    return _dw_plan(g, bool(relu), bool(pipelined))
+
+
+def dw_params(plan: DwPlan, x: torch.Tensor, w: torch.Tensor,
+              out: torch.Tensor) -> ctypes.Array:
+    """The ``DwParams`` record of one launch, as a C int array: the plan
+    and the widest copy each operand allows — the window (16, 8 or 4
+    bytes a ``cp.async``, dividing the run, the map's pixel, a window row
+    and x's address; 0 = one element at a time, as a channel multiplier
+    above 1 reads), the weight rows (the same, against K), and the
+    output's stores (4 channels where K comes in fours, else 1)."""
+    es = x.element_size()
+    xvec = (_chunk(plan.kc * es, plan.c * es, plan.pitch * es, x.data_ptr())
+            if plan.mult == 1 else 0)
+    wvec = _chunk(plan.kc * es, plan.k * es, w.data_ptr())
+    ovec = 4 if plan.k % 4 == 0 and out.data_ptr() % (
+        4 * out.element_size()) == 0 else 1
+    return _dw_record(plan, xvec, wvec, ovec)
+
+
+@functools.lru_cache(maxsize=512)
+def _dw_record(plan: DwPlan, xvec: int, wvec: int, ovec: int
+               ) -> ctypes.Array:
+    vals = [int(v) for v in plan] + [xvec, wvec, ovec]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def conv2d_ws_dw_emulate(x, w, bias=None, out_scale=None, *,
+                         pipelined: bool = False, stride: int = 1,
+                         padding="VALID", groups: int = 1,
+                         cin_banks: int = 4, kout_banks: int = 4,
+                         h_tile: int = 0, w_tile: int = 0,
+                         relu: bool = False, pool: bool = False,
+                         dilation: int = 1) -> torch.Tensor:
+    """The dw kernels' order of sums replayed in plain PyTorch: each output
+    channel k reads input channel k // (K/groups) of the zero-padded map;
+    its sum starts at the bias and adds the taps in (dy, dx) order, one
+    fused multiply-add a tap (in f32 the product is exact in float64 and
+    the sum rounds to f32 once more, which differs from the card's FFMA
+    only where the float64 sum lands on an f32 tie; int8 sums are exact);
+    then the epilogue (ReLU → 2×2 max-pool → requantize).  The plan only
+    validates: no block shape changes a value.  On any device; for the
+    tests and ``chip_smoke.py`` only: the wrappers never call it."""
+    int_path = _check_operands(x, w)
+    g = setup_conv(tuple(x.shape), tuple(w.shape), stride=stride,
+                   padding=padding, groups=groups, cin_banks=cin_banks,
+                   kout_banks=kout_banks, h_tile=h_tile, w_tile=w_tile,
+                   pool=pool, requant=out_scale is not None,
+                   dilation=dilation, int_path=int_path)
+    p = dw_plan(g, relu, pipelined)
+    if p is None:
+        raise ValueError(f"this geometry takes the {conv_path(g)} path "
+                         f"(conv_path)")
+    bias, scale, out_dtype = _operands(x, w, bias, out_scale, g)
+    hp = halo_window(p.oh, p.stride, p.kh, p.dil)
+    wpx = halo_window(p.ow, p.stride, p.kw, p.dil)
+    xp = x.new_zeros((p.n, max(hp, p.pt + p.h), max(wpx, p.pl + p.w), p.c))
+    xp[:, p.pt:p.pt + p.h, p.pl:p.pl + p.w] = x
+    xk = xp.index_select(3, torch.arange(p.k, device=x.device) // p.mult)
+    wk = w.reshape(p.kh, p.kw, p.k)
+    wide = torch.int64 if int_path else torch.float64
+    acc = bias.expand(p.n, p.oh, p.ow, p.k)
+    for dy in range(p.kh):
+        for dx in range(p.kw):
+            y0, x0 = dy * p.dil, dx * p.dil
+            xs = xk[:, y0:y0 + (p.oh - 1) * p.stride + 1:p.stride,
+                    x0:x0 + (p.ow - 1) * p.stride + 1:p.stride]
+            acc = (acc.to(wide) + xs.to(wide) * wk[dy, dx].to(wide)).to(
+                acc.dtype)
+    if p.relu:
+        acc = acc.clamp(min=0)
+    if p.pool:
+        acc = acc.reshape(p.n, p.poh, 2, p.pow_, 2, p.k).amax(dim=(2, 4))
+    if out_scale is not None:
+        acc = ref.requantize_ref(acc, scale)
+    return acc.to(out_dtype).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(lib_name: str, suffix: str, pointers: int = 5):
     fn = getattr(_build.load(lib_name), f"{lib_name}{suffix}")
@@ -968,14 +1295,16 @@ def _frozen(v):
 @functools.lru_cache(maxsize=512)
 def _launch_setup(x_shape, w_shape, int_path: bool, requant: bool,
                   relu: bool, pool: bool, pipelined: bool, geo: tuple):
-    """(ConvGeom, TcPlan, SimtPlan or None) of one launch, cached per call
-    signature: the served network asks for the same few every batch.  The
-    validation is ``setup_conv``'s; a geometry it refuses raises on every
-    call.  On the scalar path (plan None) the geometry carries the tiles
-    ``scalar_tiles`` fits into a block's shared memory."""
+    """(ConvGeom, TcPlan, SimtPlan, DwPlan or None) of one launch, cached
+    per call signature: the served network asks for the same few every
+    batch.  The validation is ``setup_conv``'s; a geometry it refuses
+    raises on every call.  On the scalar path (plan None) the geometry
+    carries the tiles ``scalar_tiles`` fits into a block's shared
+    memory."""
     g = setup_conv(x_shape, w_shape, pool=pool, requant=requant,
                    int_path=int_path, **dict(geo))
-    plan = (tc_plan if int_path else simt_plan)(g, relu, pipelined)
+    plan = ((tc_plan if int_path else simt_plan)(g, relu, pipelined)
+            or dw_plan(g, relu, pipelined))
     if plan is None:
         g = scalar_tiles(g, 2 if pipelined else 1)
     return g, plan
@@ -987,14 +1316,22 @@ def launch_conv(lib_name: str, pipelined: bool, x, w, bias, out_scale,
     """Launch one of the two conv kernels on PyTorch's current stream: on
     the tensor-core path where ``plan`` is a ``TcPlan``, on the simt path
     where it is a ``SimtPlan`` (with the K slices' partial sums in a
-    scratch tensor where it splits K), else on the scalar path, whose
-    ``g`` fits a block's shared memory (``scalar_tiles``) → (result,
-    "tc", "simt" or "scalar")."""
+    scratch tensor where it splits K), on the dw path where it is a
+    ``DwPlan``, else on the scalar path, whose ``g`` fits a block's shared
+    memory (``scalar_tiles``) → (result, "tc", "simt", "dw" or
+    "scalar")."""
     x = x.contiguous()
     bias, scale, out_dtype = _operands(x, w, bias, out_scale, g)
     out = torch.empty((g.n, g.poh, g.pow_, g.k), dtype=out_dtype,
                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if isinstance(plan, DwPlan):
+        w = w.contiguous()
+        params = dw_params(plan, x, w, out)
+        _build.check(lib_name, _entry(lib_name, "_dw_launch")(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), params, len(params), _mode(g), stream))
+        return out, "dw"
     if isinstance(plan, SimtPlan):
         w = w.contiguous()
         part = (torch.empty((plan.split, plan.n, plan.oh, plan.ow, plan.k),
@@ -1043,7 +1380,7 @@ def run_conv(lib_name: str, pipelined: bool, plain, x, w, bias, out_scale,
              ) -> Tuple[torch.Tensor, Optional[str]]:
     """Shared body of the two conv wrappers → (result, path): the plain
     version for a CPU tensor (path None), the kernel for a CUDA tensor
-    (path "tc", "simt" or "scalar", as ``conv_path`` rules)."""
+    (path "tc", "simt", "dw" or "scalar", as ``conv_path`` rules)."""
     if x.device.type == "cpu":
         return plain(x, w, bias, out_scale, relu=relu, pool=pool, **geo), None
     if not x.is_cuda:
@@ -1059,12 +1396,13 @@ def run_conv(lib_name: str, pipelined: bool, plain, x, w, bias, out_scale,
 
 def count_launch(fn, path: Optional[str]) -> None:
     """Count a launch on the wrapper ``fn``: ``launches`` every one,
-    ``tc_launches`` / ``simt_launches`` those of the tensor-core / simt
-    path."""
+    ``tc_launches`` / ``simt_launches`` / ``dw_launches`` those of the
+    tensor-core / simt / dw path."""
     if path is not None:
         fn.launches += 1
         fn.tc_launches += path == "tc"
         fn.simt_launches += path == "simt"
+        fn.dw_launches += path == "dw"
 
 
 def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
@@ -1079,7 +1417,7 @@ def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
     are conv-output tile extents (0 = whole map; pool-aligned when pooling):
     validated, and followed by the scalar kernel where they fit a block's
     shared memory (else it picks its own, ``scalar_tiles``, with the same
-    values); the tensor-core and simt paths size their blocks for the
+    values); the tensor-core, simt and dw paths size their blocks for the
     card.
 
     On a CUDA tensor this launches ``csrc/conv2d_ws.cu``; on a CPU tensor it
@@ -1096,3 +1434,4 @@ def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
 conv2d_ws.launches = 0
 conv2d_ws.tc_launches = 0
 conv2d_ws.simt_launches = 0
+conv2d_ws.dw_launches = 0

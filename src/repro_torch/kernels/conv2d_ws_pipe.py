@@ -7,16 +7,18 @@ conv2d_ws_pipe``.  Same function, signature, geometry and path rule
 ``csrc/conv2d_ws_pipe.cu`` streams its K-chunks through a multi-stage
 ``cp.async`` ring on the tensor-core and simt paths (up to 4 stages, as
 deep as the blocks per SM that ``conv2d_ws`` runs allow, one where two
-would cost a block: ``conv2d_ws.tc_plan``, ``conv2d_ws.simt_plan``) and
-its cin-bank slabs through a 2-stage ring on the scalar path.  It shares
-its compute and epilogue with ``csrc/conv2d_ws.cu``, so the two kernels
-are bit-equal.
+would cost a block: ``conv2d_ws.tc_plan``, ``conv2d_ws.simt_plan``), runs
+persistent blocks that prefetch the next rectangle's window into a
+2-slot ring on the dw path (``conv2d_ws.dw_plan``), and streams its
+cin-bank slabs through a 2-stage ring on the scalar path.  It shares its
+compute and epilogue with ``csrc/conv2d_ws.cu``, so the two kernels are
+bit-equal.
 
 On a CUDA tensor ``conv2d_ws_pipe`` launches the kernel and counts the
-launch in ``conv2d_ws_pipe.launches`` (and in ``conv2d_ws_pipe.tc_launches``
-or ``conv2d_ws_pipe.simt_launches`` by path); on a CPU tensor it runs the
-plain version, which is ``conv2d_ws_plain`` — the function both kernels
-compute.
+launch in ``conv2d_ws_pipe.launches`` (and in ``conv2d_ws_pipe.tc_launches``,
+``conv2d_ws_pipe.simt_launches`` or ``conv2d_ws_pipe.dw_launches`` by
+path); on a CPU tensor it runs the plain version, which is
+``conv2d_ws_plain`` — the function both kernels compute.
 """
 
 from __future__ import annotations
@@ -51,3 +53,4 @@ def conv2d_ws_pipe(x, w, bias=None, out_scale=None, *, stride: int = 1,
 conv2d_ws_pipe.launches = 0
 conv2d_ws_pipe.tc_launches = 0
 conv2d_ws_pipe.simt_launches = 0
+conv2d_ws_pipe.dw_launches = 0

@@ -10,10 +10,13 @@
 // at batch 8, vgg_imagenet's conv 0 and 1 in int8 by bytes (4.31 and 4.80
 // us at 3.35 TB/s), conv 2-5 by int8 operations (1.87, 1.87, 1.87 and 0.93
 // us at 1,979 TOP/s); in f32 conv 0 by bytes (17.26 us) and conv 1-5 by
-// FFMA (110.43, 55.21, 55.21, 55.21, 27.61 us at 67 TFLOP/s).  That note
-// also gives the design of the three paths and the rule that picks one:
-// K/groups >= 8 runs an implicit GEMM (int8 "tc", f32 "simt"), narrower
-// groups the scalar kernel.
+// FFMA (110.43, 55.21, 55.21, 55.21, 27.61 us at 67 TFLOP/s); a depthwise
+// layer by its bytes in either type (mobilenet_small's at batch 8 in int8:
+// 1.92, 2.40, 1.92 us; recurrentgemma-9b's temporal conv at [1, 4096,
+// 4096] in f32: 40.1 us).  That note also gives the design of the four
+// paths and the rule that picks one: K/groups >= 8 runs an implicit GEMM
+// (int8 "tc", f32 "simt"), one input channel a group with fewer outputs
+// the direct conv "dw", other narrower groups the scalar kernel.
 //
 // Tensor-core path (int8, K/groups >= 8): conv_ws_tc_kernel, an implicit
 // GEMM on mma.sync m16n8k32 s8 with register accumulators, one block per
@@ -32,8 +35,18 @@
 // computes it; conv2d_ws_pipe.cu runs the same device functions through a
 // ring, so the two are bit-equal.
 //
-// Scalar path (depthwise and other groups narrower than 8 outputs, int8 or
-// f32): conv_ws_kernel, the first port's form.  One block per (image,
+// Depthwise path (C/groups == 1, K/groups < 8, int8 or f32):
+// conv_ws_dw_kernel, a direct conv, one block per (pool-aligned rectangle
+// of an image, run of output channels contiguous in NHWC), sized by
+// geometry alone.  Its threads take 4-channel vectors across the run and
+// 4-pixel strips along the rectangle's rows; it loads the rectangle's
+// halo'd window and the run's weights with cp.async, waits, sums bias and
+// taps in (dy, dx) order in registers, and stores through a shared tile.
+// conv2d_ws_pipe.cu runs the same device functions in persistent blocks
+// with a prefetched next window, so the two are bit-equal.
+//
+// Scalar path (groups of several input channels and fewer than 8 outputs,
+// int8 or f32): conv_ws_kernel, the first port's form.  One block per (image,
 // output tile of the TilePlan, kout bank); the TPU's sequential cin grid
 // axis becomes a loop over the cin banks of the bank's group (channel base
 // (ko / bpg) * cgrp).  Each cin bank's halo'd input window [in_th, in_tw,
@@ -202,6 +215,45 @@ int launch_simt(const void* x, const void* w, const void* bias,
   return simt_reduce<REQUANT>(part, bias, scale, out, p, stream);
 }
 
+// Registers for a strip of 4 pixels x 4 channels and a window row of up to
+// 7 vectors fit 80 a thread, so three blocks share an SM
+template <typename Tin, typename Tacc, bool REQUANT, int KW_T>
+__global__ void __launch_bounds__(kConvThreads, 3)
+conv_ws_dw_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
+                  const Tacc* __restrict__ bias,
+                  const float* __restrict__ scale, void* __restrict__ out,
+                  DwParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DwRect rc(p, blockIdx.x);
+  const DwThread th(p);
+  dw_issue<Tin>(smem, x, w, p, rc);
+  cp_async_commit();
+  DwChannels<Tacc> ch;
+  dw_channels<Tacc, REQUANT>(ch, bias, scale, p, th, rc);
+  cp_async_wait<0>();
+  __syncthreads();
+  Tacc acc[kDwSP][kDwV];
+  dw_compute<Tin, Tacc, KW_T>(acc, smem, ch.bias, p, th);
+  __syncthreads();  // every strip is done with the window: the tile replaces it
+  dw_stage(acc, smem, p, th);
+  __syncthreads();
+  dw_store<Tacc, REQUANT>(smem, ch.scale, scale, out, p, rc);
+}
+
+template <typename Tin, typename Tacc, bool REQUANT, int KW_T>
+int launch_dw(const void* x, const void* w, const void* bias,
+              const float* scale, void* out, const DwParams& p,
+              cudaStream_t stream) {
+  auto kernel = conv_ws_dw_kernel<Tin, Tacc, REQUANT, KW_T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.n_rect, kConvThreads, p.smem, stream>>>(
+      static_cast<const Tin*>(x), static_cast<const Tin*>(w),
+      static_cast<const Tacc*>(bias), scale, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -237,6 +289,18 @@ int conv2d_ws_simt_launch(const void* x, const void* w, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SIMT_DISPATCH(mode, p.bn, launch_simt, x, w, bias, scale, out, part, p, s)
+}
+
+int conv2d_ws_dw_launch(const void* x, const void* w, const void* bias,
+                        const float* scale, void* out, const int* geom,
+                        int n_fields, int mode, void* stream) {
+  if (n_fields != kDwParamsFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DwParams p = *reinterpret_cast<const DwParams*>(geom);
+  if (!dw_valid(p) || p.slots != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DW_DISPATCH(mode, p, launch_dw, x, w, bias, scale, out, p, s)
 }
 
 const char* error_string(int code) {

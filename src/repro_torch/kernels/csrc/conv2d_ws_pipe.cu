@@ -3,14 +3,16 @@
 // Replaces the Pallas TPU kernel repro.kernels.conv2d_ws_pipe.conv2d_ws_pipe
 // (_pipe_kernel), which writes the conv2d_ws data movement out by hand with a
 // 2-slot ping-pong of the input window and weight bank.  Same function as
-// conv2d_ws.cu, the same three paths and the same path rule
+// conv2d_ws.cu, the same four paths and the same path rule
 // (conv_common.cuh's note), and the same compute and epilogue device
 // functions, so the result is bit-equal to conv2d_ws.cu on every path; only
 // the data motion differs.  What bounds each layer on the H100 is as there:
 // at batch 8, vgg_imagenet's conv 0 and 1 in int8 by bytes (4.31 and 4.80
 // us), conv 2-5 by int8 operations (1.87 us each for 2-4, 0.93 us for 5);
 // in f32 conv 0 by bytes (17.26 us), conv 1-5 by FFMA (110.43, 55.21 x 3,
-// 27.61 us).
+// 27.61 us); a depthwise layer by its bytes (mobilenet_small's at batch 8
+// in int8: 1.92, 2.40, 1.92 us; the [1, 4096, 4096] temporal conv in f32:
+// 40.1 us).
 //
 // Tensor-core path (int8, K/groups >= 8): conv_ws_pipe_tc_kernel.  Blocks
 // as in conv2d_ws.cu (128-pixel rectangles x 32/64-channel N-tiles, sized
@@ -31,8 +33,18 @@
 // (conv2d_ws.py: simt_plan, simt_blocks_per_sm; the epilogue's f32 tile,
 // which aliases the ring, often leaves room for it at no cost in blocks).
 //
-// Scalar path (depthwise and other groups narrower than 8 outputs, int8 or
-// f32): conv_ws_pipe_kernel, the first port's form.  The same block
+// Depthwise path (C/groups == 1, K/groups < 8, int8 or f32):
+// conv_ws_pipe_dw_kernel.  Work items and plan as conv2d_ws.cu's dw kernel
+// (a pool-aligned rectangle x a run of output channels), walked by
+// persistent blocks, as many as stay resident (the occupancy query at
+// launch; the grid changes no value).  A block issues its next item's
+// window and weights into the other slot of a 2-slot cp.async ring before
+// it computes the current one, and stages the current one's accumulators
+// in the current slot, so a load is in flight through every compute and
+// epilogue.
+//
+// Scalar path (groups of several input channels and fewer than 8 outputs,
+// int8 or f32): conv_ws_pipe_kernel, the first port's form.  The same block
 // decomposition as conv2d_ws.cu's scalar kernel (one block per image,
 // TilePlan tile and kout bank; a loop over the group's cin banks), with
 // cin-bank slabs streamed into a 2-stage shared-memory ring with cp.async,
@@ -283,6 +295,69 @@ int launch_simt(const void* x, const void* w, const void* bias,
   return simt_reduce<REQUANT>(part, bias, scale, out, p, stream);
 }
 
+// Persistent blocks over the work items (rectangle x channel run): the
+// next item's window and weights stream into the other slot of a 2-slot
+// ring while this one computes; the tile of an item takes the place of its
+// own slot's window, so the prefetch never waits for the epilogue.
+template <typename Tin, typename Tacc, bool REQUANT, int KW_T>
+__global__ void __launch_bounds__(kConvThreads, 3)
+conv_ws_pipe_dw_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
+                       const Tacc* __restrict__ bias,
+                       const float* __restrict__ scale,
+                       void* __restrict__ out, DwParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DwThread th(p);
+  int r = blockIdx.x;
+  if (r < p.n_rect) dw_issue<Tin>(smem, x, w, p, DwRect(p, r));
+  cp_async_commit();
+  for (int i = 0; r < p.n_rect; ++i, r += gridDim.x) {
+    unsigned char* cur = smem + (i & 1) * p.slot_bytes;
+    const int nxt = r + gridDim.x;
+    if (nxt < p.n_rect)  // the other slot was freed by the last barrier
+      dw_issue<Tin>(smem + ((i + 1) & 1) * p.slot_bytes, x, w, p,
+                    DwRect(p, nxt));
+    cp_async_commit();
+    const DwRect rc(p, r);
+    DwChannels<Tacc> ch;
+    dw_channels<Tacc, REQUANT>(ch, bias, scale, p, th, rc);
+    cp_async_wait<1>();  // item r has landed; only nxt may be in flight
+    __syncthreads();
+    Tacc acc[kDwSP][kDwV];
+    dw_compute<Tin, Tacc, KW_T>(acc, cur, ch.bias, p, th);
+    __syncthreads();  // every strip is done with the window
+    dw_stage(acc, cur, p, th);
+    __syncthreads();
+    dw_store<Tacc, REQUANT>(cur, ch.scale, scale, out, p, rc);
+    __syncthreads();  // the tile is read: the slot takes item r + 2 grids
+  }
+}
+
+template <typename Tin, typename Tacc, bool REQUANT, int KW_T>
+int launch_dw(const void* x, const void* w, const void* bias,
+              const float* scale, void* out, const DwParams& p,
+              cudaStream_t stream) {
+  auto kernel = conv_ws_pipe_dw_kernel<Tin, Tacc, REQUANT, KW_T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kConvThreads, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many blocks as stay resident: the grid only spreads the items, so
+  // its size changes no value
+  const int resident = (per_sm > 1 ? per_sm : 1) * sms;
+  const int grid = p.n_rect < resident ? p.n_rect : resident;
+  kernel<<<grid, kConvThreads, p.smem, stream>>>(
+      static_cast<const Tin*>(x), static_cast<const Tin*>(w),
+      static_cast<const Tacc*>(bias), scale, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -318,6 +393,18 @@ int conv2d_ws_pipe_simt_launch(const void* x, const void* w, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SIMT_DISPATCH(mode, p.bn, launch_simt, x, w, bias, scale, out, part, p, s)
+}
+
+int conv2d_ws_pipe_dw_launch(const void* x, const void* w, const void* bias,
+                             const float* scale, void* out, const int* geom,
+                             int n_fields, int mode, void* stream) {
+  if (n_fields != kDwParamsFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DwParams p = *reinterpret_cast<const DwParams*>(geom);
+  if (!dw_valid(p) || p.slots != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DW_DISPATCH(mode, p, launch_dw, x, w, bias, scale, out, p, s)
 }
 
 const char* error_string(int code) {

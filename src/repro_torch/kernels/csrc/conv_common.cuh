@@ -33,9 +33,22 @@
 //   4     28^2, 128->256 +pool 3.699   6.00  55.21     FFMA   55.21
 //   5     14^2, 256->256       1.850   5.57  27.61     FFMA   27.61
 //
-// Three paths, chosen on the host by geometry (conv2d_ws.py: conv_path):
+// A depthwise layer is bound by its bytes in either type: it does KH*KW
+// multiply-adds an output and sums no channels (mobilenet_small's at 224
+// and batch 8, int8 in and out; recurrentgemma-9b's temporal conv in f32):
+//
+//   layer                          MB      bound us  by
+//   d1 224^2 x 8, 3x3              6.42    1.92      bytes
+//   d2 224^2 x 16, 3x3, stride 2   8.03    2.40      bytes
+//   d3 112^2 x 32, 3x3             6.42    1.92      bytes
+//   conv1d [1, 4096, 4096], 1x4    134.3   40.1      bytes (f32)
+//
+// (f32 d1-d3 move 4x the bytes: 7.7, 9.6 and 7.7 us.)
+//
+// Four paths, chosen on the host by geometry (conv2d_ws.py: conv_path):
 // K/groups >= 8 runs an implicit GEMM, "tc" for int8 and "simt" for f32;
-// narrower groups (depthwise) run "scalar", in int8 and in f32.
+// one input channel a group with fewer than 8 outputs runs the direct conv
+// "dw", in int8 and in f32; other narrower groups run "scalar".
 //
 // * Tensor cores ("tc": int8 operands, K/groups >= 8, one K-chunk fits a
 //   block).  An implicit GEMM: M = the conv-output pixels of a block, N =
@@ -82,10 +95,48 @@
 //   the slices' partials in slice order before the epilogue: no atomics.
 //   The epilogue stages the f32 tile through shared memory and runs ReLU
 //   -> 2x2 max-pool -> requantize (or the raw f32), as the others do.
-// * Scalar (depthwise and other groups narrower than 8 outputs, int8 or
-//   f32).  The first port's form, one block per (image, TilePlan tile,
-//   kout bank) with a loop over cin banks, int32 or f32 multiply-adds from
-//   shared memory into a shared accumulator.
+// * Direct conv ("dw": C/groups == 1 and K/groups < 8, int8 or f32:
+//   depthwise layers, channel multipliers under 8, one-channel maps with
+//   under 8 outputs).  Output channel k reads input channel k / (K/g).  A
+//   block of 256 threads covers a pool-aligned rectangle of conv-output
+//   pixels of one image times a run of kc output channels contiguous in
+//   NHWC (4-128 in f32, 4-64 in int8: the power of two times 4 that pads K
+//   least, the widest whose window fits twice in shared memory), which
+//   spans many groups; where no run's window fits (a wide stride in f32),
+//   the rectangle has fewer strips and the threads past them only copy
+//   and store.  A thread owns a vector of 4 channels
+//   (a float4, or 4 int8 in a word) and a strip of 4 pixels along a
+//   rectangle row; the run's kc/4 vectors lie across consecutive threads,
+//   so global reads and writes are coalesced along the run, and the
+//   window and tile row pitches are padded so that a warp's shared-memory
+//   reads and writes hit distinct banks (conv2d_ws.py: dw_plan).  The
+//   rectangle's halo'd window lands in shared memory with cp.async (16, 8
+//   or 4 bytes of a pixel's run where the run and its offsets allow, one
+//   element where a channel multiplier repeats input channels; plain byte
+//   loads for int8 runs no word fits), zero-filled at padding, the map's
+//   edges and channels past K, then the run's weights [taps][kc].  Each
+//   output starts at its bias and adds the taps in (dy, dx) order, FFMA in
+//   f32 and a 32-bit integer multiply-add in int8 (channels do not sum, so
+//   there is no dot product for dp4a or the tensor cores); at stride 1 and
+//   dilation 1 with a 3-wide kernel a thread reads each window vector of
+//   its strip's rows once and reuses it from registers across the taps
+//   that read it (on the H100, 3-5% less device time than tap by tap on
+//   mobilenet_small's 3x3 layers; at the 4-wide conv1d it was 7% more,
+//   PERF.md section 6, so 4-wide and all other kernels read tap by tap).
+//   The order of sums depends on nothing but the geometry, so the two
+//   kernels, a whole-map and a tiled call, and two calls give the same
+//   bits.  The epilogue stages the accumulators in a shared tile in place
+//   of the window, then consecutive threads take 4 channels of a pixel
+//   each: ReLU -> 2x2 max-pool (the rectangle is pool-aligned) ->
+//   requantize, one 4-byte int8 or 16-byte store where K comes in fours
+//   (else one channel a thread), the ragged edge masked.
+//   conv2d_ws runs a block a (rectangle, run); conv2d_ws_pipe runs
+//   persistent blocks that prefetch the next one's window into the other
+//   slot of a 2-slot ring.
+// * Scalar (groups of several input channels and fewer than 8 outputs,
+//   int8 or f32).  The first port's form, one block per (image, TilePlan
+//   tile, kout bank) with a loop over cin banks, int32 or f32
+//   multiply-adds from shared memory into a shared accumulator.
 #pragma once
 
 #include <cstdint>
@@ -879,6 +930,395 @@ inline int simt_reduce(const void* part, const void* bias, const float* scale,
           static_cast<const float*>(part), static_cast<const float*>(bias),
           scale, out, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The depthwise path ("dw")
+// ---------------------------------------------------------------------------
+
+// Field order must match repro_torch/kernels/conv2d_ws.py:DW_FIELDS; the
+// host computes every field (conv2d_ws.py:dw_plan, dw_params).
+struct DwParams {
+  int n, h, w, c, k;              // input map [N,H,W,C], K output channels
+  int kh, kw, stride, dil;        // kernel extent, stride, tap dilation
+  int pt, pl;                     // top / left zero padding
+  int mult;                       // K/groups: channel k reads k / mult
+  int oh, ow, poh, pow_;          // conv-output (pool-trimmed) and epilogue
+                                  // output extents
+  int relu, pool;                 // fused epilogue stages
+  int rh, rw, n_ry, n_rx;         // block rectangle, rectangles per image
+  int kc, n_kc, cv;               // channels a run, runs, vectors a run
+  int win_h, win_w, pitch;        // window extents, elements a window row
+  int tpitch;                     // accumulators a tile row
+  int win_bytes, slot_bytes;      // one slot: window | weights [taps][kc]
+  int slots, smem;                // 1 (conv2d_ws) or 2 slots, shared bytes
+  int n_rect;                     // rectangles x runs in all
+  int xvec, wvec;                 // copy bytes (16/8/4; 0 = per element)
+  int ovec;                       // output channels a store (4 or 1)
+};
+
+constexpr int kDwParamsFields = sizeof(DwParams) / sizeof(int);
+constexpr int kDwV = 4;   // channels a thread's vector
+constexpr int kDwSP = 4;  // conv-output pixels a thread's strip
+
+// A thread's place in its block: channel vector `vec` of the run, strip
+// `col` (pixels col*kDwSP ...) of rectangle row `row`.  Vectors are fastest
+// and rows next, so a warp's strips lie in consecutive rows of one strip
+// column (conv2d_ws.py: dw_thread; the row pitches keep its reads and
+// writes of shared memory on distinct banks).  Where the plan's rectangle
+// has fewer strips than the block has threads for (a window too wide for
+// more), the threads past them own none (`on` false): they copy and store.
+struct DwThread {
+  int vec, row, col;
+  bool on;
+  __device__ explicit DwThread(const DwParams& p) {
+    vec = threadIdx.x % p.cv;
+    const int u = threadIdx.x / p.cv;
+    row = u % p.rh;
+    col = u / p.rh;
+    on = col < p.rw / kDwSP;
+  }
+};
+
+// Work item r: (image, rectangle row, rectangle column, channel run), the
+// run fastest, so the blocks running together read whole pixels of a map.
+struct DwRect {
+  int img, ry, rx, k0;
+  __device__ DwRect(const DwParams& p, int r) {
+    k0 = (r % p.n_kc) * p.kc;
+    r /= p.n_kc;
+    rx = r % p.n_rx;
+    r /= p.n_rx;
+    ry = r % p.n_ry;
+    img = r / p.n_ry;
+  }
+};
+
+// One channel vector in shared memory: 4 floats, or 4 int8 in a word.
+__device__ __forceinline__ void dw_load(const float* src, float (&v)[kDwV]) {
+  const float4 t = *reinterpret_cast<const float4*>(src);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void dw_load(const int8_t* src, int (&v)[kDwV]) {
+  const uint32_t t = *reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+  for (int j = 0; j < kDwV; ++j)  // sign-extend byte j
+    v[j] = static_cast<int>(t << (24 - 8 * j)) >> 24;
+}
+// Four int32 accumulators of the tile (the f32 ones load as a window does).
+__device__ __forceinline__ void dw_load(const int* src, int (&v)[kDwV]) {
+  const int4 t = *reinterpret_cast<const int4*>(src);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+
+__device__ __forceinline__ float dw_mad(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ int dw_mad(int a, int b, int c) { return a * b + c; }
+
+// Issue the copies of work item `rc` into one slot, not committed or
+// waited here: the rectangle's halo'd window [win_h][pitch] (pixel wx of
+// row wy at wy*pitch + wx*kc, kc channels of the run), then the run's
+// weights [taps][kc] from w [KH,KW,1,K].  With xvec / wvec a copy moves
+// 16, 8 or 4 bytes of one pixel's run (or one tap's row); with 0 one
+// element, channel k of the run reading input channel k / mult (cp.async
+// for f32, a plain load and store for int8).  Padding, the map's edges and
+// channels past K are zero-filled by the copy (exact for zero-point 0).
+template <typename Tin>
+__device__ inline void dw_issue(unsigned char* slot, const Tin* x,
+                                const Tin* w, const DwParams& p,
+                                const DwRect& rc) {
+  constexpr int es = sizeof(Tin);
+  Tin* win = reinterpret_cast<Tin*>(slot);
+  Tin* wsm = reinterpret_cast<Tin*>(slot + p.win_bytes);
+  const int iy0 = rc.ry * p.rh * p.stride - p.pt;
+  const int ix0 = rc.rx * p.rw * p.stride - p.pl;
+  const long long img = static_cast<long long>(rc.img) * p.h;
+  const int npix = p.win_h * p.win_w;
+  if (p.xvec) {  // chunks a pixel's run: a power of two, as kc is
+    const int cpc = p.xvec / es, per = p.kc / cpc, lper = __ffs(per) - 1;
+    for (int i = threadIdx.x; i < npix * per; i += blockDim.x) {
+      const int pix = i >> lper, q = i & (per - 1);
+      const int wy = pix / p.win_w, wx = pix - wy * p.win_w;
+      const int iy = iy0 + wy, ix = ix0 + wx, ch = rc.k0 + q * cpc;
+      const bool in = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w && ch < p.c;
+      const Tin* src = in ? x + ((img + iy) * p.w + ix) * p.c + ch : x;
+      cp_async_zfill(win + wy * p.pitch + wx * p.kc + q * cpc, src, p.xvec,
+                     in ? p.xvec : 0);
+    }
+  } else {
+    const int lkc = __ffs(p.kc) - 1;
+    for (int i = threadIdx.x; i < npix * p.kc; i += blockDim.x) {
+      const int pix = i >> lkc, kk = i & (p.kc - 1);
+      const int wy = pix / p.win_w, wx = pix - wy * p.win_w;
+      const int iy = iy0 + wy, ix = ix0 + wx, k = rc.k0 + kk;
+      const bool in = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w && k < p.k;
+      const Tin* src =
+          in ? x + ((img + iy) * p.w + ix) * p.c + k / p.mult : x;
+      Tin* dst = win + wy * p.pitch + wx * p.kc + kk;
+      if (es == 4)
+        cp_async_zfill(dst, src, 4, in ? 4 : 0);
+      else
+        *dst = in ? *src : Tin(0);
+    }
+  }
+  const int taps = p.kh * p.kw;
+  if (p.wvec) {
+    const int cpc = p.wvec / es, per = p.kc / cpc;
+    for (int i = threadIdx.x; i < taps * per; i += blockDim.x) {
+      const int t = i / per, q = i - t * per, k = rc.k0 + q * cpc;
+      const bool ok = k < p.k;
+      cp_async_zfill(wsm + t * p.kc + q * cpc,
+                     ok ? w + static_cast<long long>(t) * p.k + k : w, p.wvec,
+                     ok ? p.wvec : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < taps * p.kc; i += blockDim.x) {
+      const int t = i / p.kc, kk = i - t * p.kc, k = rc.k0 + kk;
+      const bool ok = k < p.k;
+      const Tin* src = ok ? w + static_cast<long long>(t) * p.k + k : w;
+      if (es == 4)
+        cp_async_zfill(wsm + i, src, 4, ok ? 4 : 0);
+      else
+        wsm[i] = ok ? *src : Tin(0);
+    }
+  }
+}
+
+// The thread's channels of a work item: their bias and requant scales (0
+// past K), read before the window lands so that their latency hides behind
+// the copy.
+template <typename Tacc>
+struct DwChannels {
+  Tacc bias[kDwV];
+  float scale[kDwV];
+};
+
+template <typename Tacc, bool REQUANT>
+__device__ inline void dw_channels(DwChannels<Tacc>& ch, const Tacc* bias,
+                                   const float* scale, const DwParams& p,
+                                   const DwThread& th, const DwRect& rc) {
+  const int k = rc.k0 + th.vec * kDwV;
+#pragma unroll
+  for (int j = 0; j < kDwV; ++j) {
+    const bool ok = k + j < p.k;
+    ch.bias[j] = ok ? bias[k + j] : Tacc(0);
+    ch.scale[j] = REQUANT && ok ? scale[k + j] : 0.0f;
+  }
+}
+
+// The thread's strip from one slot: kDwSP pixels x kDwV channels of
+// accumulators that start at the bias (the M5 preload) and add the taps in
+// (dy, dx) order, one multiply-add a tap (FFMA in f32, a 32-bit integer
+// multiply-add in int8: channels do not sum, so there is no dot product to
+// give the tensor cores or dp4a).  KW_T = 3 (stride 1, dilation 1, a
+// kernel that wide): each window row of the strip, kDwSP + KW_T - 1
+// vectors, is read from shared memory once, each vector reused from
+// registers by every tap of the row that reads it; KW_T = 0 (any other
+// geometry) reads each tap's vector from shared memory.  Both add the same
+// products in the same order, so they give the same bits.  A thread with
+// no strip (DwThread::on false) computes nothing.
+template <typename Tin, typename Tacc, int KW_T>
+__device__ inline void dw_compute(Tacc (&acc)[kDwSP][kDwV],
+                                  const unsigned char* slot,
+                                  const Tacc (&bias)[kDwV], const DwParams& p,
+                                  const DwThread& th) {
+  if (!th.on) return;
+  const Tin* win = reinterpret_cast<const Tin*>(slot);
+  const Tin* wsm = reinterpret_cast<const Tin*>(slot + p.win_bytes) +
+                   th.vec * kDwV;
+#pragma unroll
+  for (int j = 0; j < kDwV; ++j)
+#pragma unroll
+    for (int i = 0; i < kDwSP; ++i) acc[i][j] = bias[j];
+  const Tin* base = win + th.row * p.stride * p.pitch +
+                    th.col * kDwSP * p.stride * p.kc + th.vec * kDwV;
+  for (int dy = 0; dy < p.kh; ++dy) {
+    const Tin* row = base + dy * p.dil * p.pitch;
+    if constexpr (KW_T > 0) {
+      Tacc wt[KW_T][kDwV];
+#pragma unroll
+      for (int dx = 0; dx < KW_T; ++dx)
+        dw_load(wsm + (dy * KW_T + dx) * p.kc, wt[dx]);
+      // window column c feeds tap dx = c - i of strip pixel i: columns in
+      // order keep each pixel's taps in dx order, and one column (with the
+      // row's KW_T weight vectors) is all a thread holds of the window
+#pragma unroll
+      for (int c = 0; c < kDwSP + KW_T - 1; ++c) {
+        Tacc xv[kDwV];
+        dw_load(row + c * p.kc, xv);
+#pragma unroll
+        for (int i = 0; i < kDwSP; ++i) {
+          if (c - i < 0 || c - i >= KW_T) continue;
+#pragma unroll
+          for (int j = 0; j < kDwV; ++j)
+            acc[i][j] = dw_mad(xv[j], wt[c - i][j], acc[i][j]);
+        }
+      }
+    } else {
+#pragma unroll 1  // one tap's vectors live at a time: no spill in f32
+      for (int dx = 0; dx < p.kw; ++dx) {
+        Tacc wt[kDwV];
+        dw_load(wsm + (dy * p.kw + dx) * p.kc, wt);
+        const Tin* tap = row + dx * p.dil * p.kc;
+#pragma unroll
+        for (int i = 0; i < kDwSP; ++i) {
+          Tacc xv[kDwV];
+          dw_load(tap + i * p.stride * p.kc, xv);
+#pragma unroll
+          for (int j = 0; j < kDwV; ++j)
+            acc[i][j] = dw_mad(xv[j], wt[j], acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// The strip's accumulators into the block's tile [rh][tpitch] (pixel x of
+// row y at y*tpitch + x*kc), 16-byte stores; a thread with no strip has
+// none.  The tile takes the place of
+// the slot's window: the caller has synchronised after every thread's
+// compute.
+__device__ __forceinline__ void dw_st4(float* dst, const float (&v)[kDwV]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void dw_st4(int* dst, const int (&v)[kDwV]) {
+  *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+template <typename Tacc>
+__device__ inline void dw_stage(const Tacc (&acc)[kDwSP][kDwV],
+                                unsigned char* slot, const DwParams& p,
+                                const DwThread& th) {
+  if (!th.on) return;
+  Tacc* tile = reinterpret_cast<Tacc*>(slot) + th.row * p.tpitch +
+               th.col * kDwSP * p.kc + th.vec * kDwV;
+#pragma unroll
+  for (int i = 0; i < kDwSP; ++i) dw_st4(tile + i * p.kc, acc[i]);
+}
+
+// rint(v * s) clipped to [-128, 127], as the other paths' epilogues
+// compute it, with one conversion instead of three: the product is clipped
+// first (the bounds are integers, so clipping commutes with rounding), and
+// adding 1.5 * 2^23 rounds it to an integer, half to even, that sits in
+// the float's low mantissa bits.  NaN clips to -128 either way.
+template <typename Tacc>
+__device__ __forceinline__ int dw_requant(Tacc v, float s) {
+  const float y =
+      fminf(fmaxf(__fmul_rn(static_cast<float>(v), s), -128.0f), 127.0f);
+  return __float_as_int(__fadd_rn(y, 12582912.0f)) - 0x4B400000;
+}
+
+// One output value of channel k: the raw accumulator, or rint(v * scale[k])
+// clipped to int8.
+template <typename Tacc, bool REQUANT>
+__device__ __forceinline__ void dw_put(void* out, long long oidx, Tacc v,
+                                       const float* scale, int k) {
+  if (REQUANT) {
+    static_cast<int8_t*>(out)[oidx] =
+        static_cast<int8_t>(dw_requant(v, scale[k]));
+  } else {
+    static_cast<Tacc*>(out)[oidx] = v;
+  }
+}
+
+// The epilogue from the tile: ReLU -> 2x2 max-pool (the rectangle is
+// pool-aligned, so a window's four pixels are in the tile) -> requantize,
+// or the raw accumulator.  Consecutive threads take consecutive groups of
+// `ovec` channels of a pixel, then the next pixel, so a warp's stores are
+// contiguous along the run.  The run's kc / ovec groups (a power of two)
+// divide the block's 256 threads, so a thread keeps one group in every
+// pass: with 4 channels a group (one 4-byte int8 or 16-byte store) it is
+// the thread's own vector, whose scales `dw_channels` read; with one, the
+// output reads its scale.  Rectangle widths are powers of two too, so a
+// pixel's place is a shift and a mask.  The ragged edge (pixels past the
+// map, channels past K) is masked.
+template <typename Tacc, bool REQUANT>
+__device__ inline void dw_store(const unsigned char* slot,
+                                const float (&sc)[kDwV], const float* scale,
+                                void* out, const DwParams& p,
+                                const DwRect& rc) {
+  const Tacc* tile = reinterpret_cast<const Tacc*>(slot);
+  const int s = p.pool ? 2 : 1;
+  const int ph = p.rh / s, pw = p.rw / s, lpw = __ffs(pw) - 1;
+  const int per = p.kc / p.ovec, lper = __ffs(per) - 1;
+  const int q = threadIdx.x & (per - 1);
+  const int k = rc.k0 + q * p.ovec;
+  if (k >= p.k) return;
+  const long long img = static_cast<long long>(rc.img) * p.poh;
+  for (int pp = threadIdx.x >> lper; pp < ph * pw; pp += blockDim.x >> lper) {
+    const int ly = pp >> lpw, lx = pp & (pw - 1);
+    const int gy = rc.ry * ph + ly, gx = rc.rx * pw + lx;
+    if (gy >= p.poh || gx >= p.pow_) continue;
+    const Tacc* t0 = tile + s * ly * p.tpitch + s * lx * p.kc + q * p.ovec;
+    const long long oidx = ((img + gy) * p.pow_ + gx) * p.k + k;
+    if (p.ovec == 4) {
+      Tacc v[kDwV];
+      dw_load(t0, v);
+#pragma unroll
+      for (int j = 0; j < kDwV; ++j) v[j] = relu_if(v[j], p.relu);
+      if (p.pool) {  // the window's other three pixels, in the usual order
+#pragma unroll
+        for (int r = 1; r < 4; ++r) {
+          Tacc m[kDwV];
+          dw_load(t0 + (r & 1) * p.kc + (r >> 1) * p.tpitch, m);
+#pragma unroll
+          for (int j = 0; j < kDwV; ++j) {
+            m[j] = relu_if(m[j], p.relu);
+            v[j] = m[j] > v[j] ? m[j] : v[j];
+          }
+        }
+      }
+      if (REQUANT) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          word |= (static_cast<uint32_t>(dw_requant(v[j], sc[j])) & 0xFFu)
+                  << (8 * j);
+        *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(out) + oidx) = word;
+      } else {
+        dw_st4(static_cast<Tacc*>(out) + oidx, v);
+      }
+    } else {
+      Tacc v = relu_if(t0[0], p.relu);
+      if (p.pool) {
+        const Tacc v1 = relu_if(t0[p.kc], p.relu);
+        const Tacc v2 = relu_if(t0[p.tpitch], p.relu);
+        const Tacc v3 = relu_if(t0[p.tpitch + p.kc], p.relu);
+        v = v1 > v ? v1 : v;
+        v = v2 > v ? v2 : v;
+        v = v3 > v ? v3 : v;
+      }
+      dw_put<Tacc, REQUANT>(out, oidx, v, scale, k);
+    }
+  }
+}
+
+// Dispatch the dw kernels on (input type, requantize) — the mode codes of
+// conv2d_ws.py: 0 int8 -> int32, 1 int8 -> int8, 2 f32 -> f32, 3 f32 ->
+// int8 — and on the strip variant: KW_T 3 where stride and dilation are 1
+// and the kernel is 3 wide, else 0.
+#define DW_VARIANTS(TIN, TACC, RQ, KWT, LAUNCH, ...)                         \
+  return (KWT) == 3 ? LAUNCH<TIN, TACC, RQ, 3>(__VA_ARGS__)                  \
+                    : LAUNCH<TIN, TACC, RQ, 0>(__VA_ARGS__);
+#define DW_DISPATCH(MODE, P, LAUNCH, ...)                                    \
+  {                                                                          \
+    const int kwt = (P).stride == 1 && (P).dil == 1 && (P).kw == 3 ? 3 : 0;  \
+    switch (MODE) {                                                          \
+      case 0: DW_VARIANTS(int8_t, int32_t, false, kwt, LAUNCH, __VA_ARGS__)  \
+      case 1: DW_VARIANTS(int8_t, int32_t, true, kwt, LAUNCH, __VA_ARGS__)   \
+      case 2: DW_VARIANTS(float, float, false, kwt, LAUNCH, __VA_ARGS__)     \
+      case 3: DW_VARIANTS(float, float, true, kwt, LAUNCH, __VA_ARGS__)      \
+      default: return static_cast<int>(cudaErrorInvalidValue);              \
+    }                                                                        \
+  }
+
+// The record the host sent is this build's, and its strips' threads (a
+// power of two) are at most the block's 256.
+inline bool dw_valid(const DwParams& p) {
+  const int active = p.rh * (p.rw / kDwSP) * p.cv;
+  return p.cv * kDwV == p.kc && p.rw % kDwSP == 0 && active > 0 &&
+         kConvThreads % active == 0 && (p.ovec == 4 || p.ovec == 1);
 }
 
 // Dispatch the simt kernels on (N-tile width, requantize): mode 2 f32 ->

@@ -16,7 +16,7 @@
   raises where autograd would record it;
 * ``conv1d_depthwise`` is the causal depthwise temporal conv (the
   RecurrentGemma site) as a 1×K ``conv2d`` over a height-1 map, one group
-  per lane: ``conv2d_ws``'s scalar path.
+  per lane: ``conv2d_ws``'s dw path (the channel-vectorised direct conv).
 
 The float paths of ``conv2d`` (float input, no ``out_scale``, no
 ``wrap8``), of ``conv2d_transpose`` (no ``out_scale``) and of ``matmul_ws``
@@ -432,7 +432,8 @@ def conv1d_depthwise(x, w, bias=None) -> torch.Tensor:
     conv is a width-grouped 1×K ``conv2d`` over a height-1 map: the
     sequence plays the spatial W axis, causality is a left padding of
     K−1, and ``groups == W`` makes every lane its own group (one cin bank,
-    W kout banks: the depthwise case, ``conv2d_ws``'s scalar path).  The
+    W kout banks: the depthwise case, ``conv2d_ws``'s dw path, whose blocks
+    take runs of 128 lanes × 32 positions).  The
     conv kernels take f32 operands, so a bf16 x is widened first (exact)
     and the f32 result cast back, as the reference's kernel sums a bf16
     window against f32 weights in f32.  Going through ``conv2d`` keeps its

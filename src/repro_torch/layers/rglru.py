@@ -3,7 +3,7 @@ RG-LRU gated linear recurrence (counterpart of ``repro.layers.rglru``).
 
 The block's temporal conv runs the shift-based ``causal_conv1d``, as the
 reference's ``apply_rglru`` does on every backend; the kernel route of the
-same function is ``kernels.ops.conv1d_depthwise`` (``conv2d_ws``'s scalar
+same function is ``kernels.ops.conv1d_depthwise`` (``conv2d_ws``'s dw
 path), which the reference's block does not take either.  The block's
 ``dense`` calls pass no backend, so its GEMMs stay on ``torch.einsum``.
 

@@ -429,9 +429,13 @@ def test_sweep_launch_plans_follow_the_path_rule():
         if lp["conv_path"] == "tc":
             assert lp["bn"] in (32, 64) and 1 <= lp["slots"] <= lp["stages"]
             assert lp["stages"] == 1 or geom["pipelined"]
+        elif lp["conv_path"] == "dw":
+            assert lp["slots"] == 1 + geom["pipelined"]
+            assert lp["kc"] % 4 == 0 and lp["rh"] * lp["rw"] * lp["kc"] == \
+                256 * 4 * 4
         else:
             assert {"th", "tw", "kb"} <= set(lp)
-    assert paths.pop("depthwise") == {"scalar"}
+    assert paths.pop("depthwise") == {"dw"}
     assert all(v == {"tc"} for v in paths.values()), paths
 
 

@@ -143,8 +143,9 @@ def test_simt_plan_invariants(name):
     x, w, _, kw = _case(name)
     g = _geom(x.shape, w.shape, kw)
     seq = simt_plan(g, kw.get("relu", False), False)
-    if _kgrp(w.shape, kw) < 8:
-        assert seq is None and conv_path(g) == "scalar"
+    if _kgrp(w.shape, kw) < 8:      # one input channel a group: dw
+        assert seq is None
+        assert conv_path(g) == ("dw" if w.shape[2] == 1 else "scalar")
         return
     pipe = simt_plan(g, kw.get("relu", False), True)
     assert seq._replace(stages=0, slots=0, smem=0) == \
@@ -250,7 +251,7 @@ def test_vgg_imagenet_and_unet_small_f32_convs_take_simt_and_fill_the_card():
     (64, 1, "simt"),
     (32, 4, "simt"),            # K/g = 8
     (32, 8, "scalar"),          # K/g = 4
-    (32, 32, "scalar"),         # depthwise
+    (32, 32, "dw"),             # depthwise
 ])
 def test_path_rule_f32(kout, groups, expect):
     g = setup_conv((2, 12, 12, 32), (3, 3, 32 // groups, kout),
@@ -258,7 +259,7 @@ def test_path_rule_f32(kout, groups, expect):
                    kout_banks=groups, int_path=False)
     assert conv_path(g) == expect
     assert tc_plan(g) is None
-    assert (simt_plan(g) is None) == (expect == "scalar")
+    assert (simt_plan(g) is None) == (expect != "simt")
 
 
 def test_simt_params_record_matches_cuda_struct():
@@ -281,7 +282,7 @@ def test_simt_emulation_refuses_other_paths():
     with pytest.raises(TypeError, match="float32"):
         conv2d_ws_simt_emulate(*as_torch(x, w, b, s), **kw)
     x, w, b, kw = _case("depthwise_stride2")
-    with pytest.raises(ValueError, match="scalar path"):
+    with pytest.raises(ValueError, match="dw path"):
         conv2d_ws_simt_emulate(*as_torch(x, w, b), **kw)
 
 

@@ -110,8 +110,8 @@ def check_emulation(x, w, b, s, kw, want):
 @pytest.mark.parametrize("name", sorted(LAYERS))
 def test_tc_emulation_bit_equal_to_jax_conv(name):
     x, w, b, s, kw = layer_inputs(name)
-    if w.shape[3] // kw.get("groups", 1) < 8:    # depthwise: the scalar path
-        assert conv_path(geom(x.shape, w.shape, kw, True)) == "scalar"
+    if w.shape[3] // kw.get("groups", 1) < 8:    # depthwise: the dw path
+        assert conv_path(geom(x.shape, w.shape, kw, True)) == "dw"
         return
     check_emulation(x, w, b, s, kw, jax_conv(x, w, b, s, kw))
 
@@ -140,7 +140,7 @@ def test_paper_layer_int32_bit_equal_to_jax_oracle():
     (torch.int8, 8, 7, 1, "scalar"),        # K/g = 7
     (torch.int8, 32, 32, 4, "tc"),          # K/g = 8
     (torch.int8, 32, 32, 8, "scalar"),      # K/g = 4
-    (torch.int8, 32, 32, 32, "scalar"),     # depthwise
+    (torch.int8, 32, 32, 32, "dw"),         # depthwise
     (torch.float32, 32, 64, 1, "simt"),     # f32 runs the FFMA GEMM
 ])
 def test_path_rule(dtype, c, k, groups, expect):
@@ -230,7 +230,7 @@ def test_tc_plans_none_together(name):
         for relu in (False, True):
             plans = [tc_plan(g, relu, pipelined) for pipelined in (False,
                                                                    True)]
-            assert [p is None for p in plans] == [conv_path(g) == "scalar"] * 2
+            assert [p is None for p in plans] == [conv_path(g) != "tc"] * 2
             assert all(p is None or p.smem <= SMEM_BYTES for p in plans)
     if name in SMEM_EDGES:
         pipe = tc_plan(geom(xs, ws, kw, True), True, True)

@@ -1,11 +1,15 @@
 """The CUDA kernels against their plain versions, on the card, and the LM
 serving path on the card against the same path on the CPU.
 
-The conv kernels take the int8 tensor-core path, the f32 simt path or the
-scalar path by geometry (``conv2d_ws.conv_path``); every conv case asserts
-which one launched.  The f32 cases on the simt path are also held to
+The conv kernels take the int8 tensor-core path, the f32 simt path, the
+depthwise direct conv (dw, int8 and f32) or the scalar path by geometry
+(``conv2d_ws.conv_path``); every conv case asserts which one launched.
+The f32 cases on the simt path are also held to
 ``conv2d_ws_simt_emulate`` within ``f32_sum_bound``, ``conv2d_ws`` to
-``conv2d_ws_pipe`` and each call to the next bit for bit.  ``TC_CASES``
+``conv2d_ws_pipe`` and each call to the next bit for bit; those on the dw
+path to ``conv2d_ws_dw_emulate`` (int8 equal, f32 within
+``f32_sum_bound``), the two kernels, a whole-map and a tiled call, and two
+calls to each other bit for bit.  ``TC_CASES``
 are the tensor-core path's edges (and, in f32, the simt path's): narrow channel
 counts (C = 1, 4, 8, 12; byte-gathered C = 6), eight outputs a group,
 output widths that are not a multiple of the N-tile or of four (the
@@ -48,7 +52,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_plain,
+from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_dw_emulate,
+                                           conv2d_ws_plain,
                                            conv2d_ws_simt_emulate, conv_path,
                                            setup_conv)
 from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
@@ -115,6 +120,50 @@ TC_CASES = {
 }
 
 
+# dw path edges: one input channel a group, under 8 outputs (x shape, w
+# shape, conv2d kwargs, scale); with the depthwise entries of ``CASES`` and
+# ``mobilenet_small``'s layers they reach every plan branch: a channel
+# multiplier (per-element window copies), K not a multiple of 4 (per-channel
+# stores), several channel runs, the strip kept in registers (3 wide) and
+# read tap by tap (4 and 5 wide, stride 2, dilation 2), the pool, and windows
+# that narrow the run or idle threads
+DW_CASES = {
+    "c1_k6": ((2, 13, 12, 1), (3, 3, 1, 6),
+              dict(padding="SAME", relu=True, cin_banks=1, kout_banks=2),
+              "scalar"),
+    "dilation2_explicit": ((2, 15, 14, 12), (3, 3, 1, 12),
+                           dict(padding=((2, 1), (0, 3)), dilation=2,
+                                groups=12, relu=True), "per_k"),
+    "pool_per_k": ((2, 14, 18, 16), (3, 3, 1, 16),
+                   dict(padding="SAME", groups=16, relu=True, pool=True),
+                   "per_k"),
+    "mult2_stride2": ((2, 13, 13, 8), (3, 3, 1, 16),
+                      dict(stride=2, padding="SAME", groups=8), None),
+    "mult4_pool": ((1, 12, 12, 6), (3, 3, 1, 24),
+                   dict(groups=6, relu=True, pool=True), "scalar"),
+    "c160_5x5_runs": ((1, 20, 20, 160), (5, 5, 1, 160),
+                      dict(padding="SAME", groups=160), "per_k"),
+    "c7_ragged": ((2, 9, 11, 7), (3, 3, 1, 7),
+                  dict(padding="SAME", groups=7), "scalar"),
+    "causal_1x4": ((2, 1, 70, 48), (1, 4, 1, 48),
+                   dict(padding=((0, 0), (3, 0)), groups=48), None),
+    "mobilenet_d2_s2": ((2, 24, 24, 16), (3, 3, 1, 16),
+                        dict(stride=2, padding="SAME", groups=16,
+                             relu=True), "scalar"),
+    # windows too wide for the widest run: C = 256 f32 at 3×3 dilation 8
+    # and at 7×7 stride 2 narrow the run; 5×5 stride 3 in f32 leaves half
+    # the block's threads without a strip
+    "c256_dilation8": ((1, 18, 18, 256), (3, 3, 1, 256),
+                       dict(padding="SAME", dilation=8, groups=256,
+                            relu=True), "per_k"),
+    "c256_7x7_stride2": ((1, 21, 21, 256), (7, 7, 1, 256),
+                         dict(stride=2, padding="SAME", groups=256), None),
+    "c8_5x5_stride3": ((2, 37, 35, 8), (5, 5, 1, 8),
+                       dict(stride=3, padding="SAME", groups=8, relu=True,
+                            pool=True), "scalar"),
+}
+
+
 def tc_case_inputs(name):
     """The inputs of ``TC_CASES[name]``, from a seed; the extreme case is
     all −128 (every product +16,384, 37.7M a full 3×3×256 window) with the
@@ -150,8 +199,8 @@ def is_tiled(kw):
     return bool(kw.get("h_tile") or kw.get("w_tile"))
 
 
-def case_inputs(name, *, f32=False):
-    xs, ws, kw, scale = CASES[name]
+def case_inputs(name, *, f32=False, table=CASES):
+    xs, ws, kw, scale = table[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     x = rng.integers(-128, 128, size=xs).astype(np.int8)
     w = rng.integers(-128, 128, size=ws).astype(np.int8)
@@ -190,17 +239,29 @@ def cuda():
     return torch.device("cuda")
 
 
+def path_counts(fn):
+    """A conv wrapper's launch counters: (all, tc, simt, dw)."""
+    return fn.launches, fn.tc_launches, fn.simt_launches, fn.dw_launches
+
+
+def narrow_path(w, kw):
+    """The path of a layer whose groups are under 8 outputs wide: dw where
+    a group has one input channel, else the scalar kernel."""
+    return "dw" if w.shape[2] == 1 else "scalar"
+
+
 def launch_both(args, kw, want, path):
     """Both conv kernels on ``args``: one launch each, on ``path``, and
     equal to ``want`` (f32 within 1e-4) → the two outputs."""
     outs = []
     for fn in (conv2d_ws, conv2d_ws_pipe):
-        before = (fn.launches, fn.tc_launches, fn.simt_launches)
+        before = path_counts(fn)
         got = fn(*args, **kw)
         torch.cuda.synchronize()
-        assert (fn.launches, fn.tc_launches, fn.simt_launches) == (
+        assert path_counts(fn) == (
             before[0] + 1, before[1] + (path == "tc"),
-            before[2] + (path == "simt")), (fn.__name__, path)
+            before[2] + (path == "simt"), before[3] + (path == "dw")), (
+                fn.__name__, path)
         if want.is_floating_point():
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         else:
@@ -211,8 +272,9 @@ def launch_both(args, kw, want, path):
 
 def f32_path(w, kw):
     """The path an f32 layer takes: simt where its groups are 8 or more
-    outputs wide, else the scalar kernel."""
-    return "simt" if w.shape[3] // kw.get("groups", 1) >= 8 else "scalar"
+    outputs wide, else dw or the scalar kernel (``narrow_path``)."""
+    return ("simt" if w.shape[3] // kw.get("groups", 1) >= 8
+            else narrow_path(w, kw))
 
 
 def check_simt(args, kw, outs):
@@ -238,6 +300,36 @@ def check_simt(args, kw, outs):
     assert torch.equal(outs[0], conv2d_ws(*args, **kw))
 
 
+def check_dw(args, kw, outs):
+    """Both kernels' outputs of one dw launch each: equal to
+    ``conv2d_ws_dw_emulate`` in int8, within ``f32_sum_bound`` of it in
+    f32 (its sums differ from the card's FFMA only at a double rounding);
+    bit-equal to each other, to a second call, and to a call tiled 2×4
+    (the plan ignores the TilePlan's tiles)."""
+    x, w, b = args[:3]
+    emu = conv2d_ws_dw_emulate(*args, **kw)
+    if emu.is_floating_point():
+        geo = {k: kw[k] for k in ("stride", "padding", "groups", "dilation")
+               if k in kw}
+        s = ref.conv2d_ref(x.double().abs(), w.double().abs(),
+                           None if b is None else b.double().abs(),
+                           dtype=torch.float64, **geo)
+        bound = f32_sum_bound(w.shape[0] * w.shape[1] + 1, s)
+        if kw.get("pool"):
+            bound = torch.nn.functional.max_pool2d(
+                bound[:, :2 * emu.shape[1], :2 * emu.shape[2]].permute(
+                    0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        err = (outs[0].double() - emu.double()).abs()
+        assert bool((err <= bound).all()), float(err.max())
+    else:
+        assert torch.equal(outs[0], emu)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], conv2d_ws(*args, **kw))
+    tiled = dict(kw, h_tile=2, w_tile=4)
+    for fn in (conv2d_ws, conv2d_ws_pipe):
+        assert torch.equal(outs[0], fn(*args, **tiled)), fn.__name__
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_cuda_conv_kernels_equal_plain(cuda, name):
@@ -245,11 +337,16 @@ def test_cuda_conv_kernels_equal_plain(cuda, name):
     args = as_torch(x, w, b, s, device=cuda)
     path = expected_path(args[0], args[1], s, kw)
     assert path == ("tc" if w.shape[3] // kw.get("groups", 1) >= 8
-                    else "scalar")
-    launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
+                    else narrow_path(w, kw))
+    outs = launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
+    if path == "dw":
+        check_dw(args, kw, outs)
     fx, fw, fb, _, _ = case_inputs(name, f32=True)
     args = as_torch(fx, fw, fb, None, device=cuda)
-    launch_both(args, kw, conv2d_ws_plain(*args, **kw), f32_path(fw, kw))
+    path = f32_path(fw, kw)
+    outs = launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
+    if path == "dw":
+        check_dw(args, kw, outs)
 
 
 @pytest.mark.cuda
@@ -259,6 +356,66 @@ def test_cuda_conv_tensor_core_edges_equal_plain(cuda, name):
     args = as_torch(x, w, b, s, device=cuda)
     assert expected_path(args[0], args[1], s, kw) == "tc"
     launch_both(args, kw, conv2d_ws_plain(*args, **kw), "tc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DW_CASES))
+def test_cuda_conv_dw_equals_emulation(cuda, name):
+    """Each dw edge on both kernels: int8 (int32 or requantized out) equal
+    to the plain version and to the emulation; f32 within 1e-4 of the
+    plain version and ``f32_sum_bound`` of the emulation, f32 → int8
+    within one step of the emulation; every call bit-equal across the
+    kernels, whole-map and tiled, and call to call (``check_dw``)."""
+    for f32 in (False, True):
+        x, w, b, s, kw = legal_banks(*case_inputs(name, f32=f32,
+                                                  table=DW_CASES))
+        args = as_torch(x, w, b, s, device=cuda)
+        assert expected_path(args[0], args[1], s, kw) == "dw"
+        outs = launch_both(args, kw, conv2d_ws_plain(*args, **kw), "dw")
+        check_dw(args, kw, outs)
+        if f32:
+            want = outs[0]
+            scale = 100.0 / want.abs().reshape(-1, want.shape[-1]).amax(
+                0).clamp(min=1e-3)
+            args8 = args[:3] + [scale]
+            outs8 = [fn(*args8, **kw) for fn in (conv2d_ws, conv2d_ws_pipe)]
+            emu8 = conv2d_ws_dw_emulate(*args8, **kw)
+            assert int((outs8[0].int() - emu8.int()).abs().max()) <= 1
+            assert torch.equal(outs8[0], outs8[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,paths", [
+    ("mobilenet_small", {"tc": 4, "dw": 3}),
+    ("lenet", {"tc": 3, "dw": 0})])
+def test_cuda_int8_network_launches_by_path(cuda, net, paths):
+    """One int8 forward of a zoo network on the card's backend: its convs
+    launch on the paths the rule names (``mobilenet_small``'s three
+    depthwise layers on dw, its stem and 1×1 convs on the tensor cores;
+    ``lenet``'s convs, eight or more outputs a group, on the tensor cores
+    as before), and its logits equal the CPU program's."""
+    from repro_torch.core import network
+    from repro_torch.core.convcore import ConvCoreConfig
+    plan = getattr(network, net)()
+    rng = np.random.default_rng(0)
+    params = plan.init_params(rng, device="cpu")
+    calib = torch.from_numpy(rng.normal(size=(8, *plan.input_shape))
+                             .astype(np.float32))
+    qnet = network.quantize_network(plan, params, calib)
+    x = torch.from_numpy(rng.normal(size=(4, *plan.input_shape))
+                         .astype(np.float32))
+    want = network.make_int8_program(qnet, ConvCoreConfig(int8=True))(x)
+    program = network.make_int8_program(qnet.to(cuda), ConvCoreConfig(
+        int8=True, backend="cuda"))
+    fns = (conv2d_ws, conv2d_ws_pipe)
+    before = [path_counts(fn) for fn in fns]
+    got = program(x.to(cuda))
+    torch.cuda.synchronize()
+    n, tc, simt, dw = (sum(c[i] - b[i] for c, b in zip(
+        map(path_counts, fns), before)) for i in range(4))
+    assert (n, tc, simt, dw) == (paths["tc"] + paths["dw"], paths["tc"], 0,
+                                 paths["dw"])
+    assert torch.equal(got.cpu(), want)
 
 
 def f32_case(name):
@@ -280,14 +437,16 @@ F32_CASES = sorted({*CASES, *TC_CASES})
 @pytest.mark.parametrize("name", F32_CASES)
 def test_cuda_conv_simt_equals_emulation(cuda, name):
     """Every f32 case on both kernels, f32 out and int8 out: on the path
-    the rule names, within 1e-4 of the plain version; on simt also within
-    ``f32_sum_bound`` of the emulation, bit-equal across the kernels and
-    call to call."""
+    the rule names, within 1e-4 of the plain version; on simt and dw also
+    within ``f32_sum_bound`` of the emulation, bit-equal across the
+    kernels and call to call."""
     x, w, b, kw = f32_case(name)
     args = as_torch(x, w, b, None, device=cuda)
     path = f32_path(w, kw)
     assert expected_path(args[0], args[1], None, kw) == path
     outs = launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
+    if path == "dw":
+        check_dw(args, kw, outs)
     if path == "simt":
         check_simt(args, kw, outs)
         want = conv2d_ws_plain(*args, **kw)
@@ -306,13 +465,18 @@ def layer_launches(plan, device, batch=2):
     under autograd, forward and input gradient (every layer takes its
     own random input): the ``conv2d_ws`` launches on each path that the
     path rule predicts ("simt" where the forward's, or the gradient's,
-    groups are 8 or more outputs wide) → (predicted, counted)."""
+    groups are 8 or more outputs wide; else "dw" where they have one
+    input channel) → (predicted, counted)."""
     from repro_torch.kernels import ops
     acts, ins = plan.activation_shapes(), plan.resolved_inputs()
     pshapes, geoms = plan.param_shapes(), plan.conv_geometries()
     g = torch.Generator(device=device).manual_seed(0)
-    want = {"simt": 0, "scalar": 0}
-    before = (conv2d_ws.simt_launches, conv2d_ws.launches)
+    want = {"simt": 0, "dw": 0, "scalar": 0}
+    before = path_counts(conv2d_ws)
+
+    def path(cgrp, kgrp):
+        return ("simt" if kgrp >= 8 else "dw" if cgrp == 1
+                else "scalar")
     for i, sp in enumerate(plan.layers):
         if sp.kind not in ("conv", "conv_transpose"):
             continue
@@ -327,14 +491,14 @@ def layer_launches(plan, device, batch=2):
         y = fn(x, w, None, stride=sp.stride, padding=sp.padding,
                groups=groups, cin_banks=cb, kout_banks=kb, relu=sp.relu,
                pool=sp.pool, dilation=sp.dilation)
-        want["simt" if ws[3] // groups >= 8 else "scalar"] += 1
-        if i > 0:
+        want[path(ws[2], ws[3] // groups)] += 1
+        if i > 0:       # the gradient swaps the group's channel roles
             torch.autograd.grad(y, x, torch.ones_like(y))
-            want["simt" if ws[2] >= 8 else "scalar"] += 1
+            want[path(ws[3] // groups, ws[2])] += 1
     torch.cuda.synchronize()
-    got = conv2d_ws.simt_launches - before[0]
-    return want, {"simt": got, "scalar": conv2d_ws.launches - before[1]
-                  - got}
+    n, tc, simt, dw = (a - b for a, b in zip(path_counts(conv2d_ws), before))
+    assert tc == 0
+    return want, {"simt": simt, "dw": dw, "scalar": n - simt - dw}
 
 
 @pytest.mark.cuda
@@ -350,6 +514,7 @@ def test_cuda_zoo_f32_convs_launch_simt(cuda, net):
     want, got = layer_launches(getattr(network, net)(**kw), cuda)
     assert got == want
     assert want["scalar"] == (1 if net == "unet_small" else 0)
+    assert want["dw"] == 0
     assert want["simt"] == {"vgg_imagenet": 11, "lenet": 5,
                             "unet_small": 18}[net]
 
@@ -986,7 +1151,7 @@ def test_cuda_lenet_fit_step_launches(cuda):
                                              (1, 64, 4096, torch.bfloat16)])
 def test_cuda_conv1d_depthwise_equals_plain(cuda, b, s, width, dtype):
     """``ops.conv1d_depthwise`` on the card: one ``conv2d_ws`` launch on
-    the scalar path (one group a lane), within 1e-4 of the f32 oracle and
+    the dw path (one group a lane), within 1e-4 of the f32 oracle and
     of the recurrent block's shifted multiply-adds (bf16: the kernel's f32
     sum and the oracle's each rounded once, one bf16 ulp apart at most)."""
     from repro_torch.kernels import ops
@@ -996,11 +1161,11 @@ def test_cuda_conv1d_depthwise_equals_plain(cuda, b, s, width, dtype):
     x = torch.randn(b, s, width, generator=gen, device=cuda).to(dtype)
     w = torch.randn(4, width, generator=gen, device=cuda) / 2
     bias = torch.randn(width, generator=gen, device=cuda)
-    before = (conv2d_ws.launches, conv2d_ws.tc_launches)
+    before = path_counts(conv2d_ws)
     got = ops.conv1d_depthwise(x, w, bias)
     torch.cuda.synchronize()
-    assert (conv2d_ws.launches, conv2d_ws.tc_launches) == (before[0] + 1,
-                                                           before[1])
+    assert path_counts(conv2d_ws) == (before[0] + 1, before[1], before[2],
+                                      before[3] + 1)
     want = ref.conv1d_depthwise_ref(x, w, bias)
     assert got.dtype == dtype and got.shape == x.shape
     if dtype == torch.float32:

@@ -28,9 +28,8 @@ from repro.layers import rglru as jrglru
 from repro_torch import convert
 from repro_torch.configs import base
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.conv2d_ws import (SMEM_BYTES, conv_path,
-                                           scalar_tiles, setup_conv,
-                                           smem_bytes)
+from repro_torch.kernels.conv2d_ws import (SMEM_BYTES, conv_path, dw_plan,
+                                           setup_conv)
 from repro_torch.layers import common, rglru
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -249,10 +248,11 @@ def test_conv1d_depthwise_is_causal_and_equals_the_block_conv():
 def test_conv1d_depthwise_launch_plan_at_the_model_width(seq):
     """recurrentgemma-9b's conv at rnn_width 4096: the 1×4 conv over a
     [B, 1, S, 4096] map with 4096 one-channel groups.  ``grouped_banks``
-    keeps one cin bank and 4096 kout banks (one lane each), the geometry
-    takes the scalar path, and its whole-map tile (one row of S pixels of
-    one lane, plus the K−1 halo) fits a block's shared memory, so the
-    launch runs one block per lane (grid.x = 4096 ≤ 2^31 − 1)."""
+    keeps one cin bank and 4096 kout banks (one lane each), and the
+    geometry takes the dw path: runs of 128 lanes, each block a row of 32
+    positions of one run (its window, 35 positions × 128 lanes, and
+    weights fit a block's shared memory twice over), so the launch runs
+    S/32 × 32 blocks, the map's tiles and banks shaping none."""
     width, k = base.get_config("recurrentgemma_9b").rnn_width, 4
     cin, kout = ref.grouped_banks(width, width, width, want_cin=1,
                                   want_kout=width)
@@ -260,7 +260,11 @@ def test_conv1d_depthwise_launch_plan_at_the_model_width(seq):
     g = setup_conv((1, 1, seq, width), (1, k, 1, width), padding=(
         (0, 0), (k - 1, 0)), groups=width, cin_banks=cin, kout_banks=kout,
         int_path=False)
-    assert conv_path(g) == "scalar"
-    assert scalar_tiles(g, 1) == g and smem_bytes(g, 1) <= SMEM_BYTES
+    assert conv_path(g) == "dw"
     assert (g.th, g.tw, g.kb, g.cb, g.in_tw) == (1, seq, 1, 1, seq + k - 1)
-    assert g.n_th * g.n_tw * g.kout_banks == width
+    for pipelined in (False, True):
+        p = dw_plan(g, False, pipelined)
+        assert (p.kc, p.rh, p.rw, p.win_w) == (128, 1, 32, 32 + k - 1)
+        assert p.n_rect == (seq // 32) * (width // 128)
+        assert p.smem == (2 if pipelined else 1) * p.slot_bytes <= \
+            SMEM_BYTES
