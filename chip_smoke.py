@@ -70,6 +70,13 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    dw path of both kernels, in int8 as served and in f32, beside the plain
    version, the byte bound and, in f32, ``F.conv2d(groups=C)``;
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
+   with ``relu`` and ``pool`` under ``wrap8=True`` (int8 out, equal to the
+   plain backend, accumulators outside int8 present); and under
+   ``auto_bank=False`` (the whole map as one tile, past a block's shared
+   memory) on both kernels, equal to the fitted plan's result, on each
+   path: the §5.2 layer in int8 (tc) and f32 (simt), a 224² depthwise
+   layer in int8 and f32 (dw) and a grouped layer of 4-channel groups
+   with 2 outputs each (scalar), the path asserted by the launch counts;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
    to 16 requests through ``ConvNetEngine(batch=8)`` (the facade of the
@@ -301,7 +308,22 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    interleaved windows, outputs ``torch.equal``; printed as the median of
    the windows' differences a call and times the ``pallas_ws`` decode
    step's calls;
-13. print the per-kernel JSON line and, last, the run's device line.  A
+13. the examples (``repro_torch.examples``), each ``main`` called in
+   process on the card with its output logged indented, launches read
+   around each: ``conv_acceleration`` whole (the §5.2 anchors exact, the
+   4-core program and the lone async request exact, the int8 errors at
+   or below the levels the reference's example prints, QAT's loss falling
+   and its int8 accuracy within 2 points of the float shadow, the §5.2
+   int8 layer's median µs a call beside its bound and the card's name and
+   power limit, a launch on each of the tc, simt and dw paths and of
+   ``matmul_ws``), ``serve_batched`` float and ``--w8`` (every request
+   served with ``--max-new`` tokens, tokens/s; ``matmul_ws`` launched
+   under w8), ``quickstart`` (60 steps, the loss falling) and
+   ``train_llama_tiny --preset 100m --batch 32 --seq 512`` at 30 steps
+   with a failure injected at step 25 (one restart, the steps replayed
+   from the step-20 checkpoint, the loss falling; ms a step and
+   tokens/s); each example's seconds against the phase's 90 s budget;
+14. print the per-kernel JSON line and, last, the run's device line.  A
    kernel timed over several shapes reports the sum of their times (each
    of ``ms``, ``plain_ms``, ``device_ms``) and the sum of their per-launch
    bounds; ``matmul_ws``'s ``library_ms`` sums ``torch.matmul`` over its
@@ -344,16 +366,21 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    and its ``launches`` add phase 10's training steps and phase 11(a)'s
    sharded and unsharded steps and decode steps (llama3.2-3b's and
    deepseek-moe-16b's); ``matmul_ws``'s and
-   ``flash_attention``'s add phase 12's counted and timed steps.
+   ``flash_attention``'s add phase 12's counted and timed steps; every
+   row's launches (and the convs' ``simt_launches``, ``dw_launches`` and
+   ``scalar_launches``, ``matmul_ws``'s ``form_launches``) add phase
+   13's examples.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
 it.
 """
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import os
@@ -361,6 +388,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import Future
@@ -473,6 +501,15 @@ LM_FLASH = ((1, ENCDEC_SEQ, 16, 64, False), (1, ENCDEC_SEQ, 16, 64, True),
 TRAIN_ATTN_CHUNK = 2048
 GEMMA_W8_PROMPTS = (64, 512, 1024, 2048)
 YI_PROMPTS = (64, 512, 1024)
+# phase 13: the examples.  The int8 datapath's relative errors that the
+# reference's examples/conv_acceleration.py prints on the same numpy
+# inputs (the port's may not exceed them at that precision); the 100m
+# preset's steps (cut from the reference's 300) and its injected failure
+EXAMPLE_INT8_ERR = {"paper": 0.0125, "lenet": 0.0262, "resnet": 0.0217,
+                    "mobilenet": 0.0481}
+EXAMPLE_TRAIN_STEPS = 30
+EXAMPLE_TRAIN_FAIL = 25
+EXAMPLES_BUDGET_S = 90
 KERNELS = {
     "conv2d_ws": ("src/repro_torch/kernels/csrc/conv2d_ws.cu",
                   "src/repro/kernels/conv2d_ws.py:255"),
@@ -1530,6 +1567,83 @@ def main():
         f"{anchors['gops_1core']:.3f} GOPS on one FPGA core)")
     if anchors["psums"] != 3_154_176:
         raise AssertionError(f"§5.2 psum count {anchors['psums']}")
+
+    # the Fig. 6 wrap: ReLU and pool on the int32 accumulator, then int8
+    wrap = dict(relu=True, pool=True)
+    got = ConvCore(ConvCoreConfig(int8=True, wrap8=True)).apply_layer(
+        x, w, b, **wrap)
+    want = ConvCore(ConvCoreConfig(int8=True, wrap8=True, backend="ref")
+                    ).apply_layer(x, w, b, **wrap)
+    acc = ConvCore(ConvCoreConfig(int8=True)).apply_layer(x, w, b, **wrap)
+    torch.cuda.synchronize()
+    wrapped = int(((acc < -128) | (acc > 127)).sum())
+    if got.dtype != torch.int8 or not torch.equal(got, want) or not wrapped:
+        raise AssertionError(f"§5.2 layer, wrap8: {got.dtype}, equal to the "
+                             f"plain backend {torch.equal(got, want)}, "
+                             f"{wrapped} accumulators outside int8")
+    log(f"  wrap8 (relu, pool): out {tuple(got.shape)} {got.dtype} equal to "
+        f"the plain backend; {wrapped} of {acc.numel()} accumulators wrapped")
+
+    # auto_bank=False: the whole map as one tile, which overflows a block's
+    # shared memory; each path of both kernels must give the fitted plan's
+    # bits
+    def by_path(fn):
+        return {"tc": fn.tc_launches, "simt": fn.simt_launches,
+                "dw": fn.dw_launches,
+                "scalar": fn.launches - fn.tc_launches - fn.simt_launches
+                - fn.dw_launches}
+
+    xf = torch.randn(shp["x"], generator=gen, device=dev)
+    wf = torch.randn(shp["w"], generator=gen, device=dev) * 0.1
+    bf = torch.randn(8, generator=gen, device=dev)
+    xd8, xdf = rand_i8(2, 224, 224, 32), torch.randn(
+        (2, 224, 224, 32), generator=gen, device=dev)
+    paper_kw = dict(padding="VALID", groups=1, relu=False, pool=False)
+    pooled = dict(padding="SAME", relu=True, pool=True)
+    whole_map = (
+        ("tc", "§5.2 int8", x, w, b, paper_kw),
+        ("simt", "§5.2 f32", xf, wf, bf, paper_kw),
+        ("dw", "depthwise int8 [2,224,224,32], relu, pool", xd8,
+         rand_i8(3, 3, 1, 32), rand_bias(32), dict(pooled, groups=32)),
+        ("dw", "depthwise f32 [2,224,224,32], relu, pool", xdf, torch.randn(
+            (3, 3, 1, 32), generator=gen, device=dev), torch.randn(
+            32, generator=gen, device=dev), dict(pooled, groups=32)),
+        ("scalar", "grouped int8 [2,224,224,8] (2 groups of 4 -> 2), relu, "
+         "pool", rand_i8(2, 224, 224, 8), rand_i8(3, 3, 4, 4), rand_bias(4),
+         dict(pooled, groups=2)))
+    for path, name, x_, w_, b_, kw in whole_map:
+        int8 = x_.dtype == torch.int8
+        for kernel, fn in (("sequential", conv2d_ws),
+                           ("pipelined", conv2d_ws_pipe)):
+            outs, plans = [], []
+            for auto in (True, False):
+                core = ConvCore(ConvCoreConfig(int8=int8, auto_bank=auto,
+                                               kernel=kernel))
+                plans.append(core.plan(tuple(x_.shape), tuple(w_.shape),
+                                       padding=kw["padding"],
+                                       pool=kw["pool"], groups=kw["groups"]))
+                before = by_path(fn)
+                outs.append(core.apply_layer(x_, w_, b_, **kw))
+                after = by_path(fn)
+                if after[path] != before[path] + 1:
+                    raise AssertionError(
+                        f"{name} {kernel} auto_bank={auto}: launches by "
+                        f"path {before} -> {after}, expected one on {path}")
+            torch.cuda.synchronize()
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"{name} {kernel}: auto_bank=False "
+                                     f"differs from the fitted plan")
+            fit, whole = plans
+            if whole.fits_smem or fit.n_h_tiles * fit.n_w_tiles == 1:
+                raise AssertionError(f"{name}: the whole map fits a block "
+                                     f"({whole}) or the fitted plan is one "
+                                     f"tile ({fit})")
+            log(f"  auto_bank=False, {name}, {fn.__name__} ({path} path): "
+                f"one {whole.h_tile}x{whole.w_tile} tile, working set "
+                f"{whole.working_set_bytes:,} B against {whole.budget:,} "
+                f"(fitted: {fit.n_h_tiles}x{fit.n_w_tiles} tiles of "
+                f"{fit.h_tile}x{fit.w_tile}, {fit.working_set_bytes:,} B); "
+                f"out {tuple(outs[1].shape)} {outs[1].dtype} equal")
 
     # -- 5. the main path --------------------------------------------------
     convs = ("conv2d_ws", "conv2d_ws_pipe")
@@ -5220,7 +5334,137 @@ def main():
         f"{max(drain):.0f} us after a window's last call")
     log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
 
-    # -- 13. results -----------------------------------------------------
+    # -- 13. the examples ----------------------------------------------------
+    log("phase 13: the examples (repro_torch.examples), each main in process "
+        "on the card")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_note("phase 13's entry")
+    from repro_torch.examples import (conv_acceleration, quickstart,
+                                      serve_batched, train_llama_tiny)
+    ex_secs = {}
+
+    def run_example(mod, argv):
+        """``mod.main(argv)`` with its output logged indented, its
+        launches read around it and added to the rows → (its figures,
+        launches by kernel, conv launches by path)."""
+        name = mod.__name__.rsplit(".", 1)[1]
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fig = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        seen = counts()
+        paths = {k: by_path(wrappers[k]) for k in convs}
+        forms = {k: v for k, v in matmul_ws.path_launches.items() if v}
+        for k, v in seen.items():
+            stats[k]["launches"] += v
+        for k in convs:
+            stats[k]["simt"]["launches"] += paths[k]["simt"]
+        credit_paths()
+        credit_forms()
+        for line in buf.getvalue().splitlines():
+            log(f"    | {line}")
+        label = " ".join([name, *argv])
+        log(f"  {label}: {secs:.1f} s; launches {seen}, conv launches by "
+            f"path {paths}, matmul_ws forms {forms}")
+        ex_secs[label] = secs
+        return fig, seen, paths
+
+    fig, seen, paths = run_example(conv_acceleration, [])
+    paper, anchors = fig["paper"], perfmodel.paper_reference_numbers()
+    if (paper["psums"] != 3_154_176
+            or round(paper["gops_paper_1core"], 3) != 0.224
+            or round(paper["gops_paper_20core"], 2) != 4.48
+            or paper["gops_paper_1core"] != anchors["gops_1core"]
+            or paper["gops_paper_20core"] != anchors["gops_20cores"]):
+        raise AssertionError(f"conv_acceleration: the §5.2 anchors {paper}")
+    if fig["lenet"]["multicore_max_abs"] != 0.0 \
+            or not fig["resnet"]["lone_equal"]:
+        raise AssertionError("conv_acceleration: the 4-core program or the "
+                             "lone async request is not exact")
+    errs = {"paper": paper["int8_rel_err"],
+            **{k: fig[k]["int8_rel_err"]
+               for k in ("lenet", "resnet", "mobilenet")}}
+    over = {k: v for k, v in errs.items()
+            if round(v, 4) > EXAMPLE_INT8_ERR[k]}
+    if over:
+        raise AssertionError(f"conv_acceleration: int8 errors {over} above "
+                             f"the reference example's {EXAMPLE_INT8_ERR}")
+    qat, h100 = fig["qat"], fig["h100"]
+    if qat["loss_last"] >= qat["loss_first"] \
+            or qat["int8_acc"] < qat["float_acc"] - 0.02:
+        raise AssertionError(f"conv_acceleration: QAT {qat}")
+    if fig["mobilenet"]["grouped_layers"] != 3 or h100["card_us"] is None:
+        raise AssertionError(f"conv_acceleration: mobilenet_small "
+                             f"{fig['mobilenet']}, the card time {h100}")
+    conv_seen = {p_: sum(paths[k][p_] for k in convs) for p_ in
+                 ("tc", "simt", "dw")}
+    if not all(conv_seen.values()) or not seen["matmul_ws"]:
+        raise AssertionError(f"conv_acceleration: launches {seen}, conv "
+                             f"paths {paths}: a path of the example missed")
+    log(f"  conv_acceleration: §5.2 anchors exact, int8 errors {errs} (the "
+        f"reference example's levels {EXAMPLE_INT8_ERR}); the §5.2 int8 "
+        f"layer {h100['card_us']:.2f} us a call on {h100['card']} against "
+        f"its {h100['bound_us']:.3f} us bound, {h100['x_fpga']:.0f}x the "
+        f"FPGA core; QAT loss {qat['loss_first']:.3f} -> "
+        f"{qat['loss_last']:.4f}, int8 acc {qat['int8_acc']:.3f} "
+        f"(float {qat['float_acc']:.3f})")
+
+    for argv in ([], ["--w8"]):
+        fig, seen, _ = run_example(serve_batched, argv)
+        short = {u: len(o) for u, o in fig["outputs"].items()
+                 if len(o) != fig["max_new"]}
+        if fig["requests"] != 6 or short:
+            raise AssertionError(f"serve_batched {argv}: {fig['requests']} "
+                                 f"requests, short outputs {short}")
+        if argv and not seen["matmul_ws"]:
+            raise AssertionError("serve_batched --w8 launched no matmul_ws")
+        log(f"  serve_batched {' '.join(argv) or '(float)'}: "
+            f"{fig['tokens']} tokens in {fig['seconds']:.3f} s, "
+            f"{fig['tokens_per_s']:.1f} tokens/s")
+
+    fig, _, _ = run_example(quickstart, [])
+    loss = fig["losses"]
+    if len(loss) != 60 or not loss[-1] < loss[0]:
+        raise AssertionError(f"quickstart: losses {loss[0]} -> {loss[-1]}")
+    log(f"  quickstart: 60 steps, loss {loss[0]:.4f} -> {loss[-1]:.4f} in "
+        f"{fig['train_s']:.2f} s; generated {fig['generated']}")
+
+    ckpt = Path(tempfile.mkdtemp(prefix="train_llama_tiny_"))
+    try:
+        steps, fail = EXAMPLE_TRAIN_STEPS, EXAMPLE_TRAIN_FAIL
+        fig, _, _ = run_example(train_llama_tiny, [
+            "--preset", "100m", "--batch", "32", "--seq", "512", "--steps",
+            str(steps), "--fail-at", str(fail), "--ckpt-dir", str(ckpt)])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resumed = fail // 10 * 10          # checkpoint_every = max(steps//5, 10)
+    want = list(range(fail)) + list(range(resumed, steps))
+    if fig["restarts"] != 1 or fig["history_steps"] != want \
+            or not fig["loss_last"] < fig["loss_first"]:
+        raise AssertionError(f"train_llama_tiny: {fig['restarts']} restarts, "
+                             f"steps {fig['history_steps']}, loss "
+                             f"{fig['loss_first']} -> {fig['loss_last']}")
+    step_s = sorted(fig["step_s"][1:])
+    med = step_s[len(step_s) // 2]
+    log(f"  train_llama_tiny 100m ({fig['params']:,} params, 32 x 512 "
+        f"tokens a step): one restart at step {fail}, resumed from the "
+        f"step-{resumed} checkpoint; loss {fig['loss_first']:.4f} -> "
+        f"{fig['loss_last']:.4f}; median step {1e3 * med:.1f} ms "
+        f"({fig['tokens_per_step'] / med:,.0f} tokens/s; steps "
+        f"{1e3 * step_s[0]:.1f}-{1e3 * step_s[-1]:.1f} ms), "
+        f"{len(fig['straggler_events'])} straggler events, the run "
+        f"{fig['run_s']:.1f} s with its checkpoints")
+    spent = time.perf_counter() - t_phase
+    log(f"  phase 13: {spent:.1f} s (budget {EXAMPLES_BUDGET_S} s"
+        f"{'' if spent <= EXAMPLES_BUDGET_S else ', over it'}); "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in ex_secs.items()))
+
+    # -- 14. results -----------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         st = stats[name]

@@ -42,6 +42,7 @@ class Backend(Protocol):
              bias: Optional[torch.Tensor] = None, *, stride: int = 1,
              padding="VALID", groups: int = 1, dilation: int = 1,
              relu: bool = False, pool: bool = False, out_scale=None,
+             wrap8: bool = False,
              plan: Optional[banking.TilePlan] = None) -> torch.Tensor:
         ...
 
@@ -66,7 +67,19 @@ class RefBackend:
 
     def conv(self, x, w, bias=None, *, stride=1, padding="VALID",
              groups=1, dilation=1, relu=False, pool=False, out_scale=None,
-             plan=None):
+             wrap8=False, plan=None):
+        if wrap8:
+            # the epilogue runs on the int32 accumulator, then the result
+            # wraps to 8 bits, as ops.conv2d does after the kernel
+            if out_scale is not None:
+                raise ValueError("wrap8 and out_scale are mutually "
+                                 "exclusive: the Fig. 6 wrap path has no "
+                                 "requantize stage")
+            if x.dtype != torch.int8:
+                raise TypeError(f"wrap8 takes int8 operands, got {x.dtype}")
+            return ref.conv2d_epilogue_ref(
+                x, w, bias, stride=stride, padding=padding, relu=relu,
+                pool=pool, groups=groups, dilation=dilation).to(torch.int8)
         return ref.conv2d_epilogue_ref(x, w, bias, stride=stride,
                                        padding=padding, relu=relu,
                                        pool=pool, out_scale=out_scale,
@@ -105,10 +118,11 @@ class CudaBackend:
 
     def conv(self, x, w, bias=None, *, stride=1, padding="VALID",
              groups=1, dilation=1, relu=False, pool=False, out_scale=None,
-             plan=None):
+             wrap8=False, plan=None):
         return ops.conv2d(x, w, bias, stride=stride, padding=padding,
                           groups=groups, relu=relu, pool=pool,
-                          out_scale=out_scale, dilation=dilation,
+                          out_scale=out_scale, wrap8=wrap8,
+                          dilation=dilation,
                           **self._plan_args(x, w, groups, plan))
 
     def conv_transpose(self, x, w, bias=None, *, stride=1, padding="VALID",
@@ -152,6 +166,9 @@ class ConvCoreConfig:
     kout_banks: int = 4           # paper: 4 PCOREs per core (M2)
     backend: str = "cuda"         # a BACKENDS registry key
     int8: bool = False            # the paper's 8-bit datapath
+    wrap8: bool = False           # bit-faithful 8-bit psum wrap (Fig. 6)
+    auto_bank: bool = True        # fit spatial tiles + banks to smem_budget;
+                                  # False: the whole map as one tile
     smem_budget: int = banking.SMEM_BYTES   # per-block shared memory
     kernel: str = "auto"          # per layer: "auto" (crossover model),
                                   # "pipelined" or "sequential"
@@ -169,8 +186,11 @@ class ConvCore:
     def plan(self, x_shape, w_shape, stride: int = 1, padding="VALID",
              *, pool: bool = False, groups: int = 1,
              out_bytes: Optional[int] = None) -> banking.TilePlan:
-        """Joint spatial-tile × channel-bank plan for one layer: tiles
-        shrink / banks grow until the working set fits ``smem_budget``."""
+        """Joint spatial-tile × channel-bank plan for one layer.  With
+        ``auto_bank`` tiles shrink / banks grow until the working set fits
+        ``smem_budget``; without it the whole map is one tile under the
+        configured banking (the seed dataflow; the kernels size their own
+        blocks, so it runs all the same)."""
         n, h, w_, c = x_shape
         kh, kw, _, k = w_shape
         cfg = self.config
@@ -180,7 +200,7 @@ class ConvCore:
             h, w_, c, k, kh, kw, stride=stride, padding=padding, pool=pool,
             groups=groups, in_bytes=1 if cfg.int8 else 4, acc_bytes=4,
             out_bytes=out_bytes, cin_banks=cb_n, kout_banks=kb_n,
-            smem_budget=cfg.smem_budget,
+            smem_budget=cfg.smem_budget if cfg.auto_bank else None,
             kernel=cfg.kernel, calib=cfg.calib)
 
     def apply_layer(self, x: torch.Tensor, w: torch.Tensor,
@@ -199,7 +219,8 @@ class ConvCore:
                             f"{x.dtype}, {w.dtype}")
         return get_backend(cfg.backend).conv(
             x, w, bias, stride=stride, padding=padding, groups=groups,
-            relu=relu, pool=pool, out_scale=out_scale, plan=plan)
+            relu=relu, pool=pool, out_scale=out_scale, wrap8=cfg.wrap8,
+            plan=plan)
 
     def apply_quantized_layer(self, x_f32: torch.Tensor, w_f32: torch.Tensor,
                               bias_f32: Optional[torch.Tensor] = None, *,

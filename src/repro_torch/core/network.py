@@ -435,6 +435,12 @@ class NetworkPlan:
             out.append(conv_geometry(sp, s0[2], names[i]))
         return out
 
+    def grouped_layer_count(self) -> int:
+        """Conv nodes with a grouped (groups > 1) contraction: how much of
+        this plan is the depthwise workload class."""
+        return sum(1 for g in self.conv_geometries()
+                   if g is not None and g[1] > 1)
+
     # -- execution ----------------------------------------------------------
 
     def forward_activations(self, params: Sequence[Optional[dict]],
@@ -507,7 +513,8 @@ def program_tile_plans(plan: NetworkPlan, core_config) -> List:
     return plan.tile_plans(
         cin_banks=core_config.cin_banks,
         kout_banks=core_config.kout_banks, in_bytes=1,
-        smem_budget=core_config.smem_budget,
+        smem_budget=(core_config.smem_budget if core_config.auto_bank
+                     else None),
         kernel=core_config.kernel, calib=core_config.calib)
 
 

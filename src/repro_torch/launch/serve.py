@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,6 +29,21 @@ from repro_torch.device import resolve_device
 from repro_torch.layers.common import materialize
 from repro_torch.models import lm
 from repro_torch.serving.engine import Request, ServingEngine
+
+
+def w8_refusal(cfg, arch: str) -> Optional[str]:
+    """Why ``--w8`` cannot serve ``cfg`` (None where it can): only the
+    dense decoders read every weight through ``dense``."""
+    recurrent = {BLOCK_RGLRU, BLOCK_RWKV6} & set(cfg.layer_pattern)
+    if recurrent:
+        return (f"--w8: {arch} has {sorted(recurrent)} blocks, whose "
+                f"weights are read outside dense and have no w8 path")
+    if cfg.moe is not None or cfg.kind != "decoder":
+        what = "MoE" if cfg.moe is not None else cfg.kind
+        return (f"--w8: {arch} is a {what} model, whose weights are "
+                f"read outside dense (the router, the experts, the "
+                f"frontend projection) and have no w8 path")
+    return None
 
 
 def main(argv=None):
@@ -44,15 +60,9 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = reduce_config(get_config(args.arch))
-    recurrent = {BLOCK_RGLRU, BLOCK_RWKV6} & set(cfg.layer_pattern)
-    if args.w8 and recurrent:
-        p.error(f"--w8: {args.arch} has {sorted(recurrent)} blocks, whose "
-                f"weights are read outside dense and have no w8 path")
-    if args.w8 and (cfg.moe is not None or cfg.kind != "decoder"):
-        what = "MoE" if cfg.moe is not None else cfg.kind
-        p.error(f"--w8: {args.arch} is a {what} model, whose weights are "
-                f"read outside dense (the router, the experts, the "
-                f"frontend projection) and have no w8 path")
+    refusal = w8_refusal(cfg, args.arch) if args.w8 else None
+    if refusal:
+        p.error(refusal)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = materialize(lm.param_specs(cfg), gen, device=dev)

@@ -50,7 +50,8 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.distributed.sharding",
               "repro_torch.distributed.compression",
               "repro_torch.distributed.pipeline",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh",
+              "repro_torch.examples.conv_acceleration"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
