@@ -68,7 +68,11 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    beside ``F.conv1d(groups=W)`` with its byte bound; and time
    ``mobilenet_small``'s three depthwise convs at 224 and batch 8 on the
    dw path of both kernels, in int8 as served and in f32, beside the plain
-   version, the byte bound and, in f32, ``F.conv2d(groups=C)``;
+   version, the byte bound and, in f32, ``F.conv2d(groups=C)``; and time
+   the scalar path (C/g > 1, K/g < 8) of both kernels at ``unet_small``'s
+   3-class head at 224, batch 8 (int8 as served, int32 out) beside its byte
+   bound, and at ``CASES``' ``groups2`` in f32 beside
+   ``F.conv2d(groups=2)``;
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
    with ``relu`` and ``pool`` under ``wrap8=True`` (int8 out, equal to the
    plain backend, accumulators outside int8 present); and under
@@ -300,14 +304,26 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``train_4k`` cells on ``single`` of deepseek-moe-16b, rwkv6-1.6b and
    seamless-m4t-medium, each cell's terms, peak and host seconds printed
    (their subprocesses start in phase 1, niced, and run on the host
-   beside the card phases: rwkv6-1.6b's takes 195-231 s); (c) the host time
-   that the ``repro_torch::matmul_ws`` op adds to a call, at the decode
-   step's three MLP GEMMs (M = 4 slots): the public wrapper, the op
-   alone and the wrapper as it was before the op (the same checks, then
-   the launch called directly), each issuing back-to-back calls in
+   beside the card phases: rwkv6-1.6b's takes 195-231 s); (c) the conv
+   programs: the int8 forwards of ``vgg_imagenet``, ``mobilenet_small`` and
+   ``unet_small`` at 224, batch 8 (``make_int8_program``), and phase 8's
+   QAT step of ``vgg_imagenet``, each counted under ``CostCounter`` on the
+   card and again on fake CUDA tensors (equal field for field: the conv
+   kernels are the ``torch.library`` ops ``repro_torch::conv2d_ws`` and
+   ``repro_torch::conv2d_ws_pipe``, with their own FLOP formula), the
+   counted conv and ``matmul_ws`` ops equal to the wrappers' launches (one
+   conv op a conv layer in a forward), printed with the launches by path,
+   the TFLOP by dtype, traffic, the three terms, the bottleneck, the
+   measured ms (median of CUDA events around a call) and bound ÷
+   measured, which must not pass 1.05; (d) the host time that the
+   ``repro_torch::matmul_ws`` op adds to a call, at the decode step's
+   three MLP GEMMs (M = 4 slots), and that ``repro_torch::conv2d_ws`` adds
+   at the §5.2 layer (int8, its ``ConvCore`` plan): the public wrapper,
+   the op alone and the wrapper as it was before the op (the same checks,
+   then the launch called directly), each issuing back-to-back calls in
    interleaved windows, outputs ``torch.equal``; printed as the median of
-   the windows' differences a call and times the ``pallas_ws`` decode
-   step's calls;
+   the windows' differences a call (for ``matmul_ws`` also times the
+   ``pallas_ws`` decode step's calls);
 13. the examples (``repro_torch.examples``), each ``main`` called in
    process on the card with its output logged indented, launches read
    around each: ``conv_acceleration`` whole (the §5.2 anchors exact, the
@@ -345,7 +361,10 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    3's
    ``mobilenet_small`` depthwise sums: ``dw_int8_ms``,
    ``dw_int8_device_ms``, ``dw_int8_plain_ms``, ``dw_int8_bound_ms``, the
-   same ``dw_f32_*`` and ``dw_f32_library_ms``, ``F.conv2d(groups=C)``);
+   same ``dw_f32_*`` and ``dw_f32_library_ms``, ``F.conv2d(groups=C)``)
+   and their scalar path apart (phase 3's ``scalar_int8_*`` at
+   ``unet_small``'s head and ``scalar_f32_*`` at ``groups2``, with
+   ``scalar_f32_library_ms``, ``F.conv2d(groups=2)``);
    ``matmul_ws``'s ``int8_ms``, ``int8_device_ms``, ``int8_bound_ms`` and
    ``int8_library_ms`` sum its twelve long-M int8 shapes of phase 3 (the
    library ``torch._int_mm``, each shape's faster of its two weight
@@ -366,7 +385,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    and its ``launches`` add phase 10's training steps and phase 11(a)'s
    sharded and unsharded steps and decode steps (llama3.2-3b's and
    deepseek-moe-16b's); ``matmul_ws``'s and
-   ``flash_attention``'s add phase 12's counted and timed steps; every
+   ``flash_attention``'s add phase 12's counted and timed steps, and the
+   convs' and ``matmul_ws``'s phase 12(c)'s counted and timed runs; every
    row's launches (and the convs' ``simt_launches``, ``dw_launches`` and
    ``scalar_launches``, ``matmul_ws``'s ``form_launches``) add phase
    13's examples.
@@ -1470,6 +1490,98 @@ def main():
                     f"({nbytes / 1e6:.2f} MB), plain {plain:.3f} ms{lib}")
 
     time_dw_layers()
+
+    def time_scalar_layers():
+        """The scalar path (C/g > 1 with K/g < 8), which no redesign has
+        taken: ``unet_small``'s 3-class head at 224, batch 8, in int8 as
+        served (int32 out: the last conv dequantizes; the network's default
+        tile plan) beside its byte bound, and ``CASES``' ``groups2`` in f32
+        beside ``F.conv2d(groups=2)`` (cuDNN, TF32 off); each held to its
+        plain version (``check_conv``), timed as ``time_dw_layers`` times
+        (``ms``, ``device_ms``), beside the plain version and the bound →
+        the conv rows' ``scalar_*`` keys."""
+        uplan = network.unet_small(input_shape=(224, 224, 4), classes=3)
+        acts, ins = uplan.activation_shapes(), uplan.resolved_inputs()
+        i = max(j for j, sp_ in enumerate(uplan.layers)
+                if sp_.kind == "conv")
+        sp_ = uplan.layers[i]
+        tp_ = network.program_tile_plans(uplan, ConvCoreConfig(int8=True))[i]
+        hw = uplan.param_shapes()[i]["w"]
+        hx = (BATCH, *(uplan.input_shape if ins[i][0] < 0
+                       else acts[ins[i][0]]))
+        head_kw = dict(stride=sp_.stride, padding=sp_.padding,
+                       groups=uplan.conv_geometries()[i][1],
+                       cin_banks=tp_.cin_banks, kout_banks=tp_.kout_banks,
+                       h_tile=tp_.h_tile, w_tile=tp_.w_tile, relu=sp_.relu,
+                       pool=sp_.pool, dilation=sp_.dilation)
+        gx, gw, gb, g_kw = f32_case("groups2")
+        layers = (("unet_small 3-class head int8", "int8",
+                   (rand_i8(*hx), rand_i8(*hw), rand_bias(hw[3])), head_kw),
+                  ("groups2 f32", "f32", tuple(
+                      torch.as_tensor(np.array(a), device=dev)
+                      for a in (gx, gw, gb)), g_kw))
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms")
+        names = ("conv2d_ws", "conv2d_ws_pipe")
+        for name in names:
+            stats[name]["scalar"] = dict(
+                {f"{t}_{k}": 0.0 for t in ("int8", "f32") for k in keys},
+                f32_library_ms=0.0)
+        log(f"  the scalar path (C/g > 1, K/g < 8; us: CUDA events around "
+            f"back-to-back calls, host work included / device time under "
+            f"torch.profiler; bound at 3.35 TB/s and the dtype's peak):")
+        for label, dtype, (x, w, b), kw in layers:
+            n, h, wd, _ = x.shape
+            kh, kwd, cg, k = w.shape
+            oh, ow = ref.conv_out_shape(h, wd, kh, kwd, kw.get("stride", 1),
+                                        kw.get("padding", "VALID"),
+                                        kw.get("dilation", 1))
+            geo = {k_: v for k_, v in kw.items() if k_ not in ("relu",
+                                                               "pool")}
+            path = conv_path(setup_conv(
+                tuple(x.shape), tuple(w.shape), pool=kw.get("pool", False),
+                int_path=dtype == "int8", **geo))
+            if path != "scalar":
+                raise AssertionError(f"{label}: the {path} path")
+            check_conv(label, x, w, b, None, kw)
+            want = conv2d_ws_plain(x, w, b, **kw)
+            nbytes = layer_bytes(x, w, False, want.numel(),
+                                 want.element_size())
+            bound = bound_ms(nbytes, 2 * n * oh * ow * k * cg * kh * kwd,
+                             INT8_OPS_PER_S if dtype == "int8"
+                             else F32_OPS_PER_S)
+            plain = elapsed_ms(lambda: conv2d_ws_plain(x, w, b, **kw),
+                               reps=3, warmup=1)
+            times = {}
+            for name in names:
+                fn = wrappers[name]
+                call = (lambda fn=fn: fn(x, w, b, **kw))
+                times[name] = (elapsed_ms(call, reps=20), device_ms(call, 20))
+                sc = stats[name]["scalar"]
+                for k_, v in zip(keys, (*times[name], plain, bound)):
+                    sc[f"{dtype}_{k_}"] += v
+            lib = ""
+            if dtype == "f32":
+                lib_call = conv2d_library(x, w, b, kw)
+                if not torch.allclose(lib_call().permute(0, 2, 3, 1),
+                                      conv2d_ws(x, w, b, **geo),
+                                      rtol=F32_TOL, atol=F32_TOL):
+                    raise AssertionError(f"{label}: F.conv2d(groups="
+                                         f"{kw['groups']}) computes another "
+                                         f"function")
+                lib_ms = elapsed_ms(lib_call, reps=20)
+                for name in names:
+                    stats[name]["scalar"]["f32_library_ms"] += lib_ms
+                lib = (f", F.conv2d(groups={kw['groups']}) "
+                       f"{1e3 * lib_ms:.2f} / "
+                       f"{1e3 * device_ms(lib_call, 20):.2f} us")
+            (sm, sd), (pm, pd) = times["conv2d_ws"], times["conv2d_ws_pipe"]
+            log(f"    {label} x{tuple(x.shape)} w{tuple(w.shape)}: conv2d_ws "
+                f"{1e3 * sm:.2f} / {1e3 * sd:.2f} us, conv2d_ws_pipe "
+                f"{1e3 * pm:.2f} / {1e3 * pd:.2f} us, bound "
+                f"{1e3 * bound:.3f} us ({nbytes / 1e6:.3f} MB), plain "
+                f"{plain:.3f} ms{lib}")
+
+    time_scalar_layers()
 
     # bf16 attention: the kernel and the plain version each round an f32
     # result once, from sums taken in another order, so they may differ by
@@ -5258,12 +5370,173 @@ def main():
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.rmtree(TRAIN_CELLS_DIR, ignore_errors=True)
 
-    # (c) the host time the torch.library op adds to a matmul_ws call, at
-    # the decode step's MLP GEMMs.  Each window issues its calls back to
-    # back and is timed from the first call to the last one's return:
-    # fewer launches than the stream's queue holds, so the host never
-    # waits on the device and the time is the host's.  The launches here
-    # are not the main path's: the counts are put back afterwards.
+    # (c) the conv programs counted on the card: the int8 forwards of
+    # vgg_imagenet, mobilenet_small and unet_small at 224, batch 8 (through
+    # make_int8_program), and phase 8's QAT step of vgg_imagenet, each run
+    # under CostCounter on real tensors and again on fake CUDA tensors of
+    # the same shapes; the conv ops (repro_torch::conv2d_ws and
+    # repro_torch::conv2d_ws_pipe) carry their own FLOP formula
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map as pytree_map
+
+    def faked(mode, tree):
+        """``tree`` with every tensor a fake tensor of ``mode`` (same
+        shape, dtype and device)."""
+        return pytree_map(lambda t: mode.from_tensor(t)
+                          if isinstance(t, torch.Tensor) else t, tree)
+
+    def fake_program(mode, q):
+        return network.make_int8_program(dataclasses.replace(q, **{
+            f.name: faked(mode, getattr(q, f.name))
+            for f in dataclasses.fields(q) if f.name != "plan"}),
+            ConvCoreConfig(int8=True))
+
+    def events_ms(fn, n):
+        """Median ms of ``n`` calls of ``fn``, each between two CUDA events,
+        after one call of warm-up."""
+        fn()
+        times = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    # a served network packs each tensor-core layer's weights once, on its
+    # first call, though they reach the launch through the dispatcher
+    cwm = sys.modules["repro_torch.kernels.conv2d_ws"]
+    packs, pack0 = [], cwm._pack
+    cwm._pack = lambda w: packs.append(tuple(w.shape)) or pack0(w)
+    conv_runs = []
+    for name in ("vgg_imagenet", "mobilenet_small", "unet_small"):
+        plan = getattr(network, name)(
+            **({} if name == "vgg_imagenet" else
+               {"input_shape": (224, 224, 4)}))
+        rng = np.random.default_rng(30)
+        params = plan.init_params(rng, device=dev)
+        calib = torch.from_numpy(rng.normal(size=(BATCH, *plan.input_shape))
+                                 .astype(np.float32)).to(dev)
+        q = network.quantize_network(plan, params, calib)
+        x_ = torch.from_numpy(rng.normal(size=(BATCH, *plan.input_shape))
+                              .astype(np.float32)).to(dev)
+        conv_runs.append((f"{name} int8 forward", plan,
+                          network.make_int8_program(q, ConvCoreConfig(
+                              int8=True)), (x_,),
+                          lambda mode, q=q: fake_program(mode, q)))
+    qplan = network.vgg_imagenet()
+    qx, qy = training.synthetic_digits(
+        np.random.default_rng(1), BATCH, input_shape=qplan.input_shape,
+        classes=1000, device=dev)
+    qstep = training.make_train_step(qplan, training.TrainConfig(
+        qat=True, per_channel=True))
+    conv_runs.append(("vgg_imagenet QAT step", qplan, qstep, (
+        training.init_train_state(qplan, np.random.default_rng(0),
+                                  device=dev), qx, qy),
+        lambda mode: qstep))
+    reset_counts()
+    log(f"  (c) [{smi}] the conv programs at 224, batch {BATCH}: counted on "
+        f"the card and on fake CUDA tensors (equal), launches by path under "
+        f"the counter, ms the median of CUDA events around a call:")
+    for label, plan, fn, args, make_fake in conv_runs:
+        before = {k: path_counts(wrappers[k]) for k in convs}
+        mm0, pack_n = matmul_ws.launches, len(packs)
+        _, card = rcounts.analyze(fn, *args)
+        torch.cuda.synchronize()
+        launched = {k: tuple(a - b for a, b in zip(path_counts(wrappers[k]),
+                                                   before[k]))
+                    for k in convs}
+        mode = FakeTensorMode()
+        fargs, ffn = faked(mode, args), make_fake(mode)
+        with mode:
+            _, fake = rcounts.analyze(ffn, *fargs)
+        diff = {k: (v, fake.as_dict()[k]) for k, v in card.as_dict().items()
+                if v != fake.as_dict()[k]}
+        if diff:
+            raise AssertionError(f"{label}: the card's count differs from "
+                                 f"the count on fake tensors: {diff}")
+        n_conv = sum(sp.kind in ("conv", "conv_transpose")
+                     for sp in plan.layers)
+        ops_ = {k: card.op_counts.get(f"repro_torch.{k}", 0) for k in convs}
+        if (any(ops_[k] != launched[k][0] for k in convs)
+                or card.op_counts.get("repro_torch.matmul_ws", 0)
+                != matmul_ws.launches - mm0
+                or ("QAT" not in label and sum(ops_.values()) != n_conv)):
+            raise AssertionError(
+                f"{label}: counted ops {dict(card.op_counts)}, launches "
+                f"(all, tc, simt, dw) {launched}, matmul_ws "
+                f"{matmul_ws.launches - mm0}, {n_conv} conv layers")
+        ms = events_ms(lambda: fn(*args), 5)
+        n_tc = sum(v[1] for v in launched.values())
+        if "QAT" not in label and len(packs) - pack_n != n_tc:
+            raise AssertionError(f"{label}: {len(packs) - pack_n} weight "
+                                 f"packs over 7 calls, {n_tc} tensor-core "
+                                 f"layers")
+        t = terms(card, H100)
+        share = 1e3 * max(t.values()) / ms
+        path_split = {k: dict(zip(("tc", "simt", "dw"), v[1:]),
+                           scalar=v[0] - sum(v[1:]))
+                   for k, v in launched.items() if v[0]}
+        by_dt = ", ".join(f"{dt} {f / 1e12:.6f}"
+                          for dt, f in sorted(card.flops_by_dtype.items()))
+        log(f"    {label}: TFLOP {by_dt}; traffic {card.traffic / 1e9:.4f} "
+            f"GB; terms compute {1e3 * t['compute']:.4f} / memory "
+            f"{1e3 * t['memory']:.4f} / collective "
+            f"{1e3 * t['collective']:.4f} ms, bound by {max(t, key=t.get)}; "
+            f"measured {ms:.3f} ms; bound / measured {share:.4f}; ops "
+            f"{dict(card.op_counts)}; conv launches by path {path_split}, "
+            f"matmul_ws {matmul_ws.launches - mm0}; weight packs over 7 "
+            f"calls {len(packs) - pack_n}")
+        if share > 1.05:
+            raise AssertionError(f"{label}: roofline share {share:.3f} above "
+                                 f"1.05: the counts or the peaks are wrong")
+    cwm._pack = pack0
+    for k, fn in wrappers.items():
+        stats[k]["launches"] += fn.launches
+    for k in convs:
+        stats[k]["simt"]["launches"] += wrappers[k].simt_launches
+    credit_paths()
+    credit_forms()
+    del conv_runs, args, fargs
+
+    # (d) the host time the torch.library ops add to a call: matmul_ws at
+    # the decode step's MLP GEMMs, conv2d_ws at the §5.2 layer.  Each
+    # window issues its calls back to back and is timed from the first
+    # call to the last one's return: fewer launches than the stream's
+    # queue holds, so the host never waits on the device and the time is
+    # the host's.  The launches here are not the main path's: the counts
+    # are put back afterwards.
+    def interleaved_host_us(routes, calls, reps, windows=20):
+        """Host us a call of each route over ``windows`` interleaved
+        windows of ``reps`` × ``calls`` (argument tuples), after holding
+        every route's result equal → ({route: per-window us}, the most us
+        the stream drained after a window)."""
+        for a in calls:
+            outs = [f(*a) for f in routes.values()]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"{list(routes)} differ at "
+                                     f"{[tuple(t.shape) for t in a]}")
+        host, drain, names = {r: [] for r in routes}, [], list(routes)
+        for i in range(windows):
+            for r in names[i % 3:] + names[:i % 3]:
+                f = routes[r]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    for a in calls:
+                        f(*a)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                drain.append(1e6 * (time.perf_counter() - t1))
+                host[r].append(1e6 * (t1 - t0) / (reps * len(calls)))
+        return {r: np.array(v) for r, v in host.items()}, max(drain)
+
+    def spread(v):
+        return (f"{np.median(v):.3f} ({v.min():.3f}-{v.max():.3f})")
+
     mwm = sys.modules["repro_torch.kernels.matmul_ws"]
 
     def before_op(x, w, bias=None):
@@ -5280,58 +5553,91 @@ def main():
                              f"got {x.device}")
         return mwm._cuda_impl(x, w, bias)
 
-    saved = matmul_ws.launches, dict(matmul_ws.path_launches)
+    saved = {k: path_counts(wrappers[k]) for k in convs}, \
+        matmul_ws.launches, dict(matmul_ws.path_launches)
     gen = torch.Generator(device=dev).manual_seed(12)
     gemms = [(torch.randn(LM_SLOTS, k, generator=gen, device=dev,
                           dtype=torch.bfloat16),
               torch.randn(k, n, generator=gen, device=dev,
                           dtype=torch.bfloat16) / k ** 0.5)
              for k, n in layer_gemms(lm_full)]
-    routes = {"wrapper": matmul_ws, "op": mwm._OP, "before": before_op}
-    for x, w in gemms:
-        outs = [f(x, w) for f in routes.values()]
-        if not all(torch.equal(outs[0], o) for o in outs[1:]):
-            raise AssertionError(f"matmul_ws at [{x.shape[0]},{x.shape[1]}]"
-                                 f"@[{w.shape[0]},{w.shape[1]}]: the op, "
-                                 f"the wrapper and the direct launch differ")
     reps, windows = 200, 20
-    calls = reps * len(gemms)
-    host = {r: [] for r in routes}
-    drain = []
-    names = list(routes)
-    for i in range(windows):
-        for r in names[i % 3:] + names[:i % 3]:
-            f = routes[r]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                for x, w in gemms:
-                    f(x, w)
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            drain.append(1e6 * (time.perf_counter() - t1))
-            host[r].append(1e6 * (t1 - t0) / calls)
-    matmul_ws.launches, matmul_ws.path_launches = saved
-    host = {r: np.array(v) for r, v in host.items()}
+    host, drained = interleaved_host_us(
+        {"wrapper": matmul_ws, "op": mwm._OP, "before": before_op}, gemms,
+        reps, windows)
     d_wrap = float(np.median(host["wrapper"] - host["before"]))
     d_op = float(np.median(host["op"] - host["before"]))
     n_dec = sum(predicted_forms(lm_full, "decode", LM_SLOTS).values())
     dec_ms = roof["decode", "pallas_ws"][1]
-
-    def spread(v):
-        return (f"{np.median(v):.3f} ({v.min():.3f}-{v.max():.3f})")
     shapes = ", ".join(f"[{LM_SLOTS},{k}]@[{k},{n}]"
                        for k, n in layer_gemms(lm_full))
-    log(f"  (c) [{smi}] host us a matmul_ws call at the decode step's MLP "
+    log(f"  (d) [{smi}] host us a matmul_ws call at the decode step's MLP "
         f"GEMMs ({shapes} bf16), {windows} interleaved windows of "
-        f"{calls} calls each, "
+        f"{reps * len(gemms)} calls each, "
         f"median (min-max): wrapper {spread(host['wrapper'])}, op alone "
         f"{spread(host['op'])}, before the op {spread(host['before'])}; "
         f"median of the windows' differences: wrapper - before "
         f"{d_wrap:+.3f} us, op - before {d_op:+.3f} us a call; x {n_dec} "
         f"calls a pallas_ws decode step = {d_wrap * n_dec / 1e3:+.4f} ms "
         f"of its {dec_ms:.2f} ms; the stream drained at most "
-        f"{max(drain):.0f} us after a window's last call")
+        f"{drained:.0f} us after a window's last call")
+
+    # conv2d_ws at the §5.2 layer (int8, int32 out, its ConvCore plan's
+    # banks and tiles): the wrapper, the op alone (the padding resolved),
+    # and the wrapper as it was before the op (the same checks, then the
+    # launch set up and called directly)
+    p52 = paper_workload()
+    tp52 = ConvCore(ConvCoreConfig(int8=True)).plan(p52["x"], p52["w"])
+    geo52 = dict(stride=1, padding="VALID", groups=1,
+                 cin_banks=tp52.cin_banks, kout_banks=tp52.kout_banks,
+                 h_tile=tp52.h_tile, w_tile=tp52.w_tile, dilation=1)
+
+    def conv_wrapper(x, w, b):
+        return conv2d_ws(x, w, b, **geo52)
+
+    def conv_op(x, w, b):
+        return cwm._CONV_OPS[False](
+            x, w, b, None, None, 1, [0, 0, 0, 0], 1, 1, tp52.cin_banks,
+            tp52.kout_banks, tp52.h_tile, tp52.w_tile, False, False)
+
+    def conv_before(x, w, b):
+        """``conv2d_ws`` as it was before the op (``run_conv`` launching
+        directly)."""
+        if x.device.type == "cpu":
+            return conv2d_ws_plain(x, w, b, **geo52)
+        if not x.is_cuda:
+            raise ValueError(f"conv2d_ws runs on a CUDA or CPU tensor, got "
+                             f"{x.device}")
+        g, plan = cwm._launch_setup(
+            tuple(x.shape), tuple(w.shape), cwm._check_operands(x, w), False,
+            False, False, False, tuple(sorted(geo52.items())))
+        out, path = cwm.launch_conv("conv2d_ws", False, x, w, b, None, g,
+                                    plan, False, False)
+        cwm.count_launch(conv2d_ws, path)
+        return out
+
+    c52 = [(rand_i8(*p52["x"]), rand_i8(*p52["w"]), rand_bias(p52["w"][3]))]
+    creps, cwindows = 100, 20
+    host, drained = interleaved_host_us(
+        {"wrapper": conv_wrapper, "op": conv_op, "before": conv_before}, c52,
+        creps, cwindows)
+    d_wrap = float(np.median(host["wrapper"] - host["before"]))
+    d_op = float(np.median(host["op"] - host["before"]))
+    log(f"  (d) [{smi}] host us a conv2d_ws call at the §5.2 layer "
+        f"(x{p52['x']} w{p52['w']} int8, int32 out, banks "
+        f"{tp52.cin_banks} x {tp52.kout_banks}, tiles {tp52.h_tile} x "
+        f"{tp52.w_tile}), {cwindows} interleaved windows of {creps} calls "
+        f"each, median (min-max): wrapper {spread(host['wrapper'])}, op "
+        f"alone {spread(host['op'])}, before the op "
+        f"{spread(host['before'])}; median of the windows' differences: "
+        f"wrapper - before {d_wrap:+.3f} us, op - before {d_op:+.3f} us a "
+        f"call; the stream drained at most {drained:.0f} us after a "
+        f"window's last call")
+    for k in convs:
+        fn = wrappers[k]
+        fn.launches, fn.tc_launches, fn.simt_launches, fn.dw_launches = \
+            saved[0][k]
+    matmul_ws.launches, matmul_ws.path_launches = saved[1], saved[2]
     log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 13. the examples ----------------------------------------------------
@@ -5499,6 +5805,9 @@ def main():
         if "dw" in st:      # the depthwise path (phase 3's sums), apart
             rows[-1].update({k if k.endswith("_launches") else f"dw_{k}": v
                              for k, v in st["dw"].items()})
+        if "scalar" in st:  # the scalar path (phase 3's times), apart
+            rows[-1].update({f"scalar_{k}": v
+                             for k, v in st["scalar"].items()})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -14,4 +14,9 @@
                     conv kernels (no device code of its own);
 * flash_attention — causal online-softmax attention of the LM prefill
                     (csrc/flash_attention.cu).
+
+Each kernel is a ``torch.library`` op (``repro_torch::conv2d_ws``,
+``repro_torch::conv2d_ws_pipe``, ``repro_torch::matmul_ws``,
+``repro_torch::flash_attention``) with a fake implementation and a FLOP
+formula; its wrapper is the entry the rest of the port calls.
 """

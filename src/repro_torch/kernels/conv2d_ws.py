@@ -27,11 +27,21 @@ this module holds
   runs, padded row pitches); ``conv2d_ws_dw_emulate`` replays its order of
   sums in plain PyTorch;
 * ``conv2d_ws_plain`` — the plain PyTorch version of the same function;
-* ``conv2d_ws`` — the wrapper: on a CUDA tensor it launches the kernel (and
+* ``conv2d_ws`` — the wrapper.  It resolves the padding to four ints and
+  the requantize scale to a tensor or a float, and calls the
+  ``torch.library`` op ``repro_torch::conv2d_ws`` (``define_conv_op``), so
+  that a dispatch mode (the roofline's counter, a fake tensor) sees one op
+  where the kernel runs.  On a CUDA tensor the op launches the kernel and
   counts the launch in ``conv2d_ws.launches``, and in
   ``conv2d_ws.tc_launches``, ``conv2d_ws.simt_launches`` or
-  ``conv2d_ws.dw_launches`` by path), on a CPU tensor it takes the plain
-  version.
+  ``conv2d_ws.dw_launches`` by path; on a CPU tensor it runs the plain
+  version; on a fake tensor it makes the output's shape and dtype and
+  launches nothing.  Its FLOP formula is the conv's,
+  ``2·N·OH·OW·K·(C/groups)·KH·KW`` before pooling.  A CPU call that
+  autograd records runs the plain version directly, which autograd
+  differentiates; a CUDA call that autograd records raises (the op has no
+  backward: ``ops.conv2d`` differentiates the float conv through its own
+  Function, whose forward and backward call the wrapper under no-grad).
 
 Zero padding and the trailing blocks' zero extension happen inside the
 kernel (exact for the symmetric zero-point-0 int8 scheme), so the padded
@@ -46,6 +56,7 @@ import weakref
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.flop_counter
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.ref import (check_groups, conv2d_epilogue_ref,
@@ -1286,12 +1297,6 @@ def _entry(lib_name: str, suffix: str, pointers: int = 5):
     return fn
 
 
-def _frozen(v):
-    """``v`` with its lists made tuples, so a padding spec can key a
-    cache."""
-    return tuple(map(_frozen, v)) if isinstance(v, (list, tuple)) else v
-
-
 @functools.lru_cache(maxsize=512)
 def _launch_setup(x_shape, w_shape, int_path: bool, requant: bool,
                   relu: bool, pool: bool, pipelined: bool, geo: tuple):
@@ -1324,7 +1329,9 @@ def launch_conv(lib_name: str, pipelined: bool, x, w, bias, out_scale,
     bias, scale, out_dtype = _operands(x, w, bias, out_scale, g)
     out = torch.empty((g.n, g.poh, g.pow_, g.k), dtype=out_dtype,
                       device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # the raw handle: torch.cuda.current_stream() builds a Stream object
+    # every call
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     if isinstance(plan, DwPlan):
         w = w.contiguous()
         params = dw_params(plan, x, w, out)
@@ -1376,33 +1383,137 @@ def conv2d_ws_plain(x, w, bias=None, out_scale=None, *, stride: int = 1,
 
 
 def run_conv(lib_name: str, pipelined: bool, plain, x, w, bias, out_scale,
-             *, relu: bool, pool: bool, **geo
-             ) -> Tuple[torch.Tensor, Optional[str]]:
-    """Shared body of the two conv wrappers → (result, path): the plain
-    version for a CPU tensor (path None), the kernel for a CUDA tensor
-    (path "tc", "simt", "dw" or "scalar", as ``conv_path`` rules)."""
+             *, relu: bool, pool: bool, stride: int, padding, groups: int,
+             cin_banks: int, kout_banks: int, h_tile: int, w_tile: int,
+             dilation: int) -> torch.Tensor:
+    """Shared body of the two conv wrappers: the op ``repro_torch::<lib_name>``
+    (``conv2d_ws_pipe``'s where ``pipelined``) on the padding resolved
+    against x's extents, or ``plain`` directly for a CPU call that autograd
+    records.  A CUDA call that autograd records raises, as does a tensor on
+    neither a CUDA device nor the CPU."""
+    from repro_torch.kernels.ops import _recorded
     if x.device.type == "cpu":
-        return plain(x, w, bias, out_scale, relu=relu, pool=pool, **geo), None
-    if not x.is_cuda:
+        if _recorded(x, w, bias):
+            return plain(x, w, bias, out_scale, relu=relu, pool=pool,
+                         stride=stride, padding=padding, groups=groups,
+                         cin_banks=cin_banks, kout_banks=kout_banks,
+                         h_tile=h_tile, w_tile=w_tile, dilation=dilation)
+    elif not x.is_cuda:
         raise ValueError(f"{lib_name} runs on a CUDA or CPU tensor, "
                          f"got {x.device}")
-    g, plan = _launch_setup(
-        tuple(x.shape), tuple(w.shape), _check_operands(x, w),
-        out_scale is not None, bool(relu), bool(pool), pipelined,
-        tuple(sorted((k, _frozen(v)) for k, v in geo.items())))
-    return launch_conv(lib_name, pipelined, x, w, bias, out_scale, g, plan,
-                       relu, pool)
+    elif _recorded(x, w, bias):
+        raise RuntimeError(
+            f"{lib_name} has no backward: differentiate a float conv "
+            f"through kernels.ops.conv2d (its Function runs the kernels' "
+            f"backward), or call it under torch.no_grad()")
+    (pt, pb), (pl_, pr) = normalize_padding(
+        padding, w.shape[0], w.shape[1], stride, x.shape[1], x.shape[2],
+        dilation)
+    scale = value = None
+    if isinstance(out_scale, (int, float)):
+        value = float(out_scale)        # filled on the device at launch
+    elif out_scale is not None:
+        scale = torch.as_tensor(out_scale, dtype=torch.float32,
+                                device=x.device)
+    return _CONV_OPS[pipelined](
+        x, w, bias, scale, value, stride, [pt, pb, pl_, pr], groups,
+        dilation, cin_banks, kout_banks, h_tile, w_tile, bool(relu),
+        bool(pool))
 
 
-def count_launch(fn, path: Optional[str]) -> None:
+def count_launch(fn, path: str) -> None:
     """Count a launch on the wrapper ``fn``: ``launches`` every one,
     ``tc_launches`` / ``simt_launches`` / ``dw_launches`` those of the
     tensor-core / simt / dw path."""
-    if path is not None:
-        fn.launches += 1
-        fn.tc_launches += path == "tc"
-        fn.simt_launches += path == "simt"
-        fn.dw_launches += path == "dw"
+    fn.launches += 1
+    fn.tc_launches += path == "tc"
+    fn.simt_launches += path == "simt"
+    fn.dw_launches += path == "dw"
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_SCHEMA = ("(Tensor x, Tensor w, Tensor? bias, Tensor? scale, "
+           "float? scale_value, int stride, int[] padding, int groups, "
+           "int dilation, int cin_banks, int kout_banks, int h_tile, "
+           "int w_tile, bool relu, bool pool) -> Tensor")
+# pipelined → the op the wrapper calls
+_CONV_OPS: Dict[bool, object] = {}
+
+
+def _op_args(scale, value, stride, padding, groups, dilation, cin_banks,
+             kout_banks, h_tile, w_tile, relu, pool):
+    """The op's arguments after x, w and bias → (the requantize scale: the
+    tensor ``scale``, else the float ``value``, else None; the geometry as
+    ``setup_conv``'s keywords, ``padding`` (top, bottom, left, right) made
+    pairs; relu; pool)."""
+    geo = dict(stride=stride, padding=((padding[0], padding[1]),
+                                       (padding[2], padding[3])),
+               groups=groups, dilation=dilation, cin_banks=cin_banks,
+               kout_banks=kout_banks, h_tile=h_tile, w_tile=w_tile)
+    return value if scale is None else scale, geo, relu, pool
+
+
+def _plain_kernel(x, w, bias, *args):
+    """Both ops' CPU kernel: the plain version."""
+    out_scale, geo, relu, pool = _op_args(*args)
+    return conv2d_ws_plain(x, w, bias, out_scale, relu=relu, pool=pool,
+                           **geo)
+
+
+def _fake_kernel(x, w, bias, *args):
+    """Both ops' fake kernel: the output's shape and dtype, after
+    ``setup_conv``'s validation."""
+    out_scale, geo, _, pool = _op_args(*args)
+    int_path = _check_operands(x, w)
+    g = setup_conv(tuple(x.shape), tuple(w.shape), pool=pool,
+                   requant=out_scale is not None, int_path=int_path, **geo)
+    return x.new_empty((g.n, g.poh, g.pow_, g.k), dtype=(
+        torch.int8 if g.requant else
+        torch.int32 if int_path else torch.float32))
+
+
+def _cuda_kernel(name: str, pipelined: bool, wrapper):
+    """The CUDA kernel of the op ``name``: launch ``csrc/<name>.cu`` and
+    count the launch on ``wrapper``."""
+    def kernel(x, w, bias, *args):
+        out_scale, geo, relu, pool = _op_args(*args)
+        g, plan = _launch_setup(tuple(x.shape), tuple(w.shape),
+                                _check_operands(x, w), out_scale is not None,
+                                relu, pool, pipelined,
+                                tuple(geo.items()))
+        out, path = launch_conv(name, pipelined, x, w, bias, out_scale, g,
+                                plan, relu, pool)
+        count_launch(wrapper, path)
+        return out
+    return kernel
+
+
+def conv_flops(x_shape, w_shape, bias, scale, value, stride, padding,
+               groups, dilation, *args, **kwargs) -> int:
+    """The conv ops' FLOP formula, ``2·N·OH·OW·K·(C/groups)·KH·KW`` with
+    OH, OW the conv's output before pooling: the multiply-adds.  Bias,
+    ReLU, pool and requantize count none, as ``matmul_ws``'s bias counts
+    none.  A transposed conv counts what its host lowering launches, the
+    stride-1 conv of the zero-inserted map."""
+    kh, kw, cgrp, k = w_shape
+    oh, ow = conv_out_shape(x_shape[1], x_shape[2], kh, kw, stride,
+                            ((padding[0], padding[1]),
+                             (padding[2], padding[3])), dilation)
+    return 2 * x_shape[0] * oh * ow * k * cgrp * kh * kw
+
+
+def define_conv_op(name: str, pipelined: bool, wrapper) -> None:
+    """Define ``repro_torch::<name>`` (one of the two conv kernels) with its
+    CPU, CUDA and fake kernels and ``conv_flops``; ``run_conv`` calls it
+    where ``pipelined`` says."""
+    _LIB.define(name + _SCHEMA)
+    _LIB.impl(name, _plain_kernel, "CPU")
+    _LIB.impl(name, _cuda_kernel(name, pipelined, wrapper), "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", _fake_kernel,
+                                lib=_LIB)
+    packet = getattr(torch.ops.repro_torch, name)
+    torch.utils.flop_counter.register_flop_formula(packet)(conv_flops)
+    _CONV_OPS[pipelined] = packet.default
 
 
 def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
@@ -1420,18 +1531,18 @@ def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
     values); the tensor-core, simt and dw paths size their blocks for the
     card.
 
-    On a CUDA tensor this launches ``csrc/conv2d_ws.cu``; on a CPU tensor it
-    runs ``conv2d_ws_plain``."""
-    out, path = run_conv(
+    Calls the op ``repro_torch::conv2d_ws``: on a CUDA tensor it launches
+    ``csrc/conv2d_ws.cu``, on a CPU tensor it runs ``conv2d_ws_plain`` (see
+    the module note)."""
+    return run_conv(
         "conv2d_ws", False, conv2d_ws_plain, x, w, bias, out_scale,
         relu=relu, pool=pool, stride=stride, padding=padding, groups=groups,
         cin_banks=cin_banks, kout_banks=kout_banks, h_tile=h_tile,
         w_tile=w_tile, dilation=dilation)
-    count_launch(conv2d_ws, path)
-    return out
 
 
 conv2d_ws.launches = 0
 conv2d_ws.tc_launches = 0
 conv2d_ws.simt_launches = 0
 conv2d_ws.dw_launches = 0
+define_conv_op("conv2d_ws", False, conv2d_ws)

@@ -14,7 +14,10 @@ cin-bank slabs through a 2-stage ring on the scalar path.  It shares its
 compute and epilogue with ``csrc/conv2d_ws.cu``, so the two kernels are
 bit-equal.
 
-On a CUDA tensor ``conv2d_ws_pipe`` launches the kernel and counts the
+``conv2d_ws_pipe`` calls the ``torch.library`` op
+``repro_torch::conv2d_ws_pipe``, defined as ``repro_torch::conv2d_ws`` is
+(``conv2d_ws.define_conv_op``: the same schema, fake kernel and FLOP
+formula).  On a CUDA tensor the op launches the kernel and counts the
 launch in ``conv2d_ws_pipe.launches`` (and in ``conv2d_ws_pipe.tc_launches``,
 ``conv2d_ws_pipe.simt_launches`` or ``conv2d_ws_pipe.dw_launches`` by
 path); on a CPU tensor it runs the plain version, which is
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.conv2d_ws import (conv2d_ws_plain, count_launch,
+from repro_torch.kernels.conv2d_ws import (conv2d_ws_plain, define_conv_op,
                                            run_conv)
 
 # the plain PyTorch version: one function, computed by both conv kernels
@@ -41,16 +44,15 @@ def conv2d_ws_pipe(x, w, bias=None, out_scale=None, *, stride: int = 1,
     through a shared-memory ring; same contracts, same results bit for
     bit.  ``banking.plan_tiles`` decides per layer which one runs
     (``TilePlan.pipelined``)."""
-    out, path = run_conv(
+    return run_conv(
         "conv2d_ws_pipe", True, conv2d_ws_pipe_plain, x, w, bias, out_scale,
         relu=relu, pool=pool, stride=stride, padding=padding, groups=groups,
         cin_banks=cin_banks, kout_banks=kout_banks, h_tile=h_tile,
         w_tile=w_tile, dilation=dilation)
-    count_launch(conv2d_ws_pipe, path)
-    return out
 
 
 conv2d_ws_pipe.launches = 0
 conv2d_ws_pipe.tc_launches = 0
 conv2d_ws_pipe.simt_launches = 0
 conv2d_ws_pipe.dw_launches = 0
+define_conv_op("conv2d_ws_pipe", True, conv2d_ws_pipe)

@@ -8,7 +8,8 @@ op by op, what ``hlo._account`` tallies per HLO instruction:
 * FLOPs of every matmul-class op (those with a formula in
   ``torch.utils.flop_counter``'s registry: ``mm``, ``bmm``, ``addmm``,
   ``baddbmm``, convolution, ...; ``_int_mm``; and the port's kernels
-  ``repro_torch::matmul_ws`` and ``repro_torch::flash_attention``, which
+  ``repro_torch::matmul_ws``, ``repro_torch::flash_attention``,
+  ``repro_torch::conv2d_ws`` and ``repro_torch::conv2d_ws_pipe``, which
   register their own formulas), by the dtype of their first operand;
 * traffic: the bytes of the operands and outputs of those ops, and the
   output bytes of collectives (an HBM-traffic model, as the reference's);

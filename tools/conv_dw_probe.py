@@ -130,18 +130,21 @@ def layer_bytes(x, w, requant, out_numel, out_es):
 
 
 def conv2d_library(x, w, b, kw):
-    """``F.conv2d(groups=C)`` (cuDNN) computing the f32 conv of ``x``
-    [N,H,W,C] ⊛ ``w`` [KH,KW,1,K] with ``kw``'s stride and padding, on the
-    same values laid out channels-last NCHW and padded here, outside any
+    """``F.conv2d(groups=...)`` (cuDNN) computing the f32 conv of ``x``
+    [N,H,W,C] ⊛ ``w`` [KH,KW,C/groups,K] with ``kw``'s stride, padding,
+    dilation and groups (depthwise where it names none), on the same
+    values laid out channels-last NCHW and padded here, outside any
     timing → a call that returns [N,K,OH,OW]."""
     h, wd, c = x.shape[1:]
-    pad = ref.normalize_padding(kw["padding"], w.shape[0], w.shape[1],
-                                kw["stride"], h, wd)
+    stride, dil = kw.get("stride", 1), kw.get("dilation", 1)
+    pad = ref.normalize_padding(kw.get("padding", "VALID"), w.shape[0],
+                                w.shape[1], stride, h, wd, dil)
     xc = F.pad(x.permute(0, 3, 1, 2), (pad[1][0], pad[1][1], pad[0][0],
                                        pad[0][1]))
     xc = xc.contiguous(memory_format=torch.channels_last)
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    return lambda: F.conv2d(xc, wc, b, stride=kw["stride"], groups=c)
+    return lambda: F.conv2d(xc, wc, b, stride=stride, dilation=dil,
+                            groups=kw.get("groups", c))
 
 
 def conv1d_library(x, w, bias):
