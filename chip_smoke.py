@@ -13,7 +13,7 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    in the conv kernels and ``matmul_ws``'s int8 mma form, ``HGMMA`` in its
    bf16 long-M form, none in the conv kernels' six f32 simt instantiations
    each);
-   fail on a spill in any of them, in a simt or dw instantiation or in a
+   fail on a spill in any of them, in a simt, dw or nk instantiation or in a
    ``flash_attention`` ``wgmma`` instantiation (D = 256 included), a
    missing ``IMMA`` or ``HGMMA``, a tensor-core instruction in a simt
    instantiation, a missing compiler report or a missing ``cuobjdump``;
@@ -23,13 +23,17 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    dilation-2 / per-channel-requant layers, the tensor-core path's edge
    geometries (``TC_CASES`` of ``tests/test_torch_cuda.py``) in int8 and,
    with ``CASES``, in f32 (the simt path, or where the groups are
-   narrower than 8 the dw path or the scalar kernel: each simt result
+   narrower than 8 the dw or the nk path: each simt result
    also within ``f32_sum_bound`` of ``conv2d_ws_simt_emulate``, the two
    kernels and a second call bit-equal), the dw path's edges
    (``DW_CASES``, with ``CASES``' depthwise layers) in int8 and f32, each
    dw result equal to ``conv2d_ws_dw_emulate`` in int8 and within
    ``f32_sum_bound`` of it in f32, the two kernels, a tiled call and a
-   second call bit-equal (``check_dw``), the dense
+   second call bit-equal (``check_dw``), the nk path's edges
+   (``NK_CASES``, with ``CASES``' ``groups2``) in int8 and f32, each nk
+   result equal to ``conv2d_ws_nk_emulate`` bit for bit (it rounds each
+   f32 FFMA as the card does), the two kernels, a tiled call and a second
+   call bit-equal (``check_nk``), the dense
    heads; every ``matmul_ws`` form at its edge shapes (M from 1 to 3000,
    K and N off the tiles, the head's N = 1000) and at the LM's MLP
    shapes (llama3.2-3b's, and recurrentgemma-9b's at M = 4 on the stream
@@ -69,10 +73,12 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``mobilenet_small``'s three depthwise convs at 224 and batch 8 on the
    dw path of both kernels, in int8 as served and in f32, beside the plain
    version, the byte bound and, in f32, ``F.conv2d(groups=C)``; and time
-   the scalar path (C/g > 1, K/g < 8) of both kernels at ``unet_small``'s
-   3-class head at 224, batch 8 (int8 as served, int32 out) beside its byte
-   bound, and at ``CASES``' ``groups2`` in f32 beside
-   ``F.conv2d(groups=2)``;
+   the nk path (C/g > 1, K/g < 8) of both kernels at ``unet_small``'s and
+   ``dilated_context``'s 3-class heads at 224, batch 8 (int8 as served,
+   int32 out), at ``unet_small``'s head in f32 (its QAT forward, f32 out)
+   and at ``CASES``' ``groups2`` in f32, each held to the plain version and
+   the emulation (``check_conv``), beside its bound, the plain version
+   and, in f32, ``F.conv2d``;
 4. run the §5.2 layer through ``ConvCore(ConvCoreConfig(int8=True))``;
    with ``relu`` and ``pool`` under ``wrap8=True`` (int8 out, equal to the
    plain backend, accumulators outside int8 present); and under
@@ -80,7 +86,7 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    memory) on both kernels, equal to the fitted plan's result, on each
    path: the §5.2 layer in int8 (tc) and f32 (simt), a 224² depthwise
    layer in int8 and f32 (dw) and a grouped layer of 4-channel groups
-   with 2 outputs each (scalar), the path asserted by the launch counts;
+   with 2 outputs each (nk), the path asserted by the launch counts;
 5. the conv main path: ``vgg_imagenet`` (224×224×4, 1000 classes, random
    weights from a seed) quantized on a 16-image calibration batch, served
    to 16 requests through ``ConvNetEngine(batch=8)`` (the facade of the
@@ -355,16 +361,19 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``f32_plain_ms``, ``f32_bound_by``; on ``conv2d_ws``
    ``f32_dx_ms``, ``f32_dx_bound_ms`` and ``f32_dx_library_ms``: the five
    input-gradient convs beside ``torch.nn.grad.conv2d_input``) and their
-   dw path apart (``dw_launches`` and, for what is left on the first
-   port's kernel, ``scalar_launches`` over the main paths' serving and
+   dw path apart (``dw_launches`` over the main paths' serving and
    training runs, ``dw_max_abs_err`` over phase 3's dw checks, and phase
    3's
    ``mobilenet_small`` depthwise sums: ``dw_int8_ms``,
    ``dw_int8_device_ms``, ``dw_int8_plain_ms``, ``dw_int8_bound_ms``, the
    same ``dw_f32_*`` and ``dw_f32_library_ms``, ``F.conv2d(groups=C)``)
-   and their scalar path apart (phase 3's ``scalar_int8_*`` at
-   ``unet_small``'s head and ``scalar_f32_*`` at ``groups2``, with
-   ``scalar_f32_library_ms``, ``F.conv2d(groups=2)``);
+   and their nk path apart (``nk_launches`` and, for what is left on the
+   first port's kernel, ``scalar_launches`` over the same runs,
+   ``nk_max_abs_err`` over phase 3's nk checks, and phase 3's sums:
+   ``nk_int8_ms``, ``nk_int8_device_ms``, ``nk_int8_plain_ms``,
+   ``nk_int8_bound_ms`` over the two int8 heads, the same ``nk_f32_*``
+   over ``unet_small``'s f32 head and ``groups2``, and
+   ``nk_f32_library_ms``, ``F.conv2d``);
    ``matmul_ws``'s ``int8_ms``, ``int8_device_ms``, ``int8_bound_ms`` and
    ``int8_library_ms`` sum its twelve long-M int8 shapes of phase 3 (the
    library ``torch._int_mm``, each shape's faster of its two weight
@@ -387,8 +396,9 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    deepseek-moe-16b's); ``matmul_ws``'s and
    ``flash_attention``'s add phase 12's counted and timed steps, and the
    convs' and ``matmul_ws``'s phase 12(c)'s counted and timed runs; every
-   row's launches (and the convs' ``simt_launches``, ``dw_launches`` and
-   ``scalar_launches``, ``matmul_ws``'s ``form_launches``) add phase
+   row's launches (and the convs' ``simt_launches``, ``dw_launches``,
+   ``nk_launches`` and ``scalar_launches``, ``matmul_ws``'s
+   ``form_launches``) add phase
    13's examples.
 
 It needs a CUDA device and the repository's ``src`` and ``tests`` beside
@@ -546,13 +556,17 @@ MM_KERNEL_NAMES = ("matmul_ws_kernel", "mm_stream_kernel", "mm_wgmma_kernel",
                    "mm_simt_kernel", "mm_imma_kernel", "mm_split_reduce")
 
 
-# the conv kernels' device kernels by name: the scalar, simt and dw kernels
-# of both sources (the tensor-core ones are "conv_ws_tc_kernel" and
+# the conv kernels' device kernels by name: the scalar, simt, dw and nk
+# kernels of both sources (the tensor-core ones are "conv_ws_tc_kernel" and
 # "conv_ws_pipe_tc_kernel"), and the simt path's split-K reduce
 CONV_F32_KERNEL_NAMES = ("conv_ws_kernel", "conv_ws_pipe_kernel",
                          "conv_ws_simt_kernel", "conv_ws_pipe_simt_kernel",
                          "conv_ws_dw_kernel", "conv_ws_pipe_dw_kernel",
+                         "conv_ws_nk_kernel", "conv_ws_pipe_nk_kernel",
                          "conv_simt_reduce_kernel")
+# the paths an int8 conv program's launches may take (no simt launch is
+# served)
+SERVED_PATHS = ("tc", "dw", "nk", "scalar")
 
 
 def is_mm_kernel(name):
@@ -660,8 +674,9 @@ def main():
                                            unregister_backend)
     from repro_torch.core.scheduler import MultiCoreScheduler, SchedulerConfig
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_plain,
-                                               conv_path, setup_conv)
+    from repro_torch.kernels.conv2d_ws import (CONV_PATHS, conv2d_ws,
+                                               conv2d_ws_plain, conv_path,
+                                               reset_launches, setup_conv)
     from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
     from repro_torch.kernels.conv2d_ws_trans import transpose_eq_conv_geometry
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -696,7 +711,7 @@ def main():
     from repro_torch.kernels.conv2d_ws_bwd import (conv2d_ws_input_grad,
                                                    conv2d_ws_weight_grad)
     from test_torch_cuda import (CASES, DW_CASES, F32_CASES, MM_CASES,
-                                 TC_CASES,
+                                 NK_CASES, TC_CASES, check_nk, one_more,
                                  bf16_gemm_bound, GRAD_REL_L2, LM_MLP_CASES,
                                  RG_MLP_CASES, bf16_ulp, case_inputs,
                                  check_dw, check_simt, check_conv_vjp,
@@ -706,6 +721,7 @@ def main():
     sys.path.insert(0, str(ROOT / "tools"))
     from conv_dw_probe import (conv1d_library, conv2d_library, layer_bytes,
                                mobilenet_layers)
+    from conv_nk_probe import nk_layers
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -728,10 +744,12 @@ def main():
     for k in ("conv2d_ws", "conv2d_ws_pipe"):
         stats[k]["simt"] = dict(launches=0, max_abs_err=0.0,
                                 bound_by={"bytes": 0.0, "operations": 0.0})
-    # and its dw path: launches on the serving runs, max error against the
-    # plain version, phase 3's mobilenet_small depthwise sums
+    # and its dw and nk paths: launches on the main paths' runs (the nk
+    # row also those left on the scalar kernel), max error against the
+    # plain version, phase 3's sums
     for k in ("conv2d_ws", "conv2d_ws_pipe"):
-        stats[k]["dw"] = dict(dw_launches=0, scalar_launches=0,
+        stats[k]["dw"] = dict(dw_launches=0, max_abs_err=0.0)
+        stats[k]["nk"] = dict(nk_launches=0, scalar_launches=0,
                               max_abs_err=0.0)
 
     def mem_note(where):
@@ -787,12 +805,13 @@ def main():
                 log(f"  {name} {entry}: {line.strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line) and (
                         "tc_kernel" in entry or "simt_kernel" in entry
-                        or "dw_kernel" in entry or "wgmma_kernel" in entry
+                        or "dw_kernel" in entry or "nk_kernel" in entry
+                        or "wgmma_kernel" in entry
                         or "imma_kernel" in entry
                         or "flash_bf16_kernel" in entry):
                     spilled.append(entry)
     if spilled:
-        raise AssertionError(f"tensor-core, simt or dw kernels spill: "
+        raise AssertionError(f"tensor-core, simt, dw or nk kernels spill: "
                              f"{spilled}")
     for name in ("conv2d_ws", "conv2d_ws_pipe"):
         ops = sass_tensor_ops(_build.library_path(name))
@@ -944,7 +963,9 @@ def main():
         second call to each other bit for bit (``check_simt``); a result
         on the dw path to ``conv2d_ws_dw_emulate`` (int8 equal, f32 within
         ``f32_sum_bound``), and the two kernels, a second call and a tiled
-        call to each other (``check_dw``)."""
+        call to each other (``check_dw``); a result on the nk path to
+        ``conv2d_ws_nk_emulate`` and all of those bit for bit
+        (``check_nk``)."""
         if isinstance(scale, str):
             acc = conv2d_ws_plain(x, w, b, None, **kw).double().abs()
             if scale == "per_k":
@@ -965,13 +986,11 @@ def main():
             before = path_counts(fn)
             got = fn(x, w, b, scale, **kw)
             torch.cuda.synchronize()
-            if path_counts(fn) != (
-                    before[0] + 1, before[1] + (path == "tc"),
-                    before[2] + (path == "simt"), before[3] + (path == "dw")):
+            if path_counts(fn) != one_more(before, path):
                 raise AssertionError(f"{label}: {name} did not launch once "
                                      f"on the {path} path")
             err = compare(name, got, want)
-            if path in ("simt", "dw"):
+            if path in ("simt", "dw", "nk"):
                 sub = stats[name][path]
                 sub["max_abs_err"] = max(sub["max_abs_err"], err)
             outs.append(got)
@@ -984,6 +1003,8 @@ def main():
             check_simt([x, w, b, scale], kw, outs)
         if path == "dw":        # the emulation, both kernels' and tiles' bits
             check_dw([x, w, b, scale], kw, outs)
+        if path == "nk":        # the same, bit for bit in f32 too
+            check_nk([x, w, b, scale], kw, outs)
         if timed:
             n, h, wd, c = x.shape
             kh, kwd, cg, k = w.shape
@@ -1328,7 +1349,7 @@ def main():
     check_conv("f32", xf, wf, torch.randn(64, generator=gen, device=dev),
                None, dict(padding="SAME", relu=True, pool=True, h_tile=8,
                           w_tile=10))
-    for label in F32_CASES:     # the conv edges in f32: simt, dw or scalar
+    for label in F32_CASES:     # the conv edges in f32: simt, dw or nk
         x, w, b, kw = f32_case(label)
         check_conv(f"{label} f32", *(torch.as_tensor(np.array(a), device=dev)
                                      for a in (x, w, b)), None, kw)
@@ -1338,6 +1359,14 @@ def main():
         for f32_ in (False, True):      # every dw case, int8 and f32
             x, w, b, s_, kw = legal_banks(*case_inputs(
                 label, f32=f32_, table=table))
+            check_conv(f"{label} {'f32' if f32_ else 'int8'}", *(
+                None if a is None else torch.as_tensor(np.array(a),
+                                                       device=dev)
+                for a in (x, w, b, s_)), kw)
+    for label in NK_CASES:      # every nk edge, int8 and f32
+        for f32_ in (False, True):
+            x, w, b, s_, kw = legal_banks(*case_inputs(
+                label, f32=f32_, table=NK_CASES))
             check_conv(f"{label} {'f32' if f32_ else 'int8'}", *(
                 None if a is None else torch.as_tensor(np.array(a),
                                                        device=dev)
@@ -1362,8 +1391,7 @@ def main():
         before = path_counts(conv2d_ws)
         got = kops.conv1d_depthwise(x, w, bias)
         torch.cuda.synchronize()
-        if path_counts(conv2d_ws) != (before[0] + 1, before[1], before[2],
-                                      before[3] + 1):
+        if path_counts(conv2d_ws) != one_more(before, "dw"):
             raise AssertionError("conv1d_depthwise: not one conv2d_ws launch "
                                  "on the dw path")
         err = compare("conv2d_ws", got, ref.conv1d_depthwise_ref(x, w, bias))
@@ -1491,44 +1519,41 @@ def main():
 
     time_dw_layers()
 
-    def time_scalar_layers():
-        """The scalar path (C/g > 1 with K/g < 8), which no redesign has
-        taken: ``unet_small``'s 3-class head at 224, batch 8, in int8 as
-        served (int32 out: the last conv dequantizes; the network's default
-        tile plan) beside its byte bound, and ``CASES``' ``groups2`` in f32
-        beside ``F.conv2d(groups=2)`` (cuDNN, TF32 off); each held to its
-        plain version (``check_conv``), timed as ``time_dw_layers`` times
-        (``ms``, ``device_ms``), beside the plain version and the bound →
-        the conv rows' ``scalar_*`` keys."""
-        uplan = network.unet_small(input_shape=(224, 224, 4), classes=3)
-        acts, ins = uplan.activation_shapes(), uplan.resolved_inputs()
-        i = max(j for j, sp_ in enumerate(uplan.layers)
-                if sp_.kind == "conv")
-        sp_ = uplan.layers[i]
-        tp_ = network.program_tile_plans(uplan, ConvCoreConfig(int8=True))[i]
-        hw = uplan.param_shapes()[i]["w"]
-        hx = (BATCH, *(uplan.input_shape if ins[i][0] < 0
-                       else acts[ins[i][0]]))
-        head_kw = dict(stride=sp_.stride, padding=sp_.padding,
-                       groups=uplan.conv_geometries()[i][1],
-                       cin_banks=tp_.cin_banks, kout_banks=tp_.kout_banks,
-                       h_tile=tp_.h_tile, w_tile=tp_.w_tile, relu=sp_.relu,
-                       pool=sp_.pool, dilation=sp_.dilation)
+    def time_nk_layers():
+        """The nk path (C/g > 1 with K/g < 8) at the four layers it was
+        redesigned for: ``unet_small``'s and ``dilated_context``'s 3-class
+        heads at 224, batch 8, in int8 as served (int32 out: the last conv
+        dequantizes; the network's default tile plan), ``unet_small``'s
+        head in f32 (its QAT forward: f32 out) and ``CASES``' ``groups2``
+        in f32; each held to its plain version and the emulation
+        (``check_conv``), timed as ``time_dw_layers`` times (``ms``,
+        ``device_ms``), beside the plain version, the bound and, in f32,
+        ``F.conv2d`` (cuDNN, TF32 off) → the conv rows' ``nk_*`` keys,
+        summed by type.  ``tools/conv_nk_probe.py`` times the same layers
+        on any tree (``nk_layers``)."""
+        layers = []
+        for label, dtype, xs, ws, kw in nk_layers():
+            if dtype == "int8":
+                args = (rand_i8(*xs), rand_i8(*ws), rand_bias(ws[3]))
+            else:
+                args = (torch.randn(xs, generator=gen, device=dev),
+                        torch.randn(ws, generator=gen, device=dev) / 3,
+                        torch.randn((ws[3],), generator=gen, device=dev))
+            layers.append((label, dtype, args, kw))
         gx, gw, gb, g_kw = f32_case("groups2")
-        layers = (("unet_small 3-class head int8", "int8",
-                   (rand_i8(*hx), rand_i8(*hw), rand_bias(hw[3])), head_kw),
-                  ("groups2 f32", "f32", tuple(
-                      torch.as_tensor(np.array(a), device=dev)
-                      for a in (gx, gw, gb)), g_kw))
+        layers.append(("groups2 f32", "f32", tuple(
+            torch.as_tensor(np.array(a), device=dev) for a in (gx, gw, gb)),
+            g_kw))
         keys = ("ms", "device_ms", "plain_ms", "bound_ms")
         names = ("conv2d_ws", "conv2d_ws_pipe")
         for name in names:
-            stats[name]["scalar"] = dict(
+            stats[name]["nk"].update(
                 {f"{t}_{k}": 0.0 for t in ("int8", "f32") for k in keys},
                 f32_library_ms=0.0)
-        log(f"  the scalar path (C/g > 1, K/g < 8; us: CUDA events around "
-            f"back-to-back calls, host work included / device time under "
-            f"torch.profiler; bound at 3.35 TB/s and the dtype's peak):")
+        log(f"  [{smi}] the nk path (C/g > 1, K/g < 8; us: CUDA events "
+            f"around back-to-back calls, host work included / device time "
+            f"under torch.profiler; bound at 3.35 TB/s and the dtype's "
+            f"peak; F.conv2d TF32 off):")
         for label, dtype, (x, w, b), kw in layers:
             n, h, wd, _ = x.shape
             kh, kwd, cg, k = w.shape
@@ -1540,7 +1565,7 @@ def main():
             path = conv_path(setup_conv(
                 tuple(x.shape), tuple(w.shape), pool=kw.get("pool", False),
                 int_path=dtype == "int8", **geo))
-            if path != "scalar":
+            if path != "nk":
                 raise AssertionError(f"{label}: the {path} path")
             check_conv(label, x, w, b, None, kw)
             want = conv2d_ws_plain(x, w, b, **kw)
@@ -1556,9 +1581,9 @@ def main():
                 fn = wrappers[name]
                 call = (lambda fn=fn: fn(x, w, b, **kw))
                 times[name] = (elapsed_ms(call, reps=20), device_ms(call, 20))
-                sc = stats[name]["scalar"]
+                sub = stats[name]["nk"]
                 for k_, v in zip(keys, (*times[name], plain, bound)):
-                    sc[f"{dtype}_{k_}"] += v
+                    sub[f"{dtype}_{k_}"] += v
             lib = ""
             if dtype == "f32":
                 lib_call = conv2d_library(x, w, b, kw)
@@ -1566,22 +1591,23 @@ def main():
                                       conv2d_ws(x, w, b, **geo),
                                       rtol=F32_TOL, atol=F32_TOL):
                     raise AssertionError(f"{label}: F.conv2d(groups="
-                                         f"{kw['groups']}) computes another "
-                                         f"function")
+                                         f"{kw.get('groups', 1)}) computes "
+                                         f"another function")
                 lib_ms = elapsed_ms(lib_call, reps=20)
                 for name in names:
-                    stats[name]["scalar"]["f32_library_ms"] += lib_ms
-                lib = (f", F.conv2d(groups={kw['groups']}) "
+                    stats[name]["nk"]["f32_library_ms"] += lib_ms
+                lib = (f", F.conv2d(groups={kw.get('groups', 1)}) "
                        f"{1e3 * lib_ms:.2f} / "
                        f"{1e3 * device_ms(lib_call, 20):.2f} us")
             (sm, sd), (pm, pd) = times["conv2d_ws"], times["conv2d_ws_pipe"]
             log(f"    {label} x{tuple(x.shape)} w{tuple(w.shape)}: conv2d_ws "
                 f"{1e3 * sm:.2f} / {1e3 * sd:.2f} us, conv2d_ws_pipe "
                 f"{1e3 * pm:.2f} / {1e3 * pd:.2f} us, bound "
-                f"{1e3 * bound:.3f} us ({nbytes / 1e6:.3f} MB), plain "
+                f"{1e3 * bound:.3f} us ({nbytes / 1e6:.3f} MB), "
+                f"device / bound {sd / bound:.2f} / {pd / bound:.2f}, plain "
                 f"{plain:.3f} ms{lib}")
 
-    time_scalar_layers()
+    time_nk_layers()
 
     # bf16 attention: the kernel and the plain version each round an f32
     # result once, from sums taken in another order, so they may differ by
@@ -1700,10 +1726,7 @@ def main():
     # shared memory; each path of both kernels must give the fitted plan's
     # bits
     def by_path(fn):
-        return {"tc": fn.tc_launches, "simt": fn.simt_launches,
-                "dw": fn.dw_launches,
-                "scalar": fn.launches - fn.tc_launches - fn.simt_launches
-                - fn.dw_launches}
+        return {p: getattr(fn, f"{p}_launches") for p in CONV_PATHS}
 
     xf = torch.randn(shp["x"], generator=gen, device=dev)
     wf = torch.randn(shp["w"], generator=gen, device=dev) * 0.1
@@ -1720,7 +1743,7 @@ def main():
         ("dw", "depthwise f32 [2,224,224,32], relu, pool", xdf, torch.randn(
             (3, 3, 1, 32), generator=gen, device=dev), torch.randn(
             32, generator=gen, device=dev), dict(pooled, groups=32)),
-        ("scalar", "grouped int8 [2,224,224,8] (2 groups of 4 -> 2), relu, "
+        ("nk", "grouped int8 [2,224,224,8] (2 groups of 4 -> 2), relu, "
          "pool", rand_i8(2, 224, 224, 8), rand_i8(3, 3, 4, 4), rand_bias(4),
          dict(pooled, groups=2)))
     for path, name, x_, w_, b_, kw in whole_map:
@@ -1764,32 +1787,27 @@ def main():
         for fn in wrappers.values():
             fn.launches = 0
         for k in convs:
-            wrappers[k].tc_launches = 0
-            wrappers[k].simt_launches = 0
-            wrappers[k].dw_launches = 0
+            reset_launches(wrappers[k])
         matmul_ws.path_launches = dict.fromkeys(PATHS, 0)
 
     def counts():
         return {k: fn.launches for k, fn in wrappers.items()}
 
     def conv_paths():
-        """Each conv kernel's launches on the tensor-core, dw and scalar
-        paths (the int8 ones: no simt launch is served)."""
-        out = {}
-        for k in convs:
-            fn = wrappers[k]
-            out[k] = {"tc": fn.tc_launches, "dw": fn.dw_launches,
-                      "scalar": fn.launches - fn.tc_launches
-                      - fn.simt_launches - fn.dw_launches}
-        return out
+        """Each conv kernel's launches on the tensor-core, dw, nk and scalar
+        paths (``SERVED_PATHS``: no simt launch is served)."""
+        return {k: {p_: getattr(wrappers[k], f"{p_}_launches")
+                    for p_ in SERVED_PATHS} for k in convs}
 
     def credit_paths():
-        """Add the conv kernels' dw and scalar launches since the last
+        """Add the conv kernels' dw, nk and scalar launches since the last
         reset to their rows (read where a main-path run's launches are
         credited)."""
-        for k, by in conv_paths().items():
-            for p_ in ("dw", "scalar"):
-                stats[k]["dw"][f"{p_}_launches"] += by[p_]
+        for k in convs:
+            fn = wrappers[k]
+            stats[k]["dw"]["dw_launches"] += fn.dw_launches
+            stats[k]["nk"]["nk_launches"] += fn.nk_launches
+            stats[k]["nk"]["scalar_launches"] += fn.scalar_launches
 
     def device_busy(fn, part=None, ranges=None, once=False):
         """(wall ms of ``fn`` unprofiled, device ms and device event count
@@ -3276,7 +3294,7 @@ def main():
         unregister_backend(name)
         unregister_backend(rec.name)
         want = {k: 0 for k in wrappers}
-        paths = {k: {"tc": 0, "dw": 0, "scalar": 0} for k in convs}
+        paths = {k: dict.fromkeys(SERVED_PATHS, 0) for k in convs}
         forms = dict.fromkeys(PATHS, 0)
         for kind, xs, ws, kw in rec.calls:
             if kind == "matmul":
@@ -3687,7 +3705,7 @@ def main():
         GEMM, its weight-gradient GEMM and an input-gradient GEMM where its
         input needs one.  A conv launch is simt where its output groups
         are 8 or more channels wide (the forward's K/g, the input
-        gradient's C/g), else dw or scalar: the path rule on f32."""
+        gradient's C/g), else dw or nk: the path rule on f32."""
         ins, acts = plan.resolved_inputs(), plan.activation_shapes()
         shapes, geoms = plan.param_shapes(), plan.conv_geometries()
         needs, n_conv, n_simt = [], 0, 0
@@ -3761,7 +3779,7 @@ def main():
         summ = hist_us.summary()
         log(f"  {label}: {steps} fit steps of batch {batch}, launches "
             f"{seen} a run = {n_conv} conv2d_ws ({n_simt} on the simt path, "
-            f"the rest dw or scalar) and {sum(forms.values())} matmul_ws a step "
+            f"the rest dw or nk) and {sum(forms.values())} matmul_ws a step "
             f"({forms}), no tensor-core launch; loss {[round(hh['loss'], 4) for hh in hist]}"
             f", grad norm {[round(hh['grad_norm'], 3) for hh in hist]}; "
             f"ms a step (host clock, train.step_us) min "
@@ -3946,7 +3964,7 @@ def main():
             raise AssertionError(f"{smp.name}: launched {smp.meta}, the "
                                  f"path rule gives {rule}")
     paths = {p: sum(smp.meta["conv_path"] == p for smp in samples)
-             for p in ("tc", "dw", "scalar")}
+             for p in SERVED_PATHS}
     log(f"  every sample launched on the path conv_path gives and with the "
         f"TcPlan (bn, stages, slots) tc_plan or the DwPlan (rectangle, "
         f"run, slots) dw_plan gives: {paths}")
@@ -4048,7 +4066,7 @@ def main():
               for n in (1, BATCH)}
     n_single = 3
     want = {k: 0 for k in wrappers}
-    want_paths = {k: {"tc": 0, "dw": 0, "scalar": 0} for k in convs}
+    want_paths = {k: dict.fromkeys(SERVED_PATHS, 0) for k in convs}
     want_forms = dict.fromkeys(PATHS, 0)
     # the first batch is profiled (one warm-up and one timed pass of the
     # routed program) before it runs
@@ -5467,7 +5485,7 @@ def main():
                 or ("QAT" not in label and sum(ops_.values()) != n_conv)):
             raise AssertionError(
                 f"{label}: counted ops {dict(card.op_counts)}, launches "
-                f"(all, tc, simt, dw) {launched}, matmul_ws "
+                f"(all, {', '.join(CONV_PATHS)}) {launched}, matmul_ws "
                 f"{matmul_ws.launches - mm0}, {n_conv} conv layers")
         ms = events_ms(lambda: fn(*args), 5)
         n_tc = sum(v[1] for v in launched.values())
@@ -5477,9 +5495,8 @@ def main():
                                  f"layers")
         t = terms(card, H100)
         share = 1e3 * max(t.values()) / ms
-        path_split = {k: dict(zip(("tc", "simt", "dw"), v[1:]),
-                           scalar=v[0] - sum(v[1:]))
-                   for k, v in launched.items() if v[0]}
+        path_split = {k: dict(zip(CONV_PATHS, v[1:]))
+                      for k, v in launched.items() if v[0]}
         by_dt = ", ".join(f"{dt} {f / 1e12:.6f}"
                           for dt, f in sorted(card.flops_by_dtype.items()))
         log(f"    {label}: TFLOP {by_dt}; traffic {card.traffic / 1e9:.4f} "
@@ -5635,8 +5652,9 @@ def main():
         f"window's last call")
     for k in convs:
         fn = wrappers[k]
-        fn.launches, fn.tc_launches, fn.simt_launches, fn.dw_launches = \
-            saved[0][k]
+        fn.launches = saved[0][k][0]
+        for p_, v in zip(CONV_PATHS, saved[0][k][1:]):
+            setattr(fn, f"{p_}_launches", v)
     matmul_ws.launches, matmul_ws.path_launches = saved[1], saved[2]
     log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
 
@@ -5802,12 +5820,10 @@ def main():
                 f32_bound_by=max(sim["bound_by"], key=sim["bound_by"].get),
                 **{f"f32_{k}": v for k, v in sim.items()
                    if k.startswith("dx_")})
-        if "dw" in st:      # the depthwise path (phase 3's sums), apart
-            rows[-1].update({k if k.endswith("_launches") else f"dw_{k}": v
-                             for k, v in st["dw"].items()})
-        if "scalar" in st:  # the scalar path (phase 3's times), apart
-            rows[-1].update({f"scalar_{k}": v
-                             for k, v in st["scalar"].items()})
+        for p_ in ("dw", "nk"):     # the dw and nk paths (phase 3's sums)
+            if p_ in st:
+                rows[-1].update({k if k.endswith("_launches") else
+                                 f"{p_}_{k}": v for k, v in st[p_].items()})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

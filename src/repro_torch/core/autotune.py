@@ -21,10 +21,12 @@ model.  This module searches the reference's candidate space instead:
 * :func:`route_batch` — the mode one formed batch of a given size should
   run under (the continuous-batching engine's ``route=True``).
 
-On the H100 the tile plan of an int8 layer does not shape the
-tensor-core or depthwise launch (``conv2d_ws.tc_plan`` / ``dw_plan`` size
-it from the geometry); the plan's tiles and banks change what the model
-prices and what the scalar path runs, and ``pipelined`` picks the
+On the H100 the tile plan of an int8 layer does not shape its launch on
+any of the five conv paths but the last: the tensor-core, depthwise and
+narrow-output launches (``conv2d_ws.tc_plan`` / ``dw_plan`` /
+``nk_plan``) are sized from the geometry, as the f32 simt path's are; the
+plan's tiles and banks change what the model prices and what the scalar
+path (a geometry no other plan takes) runs, and ``pipelined`` picks the
 kernel.
 """
 

@@ -20,12 +20,14 @@ included, as a served layer pays it); the median and inter-quartile
 range of the per-call times.
 
 Each sample's ``meta`` records what launched: ``conv_path`` (read from the
-wrapper's launch counts by path: "tc", "simt", "dw" or "scalar"), the
-launch geometry, and the tensor-core ``TcPlan``'s ``bn`` / ``stages`` /
-``slots``, the dw ``DwPlan``'s rectangle, channel run and slots, or the
-scalar path's tiles.  On the int8 tensor-core and dw paths the plan's
-tiles and banks do not shape the launch (``tc_plan`` / ``dw_plan`` size
-it from the geometry); only ``pipelined`` changes what runs, so the fit
+wrapper's launch counts by path: "tc", "simt", "dw", "nk" or "scalar"),
+the launch geometry, and the tensor-core ``TcPlan``'s ``bn`` / ``stages``
+/ ``slots``, the dw ``DwPlan``'s rectangle, channel run and slots, the nk
+``NkPlan``'s rectangle, run of groups, channel chunk and slots, or the
+scalar path's tiles.  On the int8 tensor-core, dw and nk paths the plan's
+tiles and banks do not shape the launch (``tc_plan`` / ``dw_plan`` /
+``nk_plan`` size it from the geometry); only ``pipelined`` changes what
+runs, so the fit
 regresses many constant times against a DMA column that varies.  Its error is reported as it comes.
 
 It needs a CUDA device.  ``run`` writes the fitted table with provenance
@@ -50,8 +52,9 @@ from repro_torch.core.banking import TilePlan, grouped_banks, plan_tiles
 from repro_torch.core.calibration import (CalibrationSample,
                                           CalibrationTable, fit_calibration,
                                           sample_from_plan)
-from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv_path, dw_plan,
-                                           scalar_tiles, setup_conv, tc_plan)
+from repro_torch.kernels.conv2d_ws import (CONV_PATHS, conv2d_ws, conv_path,
+                                           dw_plan, nk_plan, scalar_tiles,
+                                           setup_conv, tc_plan)
 from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
 from repro_torch.kernels.conv2d_ws_trans import (conv2d_ws_transpose,
                                                  transpose_eq_conv_geometry)
@@ -218,7 +221,8 @@ def launch_geometry(point: Point) -> Dict[str, Any]:
 def launch_plan(geom: Dict[str, Any]) -> Dict[str, Any]:
     """What ``conv_path`` and its plans give a launch geometry: the path,
     and the tensor-core plan's N-tile, ring depth and slots, the dw plan's
-    rectangle, channel run and slots, or the scalar path's tiles."""
+    rectangle, channel run and slots, the nk plan's rectangle, run of
+    groups, channel chunk and slots, or the scalar path's tiles."""
     g = setup_conv(tuple(geom["x_shape"]), tuple(geom["w_shape"]),
                    stride=geom["stride"], padding=geom["padding"],
                    groups=geom["groups"], cin_banks=geom["cin_banks"],
@@ -235,6 +239,10 @@ def launch_plan(geom: Dict[str, Any]) -> Dict[str, Any]:
         dw = dw_plan(g, geom["relu"], geom["pipelined"])
         return dict(conv_path=path, rh=dw.rh, rw=dw.rw, kc=dw.kc,
                     slots=dw.slots)
+    if path == "nk":
+        nk = nk_plan(g, geom["relu"], geom["pipelined"])
+        return dict(conv_path=path, rh=nk.rh, rw=nk.rw, gr=nk.gr, cs=nk.cs,
+                    slots=nk.slots)
     st = scalar_tiles(g, 2 if geom["pipelined"] else 1)
     return dict(conv_path=path, th=st.th, tw=st.tw, kb=st.kb)
 
@@ -304,7 +312,7 @@ def sweep(smoke: bool = False, seed: int = 7,
                 conv2d_ws_pipe if pt.plan.pipelined else conv2d_ws)
         else:
             fn = counted = conv2d_ws_pipe if pt.plan.pipelined else conv2d_ws
-        paths = ("tc", "simt", "dw")
+        paths = CONV_PATHS
         before = [counted.launches] + [getattr(counted, f"{p}_launches")
                                        for p in paths]
         fn(x, w, None, scale, **pt.kw)
@@ -318,8 +326,8 @@ def sweep(smoke: bool = False, seed: int = 7,
         geom = launch_geometry(pt)
         meta = dict(pt.meta, kernel=counted.__name__, geometry=geom,
                     **launch_plan(geom))
-        meta["conv_path"] = next(
-            (p for p, n in zip(paths, launched[1:]) if n), "scalar")
+        meta["conv_path"] = next(p for p, n in zip(paths, launched[1:])
+                                 if n)
         med, iqr = time_calls(lambda: fn(x, w, None, scale, **pt.kw), iters)
         s = _sample(pt, med, iqr, meta)
         samples.append(s)

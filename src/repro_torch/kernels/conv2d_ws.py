@@ -14,8 +14,9 @@ this module holds
   K/groups is at least 8 run an implicit GEMM, int8 on the tensor cores
   ("tc"), f32 on register-tiled FFMA ("simt"); narrower groups of one
   input channel (depthwise) run a channel-vectorised direct conv ("dw"),
-  in int8 and in f32; narrower groups of several input channels run the
-  scalar kernel ("scalar");
+  narrower groups of several input channels a direct conv that sums them
+  ("nk"), both in int8 and in f32; a geometry no plan takes runs the
+  first port's scalar kernel ("scalar");
 * ``tc_plan`` / ``pack_weights`` — the tensor-core path's launch plan (block
   rectangles, N-tile, K-chunks, shared-memory layout) and its K-major
   weights; ``conv2d_ws_tc_emulate`` replays that plan in plain PyTorch, block
@@ -26,6 +27,9 @@ this module holds
 * ``dw_plan`` — the dw path's launch plan (block rectangles, channel
   runs, padded row pitches); ``conv2d_ws_dw_emulate`` replays its order of
   sums in plain PyTorch;
+* ``nk_plan`` — the nk path's launch plan (block rectangles, runs of
+  groups, channel chunks, padded row pitches); ``conv2d_ws_nk_emulate``
+  replays its order of sums in plain PyTorch, f32 FFMA rounding included;
 * ``conv2d_ws_plain`` — the plain PyTorch version of the same function;
 * ``conv2d_ws`` — the wrapper.  It resolves the padding to four ints and
   the requantize scale to a tensor or a float, and calls the
@@ -33,8 +37,9 @@ this module holds
   that a dispatch mode (the roofline's counter, a fake tensor) sees one op
   where the kernel runs.  On a CUDA tensor the op launches the kernel and
   counts the launch in ``conv2d_ws.launches``, and in
-  ``conv2d_ws.tc_launches``, ``conv2d_ws.simt_launches`` or
-  ``conv2d_ws.dw_launches`` by path; on a CPU tensor it runs the plain
+  ``conv2d_ws.tc_launches``, ``conv2d_ws.simt_launches``,
+  ``conv2d_ws.dw_launches``, ``conv2d_ws.nk_launches`` or
+  ``conv2d_ws.scalar_launches`` by path; on a CPU tensor it runs the plain
   version; on a fake tensor it makes the output's shape and dtype and
   launches nothing.  Its FLOP formula is the conv's,
   ``2·N·OH·OW·K·(C/groups)·KH·KW`` before pooling.  A CPU call that
@@ -73,7 +78,7 @@ SM_SMEM = 233_472         # shared memory of one SM; 1 KB of it per block
 TC_BLOCKS_PER_SM = {32: 4, 64: 2}
 GEMM_MIN_KGRP = 8         # narrowest group output width of the implicit
                           # GEMMs (tc, simt); narrower groups run dw (one
-                          # input channel a group) or scalar
+                          # input channel a group) or nk (several)
 TC_BM = 128               # output pixels per tensor-core block (kTcBM)
 TC_MAX_STAGES = 4         # deepest conv2d_ws_pipe ring
 
@@ -498,14 +503,18 @@ def conv_path(g: ConvGeom) -> str:
     GEMM — "tc" for int8 operands (``tc_plan``), "simt" for f32
     (``simt_plan``); one input channel a group with fewer than 8 outputs
     (depthwise, a channel multiplier under 8, a one-channel map with under
-    8 outputs) runs the direct conv "dw" (``dw_plan``), int8 or f32;
-    anything else ("scalar": groups of several input channels and under 8
-    outputs) runs the first port's scalar kernel."""
+    8 outputs) runs the direct conv "dw" (``dw_plan``), and several input
+    channels a group with fewer than 8 outputs (a segmentation head, a
+    narrow grouped layer) the direct conv "nk" (``nk_plan``), int8 or f32;
+    anything else ("scalar": K/groups ≥ 8 where no chunk of the implicit
+    GEMM fits a block) runs the first port's scalar kernel."""
     if tc_plan(g) is not None:
         return "tc"
     if simt_plan(g) is not None:
         return "simt"
-    return "dw" if dw_plan(g) is not None else "scalar"
+    if dw_plan(g) is not None:
+        return "dw"
+    return "nk" if nk_plan(g) is not None else "scalar"
 
 
 # (id(weights), what was derived) → (weak reference to the weights, their
@@ -1287,6 +1296,422 @@ def conv2d_ws_dw_emulate(x, w, bias=None, out_scale=None, *,
     return acc.to(out_dtype).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# The narrow-output path, "nk" (csrc/conv_common.cuh: NkParams and the nk_*
+# device functions): several input channels a group and fewer than 8
+# outputs, int8 or f32.  A direct conv whose blocks are sized by geometry
+# alone, so each output's sum (bias, then chunk by chunk, tap by tap in
+# (dy, dx) order, channels ascending) does not depend on the caller's
+# tiles or banks.
+# ---------------------------------------------------------------------------
+
+NK_SP = 4                 # conv-output pixels a thread's strip (kNkSP)
+NK_KP = (1, 2, 3, 4, 8)   # outputs a group the kernels are built for
+NK_RUNS = (1, 2, 4, 8)    # groups a block's run may take
+NK_HALF_SM = SM_SMEM // 2 - 1024    # two slots under it: two blocks an SM
+
+# Field order of ``NkParams`` in csrc/conv_common.cuh.
+NK_FIELDS = ("n", "h", "w", "c", "k", "kh", "kw", "stride", "dil", "pt",
+             "pl", "cgrp", "kgrp", "kp", "groups", "oh", "ow", "poh", "pow_",
+             "relu", "pool", "rh", "rw", "n_ry", "n_rx", "gr", "n_gr", "rk",
+             "cs", "cps", "n_chunks", "win_h", "win_w", "pps", "pitch",
+             "wgs", "tpitch", "win_bytes", "slot_bytes", "slots", "smem",
+             "n_rect", "xvec")
+
+
+class NkPlan(NamedTuple):
+    """One nk launch: every ``NkParams`` field but the window copy width,
+    which depends on x's address (``nk_params``)."""
+    n: int
+    h: int
+    w: int
+    c: int
+    k: int
+    kh: int
+    kw: int
+    stride: int
+    dil: int
+    pt: int
+    pl: int
+    cgrp: int                 # input channels per group (> 1)
+    kgrp: int                 # output channels per group (< 8)
+    kp: int                   # kgrp padded to an instantiation (NK_KP)
+    groups: int
+    oh: int                   # conv-output extents (pool-trimmed)
+    ow: int
+    poh: int                  # epilogue output extents
+    pow_: int
+    relu: int
+    pool: int
+    rh: int                   # block rectangle of conv-output pixels:
+    rw: int                   # rh·rw = active threads·NK_SP / gr, a power
+                              # of two, pool-aligned
+    n_ry: int                 # rectangles per image, down and across
+    n_rx: int
+    gr: int                   # groups a block's run (NK_RUNS)
+    n_gr: int                 # runs: ⌈groups / gr⌉
+    rk: int                   # outputs a run: gr·kgrp, contiguous in NHWC
+    cs: int                   # input channels of a chunk (of each group)
+    cps: int                  # cs rounded up to whole window vectors
+                              # (``nk_cps``)
+    n_chunks: int             # chunks a group: ⌈cgrp / cs⌉
+    win_h: int                # halo'd input window of one rectangle
+    win_w: int
+    pps: int                  # elements a window pixel: gr·cps
+    pitch: int                # elements a window row: win_w·pps + pad
+    wgs: int                  # elements of one group's weight slab:
+                              # taps·cps·kp, + 4 where that is even in fours
+    tpitch: int               # accumulators a tile row: rw·rk + pad
+    win_bytes: int            # window, 16-byte aligned; the weights
+                              # [gr][wgs] follow it
+    slot_bytes: int           # window + weights, 16-byte aligned
+    slots: int                # 1 for conv2d_ws; min(2, n_chunks) for
+                              # conv2d_ws_pipe's ring
+    smem: int                 # max(slots·slot_bytes, accumulator tile)
+    n_rect: int               # blocks: n · n_ry · n_rx · n_gr
+
+
+def nk_cps(cs: int, int_path: bool) -> int:
+    """Channels a group takes at a window pixel for a chunk of ``cs``: whole
+    vectors of a lane's window read, four f32 channels (16 bytes), and in
+    int8 4, 8 or 16 channels (up to 16 bytes, as many as the chunk holds),
+    so 4, 8 or a multiple of 16."""
+    if not int_path:
+        return _round_up(cs, 4)
+    return 4 if cs <= 4 else 8 if cs <= 8 else _round_up(cs, 16)
+
+
+def nk_vector_bytes(cps: int, int_path: bool) -> int:
+    """Bytes of a lane's window read (csrc ``VB``): 16 in f32; in int8 the
+    group's channels at a pixel up to 16."""
+    return 16 if not int_path else min(cps, 16)
+
+
+def nk_thread(t: int, gr: int, rh: int) -> Tuple[int, int, int]:
+    """Thread ``t``'s (group of the run, rectangle row, strip column) —
+    csrc ``NkThread``: groups fastest, then rows, so a warp's strips lie in
+    consecutive rows of one strip column."""
+    u = t // gr
+    return t % gr, u % rh, u // rh
+
+
+@functools.lru_cache(maxsize=4096)
+def nk_read_ways(int_path: bool, gr: int, rh: int, stride: int, pitch: int,
+                 pps: int, cps: int, active: int = THREADS) -> int:
+    """Wavefronts of a block's worst window read: a lane reads one vector
+    of its group's channels at one pixel of its strip (``VB`` bytes:
+    ``nk_vector_bytes``), and a wavefront serves 128 bytes, 128 / VB
+    lanes."""
+    es = 1 if int_path else 4
+    vb = nk_vector_bytes(cps, int_path)
+    lanes = 128 // vb
+    ways = 1
+    for warp in _warps(active):
+        words = [(row * stride * pitch + col * NK_SP * stride * pps
+                  + gi * cps) * es // 4
+                 for gi, row, col in (nk_thread(t, gr, rh) for t in warp)]
+        ways = max(ways, *(_ways([(w, vb // 4) for w in words[q:q + lanes]])
+                           for q in range(0, len(words), lanes)))
+    return ways
+
+
+@functools.lru_cache(maxsize=4096)
+def nk_write_ways(gr: int, rh: int, kgrp: int, tpitch: int,
+                  active: int = THREADS) -> int:
+    """Wavefronts of a block's worst accumulator-tile write: a lane stores
+    one accumulator of its group at one pixel (4-byte stores)."""
+    ways = 1
+    for warp in _warps(active):
+        ways = max(ways, _ways([(row * tpitch + col * NK_SP * gr * kgrp
+                                 + gi * kgrp, 1)
+                                for gi, row, col in (nk_thread(t, gr, rh)
+                                                     for t in warp)]))
+    return ways
+
+
+def _nk_min_slot(g: ConvGeom, gr: int, kp: int, cs: int, rh: int,
+                 rw: int) -> int:
+    """A lower bound of ``_nk_window``'s slot bytes (no padding)."""
+    es = 1 if g.int_path else 4
+    cps = nk_cps(cs, g.int_path)
+    return (halo_window(rh, g.stride, g.kh, g.dilation)
+            * halo_window(rw, g.stride, g.kw, g.dilation) * gr * cps * es
+            + gr * g.kh * g.kw * cps * kp * es)
+
+
+def _nk_window(g: ConvGeom, gr: int, kp: int, cs: int, rh: int, rw: int,
+               active: int):
+    """(cps, win_h, win_w, pps, pitch, wgs, win_bytes, slot_bytes) of a
+    chunk of ``cs`` channels over a block rectangle: the window row pitch
+    padded by the least (a lane's window vector at a time, so that rows
+    stay aligned to it) that makes the block's window reads the fewest
+    wavefronts."""
+    es = 1 if g.int_path else 4
+    cps = nk_cps(cs, g.int_path)
+    pps = gr * cps
+    win_h = halo_window(rh, g.stride, g.kh, g.dilation)
+    win_w = halo_window(rw, g.stride, g.kw, g.dilation)
+    vec = nk_vector_bytes(cps, g.int_path) // es
+    pitch = _least_ways(win_w * pps, range(0, 32 * vec, vec),
+                        lambda pt_: nk_read_ways(g.int_path, gr, rh,
+                                                 g.stride, pt_, pps, cps,
+                                                 active))
+    # a group's slab odd in fours, so that a run's groups read their
+    # weights on distinct banks
+    wgs = g.kh * g.kw * cps * kp
+    wgs += 4 * (wgs // 4 % 2 == 0)
+    win_bytes = _align16(win_h * pitch * es)
+    return (cps, win_h, win_w, pps, pitch, wgs, win_bytes,
+            win_bytes + _align16(gr * wgs * es))
+
+
+def _nk_rect(g: ConvGeom, pool: bool, oh: int, ow: int, gr: int, kp: int,
+             active: int):
+    """(rh, rw) of the rectangle of ``active / gr`` strips whose window of
+    a chunk of (at most) 4 channels fits twice in a block's shared memory
+    and that pads the map least, then whose halo'd window is smallest,
+    then the widest; None where no rectangle fits."""
+    strips = active // gr
+    cs = min(g.cgrp, 4)
+    best = None
+    for rh in (1 << a for a in range(9) if (1 << a) <= strips):
+        rw = NK_SP * strips // rh
+        if pool and rh % 2:
+            continue
+        if (2 * _nk_min_slot(g, gr, kp, cs, rh, rw) > SMEM_BYTES
+                or 2 * _nk_window(g, gr, kp, cs, rh, rw, active)[-1]
+                > SMEM_BYTES):
+            continue
+        area = -(-oh // rh) * rh * -(-ow // rw) * rw
+        key = (area, halo_window(rh, g.stride, g.kh, g.dilation)
+               * halo_window(rw, g.stride, g.kw, g.dilation), -rw)
+        if best is None or key < best[0]:
+            best = (key, rh, rw)
+    return best and best[1:]
+
+
+def _nk_chunk(g: ConvGeom, gr: int, kp: int, rh: int, rw: int,
+              active: int) -> int:
+    """Channels of a chunk: the whole group where two slots fit under half
+    an SM's shared memory (two blocks an SM); else as many chunks as the
+    widest fitting whole number of window vectors needs (f32: fours; int8:
+    sixteens, then 8 and 4), their channels spread evenly (rounded up the
+    same way); failing half an SM, the same under a block's limit."""
+    def slot(cs):
+        return _nk_window(g, gr, kp, cs, rh, rw, active)[-1]
+
+    step = 16 if g.int_path else 4
+    cands = [g.cgrp] + [c for c in range(_round_up(g.cgrp, step) - step, 0,
+                                         -step)]
+    if g.int_path:
+        cands += [c for c in (8, 4) if c < g.cgrp]
+    for budget in (NK_HALF_SM, SMEM_BYTES):
+        widest = next((cs for cs in cands
+                       if 2 * _nk_min_slot(g, gr, kp, cs, rh, rw) <= budget
+                       and 2 * slot(cs) <= budget), None)
+        if widest is not None:
+            chunks = -(-g.cgrp // widest)
+            even = (g.cgrp if chunks == 1
+                    else _round_up(-(-g.cgrp // chunks), min(step, widest)))
+            return even if 2 * slot(even) <= budget else widest
+    raise AssertionError("no chunk fits the rectangle _nk_rect chose")
+
+
+@functools.lru_cache(maxsize=512)
+def _nk_plan(g: ConvGeom, relu: bool, pipelined: bool) -> NkPlan:
+    pool = _pooled(g)
+    groups = g.c // g.cgrp
+    kgrp = g.k // groups
+    kp = next(v for v in NK_KP if v >= kgrp)
+    gr = min(NK_RUNS, key=lambda r: (-(-groups // r) * r, -r))
+    oh, ow = (2 * g.poh, 2 * g.pow_) if pool else (g.poh, g.pow_)
+    # every thread owning a strip where a window of 4 channels fits twice;
+    # only where none fits, half the threads, and so on
+    found = next(((active, rect)
+                  for active in (THREADS >> a for a in range(9))
+                  if active >= gr
+                  for rect in [_nk_rect(g, pool, oh, ow, gr, kp, active)]
+                  if rect), None)
+    if found is None:
+        least = _nk_min_slot(g, gr, kp, min(g.cgrp, 4), 2 if pool else 1,
+                             NK_SP)
+        raise ValueError(
+            f"no nk block rectangle of this layer fits a block's shared "
+            f"memory: [{g.n},{g.h},{g.w},{g.c}] ⊛ [{g.kh},{g.kw},{g.cgrp},"
+            f"{g.k}] (stride {g.stride}, dilation {g.dilation}): two slots "
+            f"of the smallest rectangle ({2 if pool else 1}×{NK_SP} pixels) "
+            f"for a chunk of {min(g.cgrp, 4)} channels need at least "
+            f"{2 * least} bytes, over the {SMEM_BYTES} a Hopper block may "
+            f"use")
+    active, (rh, rw) = found
+    cs = _nk_chunk(g, gr, kp, rh, rw, active)
+    cps, win_h, win_w, pps, pitch, wgs, win_bytes, slot_bytes = _nk_window(
+        g, gr, kp, cs, rh, rw, active)
+    n_chunks = -(-g.cgrp // cs)
+    rk = gr * kgrp
+    tpitch = _least_ways(rw * rk, range(32),
+                         lambda tp: nk_write_ways(gr, rh, kgrp, tp, active))
+    slots = min(2, n_chunks) if pipelined else 1
+    n_ry, n_rx, n_gr = -(-oh // rh), -(-ow // rw), -(-groups // gr)
+    return NkPlan(
+        n=g.n, h=g.h, w=g.w, c=g.c, k=g.k, kh=g.kh, kw=g.kw,
+        stride=g.stride, dil=g.dilation, pt=g.pt, pl=g.pl, cgrp=g.cgrp,
+        kgrp=kgrp, kp=kp, groups=groups, oh=oh, ow=ow, poh=g.poh,
+        pow_=g.pow_, relu=int(relu), pool=int(pool), rh=rh, rw=rw,
+        n_ry=n_ry, n_rx=n_rx, gr=gr, n_gr=n_gr, rk=rk, cs=cs, cps=cps,
+        n_chunks=n_chunks, win_h=win_h, win_w=win_w, pps=pps, pitch=pitch,
+        wgs=wgs, tpitch=tpitch, win_bytes=win_bytes, slot_bytes=slot_bytes,
+        slots=slots, smem=max(slots * slot_bytes,
+                              _align16(rh * tpitch * 4)),
+        n_rect=g.n * n_ry * n_rx * n_gr)
+
+
+def nk_plan(g: ConvGeom, relu: bool = False,
+            pipelined: bool = False) -> Optional[NkPlan]:
+    """The nk launch plan of ``g``, or None where ``conv_path`` sends it
+    elsewhere (one input channel a group, or 8 or more outputs).
+    Deterministic in the geometry, whatever the caller's banks and tiles:
+
+    * a block of 256 threads computes a pool-aligned rectangle of
+      conv-output pixels of one image for a run of ``gr`` groups (1, 2, 4
+      or 8: the run that pads the group count least, then the widest);
+    * a thread owns one group of the run and a strip of ``NK_SP`` pixels
+      along a rectangle row, with all ``kgrp`` outputs of the group in
+      registers (``kp`` of them: the instantiation); the rectangle has
+      256 / gr strips — the shape that pads the map least, then whose
+      halo'd window is smallest, then the widest — and where no window of
+      that many strips fits twice in shared memory, the first 128, 64, …
+      threads own strips and the others only copy and store;
+    * the group's channels go in chunks of ``cs``: the whole group where
+      two slots (window and weights) fit under half an SM's shared memory,
+      else the fewest chunks that do (or that fit a block's limit), their
+      channels spread evenly in fours; the window and tile row pitches
+      are padded so that a warp's shared-memory reads and writes take the
+      fewest wavefronts;
+    * ``conv2d_ws`` loads each chunk and then computes it;
+      ``conv2d_ws_pipe`` streams the chunks through a 2-slot ring (one
+      slot where there is one chunk).
+
+    The two wrappers' plans differ in ``slots`` and ``smem`` only, and f32
+    sums run bias, then chunk by chunk, tap by tap, channels ascending, so
+    both kernels give the same bits.  Raises where even two slots of the
+    smallest rectangle for a chunk of 4 channels overflow a block's shared
+    memory."""
+    if g.cgrp == 1 or g.k // (g.c // g.cgrp) >= GEMM_MIN_KGRP:
+        return None
+    return _nk_plan(g, bool(relu), bool(pipelined))
+
+
+def nk_params(plan: NkPlan, x: torch.Tensor) -> ctypes.Array:
+    """The ``NkParams`` record of one launch, as a C int array: the plan
+    and the widest window copy (16, 8 or 4 bytes a ``cp.async``) dividing
+    the chunk, the group, the map's pixel, the padded chunk, the window
+    pixel and row and x's address; 0 (int8 only) gathers words byte by
+    byte."""
+    es = x.element_size()
+    xvec = _chunk(plan.cs * es, plan.cgrp * es, plan.c * es, plan.cps * es,
+                  plan.pps * es, plan.pitch * es, x.data_ptr())
+    return _nk_record(plan, xvec)
+
+
+@functools.lru_cache(maxsize=512)
+def _nk_record(plan: NkPlan, xvec: int) -> ctypes.Array:
+    vals = [int(v) for v in plan] + [xvec]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def fma_f32(acc: torch.Tensor, x: torch.Tensor,
+            w: torch.Tensor) -> torch.Tensor:
+    """``fmaf(x, w, acc)`` elementwise on f32 tensors, rounded once as the
+    card's FFMA rounds: the product is exact in float64, the float64 sum's
+    rounding error is recovered exactly (TwoSum), and where the float64
+    sum lands on a midpoint of two f32 values that error picks the side
+    the exact sum lies on (elsewhere rounding the float64 sum to f32 is
+    rounding the exact one)."""
+    a, p = acc.double(), x.double() * w.double()
+    s = a + p
+    bp = s - a
+    err = (a - (s - bp)) + (p - bp)
+    r = s.float()
+    d = s - r.double()
+    toward = torch.where(d > 0, torch.full_like(r, float("inf")),
+                         torch.full_like(r, float("-inf")))
+    nb = torch.nextafter(r, toward)
+    tie = (d != 0) & (err != 0) & (s == (r.double() + nb.double()) / 2)
+    return torch.where(tie, torch.where(err > 0, torch.maximum(r, nb),
+                                        torch.minimum(r, nb)), r)
+
+
+def conv2d_ws_nk_emulate(x, w, bias=None, out_scale=None, *,
+                         pipelined: bool = False, stride: int = 1,
+                         padding="VALID", groups: int = 1,
+                         cin_banks: int = 4, kout_banks: int = 4,
+                         h_tile: int = 0, w_tile: int = 0,
+                         relu: bool = False, pool: bool = False,
+                         dilation: int = 1) -> torch.Tensor:
+    """The nk kernels' order of sums replayed in plain PyTorch, from the
+    same ``nk_plan``: each output of group g reads that group's channels
+    of the zero-padded map; int8 sums are exact in any order (the kernels'
+    ``__dp4a`` by fours); an f32 sum starts at the bias and adds, chunk by
+    chunk, tap by tap in (dy, dx) order, the chunk's channels ascending,
+    one FFMA each (``fma_f32``, rounded as the card rounds it), a
+    zero-filled channel past the group adding +0; then the epilogue (ReLU
+    → 2×2 max-pool → requantize).  No block shape changes a value, so the
+    plan's blocks are not replayed.  On any device; for the tests and
+    ``chip_smoke.py`` only: the wrappers never call it."""
+    int_path = _check_operands(x, w)
+    g = setup_conv(tuple(x.shape), tuple(w.shape), stride=stride,
+                   padding=padding, groups=groups, cin_banks=cin_banks,
+                   kout_banks=kout_banks, h_tile=h_tile, w_tile=w_tile,
+                   pool=pool, requant=out_scale is not None,
+                   dilation=dilation, int_path=int_path)
+    p = nk_plan(g, relu, pipelined)
+    if p is None:
+        raise ValueError(f"this geometry takes the {conv_path(g)} path "
+                         f"(conv_path)")
+    bias, scale, out_dtype = _operands(x, w, bias, out_scale, g)
+    hp = halo_window(p.oh, p.stride, p.kh, p.dil)
+    wpx = halo_window(p.ow, p.stride, p.kw, p.dil)
+    xp = x.new_zeros((p.n, max(hp, p.pt + p.h), max(wpx, p.pl + p.w), p.c))
+    xp[:, p.pt:p.pt + p.h, p.pl:p.pl + p.w] = x
+    xg = xp.reshape(*xp.shape[:3], p.groups, p.cgrp)
+    wg = w.reshape(p.kh, p.kw, p.cgrp, p.groups, p.kgrp)
+
+    def window(dy, dx):     # [N, OH, OW, groups, cgrp] of tap (dy, dx)
+        y0, x0 = dy * p.dil, dx * p.dil
+        return xg[:, y0:y0 + (p.oh - 1) * p.stride + 1:p.stride,
+                  x0:x0 + (p.ow - 1) * p.stride + 1:p.stride]
+
+    acc = bias.reshape(p.groups, p.kgrp).expand(p.n, p.oh, p.ow, p.groups,
+                                                p.kgrp)
+    taps = [(dy, dx) for dy in range(p.kh) for dx in range(p.kw)]
+    if int_path:
+        acc = acc.to(torch.int64)
+        for dy, dx in taps:
+            prod = (window(dy, dx).to(torch.int64)[..., None]
+                    * wg[dy, dx].permute(1, 0, 2).to(torch.int64))
+            acc = acc + prod.sum(-2)
+        acc = acc.to(torch.int32)
+    else:
+        for s in range(p.n_chunks):
+            for dy, dx in taps:
+                xs, wv = window(dy, dx), wg[dy, dx]
+                for c in range(p.cps):
+                    cc = s * p.cs + c
+                    if c < p.cs and cc < p.cgrp:
+                        acc = fma_f32(acc, xs[..., cc:cc + 1], wv[cc])
+                    else:           # zero-filled: fma(0, 0, acc)
+                        acc = acc + 0.0
+    acc = acc.reshape(p.n, p.oh, p.ow, p.k)
+    if p.relu:
+        acc = acc.clamp(min=0)
+    if p.pool:
+        acc = acc.reshape(p.n, p.poh, 2, p.pow_, 2, p.k).amax(dim=(2, 4))
+    if out_scale is not None:
+        acc = ref.requantize_ref(acc, scale)
+    return acc.to(out_dtype).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(lib_name: str, suffix: str, pointers: int = 5):
     fn = getattr(_build.load(lib_name), f"{lib_name}{suffix}")
@@ -1300,16 +1725,16 @@ def _entry(lib_name: str, suffix: str, pointers: int = 5):
 @functools.lru_cache(maxsize=512)
 def _launch_setup(x_shape, w_shape, int_path: bool, requant: bool,
                   relu: bool, pool: bool, pipelined: bool, geo: tuple):
-    """(ConvGeom, TcPlan, SimtPlan, DwPlan or None) of one launch, cached
-    per call signature: the served network asks for the same few every
-    batch.  The validation is ``setup_conv``'s; a geometry it refuses
+    """(ConvGeom, TcPlan, SimtPlan, DwPlan, NkPlan or None) of one launch,
+    cached per call signature: the served network asks for the same few
+    every batch.  The validation is ``setup_conv``'s; a geometry it refuses
     raises on every call.  On the scalar path (plan None) the geometry
     carries the tiles ``scalar_tiles`` fits into a block's shared
     memory."""
     g = setup_conv(x_shape, w_shape, pool=pool, requant=requant,
                    int_path=int_path, **dict(geo))
     plan = ((tc_plan if int_path else simt_plan)(g, relu, pipelined)
-            or dw_plan(g, relu, pipelined))
+            or dw_plan(g, relu, pipelined) or nk_plan(g, relu, pipelined))
     if plan is None:
         g = scalar_tiles(g, 2 if pipelined else 1)
     return g, plan
@@ -1322,8 +1747,9 @@ def launch_conv(lib_name: str, pipelined: bool, x, w, bias, out_scale,
     the tensor-core path where ``plan`` is a ``TcPlan``, on the simt path
     where it is a ``SimtPlan`` (with the K slices' partial sums in a
     scratch tensor where it splits K), on the dw path where it is a
-    ``DwPlan``, else on the scalar path, whose ``g`` fits a block's shared
-    memory (``scalar_tiles``) → (result, "tc", "simt", "dw" or
+    ``DwPlan``, on the nk path where it is an ``NkPlan``, else on the
+    scalar path, whose ``g`` fits a block's shared memory
+    (``scalar_tiles``) → (result, "tc", "simt", "dw", "nk" or
     "scalar")."""
     x = x.contiguous()
     bias, scale, out_dtype = _operands(x, w, bias, out_scale, g)
@@ -1339,6 +1765,13 @@ def launch_conv(lib_name: str, pipelined: bool, x, w, bias, out_scale,
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale.data_ptr(),
             out.data_ptr(), params, len(params), _mode(g), stream))
         return out, "dw"
+    if isinstance(plan, NkPlan):
+        w = w.contiguous()
+        params = nk_params(plan, x)
+        _build.check(lib_name, _entry(lib_name, "_nk_launch")(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), params, len(params), _mode(g), stream))
+        return out, "nk"
     if isinstance(plan, SimtPlan):
         w = w.contiguous()
         part = (torch.empty((plan.split, plan.n, plan.oh, plan.ow, plan.k),
@@ -1421,14 +1854,24 @@ def run_conv(lib_name: str, pipelined: bool, plain, x, w, bias, out_scale,
         bool(pool))
 
 
+# the paths a conv wrapper counts by name, ``<path>_launches``
+CONV_PATHS = ("tc", "simt", "dw", "nk", "scalar")
+
+
 def count_launch(fn, path: str) -> None:
-    """Count a launch on the wrapper ``fn``: ``launches`` every one,
-    ``tc_launches`` / ``simt_launches`` / ``dw_launches`` those of the
-    tensor-core / simt / dw path."""
+    """Count a launch on the wrapper ``fn``: ``launches`` every one, and
+    ``<path>_launches`` (``tc_launches``, ``simt_launches``,
+    ``dw_launches``, ``nk_launches``, ``scalar_launches``) those of its
+    path."""
     fn.launches += 1
-    fn.tc_launches += path == "tc"
-    fn.simt_launches += path == "simt"
-    fn.dw_launches += path == "dw"
+    setattr(fn, f"{path}_launches", getattr(fn, f"{path}_launches") + 1)
+
+
+def reset_launches(fn) -> None:
+    """Set a conv wrapper's counters to 0: ``launches`` and one a path."""
+    fn.launches = 0
+    for path in CONV_PATHS:
+        setattr(fn, f"{path}_launches", 0)
 
 
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
@@ -1528,8 +1971,8 @@ def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
     are conv-output tile extents (0 = whole map; pool-aligned when pooling):
     validated, and followed by the scalar kernel where they fit a block's
     shared memory (else it picks its own, ``scalar_tiles``, with the same
-    values); the tensor-core, simt and dw paths size their blocks for the
-    card.
+    values); the tensor-core, simt, dw and nk paths size their blocks for
+    the card.
 
     Calls the op ``repro_torch::conv2d_ws``: on a CUDA tensor it launches
     ``csrc/conv2d_ws.cu``, on a CPU tensor it runs ``conv2d_ws_plain`` (see
@@ -1541,8 +1984,5 @@ def conv2d_ws(x, w, bias=None, out_scale=None, *, stride: int = 1,
         w_tile=w_tile, dilation=dilation)
 
 
-conv2d_ws.launches = 0
-conv2d_ws.tc_launches = 0
-conv2d_ws.simt_launches = 0
-conv2d_ws.dw_launches = 0
+reset_launches(conv2d_ws)
 define_conv_op("conv2d_ws", False, conv2d_ws)

@@ -9,8 +9,10 @@ conv2d_ws_pipe``.  Same function, signature, geometry and path rule
 deep as the blocks per SM that ``conv2d_ws`` runs allow, one where two
 would cost a block: ``conv2d_ws.tc_plan``, ``conv2d_ws.simt_plan``), runs
 persistent blocks that prefetch the next rectangle's window into a
-2-slot ring on the dw path (``conv2d_ws.dw_plan``), and streams its
-cin-bank slabs through a 2-stage ring on the scalar path.  It shares its
+2-slot ring on the dw path (``conv2d_ws.dw_plan``), streams a group's
+channel chunks through a 2-slot ring on the nk path
+(``conv2d_ws.nk_plan``), and streams its cin-bank slabs through a 2-stage
+ring on the scalar path.  It shares its
 compute and epilogue with ``csrc/conv2d_ws.cu``, so the two kernels are
 bit-equal.
 
@@ -18,9 +20,9 @@ bit-equal.
 ``repro_torch::conv2d_ws_pipe``, defined as ``repro_torch::conv2d_ws`` is
 (``conv2d_ws.define_conv_op``: the same schema, fake kernel and FLOP
 formula).  On a CUDA tensor the op launches the kernel and counts the
-launch in ``conv2d_ws_pipe.launches`` (and in ``conv2d_ws_pipe.tc_launches``,
-``conv2d_ws_pipe.simt_launches`` or ``conv2d_ws_pipe.dw_launches`` by
-path); on a CPU tensor it runs the plain version, which is
+launch in ``conv2d_ws_pipe.launches`` (and in
+``conv2d_ws_pipe.<path>_launches``, ``tc``, ``simt``, ``dw``, ``nk`` or
+``scalar``, by path); on a CPU tensor it runs the plain version, which is
 ``conv2d_ws_plain`` — the function both kernels compute.
 """
 
@@ -29,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.conv2d_ws import (conv2d_ws_plain, define_conv_op,
-                                           run_conv)
+                                           reset_launches, run_conv)
 
 # the plain PyTorch version: one function, computed by both conv kernels
 conv2d_ws_pipe_plain = conv2d_ws_plain
@@ -51,8 +53,5 @@ def conv2d_ws_pipe(x, w, bias=None, out_scale=None, *, stride: int = 1,
         w_tile=w_tile, dilation=dilation)
 
 
-conv2d_ws_pipe.launches = 0
-conv2d_ws_pipe.tc_launches = 0
-conv2d_ws_pipe.simt_launches = 0
-conv2d_ws_pipe.dw_launches = 0
+reset_launches(conv2d_ws_pipe)
 define_conv_op("conv2d_ws_pipe", True, conv2d_ws_pipe)

@@ -13,10 +13,13 @@
 // FFMA (110.43, 55.21, 55.21, 55.21, 27.61 us at 67 TFLOP/s); a depthwise
 // layer by its bytes in either type (mobilenet_small's at batch 8 in int8:
 // 1.92, 2.40, 1.92 us; recurrentgemma-9b's temporal conv at [1, 4096,
-// 4096] in f32: 40.1 us).  That note also gives the design of the four
-// paths and the rule that picks one: K/groups >= 8 runs an implicit GEMM
-// (int8 "tc", f32 "simt"), one input channel a group with fewer outputs
-// the direct conv "dw", other narrower groups the scalar kernel.
+// 4096] in f32: 40.1 us); a narrow-output layer by its bytes too
+// (unet_small's 3-class head at batch 8 in int8, int32 out: 2.40 us).
+// That note also gives the design of the five paths and the rule that
+// picks one: K/groups >= 8 runs an implicit GEMM (int8 "tc", f32 "simt"),
+// one input channel a group with fewer outputs the direct conv "dw",
+// several input channels a group with fewer outputs the direct conv "nk",
+// and a geometry no plan takes the scalar kernel.
 //
 // Tensor-core path (int8, K/groups >= 8): conv_ws_tc_kernel, an implicit
 // GEMM on mma.sync m16n8k32 s8 with register accumulators, one block per
@@ -45,8 +48,18 @@
 // conv2d_ws_pipe.cu runs the same device functions in persistent blocks
 // with a prefetched next window, so the two are bit-equal.
 //
-// Scalar path (groups of several input channels and fewer than 8 outputs,
-// int8 or f32): conv_ws_kernel, the first port's form.  One block per (image,
+// Narrow-output path (C/groups > 1, K/groups < 8, int8 or f32):
+// conv_ws_nk_kernel, a direct conv that sums channels, one block per
+// (pool-aligned rectangle of an image, run of groups), sized by geometry
+// alone.  A thread owns a strip of 4 pixels of one group and all of that
+// group's outputs in registers; the group's channels go in chunks, each
+// chunk's halo'd window and weights landing with cp.async, waited for and
+// summed (int8 through __dp4a, f32 by FFMA in a fixed order), then the
+// accumulators go out through a shared tile.  conv2d_ws_pipe.cu streams
+// the same chunks through a 2-slot ring, so the two are bit-equal.
+//
+// Scalar path (a geometry no other plan takes, int8 or f32):
+// conv_ws_kernel, the first port's form.  One block per (image,
 // output tile of the TilePlan, kout bank); the TPU's sequential cin grid
 // axis becomes a loop over the cin banks of the bank's group (channel base
 // (ko / bpg) * cgrp).  Each cin bank's halo'd input window [in_th, in_tw,
@@ -254,6 +267,52 @@ int launch_dw(const void* x, const void* w, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A strip of 4 pixels x up to 8 outputs with its weight vectors fits 128
+// registers a thread (f32 at KP = 8: 32 accumulators, 8 float4 weights), so
+// two blocks share an SM at least.
+template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB>
+__global__ void __launch_bounds__(kConvThreads, 2)
+conv_ws_nk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
+                  const Tacc* __restrict__ bias,
+                  const float* __restrict__ scale, void* __restrict__ out,
+                  NkParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const NkRect rc(p, blockIdx.x);
+  const NkThread th(p);
+  nk_issue<Tin>(smem, x, w, p, rc, 0);
+  cp_async_commit();
+  Tacc acc[kNkSP][KP];
+  nk_init<Tacc, KP>(acc, bias, p, th, rc);
+  for (int s = 0; s < p.n_chunks; ++s) {
+    if (s > 0) {
+      __syncthreads();  // chunk s-1's compute is done with the slot
+      nk_issue<Tin>(smem, x, w, p, rc, s);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    nk_compute<Tin, Tacc, KP, VB>(acc, smem, p, th);
+  }
+  __syncthreads();  // every strip is done with the window: the tile replaces it
+  nk_stage<Tacc, KP>(acc, smem, p, th);
+  __syncthreads();
+  nk_store<Tacc, REQUANT>(smem, scale, out, p, rc);
+}
+
+template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB>
+int launch_nk(const void* x, const void* w, const void* bias,
+              const float* scale, void* out, const NkParams& p,
+              cudaStream_t stream) {
+  auto kernel = conv_ws_nk_kernel<Tin, Tacc, REQUANT, KP, VB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.n_rect, kConvThreads, p.smem, stream>>>(
+      static_cast<const Tin*>(x), static_cast<const Tin*>(w),
+      static_cast<const Tacc*>(bias), scale, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -301,6 +360,18 @@ int conv2d_ws_dw_launch(const void* x, const void* w, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DW_DISPATCH(mode, p, launch_dw, x, w, bias, scale, out, p, s)
+}
+
+int conv2d_ws_nk_launch(const void* x, const void* w, const void* bias,
+                        const float* scale, void* out, const int* geom,
+                        int n_fields, int mode, void* stream) {
+  if (n_fields != kNkParamsFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  NkParams p = *reinterpret_cast<const NkParams*>(geom);
+  if (!nk_valid(p, mode >= 2 ? 4 : 1) || p.slots != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  NK_DISPATCH(mode, p, launch_nk, x, w, bias, scale, out, p, s)
 }
 
 const char* error_string(int code) {

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel repro.kernels.conv2d_ws_pipe.conv2d_ws_pipe
 // (_pipe_kernel), which writes the conv2d_ws data movement out by hand with a
 // 2-slot ping-pong of the input window and weight bank.  Same function as
-// conv2d_ws.cu, the same four paths and the same path rule
+// conv2d_ws.cu, the same five paths and the same path rule
 // (conv_common.cuh's note), and the same compute and epilogue device
 // functions, so the result is bit-equal to conv2d_ws.cu on every path; only
 // the data motion differs.  What bounds each layer on the H100 is as there:
@@ -12,7 +12,8 @@
 // in f32 conv 0 by bytes (17.26 us), conv 1-5 by FFMA (110.43, 55.21 x 3,
 // 27.61 us); a depthwise layer by its bytes (mobilenet_small's at batch 8
 // in int8: 1.92, 2.40, 1.92 us; the [1, 4096, 4096] temporal conv in f32:
-// 40.1 us).
+// 40.1 us); a narrow-output layer by its bytes too (unet_small's 3-class
+// head at batch 8 in int8, int32 out: 2.40 us).
 //
 // Tensor-core path (int8, K/groups >= 8): conv_ws_pipe_tc_kernel.  Blocks
 // as in conv2d_ws.cu (128-pixel rectangles x 32/64-channel N-tiles, sized
@@ -43,8 +44,17 @@
 // in the current slot, so a load is in flight through every compute and
 // epilogue.
 //
-// Scalar path (groups of several input channels and fewer than 8 outputs,
-// int8 or f32): conv_ws_pipe_kernel, the first port's form.  The same block
+// Narrow-output path (C/groups > 1, K/groups < 8, int8 or f32):
+// conv_ws_pipe_nk_kernel.  Blocks, chunks and plan as conv2d_ws.cu's nk
+// kernel (a pool-aligned rectangle x a run of groups, sized by geometry);
+// where the group's channels take more than one chunk, they stream through
+// a 2-slot cp.async ring, the reference's ping-pong of window and weight
+// bank, so chunk s+1 loads while chunk s computes; with one chunk it moves
+// data as conv2d_ws.cu does.  The same device functions, so the two are
+// bit-equal.
+//
+// Scalar path (a geometry no other plan takes, int8 or f32):
+// conv_ws_pipe_kernel, the first port's form.  The same block
 // decomposition as conv2d_ws.cu's scalar kernel (one block per image,
 // TilePlan tile and kout bank; a loop over the group's cin banks), with
 // cin-bank slabs streamed into a 2-stage shared-memory ring with cp.async,
@@ -358,6 +368,52 @@ int launch_dw(const void* x, const void* w, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks and chunks as conv2d_ws.cu's nk kernel: where the group takes more
+// than one chunk, chunk s+1's window and weights stream into the other slot
+// of a 2-slot ring while chunk s computes; with one chunk the ring has one
+// slot and the kernel moves data as conv2d_ws.cu's does.
+template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB>
+__global__ void __launch_bounds__(kConvThreads, 2)
+conv_ws_pipe_nk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
+                       const Tacc* __restrict__ bias,
+                       const float* __restrict__ scale,
+                       void* __restrict__ out, NkParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const NkRect rc(p, blockIdx.x);
+  const NkThread th(p);
+  nk_issue<Tin>(smem, x, w, p, rc, 0);  // prime the ring
+  cp_async_commit();
+  Tacc acc[kNkSP][KP];
+  nk_init<Tacc, KP>(acc, bias, p, th, rc);
+  for (int s = 0; s < p.n_chunks; ++s) {
+    // the barrier that ended chunk s-1 freed the other slot
+    if (s + 1 < p.n_chunks)
+      nk_issue<Tin>(smem + ((s + 1) & 1) * p.slot_bytes, x, w, p, rc, s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk s has landed; only chunk s+1 may be pending
+    __syncthreads();
+    nk_compute<Tin, Tacc, KP, VB>(acc, smem + (s & 1) * p.slot_bytes, p, th);
+    __syncthreads();
+  }
+  nk_stage<Tacc, KP>(acc, smem, p, th);  // the tile replaces the ring
+  __syncthreads();
+  nk_store<Tacc, REQUANT>(smem, scale, out, p, rc);
+}
+
+template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB>
+int launch_nk(const void* x, const void* w, const void* bias,
+              const float* scale, void* out, const NkParams& p,
+              cudaStream_t stream) {
+  auto kernel = conv_ws_pipe_nk_kernel<Tin, Tacc, REQUANT, KP, VB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.n_rect, kConvThreads, p.smem, stream>>>(
+      static_cast<const Tin*>(x), static_cast<const Tin*>(w),
+      static_cast<const Tacc*>(bias), scale, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -405,6 +461,19 @@ int conv2d_ws_pipe_dw_launch(const void* x, const void* w, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DW_DISPATCH(mode, p, launch_dw, x, w, bias, scale, out, p, s)
+}
+
+int conv2d_ws_pipe_nk_launch(const void* x, const void* w, const void* bias,
+                             const float* scale, void* out, const int* geom,
+                             int n_fields, int mode, void* stream) {
+  if (n_fields != kNkParamsFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  NkParams p = *reinterpret_cast<const NkParams*>(geom);
+  if (!nk_valid(p, mode >= 2 ? 4 : 1) ||
+      p.slots != (p.n_chunks < 2 ? p.n_chunks : 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  NK_DISPATCH(mode, p, launch_nk, x, w, bias, scale, out, p, s)
 }
 
 const char* error_string(int code) {

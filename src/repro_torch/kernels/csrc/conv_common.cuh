@@ -43,12 +43,23 @@
 //   d3 112^2 x 32, 3x3             6.42    1.92      bytes
 //   conv1d [1, 4096, 4096], 1x4    134.3   40.1      bytes (f32)
 //
-// (f32 d1-d3 move 4x the bytes: 7.7, 9.6 and 7.7 us.)
+// (f32 d1-d3 move 4x the bytes: 7.7, 9.6 and 7.7 us.)  A layer of several
+// input channels a group and fewer than 8 outputs is bound by its bytes too
+// (the segmentation heads, 1x1 with 3 classes, at 224 and batch 8, int32
+// out; groups2 is CASES' [2,10,10,8] x [3,3,4,8]):
 //
-// Four paths, chosen on the host by geometry (conv2d_ws.py: conv_path):
+//   layer                              MB      bound us  by
+//   unet_small head 8->3 int8          8.03    2.40      bytes
+//   dilated_context head 16->3 int8    11.24   3.36      bytes
+//   unet_small head 8->3 f32           17.66   5.27      bytes
+//   groups2 f32                        0.014   0.004     bytes
+//
+// Five paths, chosen on the host by geometry (conv2d_ws.py: conv_path):
 // K/groups >= 8 runs an implicit GEMM, "tc" for int8 and "simt" for f32;
 // one input channel a group with fewer than 8 outputs runs the direct conv
-// "dw", in int8 and in f32; other narrower groups run "scalar".
+// "dw", in int8 and in f32; several input channels a group with fewer than
+// 8 outputs the direct conv "nk", in int8 and in f32; a geometry no plan
+// takes runs "scalar".
 //
 // * Tensor cores ("tc": int8 operands, K/groups >= 8, one K-chunk fits a
 //   block).  An implicit GEMM: M = the conv-output pixels of a block, N =
@@ -133,10 +144,44 @@
 //   conv2d_ws runs a block a (rectangle, run); conv2d_ws_pipe runs
 //   persistent blocks that prefetch the next one's window into the other
 //   slot of a 2-slot ring.
-// * Scalar (groups of several input channels and fewer than 8 outputs,
-//   int8 or f32).  The first port's form, one block per (image, TilePlan
-//   tile, kout bank) with a loop over cin banks, int32 or f32
-//   multiply-adds from shared memory into a shared accumulator.
+// * Narrow-output direct conv ("nk": C/groups > 1 and K/groups < 8, int8
+//   or f32: the segmentation heads, narrow grouped layers).  The dw form
+//   with a channel sum.  A block of 256 threads covers a pool-aligned
+//   rectangle of conv-output pixels of one image for a run of `gr` groups
+//   (1, 2, 4 or 8: the run that pads the groups least); a thread owns one
+//   group and a strip of 4 pixels along a rectangle row, and holds all of
+//   the group's K/g outputs (padded to an instantiation, 1, 2, 3, 4 or 8)
+//   in registers that start at the bias.  The blocks are sized by the
+//   geometry alone, not by the TilePlan.  The group's input channels go
+//   in chunks of `cs` (the whole group where two slots of its window fit
+//   half an SM, else the widest that do): a chunk's halo'd window lands
+//   pixel-major in shared memory ([win_h][pitch], `cps` channels a group
+//   at a pixel: cs rounded up to fours in f32, to 4, 8 or a multiple of
+//   16 in int8, so that a lane reads one 4-, 8- or 16-byte vector at a
+//   time; the row pitch padded so that a warp's reads hit distinct banks,
+//   which aligns the rows to the vector) with cp.async (16, 8 or 4 bytes
+//   where the run and its offsets allow: the vector at the heads; words
+//   gathered byte by byte for int8 channels no copy fits), zero-filled at padding, the map's edges,
+//   groups past the last and channels past the group (exact for
+//   zero-point 0), and beside it the chunk's weights [gr][taps][cps/4][kp]
+//   of 4-channel vectors.  int8 sums four channels a __dp4a into int32
+//   (exact in any order); f32 runs FFMA in one fixed order: bias, then
+//   chunk by chunk, tap by tap in (dy, dx) order, channels ascending (a
+//   zero-filled channel adds +0), no TF32.  The order depends on the
+//   geometry alone, so the two kernels, a whole-map and a tiled call give
+//   the same bits.  The epilogue stages the accumulators in a shared tile
+//   in place of the window (the row pitch padded against bank conflicts),
+//   then consecutive threads take consecutive outputs of a pixel's run
+//   and then the next pixel: ReLU -> 2x2 max-pool -> requantize, the
+//   ragged edge masked.  conv2d_ws runs a block a (rectangle, run) and
+//   loads each chunk, waits, then computes it; conv2d_ws_pipe runs the
+//   same blocks and streams the chunks through a 2-slot cp.async ring (the
+//   reference's ping-pong of window and weight bank), one slot where the
+//   group takes one chunk.
+// * Scalar (a geometry no other plan takes, int8 or f32).  The first
+//   port's form, one block per (image, TilePlan tile, kout bank) with a
+//   loop over cin banks, int32 or f32 multiply-adds from shared memory
+//   into a shared accumulator.
 #pragma once
 
 #include <cstdint>
@@ -1359,4 +1404,369 @@ inline bool dw_valid(const DwParams& p) {
     case 2: return LAUNCH<float, float, false>(__VA_ARGS__);           \
     case 3: return LAUNCH<float, float, true>(__VA_ARGS__);            \
     default: return static_cast<int>(cudaErrorInvalidValue);           \
+  }
+
+// ---------------------------------------------------------------------------
+// The narrow-output path ("nk")
+// ---------------------------------------------------------------------------
+
+// Field order must match repro_torch/kernels/conv2d_ws.py:NK_FIELDS; the
+// host computes every field (conv2d_ws.py:nk_plan, nk_params).
+struct NkParams {
+  int n, h, w, c, k;              // input map [N,H,W,C], K output channels
+  int kh, kw, stride, dil;        // kernel extent, stride, tap dilation
+  int pt, pl;                     // top / left zero padding
+  int cgrp, kgrp, kp, groups;     // channels and outputs a group, outputs
+                                  // padded to the instantiation, groups
+  int oh, ow, poh, pow_;          // conv-output (pool-trimmed) and epilogue
+                                  // output extents
+  int relu, pool;                 // fused epilogue stages
+  int rh, rw, n_ry, n_rx;         // block rectangle, rectangles per image
+  int gr, n_gr, rk;               // groups a run, runs, outputs a run
+  int cs, cps, n_chunks;          // channels a chunk, rounded up to fours,
+                                  // chunks a group
+  int win_h, win_w, pps, pitch;   // window extents, elements a window pixel
+                                  // (gr x cps) and a window row
+  int wgs;                        // elements of one group's weight slab
+  int tpitch;                     // accumulators a tile row
+  int win_bytes, slot_bytes;      // one slot: window | weights [gr][wgs]
+  int slots, smem;                // slots in shared memory, shared bytes
+  int n_rect;                     // blocks: n * n_ry * n_rx * n_gr
+  int xvec;                       // window copy bytes (16/8/4; 0 = int8
+                                  // words gathered byte by byte)
+};
+
+constexpr int kNkParamsFields = sizeof(NkParams) / sizeof(int);
+constexpr int kNkSP = 4;  // conv-output pixels a thread's strip
+
+// A thread's place in its block: group `gi` of the run, strip `col`
+// (pixels col*kNkSP ...) of rectangle row `row`.  Groups are fastest and
+// rows next, so a warp's strips lie in consecutive rows of one strip
+// column (conv2d_ws.py: nk_thread; the row pitches keep its reads and
+// writes of shared memory on distinct banks).  Where the plan's rectangle
+// has fewer strips than the block has threads for (a window too wide for
+// more), the threads past them own none (`on` false): they copy and store.
+struct NkThread {
+  int gi, row, col;
+  bool on;
+  __device__ explicit NkThread(const NkParams& p) {
+    gi = threadIdx.x % p.gr;
+    const int u = threadIdx.x / p.gr;
+    row = u % p.rh;
+    col = u / p.rh;
+    on = col < p.rw / kNkSP;
+  }
+};
+
+// Block r: (image, rectangle row, rectangle column, run of groups), the
+// run fastest; g0 is the run's first group.
+struct NkRect {
+  int img, ry, rx, g0;
+  __device__ NkRect(const NkParams& p, int r) {
+    g0 = (r % p.n_gr) * p.gr;
+    r /= p.n_gr;
+    rx = r % p.n_rx;
+    r /= p.n_rx;
+    ry = r % p.n_ry;
+    img = r / p.n_ry;
+  }
+};
+
+// Issue the copies of chunk `s` (channels s*cs ... of each group of the
+// run) into one slot, not committed or waited here: the rectangle's halo'd
+// window [win_h][pitch] (group gi of window pixel (wy, wx) at wy*pitch +
+// wx*pps + gi*cps), then the chunk's weights, group gi's slab at gi*wgs:
+// vector (tap, q, k) holds w[tap][s*cs + 4q .. 4q+3][gi's output k], four
+// channels of one output side by side.  Window copies move xvec bytes of
+// one pixel's group through cp.async; with xvec 0 (int8 only) a word of
+// four channels is gathered with byte loads and stored.  f32 weights go
+// one element a cp.async, int8 weights a gathered word each.  Padding, the
+// map's edges, groups past the last, channels past the group and outputs
+// past K/g are zero (exact for zero-point 0).
+template <typename Tin>
+__device__ inline void nk_issue(unsigned char* slot, const Tin* x,
+                                const Tin* w, const NkParams& p,
+                                const NkRect& rc, int s) {
+  constexpr int es = sizeof(Tin);
+  Tin* win = reinterpret_cast<Tin*>(slot);
+  Tin* wsm = reinterpret_cast<Tin*>(slot + p.win_bytes);
+  const int c0 = s * p.cs;
+  const int nc = min(p.cs, p.cgrp - c0);  // channels of this chunk
+  const int iy0 = rc.ry * p.rh * p.stride - p.pt;
+  const int ix0 = rc.rx * p.rw * p.stride - p.pl;
+  const long long img = static_cast<long long>(rc.img) * p.h;
+  const int cpv = p.xvec ? p.xvec / es : 4;  // channels a copy
+  const int per = p.cps / cpv;
+  const int units = p.win_h * p.win_w * p.gr;
+  for (int i = threadIdx.x; i < units * per; i += blockDim.x) {
+    const int u = i / per, q = i - u * per;
+    const int pix = u / p.gr, gi = u - pix * p.gr;
+    const int wy = pix / p.win_w, wx = pix - wy * p.win_w;
+    const int iy = iy0 + wy, ix = ix0 + wx, g = rc.g0 + gi, c = q * cpv;
+    const bool in = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w &&
+                    g < p.groups;
+    const long long src =
+        ((img + iy) * p.w + ix) * p.c + static_cast<long long>(g) * p.cgrp +
+        c0 + c;
+    Tin* dst = win + wy * p.pitch + wx * p.pps + gi * p.cps + c;
+    if (p.xvec) {
+      const bool ok = in && c < nc;
+      cp_async_zfill(dst, ok ? x + src : x, p.xvec, ok ? p.xvec : 0);
+    } else {
+      if constexpr (es == 1) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (in && c + b < nc)
+            word |= static_cast<uint32_t>(static_cast<uint8_t>(x[src + b]))
+                    << (8 * b);
+        *reinterpret_cast<uint32_t*>(dst) = word;
+      }
+    }
+  }
+  const int nq = p.cps / 4;
+  const int per_g = p.kh * p.kw * nq * p.kp * 4;  // elements a group's slab
+  if constexpr (es == 4) {
+    for (int i = threadIdx.x; i < p.gr * per_g; i += blockDim.x) {
+      const int gi = i / per_g, e = i - gi * per_g;
+      int r = e >> 2;
+      const int b = e & 3, kk = r % p.kp;
+      r /= p.kp;
+      const int q = r % nq, tap = r / nq, c = 4 * q + b, g = rc.g0 + gi;
+      const bool ok = g < p.groups && kk < p.kgrp && c < nc;
+      const Tin* src =
+          ok ? w + (static_cast<long long>(tap) * p.cgrp + c0 + c) * p.k +
+                   g * p.kgrp + kk
+             : w;
+      cp_async_zfill(wsm + gi * p.wgs + e, src, 4, ok ? 4 : 0);
+    }
+  } else {
+    const int words = per_g / 4;
+    for (int i = threadIdx.x; i < p.gr * words; i += blockDim.x) {
+      const int gi = i / words, e = i - gi * words;
+      const int kk = e % p.kp, r = e / p.kp;
+      const int q = r % nq, tap = r / nq, g = rc.g0 + gi;
+      uint32_t word = 0;
+      if (g < p.groups && kk < p.kgrp) {
+        const long long base =
+            (static_cast<long long>(tap) * p.cgrp + c0 + 4 * q) * p.k +
+            g * p.kgrp + kk;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (4 * q + b < nc)
+            word |= static_cast<uint32_t>(static_cast<uint8_t>(
+                        w[base + static_cast<long long>(b) * p.k]))
+                    << (8 * b);
+      }
+      reinterpret_cast<uint32_t*>(wsm + gi * p.wgs)[e] = word;
+    }
+  }
+}
+
+// M5 bias preload: the thread's strip starts at its group's biases (0 for
+// the outputs past K/g and for groups past the last), read before the
+// first chunk lands so that their latency hides behind the copy.
+template <typename Tacc, int KP>
+__device__ inline void nk_init(Tacc (&acc)[kNkSP][KP], const Tacc* bias,
+                               const NkParams& p, const NkThread& th,
+                               const NkRect& rc) {
+  const int g = rc.g0 + th.gi;
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    const Tacc b = g < p.groups && k < p.kgrp ? bias[g * p.kgrp + k]
+                                               : Tacc(0);
+#pragma unroll
+    for (int i = 0; i < kNkSP; ++i) acc[i][k] = b;
+  }
+}
+
+// One window vector of VB bytes (int8: 4, 8 or 16 channels, as many as
+// the chunk holds up to 16; f32: 4 channels) of the strip's pixels into
+// every output: the outputs' weights of those channels (a word, or a
+// float4, of four channels an output: a broadcast within a group), then
+// one vector a pixel.  int8: one __dp4a a (pixel, output, four channels),
+// exact; f32: four FFMAs, channels ascending.
+template <int KP, int VB>
+__device__ __forceinline__ void nk_vec(int (&acc)[kNkSP][KP],
+                                       const int8_t* xq, const int8_t* wq,
+                                       int step) {
+  constexpr int NW = VB / 4;  // words (four channels each) a vector
+  int wv[NW][KP];
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+#pragma unroll
+    for (int k = 0; k < KP; ++k)
+      wv[j][k] = *reinterpret_cast<const int*>(wq + 4 * (j * KP + k));
+#pragma unroll
+  for (int i = 0; i < kNkSP; ++i) {
+    const int8_t* src = xq + i * step;
+    int xw[NW];
+    if constexpr (NW == 4) {
+      const int4 t = *reinterpret_cast<const int4*>(src);
+      xw[0] = t.x, xw[1] = t.y, xw[2] = t.z, xw[3] = t.w;
+    } else if constexpr (NW == 2) {
+      const int2 t = *reinterpret_cast<const int2*>(src);
+      xw[0] = t.x, xw[1] = t.y;
+    } else {
+      xw[0] = *reinterpret_cast<const int*>(src);
+    }
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int k = 0; k < KP; ++k)
+        acc[i][k] = __dp4a(xw[j], wv[j][k], acc[i][k]);
+  }
+}
+template <int KP, int VB>
+__device__ __forceinline__ void nk_vec(float (&acc)[kNkSP][KP],
+                                       const float* xq, const float* wq,
+                                       int step) {
+  static_assert(VB == 16, "an f32 window vector is four channels");
+  float4 wv[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+    wv[k] = *reinterpret_cast<const float4*>(wq + 4 * k);
+#pragma unroll
+  for (int i = 0; i < kNkSP; ++i) {
+    const float4 xv = *reinterpret_cast<const float4*>(xq + i * step);
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      float a = acc[i][k];
+      a = fmaf(xv.x, wv[k].x, a);
+      a = fmaf(xv.y, wv[k].y, a);
+      a = fmaf(xv.z, wv[k].z, a);
+      a = fmaf(xv.w, wv[k].w, a);
+      acc[i][k] = a;
+    }
+  }
+}
+
+// One chunk from a slot: the taps in (dy, dx) order, each the chunk's
+// channels in vectors of VB bytes, ascending.  A thread with no strip
+// computes nothing.
+template <typename Tin, typename Tacc, int KP, int VB>
+__device__ inline void nk_compute(Tacc (&acc)[kNkSP][KP],
+                                  const unsigned char* slot,
+                                  const NkParams& p, const NkThread& th) {
+  if (!th.on) return;
+  const Tin* wsm =
+      reinterpret_cast<const Tin*>(slot + p.win_bytes) + th.gi * p.wgs;
+  const Tin* base = reinterpret_cast<const Tin*>(slot) +
+                    th.row * p.stride * p.pitch +
+                    th.col * kNkSP * p.stride * p.pps + th.gi * p.cps;
+  constexpr int EV = VB / static_cast<int>(sizeof(Tin));  // elements a vector
+  const int nv = p.cps / EV, step = p.stride * p.pps;
+  for (int dy = 0; dy < p.kh; ++dy) {
+    for (int dx = 0; dx < p.kw; ++dx) {
+      const Tin* tap = base + dy * p.dil * p.pitch + dx * p.dil * p.pps;
+      const Tin* wt = wsm + (dy * p.kw + dx) * p.cps * KP;
+      for (int v = 0; v < nv; ++v)
+        nk_vec<KP, VB>(acc, tap + v * EV, wt + v * EV * KP, step);
+    }
+  }
+}
+
+// The strip's accumulators into the block's tile [rh][tpitch] (output k of
+// group gi at pixel x of row y at y*tpitch + x*rk + gi*kgrp + k), in place
+// of the slots: the caller has synchronised after every thread's compute.
+template <typename Tacc, int KP>
+__device__ inline void nk_stage(const Tacc (&acc)[kNkSP][KP],
+                                unsigned char* smem, const NkParams& p,
+                                const NkThread& th) {
+  if (!th.on) return;
+  Tacc* tile = reinterpret_cast<Tacc*>(smem) + th.row * p.tpitch +
+               th.col * kNkSP * p.rk + th.gi * p.kgrp;
+#pragma unroll
+  for (int i = 0; i < kNkSP; ++i)
+#pragma unroll
+    for (int k = 0; k < KP; ++k)
+      if (k < p.kgrp) tile[i * p.rk + k] = acc[i][k];
+}
+
+// The epilogue from the tile: ReLU -> 2x2 max-pool (the rectangle is
+// pool-aligned) -> requantize, or the raw accumulator.  Consecutive
+// threads take consecutive outputs of a pixel's run (the run's rk outputs
+// are contiguous in NHWC), then the next pixel of the row; a thread steps
+// its (pixel, output) by the block's width with one carry, not a
+// division, and rectangle widths are powers of two, so a pixel's place is
+// a shift and a mask.  The ragged edge (pixels past the map, groups past
+// the last) is masked.
+template <typename Tacc, bool REQUANT>
+__device__ inline void nk_store(const unsigned char* smem, const float* scale,
+                                void* out, const NkParams& p,
+                                const NkRect& rc) {
+  const Tacc* tile = reinterpret_cast<const Tacc*>(smem);
+  const int s = p.pool ? 2 : 1;
+  const int ph = p.rh / s, pw = p.rw / s, lpw = __ffs(pw) - 1;
+  const int k0 = rc.g0 * p.kgrp;
+  const long long img = static_cast<long long>(rc.img) * p.poh;
+  const int dpp = blockDim.x / p.rk, dkk = blockDim.x - dpp * p.rk;
+  int pp = threadIdx.x / p.rk, kk = threadIdx.x - pp * p.rk;
+  for (; pp < ph * pw; pp += dpp, kk += dkk) {
+    if (kk >= p.rk) {  // the carry of (pixel, output) += blockDim
+      kk -= p.rk;
+      ++pp;
+      if (pp >= ph * pw) break;
+    }
+    const int ly = pp >> lpw, lx = pp & (pw - 1);
+    const int gy = rc.ry * ph + ly, gx = rc.rx * pw + lx, k = k0 + kk;
+    if (gy >= p.poh || gx >= p.pow_ || k >= p.k) continue;
+    const Tacc* t0 = tile + s * ly * p.tpitch + s * lx * p.rk + kk;
+    Tacc v = relu_if(t0[0], p.relu);
+    if (p.pool) {  // the window's other three pixels, in the usual order
+      const Tacc v1 = relu_if(t0[p.rk], p.relu);
+      const Tacc v2 = relu_if(t0[p.tpitch], p.relu);
+      const Tacc v3 = relu_if(t0[p.tpitch + p.rk], p.relu);
+      v = v1 > v ? v1 : v;
+      v = v2 > v ? v2 : v;
+      v = v3 > v ? v3 : v;
+    }
+    dw_put<Tacc, REQUANT>(out, ((img + gy) * p.pow_ + gx) * p.k + k, v,
+                          scale, k);
+  }
+}
+
+// The record the host sent is this build's: an instantiated output width,
+// whole window vectors (int8: 4 or 8 channels, or a multiple of 16; f32: a
+// multiple of 4), whole strips, at most the block's 256 threads in a power
+// of two, and a window copy for f32 (`es` bytes an element).
+inline bool nk_valid(const NkParams& p, int es) {
+  const int active = p.gr * p.rh * (p.rw / kNkSP);
+  const bool vecs = es == 4 ? p.cps % 4 == 0
+                            : p.cps == 4 || p.cps == 8 || p.cps % 16 == 0;
+  return (p.kp == 1 || p.kp == 2 || p.kp == 3 || p.kp == 4 || p.kp == 8) &&
+         p.kgrp >= 1 && p.kgrp <= p.kp && p.rk == p.gr * p.kgrp && vecs &&
+         p.cps >= p.cs && p.pps == p.gr * p.cps &&
+         p.n_chunks * p.cs >= p.cgrp && p.rw % kNkSP == 0 && active > 0 &&
+         kConvThreads % active == 0 && (p.xvec > 0 || es == 1);
+}
+
+// Dispatch the nk kernels on (input type, requantize) — the mode codes of
+// conv2d_ws.py: 0 int8 -> int32, 1 int8 -> int8, 2 f32 -> f32, 3 f32 ->
+// int8 —, on the padded outputs a group, KP = 1, 2, 3, 4 or 8, and on the
+// bytes of a lane's window vector, VB: int8 min(cps, 16), f32 16.
+#define NK_VARIANTS(TIN, TACC, RQ, VB, KP, LAUNCH, ...)                      \
+  switch (KP) {                                                              \
+    case 1: return LAUNCH<TIN, TACC, RQ, 1, VB>(__VA_ARGS__);                \
+    case 2: return LAUNCH<TIN, TACC, RQ, 2, VB>(__VA_ARGS__);                \
+    case 3: return LAUNCH<TIN, TACC, RQ, 3, VB>(__VA_ARGS__);                \
+    case 4: return LAUNCH<TIN, TACC, RQ, 4, VB>(__VA_ARGS__);                \
+    case 8: return LAUNCH<TIN, TACC, RQ, 8, VB>(__VA_ARGS__);                \
+    default: return static_cast<int>(cudaErrorInvalidValue);                \
+  }
+#define NK_INT8(RQ, P, LAUNCH, ...)                                          \
+  switch ((P).cps < 16 ? (P).cps : 16) {                                     \
+    case 4: NK_VARIANTS(int8_t, int32_t, RQ, 4, (P).kp, LAUNCH, __VA_ARGS__) \
+    case 8: NK_VARIANTS(int8_t, int32_t, RQ, 8, (P).kp, LAUNCH, __VA_ARGS__) \
+    case 16:                                                                 \
+      NK_VARIANTS(int8_t, int32_t, RQ, 16, (P).kp, LAUNCH, __VA_ARGS__)      \
+    default: return static_cast<int>(cudaErrorInvalidValue);                \
+  }
+#define NK_DISPATCH(MODE, P, LAUNCH, ...)                                    \
+  switch (MODE) {                                                            \
+    case 0: NK_INT8(false, P, LAUNCH, __VA_ARGS__)                           \
+    case 1: NK_INT8(true, P, LAUNCH, __VA_ARGS__)                            \
+    case 2: NK_VARIANTS(float, float, false, 16, (P).kp, LAUNCH, __VA_ARGS__)\
+    case 3: NK_VARIANTS(float, float, true, 16, (P).kp, LAUNCH, __VA_ARGS__) \
+    default: return static_cast<int>(cudaErrorInvalidValue);                \
   }

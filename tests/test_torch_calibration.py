@@ -433,6 +433,9 @@ def test_sweep_launch_plans_follow_the_path_rule():
             assert lp["slots"] == 1 + geom["pipelined"]
             assert lp["kc"] % 4 == 0 and lp["rh"] * lp["rw"] * lp["kc"] == \
                 256 * 4 * 4
+        elif lp["conv_path"] == "nk":
+            assert lp["slots"] in (1, 2) and lp["gr"] in (1, 2, 4, 8)
+            assert lp["rh"] * lp["rw"] * lp["gr"] <= 256 * 4
         else:
             assert {"th", "tw", "kb"} <= set(lp)
     assert paths.pop("depthwise") == {"dw"}

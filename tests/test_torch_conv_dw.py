@@ -181,8 +181,8 @@ def test_dw_emulation_bit_equal_to_whole_map_jax_conv(name):
     (1, 6, 1, "dw"),            # one-channel map, 6 outputs
     (4, 32, 4, None),           # K/g = 8: the implicit GEMM
     (1, 8, 1, None),            # lenet conv0: the implicit GEMM
-    (32, 32, 8, "scalar"),      # C/g = 4, K/g = 4
-    (8, 7, 1, "scalar"),        # C/g = 8, K/g = 7
+    (32, 32, 8, "nk"),          # C/g = 4, K/g = 4
+    (8, 7, 1, "nk"),            # C/g = 8, K/g = 7
 ])
 def test_path_rule(int_path, c, kout, groups, expect):
     g = setup_conv((2, 12, 12, c), (3, 3, c // groups, kout),
@@ -414,11 +414,11 @@ def test_dw_emulation_refuses_other_paths():
     with pytest.raises(ValueError, match="tc path"):
         conv2d_ws_dw_emulate(*as_torch(x, w, b, s), **kw)
     x, w, b, s, kw = legal_banks(*case_inputs("groups2"))
-    with pytest.raises(ValueError, match="scalar path"):
+    with pytest.raises(ValueError, match="nk path"):
         conv2d_ws_dw_emulate(*as_torch(x, w, b, s), **kw)
     g = setup_conv((2, 12, 12, 32), (3, 3, 4, 32), padding="SAME", groups=8,
                    cin_banks=1, kout_banks=8)
-    assert conv_path(g) == "scalar" and dw_plan(g) is None
+    assert conv_path(g) == "nk" and dw_plan(g) is None
     x, w, _, _, kw = _int8_case("c1_k6")
     with pytest.raises(TypeError, match="int8 or float32"):
         conv2d_ws_dw_emulate(torch.from_numpy(x),

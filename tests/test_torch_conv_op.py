@@ -4,7 +4,7 @@
 A dispatch mode sees one op where a conv kernel runs, so that
 ``roofline.counts.CostCounter`` counts a conv program on the card and on
 fake CUDA tensors alike: the fake kernel gives the plain version's shape
-and dtype on every path's geometry (tc, simt, dw, scalar), the FLOP
+and dtype on every path's geometry (tc, simt, dw, nk), the FLOP
 formula ``2·N·OH·OW·K·(C/groups)·KH·KW`` lands in the operands' dtype
 (int8 or float32) and equals the reference's ``tpu_conv_roofline`` on
 VALID layers, and the zoo's int8 programs trace on fake CUDA tensors
@@ -78,10 +78,12 @@ def _on_path(table, name, f32):
 
 
 def test_geometries_reach_every_path():
-    """The parametrised geometries below cover the four paths."""
+    """The parametrised geometries below cover the four paths the rule
+    hands their shapes (no geometry of the tables reaches the scalar
+    kernel since the nk path)."""
     paths = {_on_path(t, n, f32) for t, n in GEOMETRIES
              for f32 in (False, True)}
-    assert paths == {"tc", "simt", "dw", "scalar"}
+    assert paths == {"tc", "simt", "dw", "nk"}
 
 
 @pytest.mark.parametrize("f32", [False, True], ids=["int8", "f32"])
@@ -302,7 +304,7 @@ def test_ops_exist_with_fake_kernels_and_one_formula():
 PARITY = [("tc", "c4_k32", False, "tc"),
           ("cases", "stride2_valid_int32", True, "simt"),
           ("cases", "depthwise_stride2", False, "dw"),
-          ("cases", "groups2", False, "scalar")]
+          ("cases", "groups2", False, "nk")]
 
 
 @pytest.mark.parametrize("table,name,f32,path", PARITY)

@@ -145,7 +145,7 @@ def test_simt_plan_invariants(name):
     seq = simt_plan(g, kw.get("relu", False), False)
     if _kgrp(w.shape, kw) < 8:      # one input channel a group: dw
         assert seq is None
-        assert conv_path(g) == ("dw" if w.shape[2] == 1 else "scalar")
+        assert conv_path(g) == ("dw" if w.shape[2] == 1 else "nk")
         return
     pipe = simt_plan(g, kw.get("relu", False), True)
     assert seq._replace(stages=0, slots=0, smem=0) == \
@@ -222,7 +222,7 @@ def test_vgg_imagenet_and_unet_small_f32_convs_take_simt_and_fill_the_card():
     ``unet_small`` training step, forward and input gradient (the
     transposed convs' stride-1 lowering), takes the simt path where its
     groups are 8 or more outputs wide (all but ``unet_small``'s 3-class
-    head, which takes the scalar kernel); each
+    head, which takes the nk path); each
     ``vgg_imagenet`` conv brings at least one block an SM, splitting K
     only where its tiles alone are fewer, and no K split's partial buffer
     appears at the 224×224 maps (M = 401,408)."""
@@ -233,7 +233,7 @@ def test_vgg_imagenet_and_unet_small_f32_convs_take_simt_and_fill_the_card():
     assert len(vgg) == 11                   # six forward, five dx
     for label, g in geoms:
         wide = g.k // (g.c // g.cgrp) >= 8     # unet_small's 3-class head
-        assert conv_path(g) == ("simt" if wide else "scalar"), label
+        assert conv_path(g) == ("simt" if wide else "nk"), label
         assert tc_plan(g) is None
     assert all(conv_path(g) == "simt" for _, g in vgg)
     for label, g in vgg:
@@ -246,11 +246,11 @@ def test_vgg_imagenet_and_unet_small_f32_convs_take_simt_and_fill_the_card():
 
 
 @pytest.mark.parametrize("kout,groups,expect", [
-    (7, 1, "scalar"),           # K/g = 7
+    (7, 1, "nk"),               # K/g = 7
     (8, 1, "simt"),             # K/g = 8
     (64, 1, "simt"),
     (32, 4, "simt"),            # K/g = 8
-    (32, 8, "scalar"),          # K/g = 4
+    (32, 8, "nk"),              # K/g = 4
     (32, 32, "dw"),             # depthwise
 ])
 def test_path_rule_f32(kout, groups, expect):

@@ -137,9 +137,9 @@ def test_paper_layer_int32_bit_equal_to_jax_oracle():
 @pytest.mark.parametrize("dtype,c,k,groups,expect", [
     (torch.int8, 4, 32, 1, "tc"),
     (torch.int8, 1, 8, 1, "tc"),            # lenet conv0, K/g = 8
-    (torch.int8, 8, 7, 1, "scalar"),        # K/g = 7
+    (torch.int8, 8, 7, 1, "nk"),            # K/g = 7
     (torch.int8, 32, 32, 4, "tc"),          # K/g = 8
-    (torch.int8, 32, 32, 8, "scalar"),      # K/g = 4
+    (torch.int8, 32, 32, 8, "nk"),          # K/g = 4
     (torch.int8, 32, 32, 32, "dw"),         # depthwise
     (torch.float32, 32, 64, 1, "simt"),     # f32 runs the FFMA GEMM
 ])

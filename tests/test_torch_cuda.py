@@ -2,14 +2,21 @@
 serving path on the card against the same path on the CPU.
 
 The conv kernels take the int8 tensor-core path, the f32 simt path, the
-depthwise direct conv (dw, int8 and f32) or the scalar path by geometry
-(``conv2d_ws.conv_path``); every conv case asserts which one launched.
+depthwise direct conv (dw, int8 and f32), the narrow-output direct conv
+(nk: several input channels a group and under 8 outputs, int8 and f32) or
+the scalar path by geometry (``conv2d_ws.conv_path``); every conv case
+asserts which one launched.
 The f32 cases on the simt path are also held to
 ``conv2d_ws_simt_emulate`` within ``f32_sum_bound``, ``conv2d_ws`` to
 ``conv2d_ws_pipe`` and each call to the next bit for bit; those on the dw
 path to ``conv2d_ws_dw_emulate`` (int8 equal, f32 within
 ``f32_sum_bound``), the two kernels, a whole-map and a tiled call, and two
-calls to each other bit for bit.  ``TC_CASES``
+calls to each other bit for bit; those on the nk path to
+``conv2d_ws_nk_emulate`` bit for bit in int8 and f32 (it rounds each FFMA
+as the card does), and to each other in the same ways (``NK_CASES`` are
+its edges; ``test_cuda_scalar_kernel_equals_plain`` keeps the first
+port's scalar kernel, which no geometry of the tables reaches, held to
+the plain version).  ``TC_CASES``
 are the tensor-core path's edges (and, in f32, the simt path's): narrow channel
 counts (C = 1, 4, 8, 12; byte-gathered C = 6), eight outputs a group,
 output widths that are not a multiple of the N-tile or of four (the
@@ -52,7 +59,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.conv2d_ws import (conv2d_ws, conv2d_ws_dw_emulate,
+from repro_torch.kernels.conv2d_ws import (CONV_PATHS, conv2d_ws,
+                                           conv2d_ws_dw_emulate,
+                                           conv2d_ws_nk_emulate,
                                            conv2d_ws_plain,
                                            conv2d_ws_simt_emulate, conv_path,
                                            setup_conv)
@@ -164,6 +173,47 @@ DW_CASES = {
 }
 
 
+# nk path edges: several input channels a group, under 8 outputs (x shape,
+# w shape, conv2d kwargs, scale); with ``CASES``' ``groups2`` they reach the
+# segmentation heads (1×1, 8 and 16 channels to 3), a group of 6 channels
+# (int8 words gathered byte by byte), runs of 2, 4 and 8 groups and one
+# group a block over 3 groups, every instantiated output width (1, 2, 3, 4
+# and 8 for K/g = 5 and 7), stride 2, dilation 2 with explicit asymmetric
+# padding, the pool with per-channel requantization, caller tiles that the
+# plan ignores, and 256 channels a group in several chunks
+NK_CASES = {
+    "unet_head": ((2, 20, 18, 8), (1, 1, 8, 3),
+                  dict(padding="SAME", kout_banks=1), None),
+    "dilated_head": ((2, 17, 20, 16), (1, 1, 16, 3),
+                     dict(padding="SAME", kout_banks=1), None),
+    "c6_k3_bytes": ((2, 9, 11, 6), (3, 3, 6, 3),
+                    dict(padding="SAME", relu=True, cin_banks=2,
+                         kout_banks=1), "scalar"),
+    "g4_c8_k3": ((2, 12, 13, 32), (3, 3, 8, 12),
+                 dict(padding="SAME", groups=4, relu=True), "per_k"),
+    "kg1": ((2, 11, 10, 8), (3, 3, 8, 1), dict(padding="SAME",
+                                               kout_banks=1), None),
+    "stride2_kg5": ((2, 15, 13, 12), (3, 3, 12, 5),
+                    dict(stride=2, padding="SAME", relu=True,
+                         kout_banks=1), "scalar"),
+    "dilation2_explicit": ((1, 16, 15, 8), (3, 3, 4, 6),
+                           dict(padding=((2, 1), (0, 3)), dilation=2,
+                                groups=2), None),
+    "pool_per_k": ((2, 14, 18, 16), (3, 3, 8, 4),
+                   dict(padding="SAME", groups=2, relu=True, pool=True),
+                   "per_k"),
+    "tiled_pool_kg2": ((2, 14, 16, 8), (3, 3, 8, 2),
+                       dict(padding="SAME", relu=True, pool=True, h_tile=4,
+                            w_tile=6, kout_banks=2), "per_k"),
+    "g3_c3_kg2": ((2, 10, 10, 9), (3, 3, 3, 6),
+                  dict(padding="SAME", groups=3), None),
+    "g8_kg7": ((1, 9, 10, 16), (3, 3, 2, 56), dict(padding="SAME",
+                                                   groups=8), "scalar"),
+    "c256_chunks": ((1, 10, 9, 256), (3, 3, 256, 4),
+                    dict(padding="SAME", relu=True), "per_k"),
+}
+
+
 def tc_case_inputs(name):
     """The inputs of ``TC_CASES[name]``, from a seed; the extreme case is
     all −128 (every product +16,384, 37.7M a full 3×3×256 window) with the
@@ -240,14 +290,21 @@ def cuda():
 
 
 def path_counts(fn):
-    """A conv wrapper's launch counters: (all, tc, simt, dw)."""
-    return fn.launches, fn.tc_launches, fn.simt_launches, fn.dw_launches
+    """A conv wrapper's launch counters: (all, then one a path of
+    ``CONV_PATHS``: tc, simt, dw, nk, scalar)."""
+    return (fn.launches, *(getattr(fn, f"{p}_launches") for p in CONV_PATHS))
+
+
+def one_more(before, path):
+    """``path_counts`` ``before`` after one launch on ``path``."""
+    return (before[0] + 1, *(c + (p == path)
+                             for c, p in zip(before[1:], CONV_PATHS)))
 
 
 def narrow_path(w, kw):
     """The path of a layer whose groups are under 8 outputs wide: dw where
-    a group has one input channel, else the scalar kernel."""
-    return "dw" if w.shape[2] == 1 else "scalar"
+    a group has one input channel, else nk."""
+    return "dw" if w.shape[2] == 1 else "nk"
 
 
 def launch_both(args, kw, want, path):
@@ -258,10 +315,8 @@ def launch_both(args, kw, want, path):
         before = path_counts(fn)
         got = fn(*args, **kw)
         torch.cuda.synchronize()
-        assert path_counts(fn) == (
-            before[0] + 1, before[1] + (path == "tc"),
-            before[2] + (path == "simt"), before[3] + (path == "dw")), (
-                fn.__name__, path)
+        assert path_counts(fn) == one_more(before, path), (fn.__name__,
+                                                             path)
         if want.is_floating_point():
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         else:
@@ -272,7 +327,7 @@ def launch_both(args, kw, want, path):
 
 def f32_path(w, kw):
     """The path an f32 layer takes: simt where its groups are 8 or more
-    outputs wide, else dw or the scalar kernel (``narrow_path``)."""
+    outputs wide, else dw or nk (``narrow_path``)."""
     return ("simt" if w.shape[3] // kw.get("groups", 1) >= 8
             else narrow_path(w, kw))
 
@@ -330,6 +385,20 @@ def check_dw(args, kw, outs):
         assert torch.equal(outs[0], fn(*args, **tiled)), fn.__name__
 
 
+def check_nk(args, kw, outs):
+    """Both kernels' outputs of one nk launch each: bit-equal to
+    ``conv2d_ws_nk_emulate`` (int8 sums are exact; the emulation rounds
+    each f32 FFMA as the card does, in the kernels' order), to each other,
+    to a second call, and to a call tiled 2×4 (the plan ignores the
+    TilePlan's tiles)."""
+    assert torch.equal(outs[0], conv2d_ws_nk_emulate(*args, **kw))
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], conv2d_ws(*args, **kw))
+    tiled = dict(kw, h_tile=2, w_tile=4)
+    for fn in (conv2d_ws, conv2d_ws_pipe):
+        assert torch.equal(outs[0], fn(*args, **tiled)), fn.__name__
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_cuda_conv_kernels_equal_plain(cuda, name):
@@ -341,12 +410,16 @@ def test_cuda_conv_kernels_equal_plain(cuda, name):
     outs = launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
     if path == "dw":
         check_dw(args, kw, outs)
+    if path == "nk":
+        check_nk(args, kw, outs)
     fx, fw, fb, _, _ = case_inputs(name, f32=True)
     args = as_torch(fx, fw, fb, None, device=cuda)
     path = f32_path(fw, kw)
     outs = launch_both(args, kw, conv2d_ws_plain(*args, **kw), path)
     if path == "dw":
         check_dw(args, kw, outs)
+    if path == "nk":
+        check_nk(args, kw, outs)
 
 
 @pytest.mark.cuda
@@ -385,15 +458,75 @@ def test_cuda_conv_dw_equals_emulation(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NK_CASES))
+def test_cuda_conv_nk_equals_emulation(cuda, name):
+    """Each nk edge on both kernels: int8 (int32 or requantized out) equal
+    to the plain version; f32 within 1e-4 of it; both bit-equal to the
+    emulation, across the kernels, whole-map and tiled, and call to call
+    (``check_nk``); f32 → int8 at per-channel scales bit-equal to the
+    emulation and across the kernels."""
+    for f32 in (False, True):
+        x, w, b, s, kw = legal_banks(*case_inputs(name, f32=f32,
+                                                  table=NK_CASES))
+        args = as_torch(x, w, b, s, device=cuda)
+        assert expected_path(args[0], args[1], s, kw) == "nk"
+        outs = launch_both(args, kw, conv2d_ws_plain(*args, **kw), "nk")
+        check_nk(args, kw, outs)
+        if f32:
+            want = outs[0]
+            scale = 100.0 / want.abs().reshape(-1, want.shape[-1]).amax(
+                0).clamp(min=1e-3)
+            args8 = args[:3] + [scale]
+            outs8 = [fn(*args8, **kw) for fn in (conv2d_ws, conv2d_ws_pipe)]
+            assert torch.equal(outs8[0], conv2d_ws_nk_emulate(*args8, **kw))
+            assert torch.equal(outs8[0], outs8[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["groups2", "tiled_pool_requant",
+                                  "c6_k3_bytes"])
+def test_cuda_scalar_kernel_equals_plain(cuda, name):
+    """The first port's scalar kernel, which keeps the geometries no plan
+    takes (none of the tables' since the nk path), launched directly on
+    its tile plan (``scalar_tiles``), int8 and f32, on both kernels:
+    int8 equal to the plain version, f32 within 1e-4."""
+    from repro_torch.kernels.conv2d_ws import launch_conv, scalar_tiles
+    table = CASES if name in CASES else NK_CASES
+    for f32 in (False, True):
+        x, w, b, s, kw = legal_banks(*case_inputs(name, f32=f32,
+                                                  table=table))
+        args = as_torch(x, w, b, s, device=cuda)
+        want = conv2d_ws_plain(*args, **kw)
+        geo = {k: v for k, v in kw.items() if k not in ("relu", "pool")}
+        for lib, slots in (("conv2d_ws", 1), ("conv2d_ws_pipe", 2)):
+            g = scalar_tiles(setup_conv(
+                x.shape, w.shape, pool=kw.get("pool", False),
+                requant=s is not None, int_path=not f32, **geo), slots)
+            got, path = launch_conv(lib, slots == 2, *args, g, None,
+                                    kw.get("relu", False),
+                                    kw.get("pool", False))
+            torch.cuda.synchronize()
+            assert path == "scalar"
+            if f32:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            else:
+                assert torch.equal(got, want), lib
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("net,paths", [
     ("mobilenet_small", {"tc": 4, "dw": 3}),
-    ("lenet", {"tc": 3, "dw": 0})])
+    ("lenet", {"tc": 3}),
+    ("unet_small", {"tc": 9, "nk": 1}),
+    ("dilated_context", {"tc": 4, "nk": 1})])
 def test_cuda_int8_network_launches_by_path(cuda, net, paths):
     """One int8 forward of a zoo network on the card's backend: its convs
     launch on the paths the rule names (``mobilenet_small``'s three
     depthwise layers on dw, its stem and 1×1 convs on the tensor cores;
     ``lenet``'s convs, eight or more outputs a group, on the tensor cores
-    as before), and its logits equal the CPU program's."""
+    as before; the segmentation nets' 3-class heads on nk, every other
+    conv, the transposed ones' stride-1 lowering included, on the tensor
+    cores), and its logits equal the CPU program's."""
     from repro_torch.core import network
     from repro_torch.core.convcore import ConvCoreConfig
     plan = getattr(network, net)()
@@ -411,10 +544,11 @@ def test_cuda_int8_network_launches_by_path(cuda, net, paths):
     before = [path_counts(fn) for fn in fns]
     got = program(x.to(cuda))
     torch.cuda.synchronize()
-    n, tc, simt, dw = (sum(c[i] - b[i] for c, b in zip(
-        map(path_counts, fns), before)) for i in range(4))
-    assert (n, tc, simt, dw) == (paths["tc"] + paths["dw"], paths["tc"], 0,
-                                 paths["dw"])
+    n, *by_path = (sum(c[i] - b[i] for c, b in zip(
+        map(path_counts, fns), before)) for i in range(len(CONV_PATHS) + 1))
+    assert n == sum(paths.values())
+    assert dict(zip(CONV_PATHS, by_path)) == {p: paths.get(p, 0)
+                                              for p in CONV_PATHS}
     assert torch.equal(got.cpu(), want)
 
 
@@ -466,17 +600,17 @@ def layer_launches(plan, device, batch=2):
     own random input): the ``conv2d_ws`` launches on each path that the
     path rule predicts ("simt" where the forward's, or the gradient's,
     groups are 8 or more outputs wide; else "dw" where they have one
-    input channel) → (predicted, counted)."""
+    input channel, "nk" where they have several) → (predicted,
+    counted)."""
     from repro_torch.kernels import ops
     acts, ins = plan.activation_shapes(), plan.resolved_inputs()
     pshapes, geoms = plan.param_shapes(), plan.conv_geometries()
     g = torch.Generator(device=device).manual_seed(0)
-    want = {"simt": 0, "dw": 0, "scalar": 0}
+    want = {"simt": 0, "dw": 0, "nk": 0, "scalar": 0}
     before = path_counts(conv2d_ws)
 
     def path(cgrp, kgrp):
-        return ("simt" if kgrp >= 8 else "dw" if cgrp == 1
-                else "scalar")
+        return "simt" if kgrp >= 8 else "dw" if cgrp == 1 else "nk"
     for i, sp in enumerate(plan.layers):
         if sp.kind not in ("conv", "conv_transpose"):
             continue
@@ -496,9 +630,10 @@ def layer_launches(plan, device, batch=2):
             torch.autograd.grad(y, x, torch.ones_like(y))
             want[path(ws[3] // groups, ws[2])] += 1
     torch.cuda.synchronize()
-    n, tc, simt, dw = (a - b for a, b in zip(path_counts(conv2d_ws), before))
-    assert tc == 0
-    return want, {"simt": simt, "dw": dw, "scalar": n - simt - dw}
+    n, *by_path = (a - b for a, b in zip(path_counts(conv2d_ws), before))
+    got = dict(zip(CONV_PATHS, by_path))
+    assert got.pop("tc") == 0 and n == sum(got.values())
+    return want, got
 
 
 @pytest.mark.cuda
@@ -508,12 +643,13 @@ def test_cuda_zoo_f32_convs_launch_simt(cuda, net):
     gradient, launches the path the rule names, counted by
     ``simt_launches``: ``vgg_imagenet``'s six forward and five dx convs
     (at 64×64), ``lenet``'s and ``unet_small``'s all on simt but
-    ``unet_small``'s 3-class head."""
+    ``unet_small``'s 3-class head, on nk; none on the scalar kernel."""
     from repro_torch.core import network
     kw = dict(input_shape=(64, 64, 4)) if net == "vgg_imagenet" else {}
     want, got = layer_launches(getattr(network, net)(**kw), cuda)
     assert got == want
-    assert want["scalar"] == (1 if net == "unet_small" else 0)
+    assert want["nk"] == (1 if net == "unet_small" else 0)
+    assert want["scalar"] == 0
     assert want["dw"] == 0
     assert want["simt"] == {"vgg_imagenet": 11, "lenet": 5,
                             "unet_small": 18}[net]
@@ -1164,8 +1300,7 @@ def test_cuda_conv1d_depthwise_equals_plain(cuda, b, s, width, dtype):
     before = path_counts(conv2d_ws)
     got = ops.conv1d_depthwise(x, w, bias)
     torch.cuda.synchronize()
-    assert path_counts(conv2d_ws) == (before[0] + 1, before[1], before[2],
-                                      before[3] + 1)
+    assert path_counts(conv2d_ws) == one_more(before, "dw")
     want = ref.conv1d_depthwise_ref(x, w, bias)
     assert got.dtype == dtype and got.shape == x.shape
     if dtype == torch.float32:
