@@ -33,7 +33,10 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    (``NK_CASES``, with ``CASES``' ``groups2``) in int8 and f32, each nk
    result equal to ``conv2d_ws_nk_emulate`` bit for bit (it rounds each
    f32 FFMA as the card does), the two kernels, a tiled call and a second
-   call bit-equal (``check_nk``), the dense
+   call bit-equal (``check_nk``), the first port's scalar kernels
+   (which no table geometry reaches) launched directly on their tile
+   plan at three of those geometries in int8 and f32 against the plain
+   version (``check_scalar_kernel``), the dense
    heads; every ``matmul_ws`` form at its edge shapes (M from 1 to 3000,
    K and N off the tiles, the head's N = 1000) and at the LM's MLP
    shapes (llama3.2-3b's, and recurrentgemma-9b's at M = 4 on the stream
@@ -373,7 +376,8 @@ Phases, each of which raises (and so exits non-zero) on any mismatch:
    ``nk_int8_ms``, ``nk_int8_device_ms``, ``nk_int8_plain_ms``,
    ``nk_int8_bound_ms`` over the two int8 heads, the same ``nk_f32_*``
    over ``unet_small``'s f32 head and ``groups2``, and
-   ``nk_f32_library_ms``, ``F.conv2d``);
+   ``nk_f32_library_ms``, ``F.conv2d``) and ``scalar_max_abs_err`` over
+   phase 3's direct launches of the scalar kernel;
    ``matmul_ws``'s ``int8_ms``, ``int8_device_ms``, ``int8_bound_ms`` and
    ``int8_library_ms`` sum its twelve long-M int8 shapes of phase 3 (the
    library ``torch._int_mm``, each shape's faster of its two weight
@@ -676,7 +680,8 @@ def main():
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.conv2d_ws import (CONV_PATHS, conv2d_ws,
                                                conv2d_ws_plain, conv_path,
-                                               reset_launches, setup_conv)
+                                               launch_conv, reset_launches,
+                                               scalar_tiles, setup_conv)
     from repro_torch.kernels.conv2d_ws_pipe import conv2d_ws_pipe
     from repro_torch.kernels.conv2d_ws_trans import transpose_eq_conv_geometry
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -746,11 +751,13 @@ def main():
                                 bound_by={"bytes": 0.0, "operations": 0.0})
     # and its dw and nk paths: launches on the main paths' runs (the nk
     # row also those left on the scalar kernel), max error against the
-    # plain version, phase 3's sums
+    # plain version, phase 3's sums; and the scalar kernel's max error in
+    # phase 3's direct launches
     for k in ("conv2d_ws", "conv2d_ws_pipe"):
         stats[k]["dw"] = dict(dw_launches=0, max_abs_err=0.0)
         stats[k]["nk"] = dict(nk_launches=0, scalar_launches=0,
                               max_abs_err=0.0)
+        stats[k]["scalar"] = dict(max_abs_err=0.0)
 
     def mem_note(where):
         """Log the caching allocator's state: bytes live, bytes reserved,
@@ -1371,6 +1378,49 @@ def main():
                 None if a is None else torch.as_tensor(np.array(a),
                                                        device=dev)
                 for a in (x, w, b, s_)), kw)
+
+    def check_scalar_kernel():
+        """The first port's scalar kernels, which keep the geometries no
+        plan takes (none of the tables' or the zoo's since the nk path),
+        launched directly on the tile plan ``scalar_tiles`` fits (one slot
+        for ``conv2d_ws``, two for the pipe's cin-bank ring) at
+        ``groups2``, ``tiled_pool_requant`` and ``c6_k3_bytes``, int8 and
+        f32, as ``test_cuda_scalar_kernel_equals_plain`` launches them:
+        int8 equal to ``conv2d_ws_plain``, f32 within ``F32_TOL`` → the
+        conv rows' ``scalar_max_abs_err``."""
+        for label in ("groups2", "tiled_pool_requant", "c6_k3_bytes"):
+            table = CASES if label in CASES else NK_CASES
+            for f32_ in (False, True):
+                x, w, b, s_, kw = legal_banks(*case_inputs(
+                    label, f32=f32_, table=table))
+                args = [None if a is None else torch.as_tensor(
+                    np.array(a), device=dev) for a in (x, w, b, s_)]
+                want = conv2d_ws_plain(*args, **kw)
+                geo = {k: v for k, v in kw.items()
+                       if k not in ("relu", "pool")}
+                for name, slots in (("conv2d_ws", 1), ("conv2d_ws_pipe", 2)):
+                    g = scalar_tiles(setup_conv(
+                        tuple(x.shape), tuple(w.shape),
+                        pool=kw.get("pool", False), requant=s_ is not None,
+                        int_path=not f32_, **geo), slots)
+                    got, path = launch_conv(name, slots == 2, *args, g, None,
+                                            kw.get("relu", False),
+                                            kw.get("pool", False))
+                    torch.cuda.synchronize()
+                    if path != "scalar":
+                        raise AssertionError(f"{label}: {name} launched on "
+                                             f"the {path} path, not scalar")
+                    sub = stats[name]["scalar"]
+                    sub["max_abs_err"] = max(sub["max_abs_err"],
+                                             compare(name, got, want))
+        log("  the scalar kernels launched directly (groups2, "
+            "tiled_pool_requant, c6_k3_bytes; int8 and f32): equal to the "
+            "plain version in int8, max abs err "
+            + ", ".join(f"{k} {stats[k]['scalar']['max_abs_err']:.3g}"
+                        for k in ("conv2d_ws", "conv2d_ws_pipe"))
+            + f" (within {F32_TOL} in f32)")
+
+    check_scalar_kernel()
     mm_device_ms = check_matmuls()
     check_w8_matmuls()
     check_int8_decode()
@@ -5820,7 +5870,8 @@ def main():
                 f32_bound_by=max(sim["bound_by"], key=sim["bound_by"].get),
                 **{f"f32_{k}": v for k, v in sim.items()
                    if k.startswith("dx_")})
-        for p_ in ("dw", "nk"):     # the dw and nk paths (phase 3's sums)
+        # the dw and nk paths (phase 3's sums), the scalar kernel's error
+        for p_ in ("dw", "nk", "scalar"):
             if p_ in st:
                 rows[-1].update({k if k.endswith("_launches") else
                                  f"{p_}_{k}": v for k, v in st[p_].items()})

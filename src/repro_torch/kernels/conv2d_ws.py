@@ -507,7 +507,8 @@ def conv_path(g: ConvGeom) -> str:
     channels a group with fewer than 8 outputs (a segmentation head, a
     narrow grouped layer) the direct conv "nk" (``nk_plan``), int8 or f32;
     anything else ("scalar": K/groups ≥ 8 where no chunk of the implicit
-    GEMM fits a block) runs the first port's scalar kernel."""
+    GEMM fits a block, or fewer outputs where no nk block holds one
+    window of 4 channels) runs the first port's scalar kernel."""
     if tc_plan(g) is not None:
         return "tc"
     if simt_plan(g) is not None:
@@ -1366,7 +1367,8 @@ class NkPlan(NamedTuple):
                               # [gr][wgs] follow it
     slot_bytes: int           # window + weights, 16-byte aligned
     slots: int                # 1 for conv2d_ws; min(2, n_chunks) for
-                              # conv2d_ws_pipe's ring
+                              # conv2d_ws_pipe's ring, 1 where two slots
+                              # fit no block
     smem: int                 # max(slots·slot_bytes, accumulator tile)
     n_rect: int               # blocks: n · n_ry · n_rx · n_gr
 
@@ -1466,11 +1468,11 @@ def _nk_window(g: ConvGeom, gr: int, kp: int, cs: int, rh: int, rw: int,
 
 
 def _nk_rect(g: ConvGeom, pool: bool, oh: int, ow: int, gr: int, kp: int,
-             active: int):
+             active: int, need: int):
     """(rh, rw) of the rectangle of ``active / gr`` strips whose window of
-    a chunk of (at most) 4 channels fits twice in a block's shared memory
-    and that pads the map least, then whose halo'd window is smallest,
-    then the widest; None where no rectangle fits."""
+    a chunk of (at most) 4 channels fits ``need`` times in a block's shared
+    memory and that pads the map least, then whose halo'd window is
+    smallest, then the widest; None where no rectangle fits."""
     strips = active // gr
     cs = min(g.cgrp, 4)
     best = None
@@ -1478,8 +1480,8 @@ def _nk_rect(g: ConvGeom, pool: bool, oh: int, ow: int, gr: int, kp: int,
         rw = NK_SP * strips // rh
         if pool and rh % 2:
             continue
-        if (2 * _nk_min_slot(g, gr, kp, cs, rh, rw) > SMEM_BYTES
-                or 2 * _nk_window(g, gr, kp, cs, rh, rw, active)[-1]
+        if (need * _nk_min_slot(g, gr, kp, cs, rh, rw) > SMEM_BYTES
+                or need * _nk_window(g, gr, kp, cs, rh, rw, active)[-1]
                 > SMEM_BYTES):
             continue
         area = -(-oh // rh) * rh * -(-ow // rw) * rw
@@ -1491,12 +1493,13 @@ def _nk_rect(g: ConvGeom, pool: bool, oh: int, ow: int, gr: int, kp: int,
 
 
 def _nk_chunk(g: ConvGeom, gr: int, kp: int, rh: int, rw: int,
-              active: int) -> int:
-    """Channels of a chunk: the whole group where two slots fit under half
-    an SM's shared memory (two blocks an SM); else as many chunks as the
-    widest fitting whole number of window vectors needs (f32: fours; int8:
-    sixteens, then 8 and 4), their channels spread evenly (rounded up the
-    same way); failing half an SM, the same under a block's limit."""
+              active: int, need: int) -> int:
+    """Channels of a chunk: the whole group where ``need`` slots fit under
+    half an SM's shared memory (two blocks an SM); else as many chunks as
+    the widest fitting whole number of window vectors needs (f32: fours;
+    int8: sixteens, then 8 and 4), their channels spread evenly (rounded
+    up the same way); failing half an SM, the same under a block's
+    limit."""
     def slot(cs):
         return _nk_window(g, gr, kp, cs, rh, rw, active)[-1]
 
@@ -1507,51 +1510,47 @@ def _nk_chunk(g: ConvGeom, gr: int, kp: int, rh: int, rw: int,
         cands += [c for c in (8, 4) if c < g.cgrp]
     for budget in (NK_HALF_SM, SMEM_BYTES):
         widest = next((cs for cs in cands
-                       if 2 * _nk_min_slot(g, gr, kp, cs, rh, rw) <= budget
-                       and 2 * slot(cs) <= budget), None)
+                       if need * _nk_min_slot(g, gr, kp, cs, rh, rw)
+                       <= budget and need * slot(cs) <= budget), None)
         if widest is not None:
             chunks = -(-g.cgrp // widest)
             even = (g.cgrp if chunks == 1
                     else _round_up(-(-g.cgrp // chunks), min(step, widest)))
-            return even if 2 * slot(even) <= budget else widest
+            return even if need * slot(even) <= budget else widest
     raise AssertionError("no chunk fits the rectangle _nk_rect chose")
 
 
 @functools.lru_cache(maxsize=512)
-def _nk_plan(g: ConvGeom, relu: bool, pipelined: bool) -> NkPlan:
+def _nk_plan(g: ConvGeom, relu: bool, pipelined: bool) -> Optional[NkPlan]:
     pool = _pooled(g)
     groups = g.c // g.cgrp
     kgrp = g.k // groups
     kp = next(v for v in NK_KP if v >= kgrp)
-    gr = min(NK_RUNS, key=lambda r: (-(-groups // r) * r, -r))
+    pref = min(NK_RUNS, key=lambda r: (-(-groups // r) * r, -r))
     oh, ow = (2 * g.poh, 2 * g.pow_) if pool else (g.poh, g.pow_)
-    # every thread owning a strip where a window of 4 channels fits twice;
-    # only where none fits, half the threads, and so on
-    found = next(((active, rect)
+    # every thread owning a strip where a window of 4 channels fits twice,
+    # the preferred run of groups first, then shorter runs; only where none
+    # fits, half the threads, and so on; only where two never fit, one
+    # (the pipe's ring then has one slot)
+    found = next(((need, active, gr, rect)
+                  for need in (2, 1)
                   for active in (THREADS >> a for a in range(9))
-                  if active >= gr
-                  for rect in [_nk_rect(g, pool, oh, ow, gr, kp, active)]
+                  for gr in sorted(NK_RUNS, reverse=True)
+                  if gr <= min(pref, active)
+                  for rect in [_nk_rect(g, pool, oh, ow, gr, kp, active,
+                                        need)]
                   if rect), None)
     if found is None:
-        least = _nk_min_slot(g, gr, kp, min(g.cgrp, 4), 2 if pool else 1,
-                             NK_SP)
-        raise ValueError(
-            f"no nk block rectangle of this layer fits a block's shared "
-            f"memory: [{g.n},{g.h},{g.w},{g.c}] ⊛ [{g.kh},{g.kw},{g.cgrp},"
-            f"{g.k}] (stride {g.stride}, dilation {g.dilation}): two slots "
-            f"of the smallest rectangle ({2 if pool else 1}×{NK_SP} pixels) "
-            f"for a chunk of {min(g.cgrp, 4)} channels need at least "
-            f"{2 * least} bytes, over the {SMEM_BYTES} a Hopper block may "
-            f"use")
-    active, (rh, rw) = found
-    cs = _nk_chunk(g, gr, kp, rh, rw, active)
+        return None
+    need, active, gr, (rh, rw) = found
+    cs = _nk_chunk(g, gr, kp, rh, rw, active, need)
     cps, win_h, win_w, pps, pitch, wgs, win_bytes, slot_bytes = _nk_window(
         g, gr, kp, cs, rh, rw, active)
     n_chunks = -(-g.cgrp // cs)
     rk = gr * kgrp
     tpitch = _least_ways(rw * rk, range(32),
                          lambda tp: nk_write_ways(gr, rh, kgrp, tp, active))
-    slots = min(2, n_chunks) if pipelined else 1
+    slots = min(need, n_chunks) if pipelined else 1
     n_ry, n_rx, n_gr = -(-oh // rh), -(-ow // rw), -(-groups // gr)
     return NkPlan(
         n=g.n, h=g.h, w=g.w, c=g.c, k=g.k, kh=g.kh, kw=g.kw,
@@ -1569,8 +1568,9 @@ def _nk_plan(g: ConvGeom, relu: bool, pipelined: bool) -> NkPlan:
 def nk_plan(g: ConvGeom, relu: bool = False,
             pipelined: bool = False) -> Optional[NkPlan]:
     """The nk launch plan of ``g``, or None where ``conv_path`` sends it
-    elsewhere (one input channel a group, or 8 or more outputs).
-    Deterministic in the geometry, whatever the caller's banks and tiles:
+    elsewhere (one input channel a group, or 8 or more outputs, or a
+    window no block holds: see below).  Deterministic in the geometry,
+    whatever the caller's banks and tiles:
 
     * a block of 256 threads computes a pool-aligned rectangle of
       conv-output pixels of one image for a run of ``gr`` groups (1, 2, 4
@@ -1580,7 +1580,8 @@ def nk_plan(g: ConvGeom, relu: bool = False,
       registers (``kp`` of them: the instantiation); the rectangle has
       256 / gr strips — the shape that pads the map least, then whose
       halo'd window is smallest, then the widest — and where no window of
-      that many strips fits twice in shared memory, the first 128, 64, …
+      4 channels over that many strips fits twice in shared memory, the
+      run shortens (8, 4, 2, 1 groups), then the first 128, 64, …
       threads own strips and the others only copy and store;
     * the group's channels go in chunks of ``cs``: the whole group where
       two slots (window and weights) fit under half an SM's shared memory,
@@ -1592,11 +1593,15 @@ def nk_plan(g: ConvGeom, relu: bool = False,
       ``conv2d_ws_pipe`` streams the chunks through a 2-slot ring (one
       slot where there is one chunk).
 
+    Only where no rectangle holds two slots of a chunk of 4 channels does
+    the same search run for one slot: the pipe's ring then has one slot
+    and moves data as ``conv2d_ws`` does.  Where not even one fits, the
+    plan is None and the layer runs the scalar kernel (``scalar_tiles``,
+    which raises where its smallest tile overflows too).
+
     The two wrappers' plans differ in ``slots`` and ``smem`` only, and f32
     sums run bias, then chunk by chunk, tap by tap, channels ascending, so
-    both kernels give the same bits.  Raises where even two slots of the
-    smallest rectangle for a chunk of 4 channels overflow a block's shared
-    memory."""
+    both kernels give the same bits."""
     if g.cgrp == 1 or g.k // (g.c // g.cgrp) >= GEMM_MIN_KGRP:
         return None
     return _nk_plan(g, bool(relu), bool(pipelined))

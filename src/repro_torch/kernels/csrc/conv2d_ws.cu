@@ -269,7 +269,7 @@ int launch_dw(const void* x, const void* w, const void* bias,
 
 // A strip of 4 pixels x up to 8 outputs with its weight vectors fits 128
 // registers a thread (f32 at KP = 8: 32 accumulators, 8 float4 weights), so
-// two blocks share an SM at least.
+// two blocks share an SM at least.  Each chunk in one slot (nk_block).
 template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB>
 __global__ void __launch_bounds__(kConvThreads, 2)
 conv_ws_nk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
@@ -277,26 +277,8 @@ conv_ws_nk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
                   const float* __restrict__ scale, void* __restrict__ out,
                   NkParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const NkRect rc(p, blockIdx.x);
-  const NkThread th(p);
-  nk_issue<Tin>(smem, x, w, p, rc, 0);
-  cp_async_commit();
-  Tacc acc[kNkSP][KP];
-  nk_init<Tacc, KP>(acc, bias, p, th, rc);
-  for (int s = 0; s < p.n_chunks; ++s) {
-    if (s > 0) {
-      __syncthreads();  // chunk s-1's compute is done with the slot
-      nk_issue<Tin>(smem, x, w, p, rc, s);
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    nk_compute<Tin, Tacc, KP, VB>(acc, smem, p, th);
-  }
-  __syncthreads();  // every strip is done with the window: the tile replaces it
-  nk_stage<Tacc, KP>(acc, smem, p, th);
-  __syncthreads();
-  nk_store<Tacc, REQUANT>(smem, scale, out, p, rc);
+  nk_block<Tin, Tacc, REQUANT, KP, VB, false>(x, w, bias, scale, out, p,
+                                               smem);
 }
 
 template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB>

@@ -49,9 +49,9 @@
 // kernel (a pool-aligned rectangle x a run of groups, sized by geometry);
 // where the group's channels take more than one chunk, they stream through
 // a 2-slot cp.async ring, the reference's ping-pong of window and weight
-// bank, so chunk s+1 loads while chunk s computes; with one chunk it moves
-// data as conv2d_ws.cu does.  The same device functions, so the two are
-// bit-equal.
+// bank, so chunk s+1 loads while chunk s computes; with one chunk, or where
+// two slots fit no block, it is conv2d_ws.cu's kernel.  One body
+// (conv_common.cuh: nk_block), so the two are bit-equal.
 //
 // Scalar path (a geometry no other plan takes, int8 or f32):
 // conv_ws_pipe_kernel, the first port's form.  The same block
@@ -368,43 +368,31 @@ int launch_dw(const void* x, const void* w, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks and chunks as conv2d_ws.cu's nk kernel: where the group takes more
-// than one chunk, chunk s+1's window and weights stream into the other slot
-// of a 2-slot ring while chunk s computes; with one chunk the ring has one
-// slot and the kernel moves data as conv2d_ws.cu's does.
-template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB>
+// Blocks and chunks as conv2d_ws.cu's nk kernel, and its body (nk_block):
+// where the group takes more than one chunk and two slots fit, chunk s+1's
+// window and weights stream into the other slot of a 2-slot ring while
+// chunk s computes (RING); with one chunk, or where two slots fit no block
+// (nk_plan), the ring has one slot and the kernel is conv2d_ws.cu's.
+template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB,
+          bool RING>
 __global__ void __launch_bounds__(kConvThreads, 2)
 conv_ws_pipe_nk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
                        const Tacc* __restrict__ bias,
                        const float* __restrict__ scale,
                        void* __restrict__ out, NkParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const NkRect rc(p, blockIdx.x);
-  const NkThread th(p);
-  nk_issue<Tin>(smem, x, w, p, rc, 0);  // prime the ring
-  cp_async_commit();
-  Tacc acc[kNkSP][KP];
-  nk_init<Tacc, KP>(acc, bias, p, th, rc);
-  for (int s = 0; s < p.n_chunks; ++s) {
-    // the barrier that ended chunk s-1 freed the other slot
-    if (s + 1 < p.n_chunks)
-      nk_issue<Tin>(smem + ((s + 1) & 1) * p.slot_bytes, x, w, p, rc, s + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk s has landed; only chunk s+1 may be pending
-    __syncthreads();
-    nk_compute<Tin, Tacc, KP, VB>(acc, smem + (s & 1) * p.slot_bytes, p, th);
-    __syncthreads();
-  }
-  nk_stage<Tacc, KP>(acc, smem, p, th);  // the tile replaces the ring
-  __syncthreads();
-  nk_store<Tacc, REQUANT>(smem, scale, out, p, rc);
+  nk_block<Tin, Tacc, REQUANT, KP, VB, RING>(x, w, bias, scale, out, p,
+                                              smem);
 }
 
 template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB>
 int launch_nk(const void* x, const void* w, const void* bias,
               const float* scale, void* out, const NkParams& p,
               cudaStream_t stream) {
-  auto kernel = conv_ws_pipe_nk_kernel<Tin, Tacc, REQUANT, KP, VB>;
+  auto kernel = p.slots == 2
+                    ? conv_ws_pipe_nk_kernel<Tin, Tacc, REQUANT, KP, VB, true>
+                    : conv_ws_pipe_nk_kernel<Tin, Tacc, REQUANT, KP, VB,
+                                             false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -469,8 +457,8 @@ int conv2d_ws_pipe_nk_launch(const void* x, const void* w, const void* bias,
   if (n_fields != kNkParamsFields)
     return static_cast<int>(cudaErrorInvalidValue);
   NkParams p = *reinterpret_cast<const NkParams*>(geom);
-  if (!nk_valid(p, mode >= 2 ? 4 : 1) ||
-      p.slots != (p.n_chunks < 2 ? p.n_chunks : 2))
+  if (!nk_valid(p, mode >= 2 ? 4 : 1) || p.slots < 1 || p.slots > 2 ||
+      p.slots > p.n_chunks)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   NK_DISPATCH(mode, p, launch_nk, x, w, bias, scale, out, p, s)

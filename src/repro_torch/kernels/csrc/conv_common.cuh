@@ -177,7 +177,9 @@
 //   loads each chunk, waits, then computes it; conv2d_ws_pipe runs the
 //   same blocks and streams the chunks through a 2-slot cp.async ring (the
 //   reference's ping-pong of window and weight bank), one slot where the
-//   group takes one chunk.
+//   group takes one chunk or where two slots fit no block.  The run
+//   shortens, then threads go without a strip, where a wide window does
+//   not fit; a window no block holds once goes to the scalar kernel.
 // * Scalar (a geometry no other plan takes, int8 or f32).  The first
 //   port's form, one block per (image, TilePlan tile, kout bank) with a
 //   loop over cin banks, int32 or f32 multiply-adds from shared memory
@@ -1724,6 +1726,53 @@ __device__ inline void nk_store(const unsigned char* smem, const float* scale,
     dw_put<Tacc, REQUANT>(out, ((img + gy) * p.pow_ + gx) * p.k + k, v,
                           scale, k);
   }
+}
+
+// One nk block, the body of both nk kernels.  RING false (conv2d_ws, and
+// conv2d_ws_pipe wherever its ring has one slot): each chunk is loaded into
+// the one slot, waited for and computed in turn.  RING true (conv2d_ws_pipe
+// where the group takes several chunks and two slots fit): chunk s+1's
+// window and weights stream into the other slot of a 2-slot ring while
+// chunk s computes.  One body, so that where the ring has one slot (every
+// zoo head) the two kernels run the same code with the same registers.
+template <typename Tin, typename Tacc, bool REQUANT, int KP, int VB,
+          bool RING>
+__device__ __forceinline__ void nk_block(const Tin* __restrict__ x,
+                                         const Tin* __restrict__ w,
+                                         const Tacc* __restrict__ bias,
+                                         const float* __restrict__ scale,
+                                         void* __restrict__ out,
+                                         const NkParams& p,
+                                         unsigned char* smem) {
+  const NkRect rc(p, blockIdx.x);
+  const NkThread th(p);
+  nk_issue<Tin>(smem, x, w, p, rc, 0);
+  cp_async_commit();
+  Tacc acc[kNkSP][KP];
+  nk_init<Tacc, KP>(acc, bias, p, th, rc);
+  for (int s = 0; s < p.n_chunks; ++s) {
+    if (s > 0) __syncthreads();  // chunk s-1's compute is done with its slot
+    if (RING) {
+      if (s + 1 < p.n_chunks)
+        nk_issue<Tin>(smem + ((s + 1) & 1) * p.slot_bytes, x, w, p, rc,
+                      s + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // chunk s has landed; only chunk s+1 may be pending
+    } else {
+      if (s > 0) {
+        nk_issue<Tin>(smem, x, w, p, rc, s);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    nk_compute<Tin, Tacc, KP, VB>(
+        acc, RING ? smem + (s & 1) * p.slot_bytes : smem, p, th);
+  }
+  __syncthreads();  // every strip is done with the window: the tile replaces it
+  nk_stage<Tacc, KP>(acc, smem, p, th);
+  __syncthreads();
+  nk_store<Tacc, REQUANT>(smem, scale, out, p, rc);
 }
 
 // The record the host sent is this build's: an instantiated output width,

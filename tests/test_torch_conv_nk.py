@@ -98,7 +98,9 @@ def test_nk_cases_cover_the_plan():
     width the kernels are built for, runs of 1, 2, 4 and 8 groups, a
     group count the run does not divide, several chunks, the int8 window
     gathered byte by byte and copied by words, stride 2, dilation 2 with
-    asymmetric padding, the pool, and the heads' 1×1 kernels."""
+    asymmetric padding, the pool, the heads' 1×1 kernels, a run shorter
+    than the group count asks for (a wide f32 window) and a pipe whose
+    ring holds one slot of several chunks (a wider one)."""
     plans = {n: nk_plan(_geom(_int8_case(n)[0].shape, _int8_case(n)[1].shape,
                               _int8_case(n)[4])) for n in NK}
     assert {p.kp for p in plans.values()} == set(NK_KP)
@@ -110,6 +112,12 @@ def test_nk_cases_cover_the_plan():
     assert any(p.dil == 2 and p.pt != p.pl for p in plans.values())
     assert any(p.pool for p in plans.values())
     assert any(p.kh == p.kw == 1 for p in plans.values())
+    f32 = {n: _geom(_int8_case(n)[0].shape, _int8_case(n)[1].shape,
+                    _int8_case(n)[4], int_path=False) for n in NK}
+    assert nk_plan(f32["g8_dilation14"]).gr < plans["g8_dilation14"].gr == 8
+    one = nk_plan(f32["dilation42_one_slot"], pipelined=True)
+    assert one.slots == 1 < one.n_chunks
+    assert 2 * one.slot_bytes > SMEM_BYTES >= one.slot_bytes
     x = torch.zeros(1, dtype=torch.int8)
     vecs = {list(nk_params(p, x))[-1] for p in plans.values()}
     assert 0 in vecs and 4 in vecs
@@ -273,8 +281,9 @@ def test_path_rule(int_path, c, kout, groups):
                                 else "tc" if int_path else "simt")
 
 
-def _check_plan(p: NkPlan, g):
-    """The invariants of one nk plan of geometry ``g``."""
+def _check_plan(p: NkPlan, g, one_slot=False):
+    """The invariants of one nk plan of geometry ``g``; ``one_slot``: a
+    window so wide that two slots of it fit no block."""
     assert p.kp in NK_KP and p.kgrp <= p.kp
     assert p.kp == min(v for v in NK_KP if v >= p.kgrp)
     assert p.gr in (1, 2, 4, 8) and p.rk == p.gr * p.kgrp
@@ -311,7 +320,8 @@ def _check_plan(p: NkPlan, g):
     assert p.tpitch >= p.rw * p.rk
     assert p.smem == max(p.slots * p.slot_bytes,
                          -(-p.rh * p.tpitch * 4 // 16) * 16) <= SMEM_BYTES
-    assert 2 * p.slot_bytes <= SMEM_BYTES
+    # two slots fit, save where the pipe's ring was cut to one
+    assert 2 * p.slot_bytes <= SMEM_BYTES or one_slot
     # the window copy width divides the chunk and every offset it starts at
     x = torch.zeros((p.n, p.h, p.w, p.c),
                     dtype=torch.int8 if g.int_path else torch.float32)
@@ -332,9 +342,11 @@ def test_nk_plan_invariants(name):
         pipe = nk_plan(g, kw.get("relu", False), True)
         assert seq._replace(slots=0, smem=0) == pipe._replace(slots=0,
                                                               smem=0)
-        assert (seq.slots, pipe.slots) == (1, min(2, seq.n_chunks))
+        one_slot = name == "dilation42_one_slot" and not int_path
+        assert (seq.slots, pipe.slots) == (1, 1 if one_slot
+                                           else min(2, seq.n_chunks))
         for p in (seq, pipe):
-            _check_plan(p, g)
+            _check_plan(p, g, one_slot)
 
 
 @pytest.mark.parametrize("int_path", [True, False])
@@ -344,30 +356,45 @@ def test_nk_plan_invariants(name):
     ((2, 224, 224, 6), (11, 11, 6, 3), dict(stride=4)),
     ((4, 64, 64, 512), (3, 3, 512, 7), dict(padding="SAME", dilation=24,
                                             pool=True)),
+    ((8, 56, 56, 32), (3, 3, 4, 8), dict(padding="SAME", dilation=14,
+                                         groups=8)),
 ], ids=["dilation16", "7x7_c256_stride2", "11x11_stride4",
-        "c512_dilation24_pool"])
+        "c512_dilation24_pool", "g8_c4_dilation14"])
 def test_wide_windows_take_nk(int_path, xs, ws, kw):
     """Layers whose windows are wide still take the nk path for both
-    wrappers: the plan chunks the channels, then leaves threads without a
-    strip, and stays within every invariant."""
+    wrappers: the plan chunks the channels (where a group has more than
+    4), shortens the run of groups (8 groups of 4 f32 channels at
+    dilation 14, whose 4-pixel strip over the 8 groups needs 2 × 118.8 KB,
+    run 2 a block), then leaves threads without a strip, and stays within
+    every invariant."""
     geo = {k: v for k, v in kw.items() if k != "pool"}
-    g = setup_conv(xs, ws, cin_banks=1, kout_banks=1,
+    groups = kw.get("groups", 1)
+    g = setup_conv(xs, ws, cin_banks=1, kout_banks=groups,
                    pool=kw.get("pool", False), int_path=int_path, **geo)
     assert conv_path(g) == "nk"
     for pipelined in (False, True):
         p = nk_plan(g, True, pipelined)
         _check_plan(p, g)
         assert p.slots == (min(2, p.n_chunks) if pipelined else 1)
-    assert nk_plan(g).n_chunks > 1
+    if g.cgrp > 4:
+        assert nk_plan(g).n_chunks > 1
+    if groups == 8:
+        assert nk_plan(g).gr == (8 if int_path else 2)
 
 
 def test_nk_plan_refuses_what_no_block_holds():
-    """A window no rectangle of 4 pixels holds twice, even for a chunk of 4
-    channels, raises and says why."""
-    g = setup_conv((1, 600, 600, 8), (9, 9, 8, 3), dilation=70,
-                   cin_banks=1, kout_banks=1, int_path=False)
-    with pytest.raises(ValueError, match="no nk block rectangle"):
-        nk_plan(g)
+    """A window no rectangle of 4 pixels holds once, even for a chunk of 4
+    channels, has no nk plan for either wrapper: the layer goes to the
+    scalar kernel, whose tiles overflow too, so its launch raises and
+    says why."""
+    for int_path in (True, False):
+        g = setup_conv((1, 600, 600, 8), (9, 9, 8, 3), dilation=70,
+                       cin_banks=1, kout_banks=1, int_path=int_path)
+        assert nk_plan(g) is None and nk_plan(g, pipelined=True) is None
+        assert conv_path(g) == "scalar"
+        for slots in (1, 2):
+            with pytest.raises(ValueError, match="no tile of this layer"):
+                cw.scalar_tiles(g, slots)
 
 
 def _zoo_launches(net):

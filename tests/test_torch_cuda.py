@@ -180,7 +180,10 @@ DW_CASES = {
 # group a block over 3 groups, every instantiated output width (1, 2, 3, 4
 # and 8 for K/g = 5 and 7), stride 2, dilation 2 with explicit asymmetric
 # padding, the pool with per-channel requantization, caller tiles that the
-# plan ignores, and 256 channels a group in several chunks
+# plan ignores, 256 channels a group in several chunks, and windows so wide
+# that the plan shortens the run of groups (f32 at dilation 14: 8 groups
+# of 4 channels run 2 a block) or holds one slot of the pipe's ring (f32
+# at dilation 42: two chunks through one slot)
 NK_CASES = {
     "unet_head": ((2, 20, 18, 8), (1, 1, 8, 3),
                   dict(padding="SAME", kout_banks=1), None),
@@ -211,6 +214,11 @@ NK_CASES = {
                                                    groups=8), "scalar"),
     "c256_chunks": ((1, 10, 9, 256), (3, 3, 256, 4),
                     dict(padding="SAME", relu=True), "per_k"),
+    "g8_dilation14": ((1, 32, 33, 32), (3, 3, 4, 8),
+                      dict(groups=8, dilation=14, relu=True), "per_k"),
+    "dilation42_one_slot": ((1, 90, 92, 8), (3, 3, 8, 3),
+                            dict(dilation=42, relu=True, kout_banks=1),
+                            "scalar"),
 }
 
 
